@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch/CUDA port (easykv_tpu_torch) on one NVIDIA GPU and
+checks it. Usage, from the root of the repository:
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines before the last:
+
+  1. the device, and the build of every CUDA kernel from easykv_tpu_torch/csrc;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes (LLaMa-2-7B width, S=768): K1 decode attention (bf16
+     MHA, GQA with B=2, a dead row, f32), K2 sidecar pass (all six policies,
+     eviction gate on and off: bit-exact), K3 row write (Dh=128 and 64: exact);
+  3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
+     32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed,
+     bf16 KV): a 512-token prompt, then 384 new tokens with roco at budget 200,
+     then with the full cache, through CausalLM / enable_fixed_kv / generate.
+     Launch counters are zeroed just before each run and read just after;
+  4. the kernel path against the plain path on the card: full width, L=2,
+     float32, 32 new tokens with roco at budget 8: equal greedy tokens and
+     final positions;
+  5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
+     events) beside each one's plain version, library call and bound.
+
+It exits non-zero, without a result line, when there is no CUDA device, a
+kernel does not build, or any check fails. The last line is
+{"ok": true, "device": {...}}; the line before it holds `nvidia-smi`'s card
+name and power limit, and the one before that the per-kernel JSON record.
+"""
+import contextlib
+import dataclasses
+import importlib
+import json
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import torch
+
+import easykv_tpu_torch
+from easykv_tpu_torch.config import ModelConfig
+from easykv_tpu_torch.models.llama import init_params
+from easykv_tpu_torch.ops.cuda import _build
+from easykv_tpu_torch.ops.cuda.decode_attention import (
+    fused_decode_attend_inflight as k1, fused_decode_attend_inflight_plain as k1_plain)
+from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_plain as k3_plain
+from easykv_tpu_torch.ops.cuda.sidecar_update import (
+    fused_write_update as k2, fused_write_update_plain as k2_plain)
+from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
+
+gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+F32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+LLAMA2_7B = ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                        num_hidden_layers=32, num_attention_heads=32,
+                        num_key_value_heads=32, max_position_embeddings=4096)
+PROMPT, BUDGET, NEW = 512, 200, 384
+S_MAIN = 768                 # the engine's slot count for that run: 512 + 201 -> 768
+POLICIES = [None, "h2o_head", "tova", "roco", "recency", "random"]
+
+
+def k1_out_limit(ref):
+    """Limit on |K1 out - plain out|. bf16: the plain version rounds p to
+    bf16 before PV and the kernel keeps it in fp32, so the two round to the
+    same or adjacent bf16 values: one bf16 ulp of the reference value plus
+    a margin for values near 0, never above 1e-2. f32: 1e-5. (probs and
+    p_new: 1e-5 in both.)"""
+    if ref.dtype == torch.bfloat16:
+        return (1e-3 + 2**-7 * ref.float().abs()).clamp(max=1e-2)
+    return torch.full_like(ref, 1e-5, dtype=torch.float32)
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# inputs at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def slot_positions(L, B, H, S, n_valid, gen, dev):
+    """Ring-buffer positions as the decode path leaves them: the prompt in
+    slots [0, PROMPT), generated tokens (with holes) after it, the rest free."""
+    pos = torch.full((L, B, H, S), -1, dtype=torch.int32)
+    pos[..., :PROMPT] = torch.arange(PROMPT, dtype=torch.int32)
+    n_gen = n_valid - PROMPT
+    for idx in range(L * B * H):
+        keep = torch.randperm(NEW - 1, generator=gen)[:n_gen].sort().values
+        pos.view(-1, S)[idx, PROMPT:n_valid] = (PROMPT + keep).to(torch.int32)
+    return pos.to(dev)
+
+
+def k1_case(B, Hq, Hkv, S, D, dtype, q_pos, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)  # noqa: E731
+    pos = slot_positions(1, B, Hkv, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed),
+                         dev)[0]
+    return (rnd(B, Hq, 1, D), rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D), rnd(B, Hkv, S, D),
+            rnd(B, Hkv, S, D), pos, torch.tensor(q_pos, dtype=torch.int32, device=dev))
+
+
+def k2_case(L, B, H, S, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = slot_positions(L, B, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed), dev)
+    valid = pos >= 0
+    u = lambda: torch.rand((L, B, H, S), generator=g, device=dev)  # noqa: E731
+    score = torch.where(valid, u() * 4, 0.0)
+    ssq = score * u() * 0.1
+    counter = torch.where(valid, (u() * 200).floor(), 0.0)
+    probs = torch.where(valid, u() / S, 0.0)
+    p_new = torch.rand((L, B, H, 1), generator=g, device=dev) * 0.05
+    nxt = PROMPT + NEW
+    per_b = dict(q_pos=torch.full((B,), nxt - 1, dtype=torch.int32, device=dev),
+                 token_valid=torch.ones(B, dtype=torch.bool, device=dev),
+                 update_gate=torch.ones(B, dtype=torch.bool, device=dev),
+                 counter_init=torch.zeros(B, device=dev))
+    ev = dict(next_pos=torch.full((B,), nxt, dtype=torch.int32, device=dev),
+              prompt_len=torch.full((B,), PROMPT, dtype=torch.int32, device=dev),
+              rand_rank=torch.full((B,), 57, dtype=torch.int32, device=dev))
+    return (pos, score, ssq, counter, probs, p_new), per_b, ev
+
+
+def k2_spec(policy):
+    rw = int(BUDGET * 0.3)
+    return PolicySpec(policy, PHASE_DECODE, 1, 4, rw, feasible_k=BUDGET - rw,
+                      protect_prompt=True)
+
+
+def k2_call(fn, state, per_b, ev, policy, gate_on):
+    args = [x.clone() for x in state]
+    kw = {}
+    if policy is not None:
+        B = per_b["q_pos"].shape[0]
+        kw = dict(ev, espec=k2_spec(policy),
+                  evict_gate=torch.full((B,), gate_on, dtype=torch.bool,
+                                        device=state[0].device))
+    return fn(*args, per_b["q_pos"], per_b["token_valid"], per_b["update_gate"],
+              per_b["counter_init"], policy, **kw)
+
+
+def k3_case(L, B, H, S, Dh, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa
+    slots = torch.randint(0, S, (L, B, H), generator=g, device=dev, dtype=torch.int32)
+    return rnd(L, B, H, S, Dh), rnd(L, B, H, S, Dh), rnd(L, B, H, 1, Dh), \
+        rnd(L, B, H, 1, Dh), slots
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_kernels(dev):
+    errs = {}
+    cases = [("bf16 MHA B=1", 1, 32, 32, torch.bfloat16, [PROMPT + NEW - 1]),
+             ("bf16 GQA B=2", 2, 32, 8, torch.bfloat16, [PROMPT + NEW - 1, 700]),
+             ("bf16 dead row", 2, 32, 32, torch.bfloat16, [PROMPT + NEW - 1, -1]),
+             ("f32 MHA B=1", 1, 32, 32, torch.float32, [PROMPT + NEW - 1])]
+    for i, (name, B, Hq, Hkv, dtype, qp) in enumerate(cases):
+        args = k1_case(B, Hq, Hkv, S_MAIN, 128, dtype, qp, dev, 10 + i)
+        got, ref = k1(*args), k1_plain(*args)
+        torch.cuda.synchronize()
+        e = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+        out_ratio = ((got[0].float() - ref[0].float()).abs() / k1_out_limit(ref[0])).max().item()
+        print(f"phase 2: K1 {name}: max|err| out {e[0]:.3e} (at most {out_ratio:.2f} of its "
+              f"limit) probs {e[1]:.3e} p_new {e[2]:.3e}")
+        check(out_ratio <= 1 and max(e[1:]) <= 1e-5, f"K1 {name} disagrees: {e}")
+        if dtype == torch.bfloat16 and qp[-1] < 0:
+            check(got[0][1].abs().max().item() == 0 and got[1][1].abs().max().item() == 0,
+                  "K1 dead row is not all zero")
+        if i == 0:
+            errs["K1"] = max(e)
+    state, per_b, ev = k2_case(32, 1, 32, S_MAIN, dev, 20)
+    for policy in POLICIES:
+        for gate_on in ([False] if policy is None else [True, False]):
+            got = k2_call(k2, state, per_b, ev, policy, gate_on)
+            ref = k2_call(k2_plain, state, per_b, ev, policy, gate_on)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(got, ref)]
+            grown = ((got[0] >= 0).sum(-1) - (state[0] >= 0).sum(-1)).unique().tolist()
+            print(f"phase 2: K2 policy={policy} evict_gate={gate_on}: bit-exact "
+                  f"{all(same)} (pos, score, score_sq, counter, slot = {same}); "
+                  f"valid slots per row grew by {grown}")
+            check(all(same), f"K2 policy={policy} gate={gate_on} not bit-exact: {same}")
+            check(grown == [0 if gate_on else 1],
+                  f"K2 policy={policy} gate={gate_on}: valid slots grew by {grown}")
+    errs["K2"] = 0.0
+    for Dh in (128, 64):
+        k, v, kn, vn, slots = k3_case(32, 1, 32, S_MAIN, Dh, dev, 30)
+        ka, va = k3(k.clone(), v.clone(), kn, vn, slots)
+        kb, vb = k3_plain(k.clone(), v.clone(), kn, vn, slots)
+        torch.cuda.synchronize()
+        ok = torch.equal(ka, kb) and torch.equal(va, vb)
+        print(f"phase 2: K3 Dh={Dh}: exact {ok}")
+        check(ok, f"K3 Dh={Dh} differs")
+    errs["K3"] = 0.0
+    return errs
+
+
+def reset_counts():
+    k1.launches = k2.launches = k3.launches = 0
+
+
+def counts():
+    return {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+
+
+def phase_end_to_end(dev):
+    cfg = LLAMA2_7B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"phase 3: LLaMa-2-7B width, {n_par / 1e9:.3f}B bf16 parameters drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    model = easykv_tpu_torch.enable_fixed_kv(
+        easykv_tpu_torch.CausalLM(cfg, params, device=dev), None, "decoding")
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (PROMPT,), generator=g).tolist()
+    gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=NEW, temperature=1e-9,
+              top_p=1.0, eos_token_ids=[], seed=0)
+    model.easykv_generate(prompt, dict(gc, max_new_tokens=8))      # warm-up
+    runs = {}
+    for policy in ("roco", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        out = model.easykv_generate(prompt, dict(gc, kv_policy=policy))
+        c = counts()
+        st = model.last_run
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        tok_s = st.n_tokens / st.decode_s
+        print(f"phase 3: {policy}: prefill {st.prefill_s:.3f} s, decode {st.n_tokens} "
+              f"tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len {st.kv_len}, "
+              f"peak memory {peak:.2f} GiB, launches {c}")
+        check(len(out) == NEW and st.logits_finite, f"{policy}: bad output / NaN logits")
+        check(c["K1"] == cfg.num_hidden_layers * NEW and c["K2"] == NEW and c["K3"] == NEW,
+              f"{policy}: launch counts {c}")
+        if policy == "roco":
+            check(st.kv_len - PROMPT == BUDGET,
+                  f"roco kept {st.kv_len - PROMPT} generated tokens, not {BUDGET}")
+        runs[policy] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak)
+    del model, params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def plain_kernels():
+    """The decode step with each kernel's wrapper swapped for its plain version."""
+    return mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
+                               fused_write_update=k2_plain, write_rows=k3_plain)
+
+
+def phase_plain_vs_kernel(dev):
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
+    params = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
+                               max_new_tokens=32, recent_window_dec=int(8 * 0.3))
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, cfg.vocab_size, (1, PROMPT), generator=g,
+                        dtype=torch.int32).to(dev)
+    plen = torch.full((1,), PROMPT, dtype=torch.int32, device=dev)
+    res = {}
+    for plain in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            r, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0, gen,
+                                                   torch.float32)
+        res[plain] = (r.out_ids.cpu(), cache.pos.cpu())
+    same_tok = torch.equal(res[False][0], res[True][0])
+    same_pos = torch.equal(res[False][1], res[True][1])
+    print(f"phase 4: full width L=2 f32 roco b=8, 32 tokens: tokens equal {same_tok}, "
+          f"final pos equal {same_pos}")
+    check(same_tok and same_pos, "kernel path and plain path disagree")
+
+
+def graph_ms(fn, arg_sets, reps):
+    """Device time of one call: `reps` calls (cycling through arg_sets, so a
+    caller that would find the L2 cache cold finds it cold) captured in one
+    CUDA graph, replayed, timed with CUDA events."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_times(dev):
+    L, H, S, D = 32, 32, S_MAIN, 128
+    n_valid = PROMPT + BUDGET
+    out = {}
+    # K1: one layer per launch, 32 layers' K/V (403 MB) cycled: cold L2
+    gk = torch.Generator(device=dev).manual_seed(40)
+    kc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
+    pos = slot_positions(L, 1, H, S, n_valid, torch.Generator().manual_seed(40), dev)
+    q, kn, vn = (torch.randn(shape, generator=gk, device=dev).to(torch.bfloat16)
+                 for shape in ((1, H, 1, D), (1, H, 1, D), (1, H, 1, D)))
+    qp = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
+    sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp) for l in range(L)]
+    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
+    k1_bytes = (visible * D * 2 * 2 + H * S * 4 * 2      # K,V rows read; pos, probs
+                + H * D * 2 * 4 + H * 4 + 4)            # q, kn, vn, out; p_new; q_pos
+    out["K1"] = dict(ms=graph_ms(k1, sets, 320), plain_ms=graph_ms(k1_plain, sets, 64),
+                     library_ms=None, bytes=k1_bytes, flops=4 * visible * D)
+    del kc, vc
+    # K2: roco with the eviction gate on (the budgeted steady state); four
+    # copies of the sidecars (113 MB) cycled
+    copies = []
+    for c in range(4):
+        state, per_b, ev = k2_case(L, 1, H, S, dev, 50 + c)
+        kw = dict(ev, espec=k2_spec("roco"),
+                  evict_gate=torch.ones(1, dtype=torch.bool, device=dev))
+        copies.append((state, per_b, kw))
+
+    def run_k2(fn):
+        return lambda state, per_b, kw: fn(*state, per_b["q_pos"], per_b["token_valid"],
+                                           per_b["update_gate"], per_b["counter_init"],
+                                           "roco", **kw)
+    slots_total = L * H * S
+    out["K2"] = dict(ms=graph_ms(run_k2(k2), copies, 64),
+                     plain_ms=graph_ms(run_k2(k2_plain), copies, 8), library_ms=None,
+                     bytes=36 * slots_total + L * H * 8,
+                     flops=slots_total * (8 + 31 + 4))
+    # K3: one launch writes every layer's rows; library yardstick: index_put_
+    k, v, kn3, vn3, slots = k3_case(L, 1, H, S, D, dev, 60)
+    idx = (torch.arange(L, device=dev)[:, None, None], torch.zeros(1, 1, 1, dtype=torch.long,
+           device=dev), torch.arange(H, device=dev)[None, None, :], slots.long())
+    kr, vr = kn3[:, :, :, 0], vn3[:, :, :, 0]
+
+    def library(*_):
+        k.index_put_(idx, kr)
+        v.index_put_(idx, vr)
+    rows = L * H
+    out["K3"] = dict(ms=graph_ms(k3, [(k, v, kn3, vn3, slots)], 200),
+                     plain_ms=graph_ms(k3_plain, [(k, v, kn3, vn3, slots)], 50),
+                     library_ms=graph_ms(library, [()], 50),
+                     bytes=2 * 2 * rows * D * 2 + rows * 4, flops=0)
+    for name, r in out.items():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / F32_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    print(f"phase 1: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"phase 1: built {sorted(logs) or 'nothing (up to date)'} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"phase 1: ptxas {src}: {line.strip()}")
+
+    errs = phase_kernels(dev)
+    runs = phase_end_to_end(dev)
+    phase_plain_vs_kernel(dev)
+    times = phase_times(dev)
+
+    meta = {
+        "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
+               "easykv_tpu/ops/pallas/decode_attention.py:207"),
+        "K2": ("fused_write_update", "easykv_tpu_torch/csrc/sidecar_update.cu",
+               "easykv_tpu/ops/pallas/sidecar_update.py:270"),
+        "K3": ("write_rows", "easykv_tpu_torch/csrc/row_write.cu",
+               "easykv_tpu/ops/pallas/row_write.py:36"),
+    }
+    kernels = []
+    for key, (kname, src, repl) in meta.items():
+        t = times[key]
+        launches = runs["roco"]["counts"][key]
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+        print(f"phase 5: {key} {kname}: {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, "
+              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), "
+              f"{launches / NEW:g} launches/step")
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches, "max_abs_err": errs[key], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,30 @@
+"""easykv_tpu_torch: the PyTorch/CUDA port of easykv_tpu, for NVIDIA Hopper.
+
+It follows easykv_tpu module for module and never imports it (nor JAX):
+the JAX package is the reference the port is held against. Its hot path
+runs hand-written CUDA kernels built from csrc/ at first use; on CPU
+tensors each kernel's plain PyTorch version runs instead.
+
+Public API mirrors the reference (reference easykv/__init__.py:1-2):
+    enable_fixed_kv(model, tokenizer, mode, stride)
+    set_dynamicntk_rope_length(model, max_length)
+"""
+from .config import GenerationConfig, ModelConfig, canonical_policy
+from .engine.generate import (
+    CausalLM,
+    enable_fixed_kv,
+    generate,
+    set_dynamicntk_rope_length,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CausalLM",
+    "GenerationConfig",
+    "ModelConfig",
+    "canonical_policy",
+    "enable_fixed_kv",
+    "generate",
+    "set_dynamicntk_rope_length",
+]

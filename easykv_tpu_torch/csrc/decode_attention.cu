@@ -1,0 +1,304 @@
+// Single-token decode attention over the budgeted KV ring buffer, with the
+// current token's K/V joined in flight and the eviction probabilities
+// emitted in the same pass.
+//
+// Replaces the TPU kernel easykv_tpu/ops/pallas/decode_attention.py
+// `fused_decode_attend_inflight` (body `_kernel_inflight`), non-streaming,
+// float KV, optional sliding window.
+//
+// What bounds it on an H100: bytes. Each launch reads the K and V rows of
+// one layer's visible slots once (11.7 MB at LLaMa-2-7B width with 712 of
+// 768 slots visible, bf16) and does 4*B*Hq*S*D flops, ~0.5 flop per byte,
+// far below the card's balance point. The design:
+//   * reads each visible K and V row exactly once, with 16-byte loads
+//     (a row of D=128 bf16 is 16 lanes' loads), and skips the rows of
+//     masked slots, whose probability is exactly 0;
+//   * keeps many rows in flight per SM (each warp loads kUnroll rows of K,
+//     each thread kUnroll rows of V, before it uses any), since one block
+//     per (batch, kv-head) means 32 blocks on 132 SMs at B=1 and a launch
+//     is bound by what each SM can stream;
+//   * keeps the rep x S fp32 logits in shared memory: no intermediate goes
+//     back to device memory.
+// Splitting S across blocks (and tensor-core QK^T for rep > 1) is later
+// work.
+//
+// Per block:
+//   1. q's rep rows go to shared memory as fp32;
+//   2. logits: dot(q_r, k_s) * scale for every visible slot s and row r,
+//      -inf for a masked slot (pos < 0, pos > q_pos, outside the window);
+//   3. per r: m = max(-1e30, logits, logit_new); e = exp(l - m); denom =
+//      max(sum e + e_new, 1e-30); p = e / denom; p_new = e_new / denom;
+//   4. out[r] = sum_s p[r][s] * v[s] + p_new[r] * vn (fp32 accumulation);
+//   5. probs[s] = mean_r p[r][s], p_new = mean_r p_new[r].
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;
+constexpr float kNegInf = -1e30f;
+
+template <typename T> struct VecOf { static constexpr int n = 16 / sizeof(T); };
+
+// 16 bytes of T at p (16-byte aligned) as floats.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Block-wide max or sum through `red` (kWarps floats); every thread gets it.
+template <bool kMax>
+__device__ float block_reduce(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = lane < kWarps ? red[lane] : (kMax ? kNegInf : 0.f);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  __syncthreads();
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
+                              const T* __restrict__ vn, const T* __restrict__ k,
+                              const T* __restrict__ v, const int* __restrict__ pos,
+                              const int* __restrict__ q_pos, T* __restrict__ out,
+                              float* __restrict__ probs, float* __restrict__ p_new,
+                              int Hkv, int rep, int S, int D, float scale, int window) {
+  constexpr int V = VecOf<T>::n;   // elements per 16-byte load
+  extern __shared__ float smem[];
+  const int LPR = D / V;           // lanes per row (a power of two <= 32)
+  const int G = kThreads / LPR;    // row groups in the PV pass
+  float* qs = smem;                // rep * D
+  float* lg = qs + rep * D;        // rep * S: logits, then probabilities
+  float* lnew = lg + rep * S;      // rep: logit_new, then p_new
+  float* red = lnew + rep;         // kWarps
+  float* part = red + kWarps;      // G * D: PV partial sums
+
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qp = q_pos[b];
+  const bool live = qp >= 0;
+  const size_t row0 = (size_t)bh * S;
+  const T* kb = k + row0 * D;
+  const T* vb = v + row0 * D;
+  const int* pb = pos + row0;
+
+  for (int i = tid; i < rep * D; i += kThreads) qs[i] = to_f(q[(size_t)bh * rep * D + i]);
+  __syncthreads();
+
+  for (int r = warp; r < rep; r += kWarps) {
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32) acc += qs[r * D + d] * to_f(kn[(size_t)bh * D + d]);
+    acc = warp_sum(acc);
+    if (lane == 0) lnew[r] = live ? acc * scale : kNegInf;
+  }
+
+  // logits: each warp takes RPW = 32 / LPR rows at a time, kUnroll times
+  {
+    const int rpw = 32 / LPR;
+    const int sub = lane / LPR, li = lane % LPR;
+    const int step = kWarps * rpw * kUnroll;
+    for (int base = warp * rpw * kUnroll; base < S; base += step) {
+      float kr[kUnroll][V];
+      bool vis[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = base + u * rpw + sub;
+        const int p = s < S ? pb[s] : -1;
+        vis[u] = s < S && p >= 0 && p <= qp && (window <= 0 || p > qp - window);
+        if (vis[u]) {
+          load16(kb + (size_t)s * D + li * V, kr[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) kr[u][j] = 0.f;
+        }
+      }
+      for (int r = 0; r < rep; ++r) {
+        const float* qr = qs + r * D + li * V;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc += qr[j] * kr[u][j];
+          for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+          const int s = base + u * rpw + sub;
+          if (li == 0 && s < S) lg[r * S + s] = vis[u] ? acc * scale : -INFINITY;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // fp32 softmax per query row; masked slots (-inf) get exactly 0
+  for (int r = 0; r < rep; ++r) {
+    float* l = lg + r * S;
+    float m = kNegInf;
+    for (int s = tid; s < S; s += kThreads) m = fmaxf(m, l[s]);
+    m = fmaxf(block_reduce<true>(m, red), lnew[r]);
+    float sum = 0.f;
+    for (int s = tid; s < S; s += kThreads) {
+      const float e = l[s] == -INFINITY ? 0.f : expf(l[s] - m);
+      l[s] = e;
+      sum += e;
+    }
+    sum = block_reduce<false>(sum, red);
+    const float e_new = live ? expf(lnew[r] - m) : 0.f;
+    const float denom = fmaxf(sum + e_new, 1e-30f);
+    for (int s = tid; s < S; s += kThreads) l[s] = l[s] / denom;
+    __syncthreads();
+    if (tid == 0) lnew[r] = e_new / denom;
+    __syncthreads();
+  }
+
+  for (int s = tid; s < S; s += kThreads) {
+    float acc = 0.f;
+    for (int r = 0; r < rep; ++r) acc += lg[r * S + s];
+    probs[row0 + s] = acc / (float)rep;
+  }
+  if (tid == 0) {
+    float acc = 0.f;
+    for (int r = 0; r < rep; ++r) acc += lnew[r];
+    p_new[bh] = acc / (float)rep;
+  }
+
+  // out[r] = P V + p_new * vn: thread = (row group g, lane-in-row li)
+  const int li = tid % LPR, g = tid / LPR;
+  for (int r = 0; r < rep; ++r) {
+    const float* pr = lg + r * S;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int base = g; base < S; base += G * kUnroll) {
+      float vr[kUnroll][V];
+      float w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = base + u * G;
+        w[u] = s < S ? pr[s] : 0.f;
+        if (w[u] != 0.f) {
+          load16(vb + (size_t)s * D + li * V, vr[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) vr[u][j] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] += w[u] * vr[u][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) part[g * D + li * V + j] = acc[j];
+    __syncthreads();
+    for (int d = tid; d < D; d += kThreads) {
+      float o = 0.f;
+      for (int j = 0; j < G; ++j) o += part[j * D + d];
+      o += lnew[r] * to_f(vn[(size_t)bh * D + d]);
+      out[((size_t)bh * rep + r) * D + d] = from_f<T>(o);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+size_t smem_bytes(int rep, int S, int D) {
+  const int G = kThreads / (D / VecOf<T>::n);
+  return sizeof(float) * ((size_t)rep * D + (size_t)rep * S + rep + kWarps + (size_t)G * D);
+}
+
+template <typename T>
+bool shape_ok(int D) {
+  const int lpr = D / VecOf<T>::n;
+  return D % VecOf<T>::n == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
+}
+
+template <typename T>
+int launch(const void* q, const void* kn, const void* vn, const void* k, const void* v,
+           const int* pos, const int* q_pos, void* out, float* probs, float* p_new,
+           int B, int Hkv, int rep, int S, int D, float scale, int window,
+           cudaStream_t stream) {
+  if (!shape_ok<T>(D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(rep, S, D);
+  auto kernel = decode_attend_inflight_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B * Hkv, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)kn, (const T*)vn, (const T*)k, (const T*)v, pos, q_pos,
+      (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one launch needs, in bytes; 0 if D is not supported
+// (a row must be 1..32 sixteen-byte loads, a power of two).
+// dtype: 0 = float32, 1 = bfloat16.
+size_t decode_attend_inflight_smem(int rep, int S, int D, int dtype) {
+  if (dtype == 0) return shape_ok<float>(D) ? smem_bytes<float>(rep, S, D) : 0;
+  if (dtype == 1)
+    return shape_ok<__nv_bfloat16>(D) ? smem_bytes<__nv_bfloat16>(rep, S, D) : 0;
+  return 0;
+}
+
+// q, kn, vn, k, v and out share `dtype`; every pointer is 16-byte aligned.
+// window <= 0: no sliding window. Returns cudaGetLastError().
+int decode_attend_inflight(const void* q, const void* kn, const void* vn, const void* k,
+                           const void* v, const int* pos, const int* q_pos, void* out,
+                           float* probs, float* p_new, int B, int Hkv, int rep, int S,
+                           int D, float scale, int window, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(q, kn, vn, k, v, pos, q_pos, out, probs, p_new, B, Hkv, rep, S, D,
+                         scale, window, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, kn, vn, k, v, pos, q_pos, out, probs, p_new, B, Hkv,
+                                 rep, S, D, scale, window, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

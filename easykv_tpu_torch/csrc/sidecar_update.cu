@@ -1,0 +1,280 @@
+// Per-step sidecar pass of a budgeted decode step, with the step's gated
+// eviction folded in.
+//
+// Replaces the TPU kernel easykv_tpu/ops/pallas/sidecar_update.py
+// `fused_write_update` (body `_write_kernel`, victim selection
+// `_select_victim`), decode phase, k = 1, no compaction, no int8 scale rows.
+//
+// For each (layer, batch, kv-head) row of S slots:
+//   1. write slot = first slot with pos < 0 (slot 0 if the row is full);
+//   2. score / score_sq update from this step's probabilities per policy
+//      (h2o_head and roco accumulate, tova overwrites), under update_gate;
+//   3. when the row is live: the new token's sidecars at the write slot;
+//   4. when evict_gate fires: counter += 1 on every slot, victim selection
+//      (h2o_head / tova: first minimum score; recency: oldest position;
+//      random: the slot at age rank rand_rank; roco: the lowest mean score
+//      among the feasible_k lowest stds, the k-th smallest std found
+//      exactly by a 31-step bisection over its bit pattern), pos[victim]=-1.
+//
+// What bounds it on an H100: bytes. The pass reads pos, score, score_sq,
+// counter and probs and writes the first four back: 36 bytes a slot, 28 MB
+// per step at LLaMa-2-7B width and S=768. One block per row keeps the
+// row's five arrays in shared memory, so the 31 bisection rounds and the
+// minimum searches re-read nothing from device memory; every reduction is
+// a block reduction. The arithmetic is the plain version's, op by op, and
+// this file is built with --fmad=false so that no multiply-add is
+// contracted: victims, slots and sidecars are bit-exact with it.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kIntMax = 0x7fffffff;
+constexpr float kForce = 1e9f;      // policies.STD_FORCE
+constexpr float kExclude = 1e30f;   // policies.STD_EXCLUDE
+constexpr int kStdGuard = 10;       // policies.ROCO_STD_GUARD
+
+enum Policy { kNone = 0, kH2O = 1, kRoco = 2, kTova = 3, kRecency = 4, kRandom = 5 };
+
+// min that propagates NaN, as jnp.min / torch.amin do
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || a < b) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+
+__device__ __forceinline__ int warp_min_i(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_sum_i(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_min_f(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = nan_min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ int block_min_i(int x, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_min_i(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  int y = lane < kWarps ? red[lane] : kIntMax;
+  y = warp_min_i(y);
+  __syncthreads();
+  return y;
+}
+__device__ int block_sum_i(int x, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_sum_i(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  int y = lane < kWarps ? red[lane] : 0;
+  y = warp_sum_i(y);
+  __syncthreads();
+  return y;
+}
+__device__ float block_min_f(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_min_f(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float y = lane < kWarps ? red[lane] : INFINITY;
+  y = warp_min_f(y);
+  __syncthreads();
+  return y;
+}
+
+// Index of the first occurrence of the minimum of val[0..S) (NaN-propagating:
+// a NaN minimum matches nothing and gives S).
+__device__ int first_min_idx(const float* val, int S, float* redf, int* redi) {
+  float m = INFINITY;
+  for (int s = threadIdx.x; s < S; s += kThreads) m = nan_min(m, val[s]);
+  m = block_min_f(m, redf);
+  int idx = S;
+  for (int s = threadIdx.x; s < S; s += kThreads)
+    if (val[s] == m) { idx = s; break; }
+  return block_min_i(idx, redi);
+}
+
+// Exact k-th smallest (1-indexed) of non-negative int32 keys, by a 31-step
+// bisection over the bit pattern.
+__device__ int kth_smallest_bits(const int* keys, int S, int k, int* redi) {
+  int prefix = 0;
+  for (int i = 0; i < 31; ++i) {
+    const int cand = prefix | (1 << (30 - i));
+    int cnt = 0;
+    for (int s = threadIdx.x; s < S; s += kThreads) cnt += keys[s] < cand;
+    cnt = block_sum_i(cnt, redi);
+    if (cnt < k) prefix = cand;
+  }
+  return prefix;
+}
+
+__global__ void __launch_bounds__(kThreads)
+write_update_kernel(int* __restrict__ pos_g, float* __restrict__ score_g,
+                    float* __restrict__ ssq_g, float* __restrict__ counter_g,
+                    const float* __restrict__ probs_g, const float* __restrict__ p_new_g,
+                    const int* __restrict__ q_pos, const uint8_t* __restrict__ token_valid,
+                    const uint8_t* __restrict__ update_gate,
+                    const float* __restrict__ counter_init,
+                    const uint8_t* __restrict__ evict_gate, const int* __restrict__ next_pos,
+                    const int* __restrict__ prompt_len, const int* __restrict__ rand_rank,
+                    int* __restrict__ slot_out, int B, int H, int S, int policy, int evict,
+                    int recent_window, int feasible_k, int protect_prompt) {
+  extern __shared__ unsigned char smem_raw[];
+  int* pos = (int*)smem_raw;        // S
+  float* sc = (float*)(pos + S);    // S
+  float* sq = sc + S;               // S
+  float* cnt = sq + S;              // S
+  float* val = cnt + S;             // S: selection values / keys
+  int* key = (int*)val;
+  __shared__ float redf[kWarps];
+  __shared__ int redi[kWarps];
+
+  const int row = blockIdx.x;
+  const int b = (row / H) % B;
+  const int tid = threadIdx.x;
+  const size_t off = (size_t)row * S;
+
+  const int qp = q_pos[b];
+  const bool live = token_valid[b] != 0;
+  const bool g_upd = update_gate[b] != 0;
+  const float gf = g_upd ? 1.0f : 0.0f;
+  const float cinit = counter_init[b];
+  const float pn = p_new_g[row];
+
+  // 1-3: load, free slot, score update
+  int first_free = S;
+  for (int s = tid; s < S; s += kThreads) {
+    const int p = pos_g[off + s];
+    float c = score_g[off + s], q2 = ssq_g[off + s];
+    const float pr = probs_g[off + s];
+    if (p < 0 && first_free == S) first_free = s;
+    if (policy == kH2O || policy == kRoco) {
+      c = c + pr * gf;
+      if (policy == kRoco) q2 = q2 + pr * pr * gf;
+    } else if (policy == kTova) {
+      c = g_upd ? pr : c;
+    }
+    pos[s] = p;
+    sc[s] = c;
+    sq[s] = q2;
+    cnt[s] = counter_g[off + s];
+  }
+  first_free = block_min_i(first_free, redi);
+  const int slot = first_free < S ? first_free : 0;
+  if (tid == 0) {
+    slot_out[row] = slot;
+    if (live) {
+      float s_new = 0.f, sq_new = 0.f;
+      if (policy == kH2O || policy == kRoco || policy == kTova) s_new = pn * gf;
+      if (policy == kRoco) sq_new = pn * pn * gf;
+      pos[slot] = qp;
+      cnt[slot] = cinit;
+      sc[slot] = s_new;
+      sq[slot] = sq_new;
+    }
+  }
+  __syncthreads();
+
+  // 4: the gated eviction event on the freshly written row
+  if (evict && evict_gate[b] != 0) {
+    const int npos = next_pos[b];
+    const int plen = prompt_len[b];
+    for (int s = tid; s < S; s += kThreads) cnt[s] = cnt[s] + 1.0f;
+    __syncthreads();
+    int victim;
+    if (policy == kRandom) {
+      for (int s = tid; s < S; s += kThreads) {
+        const int p = pos[s];
+        const bool base = p >= 0 && (!protect_prompt || p >= plen);
+        key[s] = base ? p : kIntMax;
+      }
+      __syncthreads();
+      const int target = kth_smallest_bits(key, S, rand_rank[b] + 1, redi);
+      int idx = S;
+      for (int s = tid; s < S; s += kThreads)
+        if (key[s] == target) { idx = s; break; }
+      victim = block_min_i(idx, redi);   // S: no slot holds the key, no eviction
+    } else {
+      if (policy == kRoco) {
+        for (int s = tid; s < S; s += kThreads) {
+          const int p = pos[s];
+          const bool base = p >= 0 && (!protect_prompt || p >= plen);
+          const float mean = sc[s] / cnt[s];
+          const float var = sq[s] / cnt[s] - mean * mean;
+          float std = sqrtf(var != var ? var : (var > 0.f ? var : 0.f));
+          if (p >= npos - kStdGuard) std = kForce + (float)p * 1024.0f;
+          if (!base) std = kExclude;
+          key[s] = __float_as_int(std);
+        }
+        __syncthreads();
+        const int kth = kth_smallest_bits(key, S, feasible_k, redi);
+        for (int s = tid; s < S; s += kThreads)
+          val[s] = key[s] <= kth ? sc[s] / cnt[s] : INFINITY;
+      } else {
+        for (int s = tid; s < S; s += kThreads) {
+          const int p = pos[s];
+          bool cand = p >= 0 && (!protect_prompt || p >= plen);
+          float x;
+          if (policy == kRecency) {
+            x = (float)p;
+          } else {
+            if (policy == kH2O) cand = cand && p < npos - recent_window;
+            x = sc[s];
+          }
+          val[s] = cand ? x : INFINITY;
+        }
+      }
+      __syncthreads();
+      victim = first_min_idx(val, S, redf, redi);
+    }
+    if (tid == 0 && victim < S) pos[victim] = -1;
+    __syncthreads();
+  }
+
+  for (int s = tid; s < S; s += kThreads) {
+    pos_g[off + s] = pos[s];
+    score_g[off + s] = sc[s];
+    ssq_g[off + s] = sq[s];
+    counter_g[off + s] = cnt[s];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t write_update_smem(int S) { return (size_t)5 * 4 * S; }
+
+// policy: 0 none (full), 1 h2o_head, 2 roco, 3 tova, 4 recency, 5 random.
+// evict = 0 skips step 4 (evict_gate .. rand_rank may then be null).
+// Updates pos / score / score_sq / counter in place. Returns cudaGetLastError().
+int write_update(int* pos, float* score, float* score_sq, float* counter, const float* probs,
+                 const float* p_new, const int* q_pos, const uint8_t* token_valid,
+                 const uint8_t* update_gate, const float* counter_init,
+                 const uint8_t* evict_gate, const int* next_pos, const int* prompt_len,
+                 const int* rand_rank, int* slot_out, int L, int B, int H, int S,
+                 int policy, int evict, int recent_window, int feasible_k,
+                 int protect_prompt, void* stream) {
+  const size_t smem = write_update_smem(S);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        write_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  write_update_kernel<<<L * B * H, kThreads, smem, (cudaStream_t)stream>>>(
+      pos, score, score_sq, counter, probs, p_new, q_pos, token_valid, update_gate,
+      counter_init, evict_gate, next_pos, prompt_len, rand_rank, slot_out, B, H, S,
+      policy, evict, recent_window, feasible_k, protect_prompt);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,255 @@
+"""LLaMa-family decoder over the budgeted KV ring buffer (counterpart of
+easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp,
+prefill_layer_major, _decode_forward, _logits_tail, _lm_head).
+
+Parameters keep the JAX package's orientation: every projection is
+(in, out) and applies as `x @ w`; each layer's weights live in their own
+module (the JAX tree stacks them over a leading L axis). Projections stay
+`torch.matmul`, as the JAX package leaves them to XLA. The decode step
+always runs the three CUDA kernels of the slice: decode attention per layer
+(K1), then one sidecar pass with the folded eviction (K2) and one K/V row
+write (K3) for all layers; on CPU tensors each wrapper runs its plain
+version.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..cache import KVCache, kv_dequant, write_tokens_slice
+from ..config import ModelConfig, resolve_device
+from ..ops.attention import attend
+from ..ops.cuda.decode_attention import fused_decode_attend_inflight
+from ..ops.cuda.row_write import write_rows
+from ..ops.cuda.sidecar_update import fused_write_update
+from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
+from ..policies import PolicySpec
+
+LAYER_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp")
+BIAS_KEYS = ("bq", "bk", "bv")
+
+
+class StepCtx(NamedTuple):
+    """Per-step context of one decode token (all (B, 1) or (B,) tensors)."""
+
+    q_pos: torch.Tensor         # (B, 1) int32 position ids; -1 = dead row
+    token_valid: torch.Tensor   # (B, 1) bool
+    counter_init: torch.Tensor  # (B, 1) f32 initial observation counter
+    next_pos: torch.Tensor      # (B,) int32 position the next token would get
+    prompt_len: torch.Tensor    # (B,) int32
+    evict_gate: torch.Tensor    # (B,) bool: run an eviction event this step
+    update_gate: torch.Tensor   # (B,) bool: apply score updates
+    rand_rank: torch.Tensor     # (B,) int32 pre-drawn rank for the random policy
+
+
+class DecoderLayer(nn.Module):
+    """One layer's weights: LAYER_KEYS, and BIAS_KEYS with attention_bias."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in tensors.items():
+            setattr(self, name, nn.Parameter(t, requires_grad=False))
+
+
+class LlamaParams(nn.Module):
+    """embed (V, D), final_norm (D,), layers (one DecoderLayer each),
+    lm_head (D, V) unless the embedding is tied."""
+
+    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
+                 layers: List[Dict[str, torch.Tensor]], lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.layers = nn.ModuleList(DecoderLayer(t) for t in layers)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype = torch.float32,
+                device=None) -> LlamaParams:
+    """Random init (normal scaled by fan_in^-1/2), drawn on `device` from a
+    generator seeded with `seed`: a 7B model is built on the card without
+    passing through host memory. The draws differ from jax.random's; to
+    compare the two packages, convert the JAX tree (models/convert.py)."""
+    device = resolve_device(device)
+    L, D, F_ = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    V = cfg.vocab_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def norm(shape, fan_in):
+        t = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+        return t.mul_(fan_in ** -0.5)
+
+    def layer():
+        w = {
+            "wq": norm((D, Hq * Dh), D),
+            "wk": norm((D, Hkv * Dh), D),
+            "wv": norm((D, Hkv * Dh), D),
+            "wo": norm((Hq * Dh, D), Hq * Dh),
+            "wg": norm((D, F_), D),
+            "wu": norm((D, F_), D),
+            "wd": norm((F_, D), F_),
+            "ln_attn": torch.ones((D,), dtype=dtype, device=device),
+            "ln_mlp": torch.ones((D,), dtype=dtype, device=device),
+        }
+        if cfg.attention_bias:
+            w.update(bq=norm((Hq * Dh,), Hq * Dh), bk=norm((Hkv * Dh,), Hkv * Dh),
+                     bv=norm((Hkv * Dh,), Hkv * Dh))
+        return w
+
+    layers = [layer() for _ in range(L)]
+    lm_head = None if cfg.tie_word_embeddings else norm((D, V), D)
+    return LlamaParams(norm((V, D), D), torch.ones((D,), dtype=dtype, device=device),
+                       layers, lm_head)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _qkv(x: torch.Tensor, p: DecoderLayer, name: str) -> torch.Tensor:
+    y = x @ getattr(p, "w" + name)
+    bias = getattr(p, "b" + name, None)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _proj_qkv(x, p, B, C, Hq, Hkv, Dh):
+    """(q (B, Hq, C, Dh), k (B, Hkv, C, Dh), v)."""
+    q, k, v = _qkv(x, p, "q"), _qkv(x, p, "k"), _qkv(x, p, "v")
+    return (q.reshape(B, C, Hq, Dh).transpose(1, 2),
+            k.reshape(B, C, Hkv, Dh).transpose(1, 2),
+            v.reshape(B, C, Hkv, Dh).transpose(1, 2))
+
+
+def _mlp(x2: torch.Tensor, p: DecoderLayer) -> torch.Tensor:
+    """SwiGLU MLP."""
+    return (F.silu(x2 @ p.wg) * (x2 @ p.wu)) @ p.wd
+
+
+def _attn_block(h, p, cfg: ModelConfig, out: torch.Tensor):
+    """Residual O projection and MLP after attention; out (B, Hq, C, Dh)."""
+    B, _, C, _ = out.shape
+    attn_out = out.transpose(1, 2).reshape(B, C, -1)
+    h = h + attn_out @ p.wo
+    x2 = rmsnorm(h, p.ln_mlp, cfg.rms_norm_eps)
+    return h + _mlp(x2, p)
+
+
+@torch.no_grad()
+def prefill_layer_major(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    cache: KVCache,
+    token_ids: torch.Tensor,     # (B, A_pad), A_pad = n_chunks * C
+    q_pos: torch.Tensor,         # (n_chunks, B, C) int32, -1 = padding
+    counter_init: torch.Tensor,  # (n_chunks, B, C) f32
+) -> torch.Tensor:
+    """Layer-major no-eviction prefill: one whole-width QKV/MLP matmul per
+    layer; attention and the cache writes go chunk by chunk. Token j lands in
+    slot j of the empty cache (write_tokens_slice); padding tokens write
+    pos = -1, so their slots stay invalid. Fills `cache` in place and returns
+    h (B, A_pad, D) before the final norm."""
+    B, T = token_ids.shape
+    n, _, C = q_pos.shape
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
+    scale = Dh ** -0.5
+    q_pos_flat = q_pos.permute(1, 0, 2).reshape(B, T)
+    cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
+
+    h = params.embed[token_ids.clamp(min=0)]
+    for l, p in enumerate(params.layers):
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, T, Hq, Hkv, Dh)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        cl = cache.layer(l)
+        outs = []
+        for c in range(n):
+            sl = slice(c * C, (c + 1) * C)
+            write_tokens_slice(cl, k[:, :, sl], v[:, :, sl], q_pos[c],
+                               counter_init[c], c * C)
+            k_raw, v_raw = kv_dequant(cl, q.dtype)
+            out, _ = attend(q[:, :, sl], k_raw, v_raw, cl.pos, q_pos[c],
+                            sliding_window=cfg.sliding_window, scale=scale)
+            outs.append(out)
+        h = _attn_block(h, p, cfg, torch.cat(outs, dim=2))
+    return h
+
+
+def _lm_head(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """LM head with float32 accumulation and a float32 result."""
+    if head.dtype == torch.float32:
+        return h.to(torch.float32) @ head
+    if h.device.type == "cpu":
+        return h.to(torch.float32) @ head.to(torch.float32)
+    h2 = h.reshape(-1, h.shape[-1])
+    return torch.mm(h2, head, out_dtype=torch.float32).reshape(h.shape[:-1] + (-1,))
+
+
+def _logits_tail(h: torch.Tensor, params: LlamaParams, cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(h, params.final_norm, cfg.rms_norm_eps)
+    if cfg.tie_word_embeddings:
+        return _lm_head(h, params.embed.t())
+    return _lm_head(h, params.lm_head)
+
+
+@torch.no_grad()
+def _decode_forward(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    cache: KVCache,
+    token_ids: torch.Tensor,     # (B, 1)
+    ctx: StepCtx,
+    spec: Optional[PolicySpec],  # None: full cache, no scores, no eviction
+) -> torch.Tensor:
+    """One decode token through all layers with a late cache write: the
+    token's K/V joins each layer's softmax in flight (K1); after the layers
+    one sidecar pass picks every (layer, head)'s write slot, updates the
+    scores and applies the step's gated eviction (K2); one launch then writes
+    the K/V rows (K3). Updates `cache` in place and returns logits
+    (B, 1, V) f32."""
+    B = token_ids.shape[0]
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
+    q_pos = ctx.q_pos                                           # (B, 1)
+    q_pos_b = q_pos[:, 0].contiguous()
+    cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)        # shared by all layers
+
+    h = params.embed[token_ids.clamp(min=0)]
+    kn_all, vn_all, probs_all, pnew_all = [], [], [], []
+    for l, p in enumerate(params.layers):
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, 1, Hq, Hkv, Dh)
+        q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
+        v = v.contiguous()
+        out, probs, p_new = fused_decode_attend_inflight(
+            q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b,
+            sliding_window=cfg.sliding_window)
+        h = _attn_block(h, p, cfg, out)
+        kn_all.append(kn_att)
+        vn_all.append(v)
+        probs_all.append(probs[:, :, 0, :])
+        pnew_all.append(p_new)
+
+    probs = torch.stack(probs_all)                              # (L, B, Hkv, S)
+    p_new = torch.stack(pnew_all)                               # (L, B, Hkv, 1)
+    espec = {} if spec is None else dict(
+        espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
+        prompt_len=ctx.prompt_len, rand_rank=ctx.rand_rank)
+    _, _, _, _, slots = fused_write_update(
+        cache.pos, cache.score, cache.score_sq, cache.counter, probs, p_new,
+        q_pos_b, ctx.token_valid[:, 0].contiguous(), ctx.update_gate,
+        ctx.counter_init[:, 0].contiguous(), None if spec is None else spec.policy,
+        **espec)
+    kn = torch.stack(kn_all).to(cache.k.dtype)                  # (L, B, Hkv, 1, Dh)
+    vn = torch.stack(vn_all).to(cache.v.dtype)
+    write_rows(cache.k, cache.v, kn, vn, slots[..., 0].contiguous())
+    return _logits_tail(h, params, cfg)

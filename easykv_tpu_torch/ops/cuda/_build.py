@@ -1,0 +1,111 @@
+"""Builds the CUDA sources under easykv_tpu_torch/csrc/ at first use.
+
+Each source compiles alone, by one `nvcc` process per file, all started
+together, into a shared library with a plain C interface that the kernel
+wrappers load with ctypes. Libraries land in easykv_tpu_torch/_build/,
+named by a hash of the source and the flags: an edited source rebuilds, an
+unchanged one is loaded as it is. Nothing here runs at import.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+does not synchronise, and returns cudaGetLastError() as an int.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+import torch
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+
+SOURCES = ("decode_attention", "sidecar_update", "row_write")
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The sidecar pass must round like the plain PyTorch version, op by op: an
+# FMA contraction of roco's `ssq/c - mean*mean` moves the k-th smallest std.
+EXTRA_FLAGS = {"sidecar_update": ["--fmad=false"]}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if not cand.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(cand)
+
+
+def _flags(name: str):
+    return FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return BUILD / f"lib{name}-{key}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source whose library is missing, in parallel.
+    Returns {name: compiler output (ptxas register report)}; raises
+    RuntimeError naming each source that failed to compile."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    """The loaded library of one source, built first if it is missing, with
+    each C function's (argtypes, restype) declared from `signatures`."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    """Handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,94 @@
+"""Decode attention with the in-flight token (kernel K1).
+
+CUDA kernel: easykv_tpu_torch/csrc/decode_attention.cu, which replaces the
+TPU kernel easykv_tpu/ops/pallas/decode_attention.py
+`fused_decode_attend_inflight`. It is bound by the bytes of K and V; the
+source note says what its design does about that.
+
+`fused_decode_attend_inflight` launches the kernel for CUDA tensors and runs
+the plain version, ops.attention.attend_inflight, for CPU tensors. The
+kernel keeps p in fp32 through the PV product, as the TPU kernel does; the
+plain version rounds p to the cache dtype first, as the JAX package's XLA
+path does, so with a bf16 cache the two differ by bf16 rounding of `out`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..attention import attend_inflight
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+fused_decode_attend_inflight_plain = attend_inflight
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "decode_attend_inflight": ([_vp] * 10 + [_int] * 5 + [ctypes.c_float, _int, _int, _vp],
+                               _int),
+    "decode_attend_inflight_smem": ([_int, _int, _int, _int], ctypes.c_size_t),
+}
+
+
+def fused_decode_attend_inflight(
+    q: torch.Tensor,        # (B, Hq, 1, D) rotated
+    k_new: torch.Tensor,    # (B, Hkv, 1, D) rotated, not yet cached
+    v_new: torch.Tensor,    # (B, Hkv, 1, D)
+    k: torch.Tensor,        # (B, Hkv, S, D)
+    v: torch.Tensor,        # (B, Hkv, S, D)
+    kv_pos: torch.Tensor,   # (B, Hkv, S) int32
+    q_pos: torch.Tensor,    # (B,) int32, -1 = dead row
+    *,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (out (B, Hq, 1, D) in q's dtype, probs (B, Hkv, 1, S) f32,
+    p_new (B, Hkv, 1) f32); see ops.attention.attend_inflight."""
+    if q.device.type == "cpu":
+        return attend_inflight(q, k_new, v_new, k, v, kv_pos, q_pos,
+                               sliding_window=sliding_window)
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if T != 1 or Hq % Hkv != 0:
+        raise ValueError(f"bad decode shapes q={tuple(q.shape)} k={tuple(k.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"decode attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t, shape in (("k_new", k_new, (B, Hkv, 1, D)), ("v_new", v_new, (B, Hkv, 1, D)),
+                           ("k", k, (B, Hkv, S, D)), ("v", v, (B, Hkv, S, D))):
+        if t.dtype != q.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {q.dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+    if kv_pos.dtype != torch.int32 or tuple(kv_pos.shape) != (B, Hkv, S):
+        raise ValueError("kv_pos must be int32 (B, Hkv, S)")
+    if q_pos.dtype != torch.int32 or tuple(q_pos.shape) != (B,):
+        raise ValueError("q_pos must be int32 (B,)")
+    tensors = (q, k_new, v_new, k, v, kv_pos, q_pos)
+    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("decode attention takes contiguous tensors on one device")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must be 16-byte aligned")
+    rep = Hq // Hkv
+    lib = _build.load("decode_attention", SIGNATURES)
+    smem = lib.decode_attend_inflight_smem(rep, S, D, _DTYPES[q.dtype])
+    if smem == 0:
+        raise ValueError(f"head_dim {D}: a row must be 1, 2, 4, 8, 16 or 32 16-byte loads")
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"rep*S={rep * S} logits need {smem} bytes of shared memory "
+                         f"(limit {_build.SMEM_LIMIT})")
+
+    out = torch.empty_like(q)
+    probs = torch.empty((B, Hkv, 1, S), dtype=torch.float32, device=q.device)
+    p_new = torch.empty((B, Hkv, 1), dtype=torch.float32, device=q.device)
+    window = 0 if sliding_window is None else int(sliding_window)
+    err = lib.decode_attend_inflight(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), probs.data_ptr(),
+        p_new.data_ptr(), B, Hkv, rep, S, D, D ** -0.5, window, _DTYPES[q.dtype],
+        _build.stream_of(q))
+    _build.check(err, "decode_attend_inflight")
+    fused_decode_attend_inflight.launches += 1
+    return out, probs, p_new
+
+
+fused_decode_attend_inflight.launches = 0

@@ -1,0 +1,137 @@
+"""Card-only tests of the port's CUDA kernels: each kernel against its plain
+PyTorch version on the same CUDA tensors, and the decode path with the
+kernels against the same path with the plain versions. Marked `gpu`; on a
+machine without a CUDA device every test skips (the fixture decides).
+
+Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
+such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
+"""
+import contextlib
+import importlib
+from unittest import mock
+
+import pytest
+import torch
+
+from easykv_tpu_torch.config import ModelConfig
+from easykv_tpu_torch.models.llama import init_params
+from easykv_tpu_torch.ops.cuda.decode_attention import (
+    fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
+from easykv_tpu_torch.ops.cuda.row_write import write_rows, write_rows_plain
+from easykv_tpu_torch.ops.cuda.sidecar_update import (fused_write_update,
+                                                      fused_write_update_plain)
+from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _positions(B, H, S, n_valid, gen):
+    pos = torch.full((B, H, S), -1, dtype=torch.int32)
+    pos[..., :n_valid] = torch.randperm(n_valid + 40, generator=gen)[:n_valid].sort().values
+    pos[..., ::9] = -1
+    return pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,q_pos,window", [
+    (8, 8, (200, 230), None), (8, 2, (200, 230), None), (8, 4, (200, -1), None),
+    (8, 2, (200, 230), 50)])
+def test_k1_kernel_matches_plain(cuda, dtype, Hq, Hkv, q_pos, window):
+    B, S, D = 2, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa: E731
+    args = (rnd(B, Hq, 1, D), rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D), rnd(B, Hkv, S, D),
+            rnd(B, Hkv, S, D), _positions(B, Hkv, S, 220, torch.Generator().manual_seed(0))
+            .to(cuda), torch.tensor(q_pos, dtype=torch.int32, device=cuda))
+    before = fused_decode_attend_inflight.launches
+    got = fused_decode_attend_inflight(*args, sliding_window=window)
+    ref = fused_decode_attend_inflight_plain(*args, sliding_window=window)
+    assert fused_decode_attend_inflight.launches == before + 1
+    # bf16: the plain version rounds p to bf16 before PV, the kernel keeps it
+    # in fp32; the results agree to one bf16 ulp of the reference value
+    err = (got[0].float() - ref[0].float()).abs()
+    if dtype == torch.bfloat16:
+        assert (err <= (1e-3 + 2**-7 * ref[0].float().abs()).clamp(max=1e-2)).all()
+    else:
+        assert err.max().item() <= 1e-5
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("policy", [None, "h2o_head", "tova", "roco", "recency", "random"])
+def test_k2_kernel_bit_exact(cuda, policy, gate):
+    L, B, H, S = 2, 2, 4, 256
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    pos = torch.stack([_positions(B, H, S, 200, torch.Generator().manual_seed(l))
+                       for l in range(L)]).to(cuda)
+    pos[..., :40] = torch.arange(40, dtype=torch.int32, device=cuda)
+    valid = pos >= 0
+    u = lambda: torch.rand((L, B, H, S), generator=gen, device=cuda)  # noqa: E731
+    score = torch.where(valid, u(), 0.0)
+    state = (pos, score, score * u(), torch.where(valid, (u() * 50).floor(), 0.0),
+             torch.where(valid, u() / S, 0.0), torch.rand((L, B, H, 1), generator=gen,
+                                                          device=cuda) * 0.1)
+    per_b = (torch.tensor([241, 241], dtype=torch.int32, device=cuda),
+             torch.tensor([True, True], device=cuda), torch.tensor([True, False], device=cuda),
+             torch.tensor([2.0, 0.0], device=cuda))
+    kw = {}
+    if policy is not None:
+        kw = dict(espec=PolicySpec(policy, PHASE_DECODE, 1, 4, 6, feasible_k=14,
+                                   protect_prompt=True),
+                  evict_gate=torch.tensor([gate, True], device=cuda),
+                  next_pos=torch.tensor([242, 242], dtype=torch.int32, device=cuda),
+                  prompt_len=torch.tensor([40, 40], dtype=torch.int32, device=cuda),
+                  rand_rank=torch.tensor([3, 11], dtype=torch.int32, device=cuda))
+    got = fused_write_update(*[x.clone() for x in state], *per_b, policy, **kw)
+    ref = fused_write_update_plain(*[x.clone() for x in state], *per_b, policy, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_k3_kernel_exact(cuda, Dh):
+    L, B, H, S = 2, 2, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)  # noqa: E731
+    k, v, kn, vn = rnd(L, B, H, S, Dh), rnd(L, B, H, S, Dh), rnd(L, B, H, 1, Dh), \
+        rnd(L, B, H, 1, Dh)
+    slots = torch.randint(0, S, (L, B, H), generator=g, device=cuda, dtype=torch.int32)
+    ka, va = write_rows(k.clone(), v.clone(), kn, vn, slots)
+    kb, vb = write_rows_plain(k.clone(), v.clone(), kn, vn, slots)
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+@pytest.mark.parametrize("policy", ["roco", "tova", "full"])
+def test_decode_kernel_path_matches_plain_path(cuda, policy):
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
+    plain_kernels = mock.patch.multiple(
+        llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
+        fused_write_update=fused_write_update_plain, write_rows=write_rows_plain)
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    st = gen_mod.EngineStatics(cfg=cfg, policy=policy, length=64, budget=8,
+                               max_new_tokens=24, recent_window_dec=2)
+    ids = torch.randint(1, 512, (1, 64), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    plen = torch.tensor([50], dtype=torch.int32, device=cuda)
+    outs = []
+    for plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        with plain_kernels if plain else contextlib.nullcontext():
+            res, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0, gen,
+                                                     torch.float32)
+        outs.append((res.out_ids, cache.pos, res.kv_len))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    if policy != "full":
+        assert int(outs[0][2][0]) - 50 == 8
