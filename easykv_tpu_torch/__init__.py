@@ -4,6 +4,8 @@ It follows easykv_tpu module for module and never imports it (nor JAX):
 the JAX package is the reference the port is held against. Its hot path
 runs hand-written CUDA kernels built from csrc/ at first use; on CPU
 tensors each kernel's plain PyTorch version runs instead.
+`CausalLM(cfg, params, kv_quant=True)` keeps the KV cache in int8 with
+per-slot scales, as the JAX package's compressed-KV mode does.
 
 Public API mirrors the reference (reference easykv/__init__.py:1-2):
     enable_fixed_kv(model, tokenizer, mode, stride)

@@ -8,6 +8,10 @@
     counter — reference easykv.py:242-247) are per-(layer, head, slot) and
     reset at insertion.
 
+  * An int8 cache (`init_cache(..., quantized=True)`) stores K/V as int8
+    with one f32 dequant scale per (layer, batch, head, slot), the JAX
+    package's compressed-KV mode (cache.py:93-140 there).
+
 Unlike the JAX package, whose arrays are immutable, the cache here is
 updated in place: the decode step and the prefill write into the buffers
 they were given, so no step allocates a second multi-GB copy.
@@ -15,17 +19,25 @@ they were given, so no step allocates a second multi-GB copy.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+
+# the scale multiplier as float32, written as a multiply so that it rounds
+# as the JAX package's quantize_kv does (cache.py:124-128 there)
+_INV_127 = float(np.float32(1.0 / 127.0))
 
 
 @dataclasses.dataclass
 class KVCache:
-    """k, v:      (L, B, H_kv, S, D)  compute dtype
+    """k, v:      (L, B, H_kv, S, D)  compute dtype, or int8 (quantized KV)
     pos:       (L, B, H_kv, S) int32   original token position; -1 = invalid
     score:     (L, B, H_kv, S) f32     cumulative attention mass
     score_sq:  (L, B, H_kv, S) f32     cumulative squared attention mass
     counter:   (L, B, H_kv, S) f32     per-slot observation counter
+    k_scale:   (L, B, H_kv, S) f32     per-slot dequant scales of an int8
+    v_scale:                           cache; None for a float cache
 
     `layer(l)` gives the same record for one layer, as views, so writes
     through it land in the stacked buffers."""
@@ -36,9 +48,16 @@ class KVCache:
     score: torch.Tensor
     score_sq: torch.Tensor
     counter: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     def layer(self, l: int) -> "KVCache":
-        return KVCache(*(getattr(self, f.name)[l] for f in dataclasses.fields(self)))
+        return KVCache(*(None if t is None else t[l]
+                         for t in (getattr(self, f.name) for f in dataclasses.fields(self))))
 
 
 def init_cache(
@@ -49,23 +68,47 @@ def init_cache(
     head_dim: int,
     dtype: torch.dtype,
     device: torch.device,
+    quantized: bool = False,
 ) -> KVCache:
+    """quantized=True stores K/V as int8 with per-slot f32 dequant scales:
+    half the K/V bytes of a bf16 cache."""
     shape = (num_layers, batch, num_kv_heads, num_slots)
+    kv_dtype = torch.int8 if quantized else dtype
+
+    def scales():
+        return torch.zeros(shape, dtype=torch.float32, device=device) if quantized else None
+
     return KVCache(
-        k=torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
-        v=torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
+        k=torch.zeros(shape + (head_dim,), dtype=kv_dtype, device=device),
+        v=torch.zeros(shape + (head_dim,), dtype=kv_dtype, device=device),
         pos=torch.full(shape, -1, dtype=torch.int32, device=device),
         score=torch.zeros(shape, dtype=torch.float32, device=device),
         score_sq=torch.zeros(shape, dtype=torch.float32, device=device),
         counter=torch.zeros(shape, dtype=torch.float32, device=device),
+        k_scale=scales(),
+        v_scale=scales(),
     )
 
 
+def quantize_kv(x: torch.Tensor):
+    """Per-row symmetric int8 quantization over the head dim, bit-exact with
+    the JAX package's quantize_kv: scale = max(amax, 1e-8) * f32(1/127);
+    values divided by the scale, rounded half to even, clipped to +-127.
+    x: (..., D) -> (int8 (..., D), scale f32 (...))."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp(min=1e-8) * _INV_127
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
 def kv_dequant(cache: KVCache, dtype: torch.dtype):
-    """(k, v) in compute dtype. The int8 cache waits for its slice; a float
+    """(k, v) in compute dtype, dequantizing if the cache is int8; a float
     cache is returned as it is, as in the JAX package."""
-    if cache.k.dtype == torch.int8:
-        raise NotImplementedError("int8 KV cache: ROADMAP.md open item 7")
+    if cache.quantized:
+        k = cache.k.to(dtype) * cache.k_scale[..., None].to(dtype)
+        v = cache.v.to(dtype) * cache.v_scale[..., None].to(dtype)
+        return k, v
     return cache.k, cache.v
 
 
@@ -92,11 +135,16 @@ def write_tokens_slice(
 ) -> None:
     """Contiguous write of C tokens into slots [start, start+C) of every
     head, in place. Used by the layer-major prefill, whose targets are always
-    virgin slots at the chunk offset (token j -> slot j)."""
+    virgin slots at the chunk offset (token j -> slot j). An int8 cache
+    stores the chunk quantized, with its scales."""
     C = new_k.shape[2]
     sl = slice(start, start + C)
-    cache.k[:, :, sl] = new_k.to(cache.k.dtype)
-    cache.v[:, :, sl] = new_v.to(cache.v.dtype)
+    if cache.quantized:
+        cache.k[:, :, sl], cache.k_scale[:, :, sl] = quantize_kv(new_k)
+        cache.v[:, :, sl], cache.v_scale[:, :, sl] = quantize_kv(new_v)
+    else:
+        cache.k[:, :, sl] = new_k.to(cache.k.dtype)
+        cache.v[:, :, sl] = new_v.to(cache.v.dtype)
     cache.pos[:, :, sl] = new_pos[:, None, :]
     cache.score[:, :, sl] = 0.0
     cache.score_sq[:, :, sl] = 0.0

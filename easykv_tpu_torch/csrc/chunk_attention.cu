@@ -1,0 +1,449 @@
+// C-query chunk attention over the budgeted KV ring buffer, with the
+// per-slot eviction statistics reduced in the same launch.
+//
+// Replaces the TPU kernel easykv_tpu/ops/pallas/chunk_attention.py
+// `fused_chunk_attend`: its 1-pass `_onepass_kernel` (whole logits block in
+// VMEM) and its 2-pass `_flash_kernel` + `_score_kernel` compute one
+// function, and this file computes it once, for a float or an int8 cache
+// (per-slot dequant scales folded into the logits and into p.V, never a
+// dequantized copy), with or without the statistics, with an optional
+// sliding window.
+//
+// For each (batch, kv-head) and each query row r = (rep head i, chunk query
+// c), with pos the slot's token position and qp = q_pos[c] (-1: padding):
+//   logit[r][s] = (q_r . k_s) * D^-1/2 (* k_scale[s]), masked unless
+//                 0 <= pos[s] <= qp (and pos[s] > qp - window);
+//   p[r][s]     = masked ? 0 : exp(logit - m_r) / max(l_r, 1e-30);
+//   out[r]      = sum_s p[r][s] (* v_scale[s]) v_s;
+//   with scores: p_kv[c][s] = mean_i p[(i, c)][s]; ssum[s] = sum_c p_kv,
+//   ssq[s] = sum_c p_kv^2, last[s] = p_kv[C-1][s].
+// A padding row sees no slot: m stays -1e30, l and the accumulator 0, and
+// its out is 0 / 1e-30 = exactly 0 (e is zeroed explicitly, never left to
+// exp underflow).
+//
+// What bounds it on an H100: at the main path's shapes (int8 cache, C=128,
+// LLaMa-2-7B MHA, 512 of 768 slots visible in the last prompt chunk) the
+// launch reads 4.2 MB of int8 K/V rows and does 1.07 GFLOP: 1.3 us of bytes
+// at 3.35 TB/s against 1.1 us of bf16 tensor-core work, so a fast kernel
+// would sit near both limits at once. This first design is a plain fp32
+// CUDA-core kernel, far from either limit:
+//   * one block per (batch, kv-head, tile of 32 query rows); a tile holds
+//     all rep heads of its queries, so the GQA mean of the statistics never
+//     crosses blocks;
+//   * the block walks S in tiles of 64 slots with an online softmax (the
+//     whole 128 x 768 fp32 logits block would need 393 KB of shared memory),
+//     reading each K/V row once per query tile with 16-byte loads and
+//     skipping every tile that no row of the block can see (causal prefill:
+//     a chunk sees only the slots written before it and itself);
+//   * QK^T and PV are the block's own fp32 products in shared memory, 2 x 4
+//     logits and 2 x D/16 outputs per thread; no library call;
+//   * with scores, one block per (batch, kv-head) takes every query tile in
+//     turn and makes a second pass per tile with the row's final m and l,
+//     adding the tile's sums into ssum / ssq in a fixed order: the
+//     statistics are deterministic without atomics. Without scores (the
+//     prefill), the query tiles spread over blocks.
+// Tensor-core products (wgmma) and a TMA ring are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;   // 16 x 16: ty picks rows, tx slots / columns
+constexpr int kRows = 32;       // query rows per tile (rep heads x queries)
+constexpr int kTS = 64;         // slots per S tile
+constexpr int kPS = kTS + 1;    // row stride of the logits tile
+constexpr float kNegInf = -1e30f;
+
+template <int D>
+__host__ __device__ constexpr int row_stride() { return D + 4; }  // 16-byte rows, no conflicts
+
+// 16 bytes at p (16-byte aligned) as floats
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)b[i];
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ bool sees(int p, int qp, int window) {
+  return p >= 0 && p <= qp && (window <= 0 || p > qp - window);
+}
+
+template <int D>
+struct Smem {
+  float* q;      // kRows x RS
+  float* k;      // kTS x RS
+  float* v;      // kTS x RS
+  float* lg;     // kRows x kPS: logits, then e (or p)
+  float* m;      // kRows
+  float* l;      // kRows
+  float* corr;   // kRows
+  int* qp;       // kRows
+  int* pos;      // kTS
+  float* ksc;    // kTS
+  float* vsc;    // kTS
+  __device__ explicit Smem(float* base) {
+    constexpr int RS = row_stride<D>();
+    q = base;
+    k = q + kRows * RS;
+    v = k + kTS * RS;
+    lg = v + kTS * RS;
+    m = lg + kRows * kPS;
+    l = m + kRows;
+    corr = l + kRows;
+    qp = reinterpret_cast<int*>(corr + kRows);
+    pos = qp + kRows;
+    ksc = reinterpret_cast<float*>(pos + kTS);
+    vsc = ksc + kTS;
+  }
+  static constexpr size_t bytes() {
+    return sizeof(float) * ((size_t)(kRows + 2 * kTS) * row_stride<D>() + kRows * kPS +
+                            3 * kRows + 2 * kTS) +
+           sizeof(int) * (kRows + kTS);
+  }
+};
+
+// Loads one S tile's positions (and scales), then the K (and V) rows of the
+// slots some row of the block may see; other rows are zero. Returns false,
+// uniformly, when no slot of the tile is visible to any row.
+template <typename KT, int D>
+__device__ bool load_tile(const Smem<D>& sm, const KT* k, const KT* v, const int* pos,
+                          const float* k_scale, const float* v_scale, size_t kv0, int s0,
+                          int S, int qmax, int qmin, int window, bool with_v) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int VK = 16 / sizeof(KT);
+  constexpr int RS = row_stride<D>();
+  const int tid = threadIdx.x;
+  int any = 0;
+  if (tid < kTS) {
+    const int s = s0 + tid;
+    const int p = s < S ? pos[kv0 + s] : -1;
+    sm.pos[tid] = p;
+    any = p >= 0 && p <= qmax && (window <= 0 || p > qmin - window);
+    if (kQuant) {
+      sm.ksc[tid] = s < S ? k_scale[kv0 + s] : 0.f;
+      sm.vsc[tid] = s < S ? v_scale[kv0 + s] : 0.f;
+    }
+  }
+  if (!__syncthreads_or(any)) return false;
+  for (int idx = tid; idx < kTS * (D / VK); idx += kThreads) {
+    const int sl = idx / (D / VK), part = idx % (D / VK);
+    const int p = sm.pos[sl];
+    const bool ld = s0 + sl < S && p >= 0 && p <= qmax && (window <= 0 || p > qmin - window);
+    float* kd = sm.k + sl * RS + part * VK;
+    float* vd = sm.v + sl * RS + part * VK;
+    const size_t g = (kv0 + s0 + sl) * D + part * VK;
+    if (ld) {
+      load16(k + g, kd);
+      if (with_v) load16(v + g, vd);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VK; ++e) {
+        kd[e] = 0.f;
+        if (with_v) vd[e] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+  return true;
+}
+
+// logits of rows (ty, ty + 16) x slots (tx + 16 j) into sm.lg; a masked
+// entry is -inf (its e is then exactly 0).
+template <bool kQuant, int D>
+__device__ void tile_logits(const Smem<D>& sm, int s0, int S, float scale, int window) {
+  constexpr int RS = row_stride<D>();
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[2][4] = {};
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(sm.q + ty * RS + d);
+    const float4 a1 = *reinterpret_cast<const float4*>(sm.q + (ty + 16) * RS + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(sm.k + (tx + 16 * j) * RS + d);
+      acc[0][j] += a0.x * b.x + a0.y * b.y + a0.z * b.z + a0.w * b.w;
+      acc[1][j] += a1.x * b.x + a1.y * b.y + a1.z * b.z + a1.w * b.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 16 * i;
+    const int qp = sm.qp[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int sl = tx + 16 * j;
+      float x = acc[i][j] * scale;
+      if (kQuant) x *= sm.ksc[sl];
+      sm.lg[r * kPS + sl] = (s0 + sl < S && sees(sm.pos[sl], qp, window)) ? x : -INFINITY;
+    }
+  }
+}
+
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(kThreads)
+chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, const int* __restrict__ pos,
+                    const int* __restrict__ q_pos, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, QT* __restrict__ out,
+                    float* __restrict__ ssum, float* __restrict__ ssq,
+                    float* __restrict__ last, int Hkv, int rep, int C, int S, int tc,
+                    float scale, int window) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int VQ = 16 / sizeof(QT);
+  constexpr int RS = row_stride<D>();
+  constexpr int DJ = D / 64;   // float4 column groups per thread, 64 apart
+  extern __shared__ __align__(16) float smem_f[];
+  const Smem<D> sm(smem_f);
+
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rows = rep * tc;   // row r = i * tc + j: rep head i, query c0 + j
+  const int n_ct = (C + tc - 1) / tc;
+  const bool scores = ssum != nullptr;
+  const size_t kv0 = (size_t)bh * S;
+
+  for (int ct = blockIdx.y; ct < n_ct; ct += gridDim.y) {
+    const int c0 = ct * tc;
+    if (tid < kRows) {
+      int qp = -1;
+      if (tid < rows && c0 + tid % tc < C) qp = q_pos[(size_t)b * C + c0 + tid % tc];
+      sm.qp[tid] = qp;
+      sm.m[tid] = kNegInf;
+      sm.l[tid] = 0.f;
+    }
+    for (int idx = tid; idx < kRows * (D / VQ); idx += kThreads) {
+      const int r = idx / (D / VQ), part = idx % (D / VQ);
+      const int i = r / tc, j = r % tc;
+      float* dst = sm.q + r * RS + part * VQ;
+      if (r < rows && c0 + j < C) {
+        load16(q + (((size_t)bh * rep + i) * C + c0 + j) * D + part * VQ, dst);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VQ; ++e) dst[e] = 0.f;
+      }
+    }
+    __syncthreads();
+    int qmax = -1, qmin = 0x7fffffff;
+    for (int r = 0; r < kRows; ++r) {
+      const int p = sm.qp[r];
+      if (p >= 0) {
+        qmax = max(qmax, p);
+        qmin = min(qmin, p);
+      }
+    }
+
+    // pass 1: online softmax and out
+    float acc[2][4 * DJ] = {};
+    for (int s0 = 0; s0 < S; s0 += kTS) {
+      if (!load_tile<KT, D>(sm, k, v, pos, k_scale, v_scale, kv0, s0, S, qmax, qmin, window,
+                            true))
+        continue;
+      tile_logits<kQuant, D>(sm, s0, S, scale, window);
+      __syncthreads();
+      for (int r = warp; r < kRows; r += kThreads / 32) {
+        float* lr = sm.lg + r * kPS;
+        const float x0 = lr[lane], x1 = lr[lane + 32];
+        const float m_old = sm.m[r];
+        const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+        float e0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
+        float e1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
+        const float sum = warp_sum(e0 + e1);
+        if (kQuant) {
+          e0 *= sm.vsc[lane];
+          e1 *= sm.vsc[lane + 32];
+        }
+        lr[lane] = e0;
+        lr[lane + 32] = e1;
+        __syncwarp();
+        if (lane == 0) {
+          const float c = expf(m_old - m_new);
+          sm.l[r] = sm.l[r] * c + sum;
+          sm.m[r] = m_new;
+          sm.corr[r] = c;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float c = sm.corr[ty + 16 * i];
+#pragma unroll
+        for (int e = 0; e < 4 * DJ; ++e) acc[i][e] *= c;
+      }
+      for (int sl = 0; sl < kTS; ++sl) {
+        const float p0 = sm.lg[ty * kPS + sl], p1 = sm.lg[(ty + 16) * kPS + sl];
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj) {
+          const float4 w = *reinterpret_cast<const float4*>(sm.v + sl * RS + tx * 4 + 64 * jj);
+          acc[0][4 * jj + 0] += p0 * w.x; acc[0][4 * jj + 1] += p0 * w.y;
+          acc[0][4 * jj + 2] += p0 * w.z; acc[0][4 * jj + 3] += p0 * w.w;
+          acc[1][4 * jj + 0] += p1 * w.x; acc[1][4 * jj + 1] += p1 * w.y;
+          acc[1][4 * jj + 2] += p1 * w.z; acc[1][4 * jj + 3] += p1 * w.w;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = ty + 16 * i;
+      const int ri = r / tc, j = r % tc;
+      if (r < rows && c0 + j < C) {
+        const float denom = fmaxf(sm.l[r], 1e-30f);
+        QT* o = out + (((size_t)bh * rep + ri) * C + c0 + j) * D;
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[tx * 4 + 64 * jj + e] = from_f<QT>(acc[i][4 * jj + e] / denom);
+      }
+    }
+
+    // pass 2 (scores): exact p with the final m, l; GQA mean; chunk sums
+    if (scores) {
+      for (int s0 = 0; s0 < S; s0 += kTS) {
+        if (!load_tile<KT, D>(sm, k, v, pos, k_scale, v_scale, kv0, s0, S, qmax, qmin,
+                              window, false))
+          continue;
+        tile_logits<kQuant, D>(sm, s0, S, scale, window);
+        __syncthreads();
+        for (int r = warp; r < kRows; r += kThreads / 32) {
+          float* lr = sm.lg + r * kPS;
+          const float m = sm.m[r], denom = fmaxf(sm.l[r], 1e-30f);
+          const float x0 = lr[lane], x1 = lr[lane + 32];
+          lr[lane] = x0 == -INFINITY ? 0.f : expf(x0 - m) / denom;
+          lr[lane + 32] = x1 == -INFINITY ? 0.f : expf(x1 - m) / denom;
+        }
+        __syncthreads();
+        if (tid < kTS && s0 + tid < S) {
+          float sum = 0.f, sq = 0.f;
+          for (int j = 0; j < tc && c0 + j < C; ++j) {
+            float pk = 0.f;
+            for (int i = 0; i < rep; ++i) pk += sm.lg[(i * tc + j) * kPS + tid];
+            pk = pk / (float)rep;
+            sum += pk;
+            sq += pk * pk;
+            if (c0 + j == C - 1) last[kv0 + s0 + tid] = pk;
+          }
+          ssum[kv0 + s0 + tid] += sum;
+          ssq[kv0 + s0 + tid] += sq;
+        }
+        __syncthreads();
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename QT, typename KT, int D>
+int launch(const void* q, const void* k, const void* v, const int* pos, const int* q_pos,
+           const float* k_scale, const float* v_scale, void* out, float* ssum, float* ssq,
+           float* last, int B, int Hkv, int rep, int C, int S, float scale, int window,
+           cudaStream_t stream) {
+  if (rep < 1 || rep > kRows || C < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (std::is_same<KT, int8_t>::value && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int tc = kRows / rep;
+  const int n_ct = (C + tc - 1) / tc;
+  const size_t smem = Smem<D>::bytes();
+  auto kernel = chunk_attend_kernel<QT, KT, D>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B * Hkv, ssum != nullptr ? 1 : n_ct);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const QT*)q, (const KT*)k, (const KT*)v, pos, q_pos, k_scale, v_scale, (QT*)out, ssum,
+      ssq, last, Hkv, rep, C, S, tc, scale, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT, typename KT>
+int launch_d(int D, const void* q, const void* k, const void* v, const int* pos,
+             const int* q_pos, const float* k_scale, const float* v_scale, void* out,
+             float* ssum, float* ssq, float* last, int B, int Hkv, int rep, int C, int S,
+             float scale, int window, cudaStream_t st) {
+  if (D == 64)
+    return launch<QT, KT, 64>(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, B,
+                              Hkv, rep, C, S, scale, window, st);
+  if (D == 128)
+    return launch<QT, KT, 128>(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last,
+                               B, Hkv, rep, C, S, scale, window, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one launch needs at head_dim D (64 or 128), bytes.
+size_t chunk_attend_smem(int D) {
+  if (D == 64) return Smem<64>::bytes();
+  if (D == 128) return Smem<128>::bytes();
+  return 0;
+}
+
+// q: (B, Hkv*rep, C, D), q_dtype 0 = float32, 1 = bfloat16; k, v: (B, Hkv,
+// S, D) in q's type, or int8 (kv_int8 = 1) with k_scale, v_scale (B, Hkv, S)
+// f32. ssum, ssq, last: (B, Hkv, S) f32 zero-filled, or all null for no
+// statistics. window <= 0: no sliding window. Every pointer of q, k, v is
+// 16-byte aligned. Returns cudaGetLastError().
+int chunk_attend(const void* q, const void* k, const void* v, const int* pos, const int* q_pos,
+                 const float* k_scale, const float* v_scale, void* out, float* ssum, float* ssq,
+                 float* last, int B, int Hkv, int rep, int C, int S, int D, float scale,
+                 int window, int q_dtype, int kv_int8, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (q_dtype == 0 && kv_int8)
+    return launch_d<float, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
+                                   last, B, Hkv, rep, C, S, scale, window, st);
+  if (q_dtype == 0)
+    return launch_d<float, float>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
+                                  last, B, Hkv, rep, C, S, scale, window, st);
+  if (q_dtype == 1 && kv_int8)
+    return launch_d<__nv_bfloat16, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out,
+                                           ssum, ssq, last, B, Hkv, rep, C, S, scale, window,
+                                           st);
+  if (q_dtype == 1)
+    return launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, pos, q_pos, k_scale, v_scale,
+                                                  out, ssum, ssq, last, B, Hkv, rep, C, S,
+                                                  scale, window, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

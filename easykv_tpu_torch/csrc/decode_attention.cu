@@ -4,14 +4,15 @@
 //
 // Replaces the TPU kernel easykv_tpu/ops/pallas/decode_attention.py
 // `fused_decode_attend_inflight` (body `_kernel_inflight`), non-streaming,
-// float KV, optional sliding window.
+// float or int8 KV, optional sliding window.
 //
 // What bounds it on an H100: bytes. Each launch reads the K and V rows of
 // one layer's visible slots once (11.7 MB at LLaMa-2-7B width with 712 of
-// 768 slots visible, bf16) and does 4*B*Hq*S*D flops, ~0.5 flop per byte,
-// far below the card's balance point. The design:
+// 768 slots visible, bf16; half that for an int8 cache) and does
+// 4*B*Hq*S*D flops, ~0.5 flop per byte (1 for int8), far below the card's
+// balance point. The design:
 //   * reads each visible K and V row exactly once, with 16-byte loads
-//     (a row of D=128 bf16 is 16 lanes' loads), and skips the rows of
+//     (a row of D=128 is 16 lanes' loads in bf16, 8 in int8), and skips the rows of
 //     masked slots, whose probability is exactly 0;
 //   * keeps many rows in flight per SM (each warp loads kUnroll rows of K,
 //     each thread kUnroll rows of V, before it uses any), since one block
@@ -24,15 +25,21 @@
 //
 // Per block:
 //   1. q's rep rows go to shared memory as fp32;
-//   2. logits: dot(q_r, k_s) * scale for every visible slot s and row r,
-//      -inf for a masked slot (pos < 0, pos > q_pos, outside the window);
+//   2. logits: dot(q_r, k_s) * scale (* k_scale[s] for int8 K) for every
+//      visible slot s and row r, -inf for a masked slot (pos < 0,
+//      pos > q_pos, outside the window);
 //   3. per r: m = max(-1e30, logits, logit_new); e = exp(l - m); denom =
 //      max(sum e + e_new, 1e-30); p = e / denom; p_new = e_new / denom;
-//   4. out[r] = sum_s p[r][s] * v[s] + p_new[r] * vn (fp32 accumulation);
+//   4. out[r] = sum_s p[r][s] (* v_scale[s]) * v[s] + p_new[r] * vn (fp32
+//      accumulation; the int8 cache is never dequantized into a copy, and
+//      the in-flight vn stays in q's type);
 //   5. probs[s] = mean_r p[r][s], p_new = mean_r p_new[r].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,6 +64,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)b[i];
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -94,15 +107,19 @@ __device__ float block_reduce(float x, float* red) {
   return x;
 }
 
-template <typename T>
+// T: the type of q, kn, vn and out; KV: the cache's type (T, or int8 with
+// per-slot scales ksc / vsc).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                              const T* __restrict__ vn, const T* __restrict__ k,
-                              const T* __restrict__ v, const int* __restrict__ pos,
-                              const int* __restrict__ q_pos, T* __restrict__ out,
+                              const T* __restrict__ vn, const KV* __restrict__ k,
+                              const KV* __restrict__ v, const int* __restrict__ pos,
+                              const int* __restrict__ q_pos, const float* __restrict__ ksc,
+                              const float* __restrict__ vsc, T* __restrict__ out,
                               float* __restrict__ probs, float* __restrict__ p_new,
                               int Hkv, int rep, int S, int D, float scale, int window) {
-  constexpr int V = VecOf<T>::n;   // elements per 16-byte load
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int V = VecOf<KV>::n;  // cache elements per 16-byte load
   extern __shared__ float smem[];
   const int LPR = D / V;           // lanes per row (a power of two <= 32)
   const int G = kThreads / LPR;    // row groups in the PV pass
@@ -118,8 +135,8 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int qp = q_pos[b];
   const bool live = qp >= 0;
   const size_t row0 = (size_t)bh * S;
-  const T* kb = k + row0 * D;
-  const T* vb = v + row0 * D;
+  const KV* kb = k + row0 * D;
+  const KV* vb = v + row0 * D;
   const int* pb = pos + row0;
 
   for (int i = tid; i < rep * D; i += kThreads) qs[i] = to_f(q[(size_t)bh * rep * D + i]);
@@ -161,7 +178,11 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
           for (int j = 0; j < V; ++j) acc += qr[j] * kr[u][j];
           for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
           const int s = base + u * rpw + sub;
-          if (li == 0 && s < S) lg[r * S + s] = vis[u] ? acc * scale : -INFINITY;
+          if (li == 0 && s < S) {
+            float x = acc * scale;
+            if (kQuant) x *= ksc[row0 + s];
+            lg[r * S + s] = vis[u] ? x : -INFINITY;
+          }
         }
       }
     }
@@ -215,6 +236,7 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
         const int s = base + u * G;
         w[u] = s < S ? pr[s] : 0.f;
         if (w[u] != 0.f) {
+          if (kQuant) w[u] *= vsc[row0 + s];
           load16(vb + (size_t)s * D + li * V, vr[u]);
         } else {
 #pragma unroll
@@ -240,34 +262,36 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-template <typename T>
+template <typename KV>
 size_t smem_bytes(int rep, int S, int D) {
-  const int G = kThreads / (D / VecOf<T>::n);
+  const int G = kThreads / (D / VecOf<KV>::n);
   return sizeof(float) * ((size_t)rep * D + (size_t)rep * S + rep + kWarps + (size_t)G * D);
 }
 
-template <typename T>
+template <typename KV>
 bool shape_ok(int D) {
-  const int lpr = D / VecOf<T>::n;
-  return D % VecOf<T>::n == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
+  const int lpr = D / VecOf<KV>::n;
+  return D % VecOf<KV>::n == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* kn, const void* vn, const void* k, const void* v,
-           const int* pos, const int* q_pos, void* out, float* probs, float* p_new,
-           int B, int Hkv, int rep, int S, int D, float scale, int window,
-           cudaStream_t stream) {
-  if (!shape_ok<T>(D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(rep, S, D);
-  auto kernel = decode_attend_inflight_kernel<T>;
+           const int* pos, const int* q_pos, const float* ksc, const float* vsc, void* out,
+           float* probs, float* p_new, int B, int Hkv, int rep, int S, int D, float scale,
+           int window, cudaStream_t stream) {
+  if (!shape_ok<KV>(D)) return (int)cudaErrorInvalidValue;
+  if (std::is_same<KV, int8_t>::value && (ksc == nullptr || vsc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<KV>(rep, S, D);
+  auto kernel = decode_attend_inflight_kernel<T, KV>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<B * Hkv, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kn, (const T*)vn, (const T*)k, (const T*)v, pos, q_pos,
-      (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
+      (const T*)q, (const T*)kn, (const T*)vn, (const KV*)k, (const KV*)v, pos, q_pos, ksc,
+      vsc, (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
   return (int)cudaGetLastError();
 }
 
@@ -276,28 +300,40 @@ int launch(const void* q, const void* kn, const void* vn, const void* k, const v
 extern "C" {
 
 // Dynamic shared memory one launch needs, in bytes; 0 if D is not supported
-// (a row must be 1..32 sixteen-byte loads, a power of two).
-// dtype: 0 = float32, 1 = bfloat16.
-size_t decode_attend_inflight_smem(int rep, int S, int D, int dtype) {
+// (a cache row must be 1..32 sixteen-byte loads, a power of two).
+// dtype: 0 = float32, 1 = bfloat16; kv_int8: 1 for an int8 cache.
+size_t decode_attend_inflight_smem(int rep, int S, int D, int dtype, int kv_int8) {
+  if (kv_int8) return shape_ok<int8_t>(D) ? smem_bytes<int8_t>(rep, S, D) : 0;
   if (dtype == 0) return shape_ok<float>(D) ? smem_bytes<float>(rep, S, D) : 0;
   if (dtype == 1)
     return shape_ok<__nv_bfloat16>(D) ? smem_bytes<__nv_bfloat16>(rep, S, D) : 0;
   return 0;
 }
 
-// q, kn, vn, k, v and out share `dtype`; every pointer is 16-byte aligned.
+// q, kn, vn and out share `dtype`; k and v too, unless kv_int8 = 1: then
+// they are int8 with per-slot dequant scales k_scale, v_scale (B, Hkv, S)
+// f32 (null otherwise). Every pointer of q..v is 16-byte aligned.
 // window <= 0: no sliding window. Returns cudaGetLastError().
 int decode_attend_inflight(const void* q, const void* kn, const void* vn, const void* k,
-                           const void* v, const int* pos, const int* q_pos, void* out,
+                           const void* v, const int* pos, const int* q_pos,
+                           const float* k_scale, const float* v_scale, void* out,
                            float* probs, float* p_new, int B, int Hkv, int rep, int S,
-                           int D, float scale, int window, int dtype, void* stream) {
+                           int D, float scale, int window, int dtype, int kv_int8,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && kv_int8)
+    return launch<float, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, out, probs,
+                                 p_new, B, Hkv, rep, S, D, scale, window, st);
   if (dtype == 0)
-    return launch<float>(q, kn, vn, k, v, pos, q_pos, out, probs, p_new, B, Hkv, rep, S, D,
-                         scale, window, st);
+    return launch<float, float>(q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, out, probs,
+                                p_new, B, Hkv, rep, S, D, scale, window, st);
+  if (dtype == 1 && kv_int8)
+    return launch<__nv_bfloat16, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, out,
+                                         probs, p_new, B, Hkv, rep, S, D, scale, window, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kn, vn, k, v, pos, q_pos, out, probs, p_new, B, Hkv,
-                                 rep, S, D, scale, window, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, kn, vn, k, v, pos, q_pos, nullptr,
+                                                nullptr, out, probs, p_new, B, Hkv, rep, S,
+                                                D, scale, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,13 +3,17 @@
 //
 // Replaces the TPU kernel easykv_tpu/ops/pallas/sidecar_update.py
 // `fused_write_update` (body `_write_kernel`, victim selection
-// `_select_victim`), decode phase, k = 1, no compaction, no int8 scale rows.
+// `_select_victim`), decode phase, k = 1, no compaction, with or without the
+// int8 cache's dequant-scale rows.
 //
 // For each (layer, batch, kv-head) row of S slots:
 //   1. write slot = first slot with pos < 0 (slot 0 if the row is full);
 //   2. score / score_sq update from this step's probabilities per policy
 //      (h2o_head and roco accumulate, tova overwrites), under update_gate;
 //   3. when the row is live: the new token's sidecars at the write slot;
+//      with an int8 cache, whether live or not (as the TPU kernel does: a
+//      dead row's slot keeps pos < 0, so its bytes are inert): the new
+//      token's K and V dequant scales at the write slot, in place;
 //   4. when evict_gate fires: counter += 1 on every slot, victim selection
 //      (h2o_head / tova: first minimum score; recency: oldest position;
 //      random: the slot at age rank rand_rank; roco: the lowest mean score
@@ -18,7 +22,10 @@
 //
 // What bounds it on an H100: bytes. The pass reads pos, score, score_sq,
 // counter and probs and writes the first four back: 36 bytes a slot, 28 MB
-// per step at LLaMa-2-7B width and S=768. One block per row keeps the
+// per step at LLaMa-2-7B width and S=768. The scale rows cost 16 bytes a
+// row, not a slot: the TPU kernel rewrites both (S,) rows in VMEM, here the
+// two new scales are stored at the slot and the rest of each row is never
+// touched (the same result, since the update is in place). One block per row keeps the
 // row's five arrays in shared memory, so the 31 bisection rounds and the
 // minimum searches re-read nothing from device memory; every reduction is
 // a block reduction. The arithmetic is the plain version's, op by op, and
@@ -126,6 +133,8 @@ write_update_kernel(int* __restrict__ pos_g, float* __restrict__ score_g,
                     const float* __restrict__ counter_init,
                     const uint8_t* __restrict__ evict_gate, const int* __restrict__ next_pos,
                     const int* __restrict__ prompt_len, const int* __restrict__ rand_rank,
+                    const float* __restrict__ k_sc_new, const float* __restrict__ v_sc_new,
+                    float* __restrict__ k_scale, float* __restrict__ v_scale,
                     int* __restrict__ slot_out, int B, int H, int S, int policy, int evict,
                     int recent_window, int feasible_k, int protect_prompt) {
   extern __shared__ unsigned char smem_raw[];
@@ -172,6 +181,10 @@ write_update_kernel(int* __restrict__ pos_g, float* __restrict__ score_g,
   const int slot = first_free < S ? first_free : 0;
   if (tid == 0) {
     slot_out[row] = slot;
+    if (k_scale != nullptr) {
+      k_scale[off + slot] = k_sc_new[row];
+      v_scale[off + slot] = v_sc_new[row];
+    }
     if (live) {
       float s_new = 0.f, sq_new = 0.f;
       if (policy == kH2O || policy == kRoco || policy == kTova) s_new = pn * gf;
@@ -256,12 +269,16 @@ size_t write_update_smem(int S) { return (size_t)5 * 4 * S; }
 
 // policy: 0 none (full), 1 h2o_head, 2 roco, 3 tova, 4 recency, 5 random.
 // evict = 0 skips step 4 (evict_gate .. rand_rank may then be null).
-// Updates pos / score / score_sq / counter in place. Returns cudaGetLastError().
+// k_sc_new, v_sc_new (L, B, H, 1) and k_scale, v_scale (L, B, H, S): the
+// int8 cache's scale rows, or all null for a float cache.
+// Updates pos / score / score_sq / counter (and the scale rows) in place.
+// Returns cudaGetLastError().
 int write_update(int* pos, float* score, float* score_sq, float* counter, const float* probs,
                  const float* p_new, const int* q_pos, const uint8_t* token_valid,
                  const uint8_t* update_gate, const float* counter_init,
                  const uint8_t* evict_gate, const int* next_pos, const int* prompt_len,
-                 const int* rand_rank, int* slot_out, int L, int B, int H, int S,
+                 const int* rand_rank, const float* k_sc_new, const float* v_sc_new,
+                 float* k_scale, float* v_scale, int* slot_out, int L, int B, int H, int S,
                  int policy, int evict, int recent_window, int feasible_k,
                  int protect_prompt, void* stream) {
   const size_t smem = write_update_smem(S);
@@ -272,7 +289,8 @@ int write_update(int* pos, float* score, float* score_sq, float* counter, const 
   }
   write_update_kernel<<<L * B * H, kThreads, smem, (cudaStream_t)stream>>>(
       pos, score, score_sq, counter, probs, p_new, q_pos, token_valid, update_gate,
-      counter_init, evict_gate, next_pos, prompt_len, rand_rank, slot_out, B, H, S,
+      counter_init, evict_gate, next_pos, prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale,
+      v_scale, slot_out, B, H, S,
       policy, evict, recent_window, feasible_k, protect_prompt);
   return (int)cudaGetLastError();
 }

@@ -53,6 +53,7 @@ class EngineStatics:
     eos_token_ids: Tuple[int, ...] = ()
     temp_length: int = 4
     recent_window_dec: int = 0  # decode-phase recent window (the 0.3 quirk)
+    kv_quant: bool = False      # int8 KV cache with per-slot scales
 
     def decode_spec(self) -> Optional[PolicySpec]:
         if self.policy == "full":
@@ -206,7 +207,7 @@ def _engine_cache(st: EngineStatics, B: int, S: int, dtype: torch.dtype,
     S = _round_up(S, 128)
     c = st.cfg
     return init_cache(c.num_hidden_layers, B, c.num_key_value_heads, S, c.head_dim,
-                      dtype=dtype, device=device)
+                      dtype=dtype, device=device, quantized=st.kv_quant)
 
 
 @torch.no_grad()
@@ -234,16 +235,18 @@ class CausalLM:
     """Model wrapper binding config and parameters (and a tokenizer).
 
     The model runs on `device`: the card unless the caller asks for another
-    (device="cpu"); without a card and without a device it raises. The KV
-    cache and the activations take the parameters' dtype."""
+    (device="cpu"); without a card and without a device it raises. The
+    activations take the parameters' dtype, and so does the KV cache unless
+    kv_quant=True: then K/V are int8 with per-slot f32 scales."""
 
     def __init__(self, cfg: ModelConfig, params: LlamaParams, tokenizer=None,
-                 device=None):
+                 device=None, kv_quant: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params.to(self.device)
         self.tokenizer = tokenizer
         self.dtype = self.params.embed.dtype
+        self.kv_quant = kv_quant
         self.last_run: Optional[RunStats] = None
 
     # bound by enable_fixed_kv:
@@ -317,6 +320,7 @@ def generate(
         max_new_tokens=gc.max_new_tokens, eos_token_ids=tuple(eos),
         temp_length=gc.temp_length,
         recent_window_dec=int(b * 0.3),  # reference easykv.py:308 quirk
+        kv_quant=model.kv_quant,
     )
     dev = model.device
     ids_pad = np.zeros((B, P_pad), np.int32)

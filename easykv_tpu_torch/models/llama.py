@@ -6,9 +6,12 @@ Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
 module (the JAX tree stacks them over a leading L axis). Projections stay
 `torch.matmul`, as the JAX package leaves them to XLA. The decode step
-always runs the three CUDA kernels of the slice: decode attention per layer
-(K1), then one sidecar pass with the folded eviction (K2) and one K/V row
-write (K3) for all layers; on CPU tensors each wrapper runs its plain
+always runs three CUDA kernels: decode attention per layer (K1), then one
+sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
+all layers. With an int8 cache the prompt prefill's attention is the chunk
+kernel (K5), as the JAX package's default `auto` chunk-kernel mode has it
+(llama.py:150-169 there); a float cache keeps the plain `attend`, which the
+JAX package leaves to XLA. On CPU tensors each wrapper runs its plain
 version.
 """
 from __future__ import annotations
@@ -19,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cache import KVCache, kv_dequant, write_tokens_slice
+from ..cache import KVCache, quantize_kv, write_tokens_slice
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
+from ..ops.cuda.chunk_attention import fused_chunk_attend
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import fused_write_update
@@ -155,8 +159,9 @@ def prefill_layer_major(
     """Layer-major no-eviction prefill: one whole-width QKV/MLP matmul per
     layer; attention and the cache writes go chunk by chunk. Token j lands in
     slot j of the empty cache (write_tokens_slice); padding tokens write
-    pos = -1, so their slots stay invalid. Fills `cache` in place and returns
-    h (B, A_pad, D) before the final norm."""
+    pos = -1, so their slots stay invalid. An int8 cache is attended by K5
+    over its own int8 rows and scales, the chunk's tokens included. Fills
+    `cache` in place and returns h (B, A_pad, D) before the final norm."""
     B, T = token_ids.shape
     n, _, C = q_pos.shape
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -176,9 +181,13 @@ def prefill_layer_major(
             sl = slice(c * C, (c + 1) * C)
             write_tokens_slice(cl, k[:, :, sl], v[:, :, sl], q_pos[c],
                                counter_init[c], c * C)
-            k_raw, v_raw = kv_dequant(cl, q.dtype)
-            out, _ = attend(q[:, :, sl], k_raw, v_raw, cl.pos, q_pos[c],
-                            sliding_window=cfg.sliding_window, scale=scale)
+            if cl.quantized:
+                out, _, _, _ = fused_chunk_attend(
+                    q[:, :, sl].contiguous(), cl.k, cl.v, cl.pos, q_pos[c], cl.k_scale,
+                    cl.v_scale, need_scores=False, sliding_window=cfg.sliding_window)
+            else:
+                out, _ = attend(q[:, :, sl], cl.k, cl.v, cl.pos, q_pos[c],
+                                sliding_window=cfg.sliding_window, scale=scale)
             outs.append(out)
         h = _attn_block(h, p, cfg, torch.cat(outs, dim=2))
     return h
@@ -214,7 +223,9 @@ def _decode_forward(
     token's K/V joins each layer's softmax in flight (K1); after the layers
     one sidecar pass picks every (layer, head)'s write slot, updates the
     scores and applies the step's gated eviction (K2); one launch then writes
-    the K/V rows (K3). Updates `cache` in place and returns logits
+    the K/V rows (K3). An int8 cache folds its scales into K1; the step's
+    rows are quantized once after the layers, K2 writes their scales and K3
+    their int8 bytes. Updates `cache` in place and returns logits
     (B, 1, V) f32."""
     B = token_ids.shape[0]
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -230,8 +241,9 @@ def _decode_forward(
         q, k, v = _proj_qkv(x, p, B, 1, Hq, Hkv, Dh)
         q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
         v = v.contiguous()
+        scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
         out, probs, p_new = fused_decode_attend_inflight(
-            q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b,
+            q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
             sliding_window=cfg.sliding_window)
         h = _attn_block(h, p, cfg, out)
         kn_all.append(kn_att)
@@ -241,15 +253,22 @@ def _decode_forward(
 
     probs = torch.stack(probs_all)                              # (L, B, Hkv, S)
     p_new = torch.stack(pnew_all)                               # (L, B, Hkv, 1)
-    espec = {} if spec is None else dict(
+    kn = torch.stack(kn_all)                                    # (L, B, Hkv, 1, Dh)
+    vn = torch.stack(vn_all)
+    ekw = {} if spec is None else dict(
         espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
         prompt_len=ctx.prompt_len, rand_rank=ctx.rand_rank)
-    _, _, _, _, slots = fused_write_update(
+    if cache.quantized:
+        kn, k_sc = quantize_kv(kn)
+        vn, v_sc = quantize_kv(vn)
+        ekw.update(k_sc_new=k_sc, v_sc_new=v_sc, k_scale=cache.k_scale,
+                   v_scale=cache.v_scale)
+    else:
+        kn, vn = kn.to(cache.k.dtype), vn.to(cache.v.dtype)
+    slots = fused_write_update(
         cache.pos, cache.score, cache.score_sq, cache.counter, probs, p_new,
         q_pos_b, ctx.token_valid[:, 0].contiguous(), ctx.update_gate,
         ctx.counter_init[:, 0].contiguous(), None if spec is None else spec.policy,
-        **espec)
-    kn = torch.stack(kn_all).to(cache.k.dtype)                  # (L, B, Hkv, 1, Dh)
-    vn = torch.stack(vn_all).to(cache.v.dtype)
+        **ekw)[4]
     write_rows(cache.k, cache.v, kn, vn, slots[..., 0].contiguous())
     return _logits_tail(h, params, cfg)

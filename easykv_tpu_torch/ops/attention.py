@@ -66,6 +66,8 @@ def attend_inflight(
     v: torch.Tensor,         # (B, Hkv, S, D)
     kv_pos: torch.Tensor,    # (B, Hkv, S) int32, -1 = invalid slot
     q_pos: torch.Tensor,     # (B,) int32, -1 = dead row
+    k_scale: Optional[torch.Tensor] = None,  # (B, Hkv, S) f32: k, v are int8
+    v_scale: Optional[torch.Tensor] = None,
     *,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
@@ -75,7 +77,9 @@ def attend_inflight(
 
     Returns (out (B, Hq, 1, D), probs_kv (B, Hkv, 1, S), p_new (B, Hkv, 1)):
     probs_kv covers the cached slots, p_new is the GQA-mean probability of
-    the in-flight token."""
+    the in-flight token. With scales (an int8 cache) the dequantization
+    folds into the logits and into p, in float32, as in the TPU kernel
+    (decode_attention.py:171-197 of the JAX package)."""
     B, Hq, T, D = q.shape
     if T != 1:
         raise ValueError(f"attend_inflight takes one query token, got {T}")
@@ -86,6 +90,8 @@ def attend_inflight(
 
     qg = q.reshape(B, Hkv, rep, D).to(torch.float32)
     logits = torch.einsum("bhrd,bhsd->bhrs", qg, k.to(torch.float32)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
     logit_new = torch.einsum("bhrd,bhsd->bhrs", qg, k_new.to(torch.float32)) * scale
 
     qp = q_pos[:, None, None]                                # (B, 1, 1)
@@ -104,8 +110,12 @@ def attend_inflight(
     p = e / denom                                            # (B, Hkv, rep, S)
     p_new = e_new / denom                                    # (B, Hkv, rep, 1)
 
-    out = (torch.einsum("bhrs,bhsd->bhrd", p.to(v.dtype).to(torch.float32),
-                        v.to(torch.float32))
-           + (p_new.to(v.dtype) * v_new).to(torch.float32))
+    if v_scale is None:
+        out = (torch.einsum("bhrs,bhsd->bhrd", p.to(v.dtype).to(torch.float32),
+                            v.to(torch.float32))
+               + (p_new.to(v.dtype) * v_new).to(torch.float32))
+    else:
+        out = (torch.einsum("bhrs,bhsd->bhrd", p * v_scale[:, :, None, :], v.to(torch.float32))
+               + p_new * v_new.to(torch.float32))
     out = out.to(v_new.dtype).reshape(B, Hq, 1, D)
     return out, p.mean(dim=2)[:, :, None, :], p_new.mean(dim=2)

@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the decode path, one wrapper module each,
-with the plain PyTorch version beside every wrapper."""
+"""Hand-written CUDA kernels of the decode path and of the int8-cache
+prefill, one wrapper module each, with the plain PyTorch version beside
+every wrapper."""

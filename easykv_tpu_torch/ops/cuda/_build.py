@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
-SOURCES = ("decode_attention", "sidecar_update", "row_write")
+SOURCES = ("decode_attention", "sidecar_update", "row_write", "chunk_attention")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,139 @@
+"""C-query chunk attention over the ring buffer, with the per-slot score
+statistics (kernel K5).
+
+CUDA kernel: easykv_tpu_torch/csrc/chunk_attention.cu, which replaces the
+TPU kernel easykv_tpu/ops/pallas/chunk_attention.py `fused_chunk_attend`:
+both of its variants, the 1-pass `_onepass_kernel` and the 2-pass
+`_flash_kernel` + `_score_kernel`, compute one function, and the CUDA design
+computes it once. The source note says what bounds it and what its design
+does about that.
+
+`fused_chunk_attend` launches the kernel for CUDA tensors and runs
+`fused_chunk_attend_plain` for CPU tensors. The plain version repeats the
+TPU kernel's arithmetic in float32: logits = (q . k) * D^-1/2 (* k_scale),
+a masked softmax whose masked entries are exactly 0, out = (p (* v_scale))
+. v cast to q's dtype, and with need_scores the GQA mean of p over the rep
+query heads of each KV head, summed over the chunk (ssum), summed squared
+(ssq), and its row C-1 (last).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..attention import NEG_INF
+from . import _build
+
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_REP = 32   # query heads per KV head that one block's 32 query rows hold
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "chunk_attend": ([_vp] * 11 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
+    "chunk_attend_smem": ([_int], ctypes.c_size_t),
+}
+
+
+def fused_chunk_attend_plain(
+    q, k, v, kv_pos, q_pos, k_scale=None, v_scale=None, *,
+    need_scores: bool = True, sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel; same arguments and results."""
+    B, Hq, C, D = q.shape
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    qg = q.reshape(B, Hkv, rep, C, D).to(torch.float32)
+    logits = torch.einsum("bhrcd,bhsd->bhrcs", qg, k.to(torch.float32)) * D ** -0.5
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :]
+    kp = kv_pos[:, :, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if sliding_window is not None:
+        mask &= kp > qp - sliding_window
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(logits - m), 0.0)
+    p = e / e.sum(dim=-1, keepdim=True).clamp(min=1e-30)     # (B, Hkv, rep, C, S)
+    pv = p if v_scale is None else p * v_scale[:, :, None, None, :]
+    out = torch.einsum("bhrcs,bhsd->bhrcd", pv, v.to(torch.float32))
+    out = out.to(q.dtype).reshape(B, Hq, C, D)
+    if not need_scores:
+        return out, None, None, None
+    p_kv = p.mean(dim=2)                                     # (B, Hkv, C, S)
+    return out, p_kv.sum(dim=2), (p_kv * p_kv).sum(dim=2), p_kv[:, :, C - 1]
+
+
+def fused_chunk_attend(
+    q: torch.Tensor,         # (B, Hq, C, D) compute dtype, rotated
+    k: torch.Tensor,         # (B, Hkv, S, D) q's dtype, or int8 with scales
+    v: torch.Tensor,         # (B, Hkv, S, D)
+    kv_pos: torch.Tensor,    # (B, Hkv, S) int32, -1 = invalid slot
+    q_pos: torch.Tensor,     # (B, C) int32, -1 = padding query
+    k_scale: Optional[torch.Tensor] = None,  # (B, Hkv, S) f32 (int8 K/V)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    need_scores: bool = True,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Returns (out (B, Hq, C, D) in q's dtype, ssum, ssq, last (B, Hkv, S)
+    f32); the three statistics are None without need_scores. Padding query
+    rows give an out of exactly 0."""
+    if q.device.type == "cpu":
+        return fused_chunk_attend_plain(q, k, v, kv_pos, q_pos, k_scale, v_scale,
+                                        need_scores=need_scores,
+                                        sliding_window=sliding_window)
+    B, Hq, C, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if Hq % Hkv != 0 or not 1 <= Hq // Hkv <= MAX_REP:
+        raise ValueError(f"chunk attention takes 1..{MAX_REP} query heads per KV head, "
+                         f"got Hq={Hq} Hkv={Hkv}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"chunk attention takes float32 or bfloat16 queries, got {q.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"chunk attention takes head_dim 64 or 128, got {D}")
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 K/V come with k_scale and v_scale; a float cache with neither")
+    checks = [("k", k, k.dtype if quant else q.dtype, (B, Hkv, S, D)),
+              ("v", v, k.dtype, (B, Hkv, S, D)),
+              ("kv_pos", kv_pos, torch.int32, (B, Hkv, S)),
+              ("q_pos", q_pos, torch.int32, (B, C))]
+    if quant:
+        checks += [("k_scale", k_scale, torch.float32, (B, Hkv, S)),
+                   ("v_scale", v_scale, torch.float32, (B, Hkv, S))]
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+    tensors = [q] + [c[1] for c in checks]
+    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("chunk attention takes contiguous tensors on one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    lib = _build.load("chunk_attention", SIGNATURES)
+    smem = lib.chunk_attend_smem(D)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory "
+                         f"(limit {_build.SMEM_LIMIT})")
+
+    out = torch.empty_like(q)
+    stats = [torch.zeros((B, Hkv, S), dtype=torch.float32, device=q.device)
+             for _ in range(3)] if need_scores else [None] * 3
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    window = 0 if sliding_window is None else int(sliding_window)
+    err = lib.chunk_attend(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+        ptr(k_scale), ptr(v_scale), out.data_ptr(), *map(ptr, stats),
+        B, Hkv, Hq // Hkv, C, S, D, D ** -0.5, window, _Q_DTYPES[q.dtype], int(quant),
+        _build.stream_of(q))
+    _build.check(err, "chunk_attend")
+    fused_chunk_attend.launches += 1
+    return (out, *stats)
+
+
+fused_chunk_attend.launches = 0

@@ -10,6 +10,8 @@ the plain version, ops.attention.attend_inflight, for CPU tensors. The
 kernel keeps p in fp32 through the PV product, as the TPU kernel does; the
 plain version rounds p to the cache dtype first, as the JAX package's XLA
 path does, so with a bf16 cache the two differ by bf16 rounding of `out`.
+With an int8 cache both fold the per-slot scales in fp32 as the TPU kernel
+does (k_scale into the logits, v_scale into p) and agree to fp32 rounding.
 """
 from __future__ import annotations
 
@@ -27,9 +29,9 @@ fused_decode_attend_inflight_plain = attend_inflight
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "decode_attend_inflight": ([_vp] * 10 + [_int] * 5 + [ctypes.c_float, _int, _int, _vp],
+    "decode_attend_inflight": ([_vp] * 12 + [_int] * 5 + [ctypes.c_float] + [_int] * 3 + [_vp],
                                _int),
-    "decode_attend_inflight_smem": ([_int, _int, _int, _int], ctypes.c_size_t),
+    "decode_attend_inflight_smem": ([_int] * 5, ctypes.c_size_t),
 }
 
 
@@ -37,17 +39,20 @@ def fused_decode_attend_inflight(
     q: torch.Tensor,        # (B, Hq, 1, D) rotated
     k_new: torch.Tensor,    # (B, Hkv, 1, D) rotated, not yet cached
     v_new: torch.Tensor,    # (B, Hkv, 1, D)
-    k: torch.Tensor,        # (B, Hkv, S, D)
+    k: torch.Tensor,        # (B, Hkv, S, D) q's dtype, or int8 with scales
     v: torch.Tensor,        # (B, Hkv, S, D)
     kv_pos: torch.Tensor,   # (B, Hkv, S) int32
     q_pos: torch.Tensor,    # (B,) int32, -1 = dead row
+    k_scale: Optional[torch.Tensor] = None,  # (B, Hkv, S) f32 (int8 K/V)
+    v_scale: Optional[torch.Tensor] = None,
     *,
     sliding_window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out (B, Hq, 1, D) in q's dtype, probs (B, Hkv, 1, S) f32,
-    p_new (B, Hkv, 1) f32); see ops.attention.attend_inflight."""
+    p_new (B, Hkv, 1) f32); see ops.attention.attend_inflight. The
+    in-flight k_new / v_new are in q's dtype whatever the cache's."""
     if q.device.type == "cpu":
-        return attend_inflight(q, k_new, v_new, k, v, kv_pos, q_pos,
+        return attend_inflight(q, k_new, v_new, k, v, kv_pos, q_pos, k_scale, v_scale,
                                sliding_window=sliding_window)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -55,22 +60,27 @@ def fused_decode_attend_inflight(
         raise ValueError(f"bad decode shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"decode attention takes float32 or bfloat16, got {q.dtype}")
-    for name, t, shape in (("k_new", k_new, (B, Hkv, 1, D)), ("v_new", v_new, (B, Hkv, 1, D)),
-                           ("k", k, (B, Hkv, S, D)), ("v", v, (B, Hkv, S, D))):
-        if t.dtype != q.dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {q.dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-    if kv_pos.dtype != torch.int32 or tuple(kv_pos.shape) != (B, Hkv, S):
-        raise ValueError("kv_pos must be int32 (B, Hkv, S)")
-    if q_pos.dtype != torch.int32 or tuple(q_pos.shape) != (B,):
-        raise ValueError("q_pos must be int32 (B,)")
-    tensors = (q, k_new, v_new, k, v, kv_pos, q_pos)
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 K/V come with k_scale and v_scale; a float cache with neither")
+    kv_dtype = torch.int8 if quant else q.dtype
+    checks = [("k_new", k_new, q.dtype, (B, Hkv, 1, D)), ("v_new", v_new, q.dtype, (B, Hkv, 1, D)),
+              ("k", k, kv_dtype, (B, Hkv, S, D)), ("v", v, kv_dtype, (B, Hkv, S, D)),
+              ("kv_pos", kv_pos, torch.int32, (B, Hkv, S)), ("q_pos", q_pos, torch.int32, (B,))]
+    if quant:
+        checks += [("k_scale", k_scale, torch.float32, (B, Hkv, S)),
+                   ("v_scale", v_scale, torch.float32, (B, Hkv, S))]
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+    tensors = [q] + [c[1] for c in checks]
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("decode attention takes contiguous tensors on one device")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k and v must be 16-byte aligned")
     rep = Hq // Hkv
     lib = _build.load("decode_attention", SIGNATURES)
-    smem = lib.decode_attend_inflight_smem(rep, S, D, _DTYPES[q.dtype])
+    smem = lib.decode_attend_inflight_smem(rep, S, D, _DTYPES[q.dtype], int(quant))
     if smem == 0:
         raise ValueError(f"head_dim {D}: a row must be 1, 2, 4, 8, 16 or 32 16-byte loads")
     if smem > _build.SMEM_LIMIT:
@@ -83,8 +93,9 @@ def fused_decode_attend_inflight(
     window = 0 if sliding_window is None else int(sliding_window)
     err = lib.decode_attend_inflight(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), probs.data_ptr(),
-        p_new.data_ptr(), B, Hkv, rep, S, D, D ** -0.5, window, _DTYPES[q.dtype],
+        kv_pos.data_ptr(), q_pos.data_ptr(), k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None, out.data_ptr(), probs.data_ptr(),
+        p_new.data_ptr(), B, Hkv, rep, S, D, D ** -0.5, window, _DTYPES[q.dtype], int(quant),
         _build.stream_of(q))
     _build.check(err, "decode_attend_inflight")
     fused_decode_attend_inflight.launches += 1

@@ -6,7 +6,9 @@ launch latency; the source note says why and what the design does.
 
 `write_rows` launches the kernel for CUDA tensors and runs
 `write_rows_plain` (one advanced-index assignment per buffer) for CPU
-tensors. Rows are written unconditionally, as in the JAX package.
+tensors. Rows are written unconditionally, as in the JAX package. The copy
+is byte-wise, so an int8 cache's rows (quantized by the caller) take the
+same kernel; their scales are K2's to write.
 """
 from __future__ import annotations
 

@@ -2,15 +2,15 @@
 
 CUDA kernel: easykv_tpu_torch/csrc/sidecar_update.cu, which replaces the
 TPU kernel easykv_tpu/ops/pallas/sidecar_update.py `fused_write_update`
-(decode phase, k = 1, no compaction, no int8 scale rows). It is bound by
-the 36 bytes a slot it reads and writes; the source note says what its
-design does about that.
+(decode phase, k = 1, no compaction; with an int8 cache it also writes the
+new rows' dequant scales). It is bound by the 36 bytes a slot it reads and
+writes; the source note says what its design does about that.
 
 `fused_write_update` launches the kernel for CUDA tensors and runs
 `fused_write_update_plain` for CPU tensors. The plain version repeats the
 TPU kernel's arithmetic op by op (`_first_min_idx`, `_kth_smallest_bits`,
 `_select_victim`, `_write_kernel`), so the kernel is held to it bit for bit.
-Both update pos / score / score_sq / counter in place.
+Both update pos / score / score_sq / counter (and the scale rows) in place.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ POLICY_CODES = {None: 0, "full": 0, "h2o_head": 1, "roco": 2, "tova": 3,
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "write_update": ([_vp] * 15 + [_int] * 9 + [_vp], _int),
+    "write_update": ([_vp] * 19 + [_int] * 9 + [_vp], _int),
     "write_update_smem": ([_int], ctypes.c_size_t),
 }
 
@@ -101,7 +101,8 @@ def fused_write_update_plain(
     pos, score, score_sq, counter, probs, p_new, q_pos, token_valid,
     update_gate, counter_init, policy: Optional[str],
     espec: Optional[PolicySpec] = None, evict_gate=None, next_pos=None,
-    prompt_len=None, rand_rank=None,
+    prompt_len=None, rand_rank=None, k_sc_new=None, v_sc_new=None, k_scale=None,
+    v_scale=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel; same arguments and results."""
     _check_espec(espec)
@@ -128,6 +129,10 @@ def fused_write_update_plain(
         s_new = pn * gf
 
     iota = torch.arange(S, dtype=torch.int32, device=pos.device)
+    if k_scale is not None:
+        # unconditional, as in the TPU kernel: a dead row's slot keeps pos < 0
+        k_scale.copy_(torch.where(iota == slot, k_sc_new, k_scale))
+        v_scale.copy_(torch.where(iota == slot, v_sc_new, v_scale))
     at_slot = (iota == slot) & per_b(token_valid)
     new_pos = torch.where(at_slot, per_b(q_pos), pos)
     new_cnt = torch.where(at_slot, per_b(counter_init), counter)
@@ -146,6 +151,8 @@ def fused_write_update_plain(
     score.copy_(sc)
     score_sq.copy_(sq)
     counter.copy_(new_cnt)
+    if k_scale is not None:
+        return pos, score, score_sq, counter, slot, k_scale, v_scale
     return pos, score, score_sq, counter, slot
 
 
@@ -166,15 +173,21 @@ def fused_write_update(
     next_pos: Optional[torch.Tensor] = None,    # (B,) int32
     prompt_len: Optional[torch.Tensor] = None,  # (B,) int32
     rand_rank: Optional[torch.Tensor] = None,   # (B,) int32
+    k_sc_new: Optional[torch.Tensor] = None,    # (L, B, H, 1) f32 new rows' K
+    v_sc_new: Optional[torch.Tensor] = None,    # and V dequant scales (int8 KV)
+    k_scale: Optional[torch.Tensor] = None,     # (L, B, H, S) f32, updated
+    v_scale: Optional[torch.Tensor] = None,     # in place
 ) -> Tuple[torch.Tensor, ...]:
     """Slot select, score update, new-row sidecar write and (with espec) the
     gated eviction, in place. Returns (pos, score, score_sq, counter,
-    write_slot (L, B, H, 1) int32); pos and counter are post-eviction."""
+    write_slot (L, B, H, 1) int32), then (k_scale, v_scale) when the scale
+    rows are given; pos and counter are post-eviction. The new scales land
+    at the write slot whether or not the row is live."""
     if pos.device.type == "cpu":
         return fused_write_update_plain(
             pos, score, score_sq, counter, probs, p_new, q_pos, token_valid,
             update_gate, counter_init, policy, espec, evict_gate, next_pos,
-            prompt_len, rand_rank)
+            prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale, v_scale)
     _check_espec(espec)
     L, B, H, S = pos.shape
     full = (L, B, H, S)
@@ -186,6 +199,13 @@ def fused_write_update(
     if espec is not None:
         checks += [(evict_gate, torch.bool, (B,)), (next_pos, torch.int32, (B,)),
                    (prompt_len, torch.int32, (B,)), (rand_rank, torch.int32, (B,))]
+    scales = (k_sc_new, v_sc_new, k_scale, v_scale)
+    with_scales = k_scale is not None
+    if any((t is None) == with_scales for t in scales):
+        raise ValueError("scale rows: pass all of k_sc_new, v_sc_new, k_scale, v_scale or none")
+    if with_scales:
+        checks += [(k_sc_new, torch.float32, (L, B, H, 1)), (v_sc_new, torch.float32, (L, B, H, 1)),
+                   (k_scale, torch.float32, full), (v_scale, torch.float32, full)]
     for t, dtype, shape in checks:
         if (t.dtype != dtype or tuple(t.shape) != shape or t.device != pos.device
                 or not t.is_contiguous()):
@@ -201,17 +221,22 @@ def fused_write_update(
 
     slot = torch.empty((L, B, H, 1), dtype=torch.int32, device=pos.device)
     ev = espec is not None
-    ptr = lambda t: t.data_ptr() if ev else None  # noqa: E731
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = lib.write_update(
         pos.data_ptr(), score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(),
         probs.data_ptr(), p_new.data_ptr(), q_pos.data_ptr(), token_valid.data_ptr(),
         update_gate.data_ptr(), counter_init.data_ptr(), ptr(evict_gate), ptr(next_pos),
-        ptr(prompt_len), ptr(rand_rank), slot.data_ptr(), L, B, H, S,
+        ptr(prompt_len), ptr(rand_rank), *map(ptr, scales), slot.data_ptr(), L, B, H, S,
         POLICY_CODES[policy], int(ev), espec.recent_window if ev else 0,
         max(espec.feasible_k, 1) if ev else 1, int(bool(espec.protect_prompt)) if ev else 0,
         _build.stream_of(pos))
     _build.check(err, "write_update")
     fused_write_update.launches += 1
+    if with_scales:
+        return pos, score, score_sq, counter, slot, k_scale, v_scale
     return pos, score, score_sq, counter, slot
 
 

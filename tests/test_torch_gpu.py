@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version on the same CUDA tensors, and the decode path with the
-kernels against the same path with the plain versions. Marked `gpu`; on a
-machine without a CUDA device every test skips (the fixture decides).
+PyTorch version on the same CUDA tensors (float and int8 caches), and the
+decode path with the kernels against the same path with the plain versions.
+Marked `gpu`; on a machine without a CUDA device every test skips (the
+fixture decides).
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -13,8 +14,10 @@ from unittest import mock
 import pytest
 import torch
 
+from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.llama import init_params
+from easykv_tpu_torch.ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_attend_plain
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows, write_rows_plain
@@ -30,6 +33,15 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _out_ok(got, ref):
+    """bf16: the two sides' fp32 results round to the same or adjacent bf16
+    values, one bf16 ulp of the reference value plus 1e-3; f32: 1e-5."""
+    err = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        return bool((err <= (1e-3 + 2**-7 * ref.float().abs()).clamp(max=1e-2)).all())
+    return err.max().item() <= 1e-5
 
 
 def _positions(B, H, S, n_valid, gen):
@@ -65,9 +77,82 @@ def test_k1_kernel_matches_plain(cuda, dtype, Hq, Hkv, q_pos, window):
     torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,q_pos,window", [
+    (8, 8, (200, 230), None), (8, 2, (200, 230), None), (8, 4, (200, -1), None),
+    (8, 2, (200, 230), 50)])
+def test_k1_int8_kernel_matches_plain(cuda, dtype, Hq, Hkv, q_pos, window):
+    B, S, D = 2, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    (k, ks), (v, vs) = quantize_kv(rnd(B, Hkv, S, D)), quantize_kv(rnd(B, Hkv, S, D))
+    args = (rnd(B, Hq, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype),
+            k, v, _positions(B, Hkv, S, 220, torch.Generator().manual_seed(3)).to(cuda),
+            torch.tensor(q_pos, dtype=torch.int32, device=cuda), ks, vs)
+    before = fused_decode_attend_inflight.launches
+    got = fused_decode_attend_inflight(*args, sliding_window=window)
+    ref = fused_decode_attend_inflight_plain(*args, sliding_window=window)
+    assert fused_decode_attend_inflight.launches == before + 1
+    assert _out_ok(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+    if q_pos[-1] < 0:
+        assert (got[0][1] == 0).all() and (got[1][1] == 0).all()
+
+
+def _k5_args(cuda, B, Hq, Hkv, S, n_valid, dtype, quant, pad, seed, C=128, D=128):
+    """The prefill's chunk at n_valid: slots [0, n_valid) hold positions
+    0..n_valid-1, the queries sit at n_valid-C .. n_valid-1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    pos = torch.full((B, Hkv, S), -1, dtype=torch.int32, device=cuda)
+    pos[..., :n_valid] = torch.arange(n_valid, dtype=torch.int32, device=cuda)
+    pos[..., 5:n_valid - C:11] = -1                      # evicted slots
+    q_pos = torch.arange(n_valid - C, n_valid, dtype=torch.int32, device=cuda).repeat(B, 1)
+    if pad:
+        q_pos[-1, C - 9:] = -1
+    k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    q = rnd(B, Hq, C, D).to(dtype)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return q, k, v, pos, q_pos, ks, vs
+    return q, k.to(dtype), v.to(dtype), pos, q_pos
+
+
+@pytest.mark.parametrize("S", [256, 768])
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("scores,Hkv,pad,window", [
+    (False, 8, False, None), (True, 8, False, None), (True, 2, True, None),
+    (True, 8, False, 100)], ids=["prefill", "scores", "gqa-padding", "window"])
+def test_k5_kernel_matches_plain(cuda, S, kv, scores, Hkv, pad, window):
+    args = _k5_args(cuda, 2, 8, Hkv, S, S * 2 // 3, torch.bfloat16, kv == "int8", pad, S)
+    before = fused_chunk_attend.launches
+    got = fused_chunk_attend(*args, need_scores=scores, sliding_window=window)
+    ref = fused_chunk_attend_plain(*args, need_scores=scores, sliding_window=window)
+    assert fused_chunk_attend.launches == before + 1
+    assert _out_ok(got[0], ref[0])
+    if pad:
+        assert (got[0][-1, :, -9:] == 0).all()
+    if scores:
+        for a, b in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    else:
+        assert got[1:] == (None, None, None)
+
+
+@pytest.mark.parametrize("kv", ["int8", "f32"])
+def test_k5_f32_kernel_matches_plain(cuda, kv):
+    args = _k5_args(cuda, 1, 8, 4, 512, 400, torch.float32, kv == "int8", True, 5)
+    got = fused_chunk_attend(*args)
+    ref = fused_chunk_attend_plain(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
 @pytest.mark.parametrize("gate", [True, False])
 @pytest.mark.parametrize("policy", [None, "h2o_head", "tova", "roco", "recency", "random"])
-def test_k2_kernel_bit_exact(cuda, policy, gate):
+def test_k2_kernel_bit_exact(cuda, policy, gate, scale_rows):
     L, B, H, S = 2, 2, 4, 256
     gen = torch.Generator(device=cuda).manual_seed(1)
     pos = torch.stack([_positions(B, H, S, 200, torch.Generator().manual_seed(l))
@@ -90,8 +175,16 @@ def test_k2_kernel_bit_exact(cuda, policy, gate):
                   next_pos=torch.tensor([242, 242], dtype=torch.int32, device=cuda),
                   prompt_len=torch.tensor([40, 40], dtype=torch.int32, device=cuda),
                   rand_rank=torch.tensor([3, 11], dtype=torch.int32, device=cuda))
-    got = fused_write_update(*[x.clone() for x in state], *per_b, policy, **kw)
-    ref = fused_write_update_plain(*[x.clone() for x in state], *per_b, policy, **kw)
+    scales = ()
+    if scale_rows:
+        scales = (torch.rand((L, B, H, 1), generator=gen, device=cuda),
+                  torch.rand((L, B, H, 1), generator=gen, device=cuda), u(), u())
+    names = ("k_sc_new", "v_sc_new", "k_scale", "v_scale")
+    got = fused_write_update(*[x.clone() for x in state], *per_b, policy, **kw,
+                             **{n: x.clone() for n, x in zip(names, scales)})
+    ref = fused_write_update_plain(*[x.clone() for x in state], *per_b, policy, **kw,
+                                   **{n: x.clone() for n, x in zip(names, scales)})
+    assert len(got) == len(ref) == (7 if scale_rows else 5)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -109,18 +202,34 @@ def test_k3_kernel_exact(cuda, Dh):
     assert torch.equal(ka, kb) and torch.equal(va, vb)
 
 
-@pytest.mark.parametrize("policy", ["roco", "tova", "full"])
-def test_decode_kernel_path_matches_plain_path(cuda, policy):
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_k3_int8_kernel_exact(cuda, Dh):
+    L, B, H, S = 2, 2, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(4)
+    rnd = lambda *s: torch.randint(-127, 128, s, generator=g, device=cuda,  # noqa: E731
+                                   dtype=torch.int8)
+    k, v, kn, vn = rnd(L, B, H, S, Dh), rnd(L, B, H, S, Dh), rnd(L, B, H, 1, Dh), \
+        rnd(L, B, H, 1, Dh)
+    slots = torch.randint(0, S, (L, B, H), generator=g, device=cuda, dtype=torch.int32)
+    ka, va = write_rows(k.clone(), v.clone(), kn, vn, slots)
+    kb, vb = write_rows_plain(k.clone(), v.clone(), kn, vn, slots)
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+def _decode_paths(cuda, policy, kv_quant):
+    """(out_ids, final pos, kv_len) of a small decode run with the kernels
+    and with every kernel swapped for its plain version."""
     gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
     llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
     plain_kernels = mock.patch.multiple(
         llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
-        fused_write_update=fused_write_update_plain, write_rows=write_rows_plain)
+        fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+        fused_chunk_attend=fused_chunk_attend_plain)
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
     st = gen_mod.EngineStatics(cfg=cfg, policy=policy, length=64, budget=8,
-                               max_new_tokens=24, recent_window_dec=2)
+                               max_new_tokens=24, recent_window_dec=2, kv_quant=kv_quant)
     ids = torch.randint(1, 512, (1, 64), generator=torch.Generator().manual_seed(0),
                         dtype=torch.int32).to(cuda)
     plen = torch.tensor([50], dtype=torch.int32, device=cuda)
@@ -131,6 +240,23 @@ def test_decode_kernel_path_matches_plain_path(cuda, policy):
             res, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0, gen,
                                                      torch.float32)
         outs.append((res.out_ids, cache.pos, res.kv_len))
+    return outs
+
+
+@pytest.mark.parametrize("policy", ["roco", "tova", "full"])
+def test_decode_kernel_path_matches_plain_path(cuda, policy):
+    outs = _decode_paths(cuda, policy, False)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    if policy != "full":
+        assert int(outs[0][2][0]) - 50 == 8
+
+
+@pytest.mark.parametrize("policy", ["roco", "full"])
+def test_int8_decode_kernel_path_matches_plain_path(cuda, policy):
+    before = fused_chunk_attend.launches
+    outs = _decode_paths(cuda, policy, True)
+    assert fused_chunk_attend.launches == before + 2      # one prefill chunk per layer
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
     if policy != "full":

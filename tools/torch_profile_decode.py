@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port spends its time, on one CUDA card.
 
-Builds LLaMa-2-7B-width weights on the card from a seed (bf16, bf16 KV),
-prefills a 512-token prompt, and decodes with roco at budget 200 (the
-chip_smoke.py main path, whose model, prompt length and budget it imports)
-for budget + STEPS_PAST_BUDGET tokens, once untraced and once under
-torch.profiler. Prints the host-clock time per step of both, the
+Builds LLaMa-2-7B-width weights on the card from a seed (bf16), prefills a
+512-token prompt, and decodes with roco at budget 200 (the chip_smoke.py
+main path, whose model, prompt length and budget it imports) for budget +
+STEPS_PAST_BUDGET tokens, once untraced and once under torch.profiler,
+with a bf16 KV cache and then with an int8 one. Prints, for each, the
+host-clock time per step of both runs, the
 device time per step (sum of kernel durations), the device's idle share
 while traced, the kernels that take most device time, and the PyTorch ops
 that take most host time (self CPU time under the tracer, which inflates
@@ -47,9 +48,10 @@ def main():
                         dtype=torch.int32).to(dev)
     plen = torch.full((1,), P, dtype=torch.int32, device=dev)
 
-    def prefilled(n_new):
+    def prefilled(n_new, kv_quant):
         st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=P, budget=budget,
-                                   max_new_tokens=n_new, recent_window_dec=int(budget * 0.3))
+                                   max_new_tokens=n_new, recent_window_dec=int(budget * 0.3),
+                                   kv_quant=kv_quant)
         cache = gen_mod._engine_cache(st, 1, P + budget + 1, torch.bfloat16, dev)
         last = gen_mod._prefill(st, params, cache, ids, plen)
         torch.cuda.synchronize()
@@ -63,34 +65,36 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    decode(*prefilled(8))                    # build + warm-up
+    res = {"card": smi, "layers": cfg.num_hidden_layers}
     # eviction runs in every step from budget + 1 on; the traced decode
     # covers budget + steps tokens, the untraced one the same
     n_steps = budget + STEPS_PAST_BUDGET
-    base_s = decode(*prefilled(n_steps))
-    state = prefilled(n_steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec_s = decode(*state)
-    kernels = {}
-    busy_us = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t = e.time_range.elapsed_us()
-            busy_us += t
-            kernels[e.name] = kernels.get(e.name, 0.0) + t
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:12]
-    res = {
-        "card": smi, "layers": cfg.num_hidden_layers, "decode_steps": n_steps,
-        "untraced_ms_per_step": base_s / n_steps * 1e3,
-        "traced_ms_per_step": dec_s / n_steps * 1e3,
-        "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
-        "device_idle_share_traced": 1 - (busy_us / 1e6) / dec_s,
-        "top_kernels_device_ms_per_step": {k: v / 1e3 / n_steps for k, v in top},
-        "top_host_ops_traced_ms_and_calls_per_step": {
-            k: [t / 1e3 / n_steps, c / n_steps] for k, t, c in host},
-    }
+    res["decode_steps"] = n_steps
+    for kv_quant in (False, True):
+        decode(*prefilled(8, kv_quant))          # build + warm-up
+        base_s = decode(*prefilled(n_steps, kv_quant))
+        state = prefilled(n_steps, kv_quant)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dec_s = decode(*state)
+        kernels = {}
+        busy_us = 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t = e.time_range.elapsed_us()
+                busy_us += t
+                kernels[e.name] = kernels.get(e.name, 0.0) + t
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+        host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:12]
+        res["int8 KV" if kv_quant else "bf16 KV"] = {
+            "untraced_ms_per_step": base_s / n_steps * 1e3,
+            "traced_ms_per_step": dec_s / n_steps * 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+            "device_idle_share_traced": 1 - (busy_us / 1e6) / dec_s,
+            "top_kernels_device_ms_per_step": {k: v / 1e3 / n_steps for k, v in top},
+            "top_host_ops_traced_ms_and_calls_per_step": {
+                k: [t / 1e3 / n_steps, c / n_steps] for k, t, c in host},
+        }
     print(json.dumps(res, indent=1))
 
 
