@@ -10,6 +10,8 @@ per-slot scales, as the JAX package's compressed-KV mode does.
 Public API mirrors the reference (reference easykv/__init__.py:1-2):
     enable_fixed_kv(model, tokenizer, mode, stride)
     set_dynamicntk_rope_length(model, max_length)
+and `generate(model, ids, config, kv_mode=...)` runs the kv_modes decoding,
+encoding (the default), auto, encoding_decoding and ppl.
 """
 from .config import GenerationConfig, ModelConfig, canonical_policy
 from .engine.generate import (
@@ -17,6 +19,8 @@ from .engine.generate import (
     enable_fixed_kv,
     generate,
     set_dynamicntk_rope_length,
+    stride_align,
+    stride_align_encdec,
 )
 
 __version__ = "0.1.0"
@@ -29,4 +33,6 @@ __all__ = [
     "enable_fixed_kv",
     "generate",
     "set_dynamicntk_rope_length",
+    "stride_align",
+    "stride_align_encdec",
 ]

@@ -8,6 +8,10 @@
     counter — reference easykv.py:242-247) are per-(layer, head, slot) and
     reset at insertion.
 
+  * The encoding family writes each strided chunk into caller-given slots
+    per head (write_tokens_at): contiguous while the cache fills, the
+    previous eviction's slots afterwards.
+
   * An int8 cache (`init_cache(..., quantized=True)`) stores K/V as int8
     with one f32 dequant scale per (layer, batch, head, slot), the JAX
     package's compressed-KV mode (cache.py:93-140 there).
@@ -149,3 +153,49 @@ def write_tokens_slice(
     cache.score[:, :, sl] = 0.0
     cache.score_sq[:, :, sl] = 0.0
     cache.counter[:, :, sl] = counter_init[:, None, :]
+
+
+def write_tokens_at(
+    cache: KVCache,              # one layer: k (B, H, S, D), pos (B, H, S)
+    new_k: torch.Tensor,         # (B, H, C, D)
+    new_v: torch.Tensor,         # (B, H, C, D)
+    new_pos: torch.Tensor,       # (B, C) int32
+    counter_init: torch.Tensor,  # (B, C) f32, any sign
+    ids: torch.Tensor,           # (B, H, C) int32 distinct target slots per head
+) -> None:
+    """Write C tokens at caller-given slots, in place (all tokens valid):
+    the row (quantized with its scale in an int8 cache), pos, the initial
+    counter, and zero scores. Equal to both write_tokens_at and
+    write_tokens_dense of the JAX package. Also the plain version of the
+    write half of K6 (ops/cuda/chunk_attention.py)."""
+    B, H, C, _ = new_k.shape
+    dev = new_k.device
+    idx = (torch.arange(B, device=dev)[:, None, None],
+           torch.arange(H, device=dev)[None, :, None], ids.long())
+    if cache.quantized:
+        qk, k_sc = quantize_kv(new_k)
+        qv, v_sc = quantize_kv(new_v)
+        cache.k_scale[idx] = k_sc
+        cache.v_scale[idx] = v_sc
+    else:
+        qk, qv = new_k.to(cache.k.dtype), new_v.to(cache.v.dtype)
+    cache.k[idx] = qk
+    cache.v[idx] = qv
+    zeros = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
+    cache.pos[idx] = new_pos[:, None, :].expand(B, H, C)
+    cache.score[idx] = zeros
+    cache.score_sq[idx] = zeros
+    cache.counter[idx] = counter_init[:, None, :].expand(B, H, C)
+
+
+def evict_slots(cache: KVCache, evict_ids: torch.Tensor,
+                gate: Optional[torch.Tensor] = None) -> None:
+    """Invalidate per-(B, H) slots, in place: pos = -1 at evict_ids (B, H,
+    k); rows whose gate (B,) is off are untouched. The K/V data stays; the
+    next write reuses the slots (reference truncate_kv_cache_silo,
+    easykv.py:56-82, as a validity change)."""
+    ids = evict_ids.long()
+    new = torch.full(ids.shape, -1, dtype=cache.pos.dtype, device=ids.device)
+    if gate is not None:
+        new = torch.where(gate[:, None, None], new, cache.pos.gather(-1, ids))
+    cache.pos.scatter_(-1, ids, new)

@@ -37,12 +37,36 @@
 //     a chunk sees only the slots written before it and itself);
 //   * QK^T and PV are the block's own fp32 products in shared memory, 2 x 4
 //     logits and 2 x D/16 outputs per thread; no library call;
-//   * with scores, one block per (batch, kv-head) takes every query tile in
-//     turn and makes a second pass per tile with the row's final m and l,
-//     adding the tile's sums into ssum / ssq in a fixed order: the
-//     statistics are deterministic without atomics. Without scores (the
-//     prefill), the query tiles spread over blocks.
+//   * with scores, the attention launch also stores each row's final m and
+//     l, and a second launch, one block per (batch, kv-head, tile of 64
+//     slots), loads its K rows once and takes every query tile in turn:
+//     exact p from the row's m and l, the GQA mean, and the tile's sums
+//     added into ssum / ssq in query-tile order. Each block owns its slots,
+//     so the statistics are deterministic without atomics, and the launch
+//     spreads over B * Hkv * S / 64 blocks (1152 at the strided encode's
+//     S = 2304 with 32 heads).
 // Tensor-core products (wgmma) and a TMA ring are later work.
+//
+// K6, the strided encode's chunk write + attend: `chunk_write_attend`
+// replaces the TPU kernel `fused_chunk_write_attend` (its 1-pass
+// `_wa_kernel`, its S-tiled `_wa_flash_kernel` and the `_score_kernel`
+// second pass): it writes the chunk's C rows per kv-head into caller-given
+// slots, then computes K5's function over the UPDATED cache. On the TPU the
+// fusion saves a whole-block HBM round trip (a Pallas block is copied in and
+// out whole); here the cache is updated in place and the write touches only
+// C rows per head, so one C call launches a row-write kernel and then K5's
+// attention and statistics launches on the same stream (the statistics read
+// the K rows a second time), which are the code K5 already holds to its plain
+// version. The row write is one warp per (batch, kv-head, chunk row, K or
+// V): an int8 cache gets the row quantized in the kernel, bit-exact with
+// quantize_kv (scale = fmaxf(amax, 1e-8) * f32(1/127), values divided by it
+// with IEEE division, rounded half to even, clipped to +-127), and its
+// scale; a float cache gets the row as it is. The K warp also writes the
+// slot's sidecars: pos = q_pos, counter = counter_init exactly (negative
+// initial counters too: the TPU kernel's max-based pick clamps them to 0,
+// the XLA path and this kernel do not), score = score_sq = 0. Its bytes (C
+// rows per head) are ~1/20 of the attention's at the encode shapes; the
+// attention half bounds the call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -157,7 +181,7 @@ __device__ bool load_tile(const Smem<D>& sm, const KT* k, const KT* v, const int
     any = p >= 0 && p <= qmax && (window <= 0 || p > qmin - window);
     if (kQuant) {
       sm.ksc[tid] = s < S ? k_scale[kv0 + s] : 0.f;
-      sm.vsc[tid] = s < S ? v_scale[kv0 + s] : 0.f;
+      if (with_v) sm.vsc[tid] = s < S ? v_scale[kv0 + s] : 0.f;
     }
   }
   if (!__syncthreads_or(any)) return false;
@@ -215,17 +239,58 @@ __device__ void tile_logits(const Smem<D>& sm, int s0, int S, float scale, int w
   }
 }
 
+// Query tile c0 of (batch b, kv-head bh): row r = i * tc + j (rep head i,
+// query c0 + j) gets its q row, its position (-1: padding or past the
+// chunk) and, from ml (null: the online softmax's start), its final m and l.
+// Ends in a barrier; returns the tile's (qmax, qmin) over real rows.
+template <typename QT, int D>
+__device__ int2 load_queries(const Smem<D>& sm, const QT* q, const int* q_pos, const float* ml,
+                             int bh, int b, int rep, int C, int c0, int tc) {
+  constexpr int VQ = 16 / sizeof(QT);
+  constexpr int RS = row_stride<D>();
+  const int tid = threadIdx.x, rows = rep * tc;
+  if (tid < kRows) {
+    const int i = tid / tc, j = tid % tc;
+    const bool real = tid < rows && c0 + j < C;
+    const size_t at = (((size_t)bh * rep + i) * C + c0 + j) * 2;
+    sm.qp[tid] = real ? q_pos[(size_t)b * C + c0 + j] : -1;
+    sm.m[tid] = real && ml != nullptr ? ml[at] : kNegInf;
+    sm.l[tid] = real && ml != nullptr ? ml[at + 1] : 0.f;
+  }
+  for (int idx = tid; idx < kRows * (D / VQ); idx += kThreads) {
+    const int r = idx / (D / VQ), part = idx % (D / VQ);
+    const int i = r / tc, j = r % tc;
+    float* dst = sm.q + r * RS + part * VQ;
+    if (r < rows && c0 + j < C) {
+      load16(q + (((size_t)bh * rep + i) * C + c0 + j) * D + part * VQ, dst);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VQ; ++e) dst[e] = 0.f;
+    }
+  }
+  __syncthreads();
+  int qmax = -1, qmin = 0x7fffffff;
+  for (int r = 0; r < kRows; ++r) {
+    const int p = sm.qp[r];
+    if (p >= 0) {
+      qmax = max(qmax, p);
+      qmin = min(qmin, p);
+    }
+  }
+  return make_int2(qmax, qmin);
+}
+
+// One block per (batch, kv-head, query tile): the online softmax and out;
+// with ml, each row's final m and l for the statistics launch.
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kThreads)
 chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                     const KT* __restrict__ v, const int* __restrict__ pos,
                     const int* __restrict__ q_pos, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, QT* __restrict__ out,
-                    float* __restrict__ ssum, float* __restrict__ ssq,
-                    float* __restrict__ last, int Hkv, int rep, int C, int S, int tc,
+                    float* __restrict__ ml, int Hkv, int rep, int C, int S, int tc,
                     float scale, int window) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int VQ = 16 / sizeof(QT);
   constexpr int RS = row_stride<D>();
   constexpr int DJ = D / 64;   // float4 column groups per thread, 64 apart
   extern __shared__ __align__(16) float smem_f[];
@@ -236,176 +301,283 @@ chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const int rows = rep * tc;   // row r = i * tc + j: rep head i, query c0 + j
-  const int n_ct = (C + tc - 1) / tc;
-  const bool scores = ssum != nullptr;
+  const int c0 = blockIdx.y * tc;
   const size_t kv0 = (size_t)bh * S;
+  const int2 qr = load_queries<QT, D>(sm, q, q_pos, nullptr, bh, b, rep, C, c0, tc);
+  const int qmax = qr.x, qmin = qr.y;
 
-  for (int ct = blockIdx.y; ct < n_ct; ct += gridDim.y) {
-    const int c0 = ct * tc;
-    if (tid < kRows) {
-      int qp = -1;
-      if (tid < rows && c0 + tid % tc < C) qp = q_pos[(size_t)b * C + c0 + tid % tc];
-      sm.qp[tid] = qp;
-      sm.m[tid] = kNegInf;
-      sm.l[tid] = 0.f;
-    }
-    for (int idx = tid; idx < kRows * (D / VQ); idx += kThreads) {
-      const int r = idx / (D / VQ), part = idx % (D / VQ);
-      const int i = r / tc, j = r % tc;
-      float* dst = sm.q + r * RS + part * VQ;
-      if (r < rows && c0 + j < C) {
-        load16(q + (((size_t)bh * rep + i) * C + c0 + j) * D + part * VQ, dst);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VQ; ++e) dst[e] = 0.f;
+  float acc[2][4 * DJ] = {};
+  for (int s0 = 0; s0 < S; s0 += kTS) {
+    if (!load_tile<KT, D>(sm, k, v, pos, k_scale, v_scale, kv0, s0, S, qmax, qmin, window,
+                          true))
+      continue;
+    tile_logits<kQuant, D>(sm, s0, S, scale, window);
+    __syncthreads();
+    for (int r = warp; r < kRows; r += kThreads / 32) {
+      float* lr = sm.lg + r * kPS;
+      const float x0 = lr[lane], x1 = lr[lane + 32];
+      const float m_old = sm.m[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      float e0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
+      float e1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
+      const float sum = warp_sum(e0 + e1);
+      if (kQuant) {
+        e0 *= sm.vsc[lane];
+        e1 *= sm.vsc[lane + 32];
+      }
+      lr[lane] = e0;
+      lr[lane + 32] = e1;
+      __syncwarp();
+      if (lane == 0) {
+        const float c = expf(m_old - m_new);
+        sm.l[r] = sm.l[r] * c + sum;
+        sm.m[r] = m_new;
+        sm.corr[r] = c;
       }
     }
     __syncthreads();
-    int qmax = -1, qmin = 0x7fffffff;
-    for (int r = 0; r < kRows; ++r) {
-      const int p = sm.qp[r];
-      if (p >= 0) {
-        qmax = max(qmax, p);
-        qmin = min(qmin, p);
-      }
-    }
-
-    // pass 1: online softmax and out
-    float acc[2][4 * DJ] = {};
-    for (int s0 = 0; s0 < S; s0 += kTS) {
-      if (!load_tile<KT, D>(sm, k, v, pos, k_scale, v_scale, kv0, s0, S, qmax, qmin, window,
-                            true))
-        continue;
-      tile_logits<kQuant, D>(sm, s0, S, scale, window);
-      __syncthreads();
-      for (int r = warp; r < kRows; r += kThreads / 32) {
-        float* lr = sm.lg + r * kPS;
-        const float x0 = lr[lane], x1 = lr[lane + 32];
-        const float m_old = sm.m[r];
-        const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-        float e0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
-        float e1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
-        const float sum = warp_sum(e0 + e1);
-        if (kQuant) {
-          e0 *= sm.vsc[lane];
-          e1 *= sm.vsc[lane + 32];
-        }
-        lr[lane] = e0;
-        lr[lane + 32] = e1;
-        __syncwarp();
-        if (lane == 0) {
-          const float c = expf(m_old - m_new);
-          sm.l[r] = sm.l[r] * c + sum;
-          sm.m[r] = m_new;
-          sm.corr[r] = c;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float c = sm.corr[ty + 16 * i];
-#pragma unroll
-        for (int e = 0; e < 4 * DJ; ++e) acc[i][e] *= c;
-      }
-      for (int sl = 0; sl < kTS; ++sl) {
-        const float p0 = sm.lg[ty * kPS + sl], p1 = sm.lg[(ty + 16) * kPS + sl];
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          const float4 w = *reinterpret_cast<const float4*>(sm.v + sl * RS + tx * 4 + 64 * jj);
-          acc[0][4 * jj + 0] += p0 * w.x; acc[0][4 * jj + 1] += p0 * w.y;
-          acc[0][4 * jj + 2] += p0 * w.z; acc[0][4 * jj + 3] += p0 * w.w;
-          acc[1][4 * jj + 0] += p1 * w.x; acc[1][4 * jj + 1] += p1 * w.y;
-          acc[1][4 * jj + 2] += p1 * w.z; acc[1][4 * jj + 3] += p1 * w.w;
-        }
-      }
-      __syncthreads();
-    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = ty + 16 * i;
-      const int ri = r / tc, j = r % tc;
-      if (r < rows && c0 + j < C) {
-        const float denom = fmaxf(sm.l[r], 1e-30f);
-        QT* o = out + (((size_t)bh * rep + ri) * C + c0 + j) * D;
+      const float c = sm.corr[ty + 16 * i];
 #pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[tx * 4 + 64 * jj + e] = from_f<QT>(acc[i][4 * jj + e] / denom);
-      }
+      for (int e = 0; e < 4 * DJ; ++e) acc[i][e] *= c;
     }
-
-    // pass 2 (scores): exact p with the final m, l; GQA mean; chunk sums
-    if (scores) {
-      for (int s0 = 0; s0 < S; s0 += kTS) {
-        if (!load_tile<KT, D>(sm, k, v, pos, k_scale, v_scale, kv0, s0, S, qmax, qmin,
-                              window, false))
-          continue;
-        tile_logits<kQuant, D>(sm, s0, S, scale, window);
-        __syncthreads();
-        for (int r = warp; r < kRows; r += kThreads / 32) {
-          float* lr = sm.lg + r * kPS;
-          const float m = sm.m[r], denom = fmaxf(sm.l[r], 1e-30f);
-          const float x0 = lr[lane], x1 = lr[lane + 32];
-          lr[lane] = x0 == -INFINITY ? 0.f : expf(x0 - m) / denom;
-          lr[lane + 32] = x1 == -INFINITY ? 0.f : expf(x1 - m) / denom;
-        }
-        __syncthreads();
-        if (tid < kTS && s0 + tid < S) {
-          float sum = 0.f, sq = 0.f;
-          for (int j = 0; j < tc && c0 + j < C; ++j) {
-            float pk = 0.f;
-            for (int i = 0; i < rep; ++i) pk += sm.lg[(i * tc + j) * kPS + tid];
-            pk = pk / (float)rep;
-            sum += pk;
-            sq += pk * pk;
-            if (c0 + j == C - 1) last[kv0 + s0 + tid] = pk;
-          }
-          ssum[kv0 + s0 + tid] += sum;
-          ssq[kv0 + s0 + tid] += sq;
-        }
-        __syncthreads();
+    for (int sl = 0; sl < kTS; ++sl) {
+      const float p0 = sm.lg[ty * kPS + sl], p1 = sm.lg[(ty + 16) * kPS + sl];
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) {
+        const float4 w = *reinterpret_cast<const float4*>(sm.v + sl * RS + tx * 4 + 64 * jj);
+        acc[0][4 * jj + 0] += p0 * w.x; acc[0][4 * jj + 1] += p0 * w.y;
+        acc[0][4 * jj + 2] += p0 * w.z; acc[0][4 * jj + 3] += p0 * w.w;
+        acc[1][4 * jj + 0] += p1 * w.x; acc[1][4 * jj + 1] += p1 * w.y;
+        acc[1][4 * jj + 2] += p1 * w.z; acc[1][4 * jj + 3] += p1 * w.w;
       }
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 16 * i;
+    const int ri = r / tc, j = r % tc;
+    if (r < rows && c0 + j < C) {
+      const float denom = fmaxf(sm.l[r], 1e-30f);
+      QT* o = out + (((size_t)bh * rep + ri) * C + c0 + j) * D;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[tx * 4 + 64 * jj + e] = from_f<QT>(acc[i][4 * jj + e] / denom);
+    }
+  }
+  if (ml != nullptr && tid < rows && c0 + tid % tc < C) {
+    const size_t at = (((size_t)bh * rep + tid / tc) * C + c0 + tid % tc) * 2;
+    ml[at] = sm.m[tid];
+    ml[at + 1] = sm.l[tid];
+  }
+}
+
+// The statistics, one block per (batch, kv-head, tile of kTS slots): the
+// tile's K rows are loaded once (every row some query of the chunk may see),
+// then each query tile in turn gives exact p with its rows' final m and l,
+// the GQA mean, and the tile's sums, added in query-tile order. A query tile
+// that sees no slot of the tile is skipped, as is the block when no query
+// does.
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(kThreads)
+chunk_stats_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+                   const int* __restrict__ pos, const int* __restrict__ q_pos,
+                   const float* __restrict__ k_scale, const float* __restrict__ ml,
+                   float* __restrict__ ssum, float* __restrict__ ssq, float* __restrict__ last,
+                   int Hkv, int rep, int C, int S, int tc, float scale, int window) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  extern __shared__ __align__(16) float smem_f[];
+  const Smem<D> sm(smem_f);
+  __shared__ int q_range[2];
+
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv;
+  const int s0 = blockIdx.y * kTS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_ct = (C + tc - 1) / tc;
+  const size_t kv0 = (size_t)bh * S;
+  if (tid == 0) {
+    q_range[0] = -1;
+    q_range[1] = 0x7fffffff;
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += kThreads) {
+    const int p = q_pos[(size_t)b * C + c];
+    if (p >= 0) {
+      atomicMax(&q_range[0], p);
+      atomicMin(&q_range[1], p);
+    }
+  }
+  __syncthreads();
+  if (!load_tile<KT, D>(sm, k, nullptr, pos, k_scale, nullptr, kv0, s0, S, q_range[0],
+                        q_range[1], window, false))
+    return;
+
+  const bool mine = tid < kTS && s0 + tid < S;
+  float sum_acc = mine ? ssum[kv0 + s0 + tid] : 0.f;
+  float sq_acc = mine ? ssq[kv0 + s0 + tid] : 0.f;
+  float last_p = 0.f;
+  bool has_last = false;
+  for (int ct = 0; ct < n_ct; ++ct) {
+    const int c0 = ct * tc;
+    const int2 qr = load_queries<QT, D>(sm, q, q_pos, ml, bh, b, rep, C, c0, tc);
+    int any = 0;
+    if (tid < kTS) {
+      const int p = sm.pos[tid];
+      any = p >= 0 && p <= qr.x && (window <= 0 || p > qr.y - window);
+    }
+    if (!__syncthreads_or(any)) continue;
+    tile_logits<kQuant, D>(sm, s0, S, scale, window);
+    __syncthreads();
+    for (int r = warp; r < kRows; r += kThreads / 32) {
+      float* lr = sm.lg + r * kPS;
+      const float m = sm.m[r], denom = fmaxf(sm.l[r], 1e-30f);
+      const float x0 = lr[lane], x1 = lr[lane + 32];
+      lr[lane] = x0 == -INFINITY ? 0.f : expf(x0 - m) / denom;
+      lr[lane + 32] = x1 == -INFINITY ? 0.f : expf(x1 - m) / denom;
+    }
+    __syncthreads();
+    if (mine) {
+      float sum = 0.f, sq = 0.f;
+      for (int j = 0; j < tc && c0 + j < C; ++j) {
+        float pk = 0.f;
+        for (int i = 0; i < rep; ++i) pk += sm.lg[(i * tc + j) * kPS + tid];
+        pk = pk / (float)rep;
+        sum += pk;
+        sq += pk * pk;
+        if (c0 + j == C - 1) {
+          last_p = pk;
+          has_last = true;
+        }
+      }
+      sum_acc += sum;
+      sq_acc += sq;
+    }
+    __syncthreads();
+  }
+  if (mine) {
+    ssum[kv0 + s0 + tid] = sum_acc;
+    ssq[kv0 + s0 + tid] = sq_acc;
+    if (has_last) last[kv0 + s0 + tid] = last_p;
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename QT, typename KT, int D>
 int launch(const void* q, const void* k, const void* v, const int* pos, const int* q_pos,
            const float* k_scale, const float* v_scale, void* out, float* ssum, float* ssq,
-           float* last, int B, int Hkv, int rep, int C, int S, float scale, int window,
-           cudaStream_t stream) {
+           float* last, float* ml, int B, int Hkv, int rep, int C, int S, float scale,
+           int window, cudaStream_t stream) {
   if (rep < 1 || rep > kRows || C < 1 || S < 1) return (int)cudaErrorInvalidValue;
   if (std::is_same<KT, int8_t>::value && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool scores = ssum != nullptr;
+  if (scores && (ssq == nullptr || last == nullptr || ml == nullptr))
     return (int)cudaErrorInvalidValue;
   const int tc = kRows / rep;
   const int n_ct = (C + tc - 1) / tc;
   const size_t smem = Smem<D>::bytes();
-  auto kernel = chunk_attend_kernel<QT, KT, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(B * Hkv, ssum != nullptr ? 1 : n_ct);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const QT*)q, (const KT*)k, (const KT*)v, pos, q_pos, k_scale, v_scale, (QT*)out, ssum,
-      ssq, last, Hkv, rep, C, S, tc, scale, window);
+  auto attend = chunk_attend_kernel<QT, KT, D>;
+  cudaError_t err = allow_smem(attend, smem);
+  if (err != cudaSuccess) return (int)err;
+  attend<<<dim3(B * Hkv, n_ct), kThreads, smem, stream>>>(
+      (const QT*)q, (const KT*)k, (const KT*)v, pos, q_pos, k_scale, v_scale, (QT*)out,
+      scores ? ml : nullptr, Hkv, rep, C, S, tc, scale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !scores) return (int)err;
+  auto stats = chunk_stats_kernel<QT, KT, D>;
+  err = allow_smem(stats, smem);
+  if (err != cudaSuccess) return (int)err;
+  stats<<<dim3(B * Hkv, (S + kTS - 1) / kTS), kThreads, smem, stream>>>(
+      (const QT*)q, (const KT*)k, pos, q_pos, k_scale, ml, ssum, ssq, last, Hkv, rep, C, S, tc,
+      scale, window);
   return (int)cudaGetLastError();
 }
 
 template <typename QT, typename KT>
 int launch_d(int D, const void* q, const void* k, const void* v, const int* pos,
              const int* q_pos, const float* k_scale, const float* v_scale, void* out,
-             float* ssum, float* ssq, float* last, int B, int Hkv, int rep, int C, int S,
-             float scale, int window, cudaStream_t st) {
+             float* ssum, float* ssq, float* last, float* ml, int B, int Hkv, int rep, int C,
+             int S, float scale, int window, cudaStream_t st) {
   if (D == 64)
-    return launch<QT, KT, 64>(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, B,
-                              Hkv, rep, C, S, scale, window, st);
+    return launch<QT, KT, 64>(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, ml,
+                              B, Hkv, rep, C, S, scale, window, st);
   if (D == 128)
     return launch<QT, KT, 128>(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last,
-                               B, Hkv, rep, C, S, scale, window, st);
+                               ml, B, Hkv, rep, C, S, scale, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+constexpr float kInv127 = 1.0f / 127.0f;   // f32(1/127), as quantize_kv rounds it
+constexpr int kWriteThreads = 256;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// One warp per (bh, c, K or V) row: warp w < rows writes K row w, w >= rows
+// writes V row w - rows. CT is IT (float cache) or int8_t (quantized).
+template <typename IT, typename CT>
+__global__ void __launch_bounds__(kWriteThreads)
+chunk_write_kernel(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
+                   const int* __restrict__ ids, const int* __restrict__ q_pos,
+                   const float* __restrict__ cinit, CT* __restrict__ k, CT* __restrict__ v,
+                   int* __restrict__ pos, float* __restrict__ score,
+                   float* __restrict__ score_sq, float* __restrict__ counter,
+                   float* __restrict__ k_scale, float* __restrict__ v_scale, int rows, int Hkv,
+                   int C, int S, int D) {
+  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
+  const int w = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= 2 * rows) return;
+  const bool is_v = w >= rows;
+  const int r = is_v ? w - rows : w;   // (bh, c) row of the chunk
+  const int bh = r / C, c = r % C, b = bh / Hkv;
+  const size_t at = (size_t)bh * S + ids[r];
+  const IT* src = (is_v ? v_c : k_c) + (size_t)r * D;
+  CT* dst = (is_v ? v : k) + at * D;
+  if constexpr (kQuant) {
+    float amax = 0.f;
+    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_f(src[d])));
+    amax = warp_max(amax);
+    const float sc = fmaxf(amax, 1e-8f) * kInv127;
+    for (int d = lane; d < D; d += 32) {
+      const float qv = rintf(__fdiv_rn(to_f(src[d]), sc));
+      dst[d] = (CT)(int)fminf(fmaxf(qv, -127.f), 127.f);
+    }
+    if (lane == 0) (is_v ? v_scale : k_scale)[at] = sc;
+  } else {
+    for (int d = lane; d < D; d += 32) dst[d] = (CT)src[d];
+  }
+  if (lane == 0 && !is_v) {
+    pos[at] = q_pos[(size_t)b * C + c];
+    counter[at] = cinit[(size_t)b * C + c];
+    score[at] = 0.f;
+    score_sq[at] = 0.f;
+  }
+}
+
+template <typename IT, typename CT>
+int launch_write(const void* k_c, const void* v_c, const int* ids, const int* q_pos,
+                 const float* cinit, void* k, void* v, int* pos, float* score, float* score_sq,
+                 float* counter, float* k_scale, float* v_scale, int B, int Hkv, int C, int S,
+                 int D, cudaStream_t stream) {
+  if (std::is_same<CT, int8_t>::value && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * Hkv * C;
+  const int warps_per_block = kWriteThreads / 32;
+  const int blocks = (2 * rows + warps_per_block - 1) / warps_per_block;
+  chunk_write_kernel<IT, CT><<<blocks, kWriteThreads, 0, stream>>>(
+      (const IT*)k_c, (const IT*)v_c, ids, q_pos, cinit, (CT*)k, (CT*)v, pos, score, score_sq,
+      counter, k_scale, v_scale, rows, Hkv, C, S, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -421,29 +593,66 @@ size_t chunk_attend_smem(int D) {
 
 // q: (B, Hkv*rep, C, D), q_dtype 0 = float32, 1 = bfloat16; k, v: (B, Hkv,
 // S, D) in q's type, or int8 (kv_int8 = 1) with k_scale, v_scale (B, Hkv, S)
-// f32. ssum, ssq, last: (B, Hkv, S) f32 zero-filled, or all null for no
-// statistics. window <= 0: no sliding window. Every pointer of q, k, v is
+// f32. ssum, ssq, last: (B, Hkv, S) f32 zero-filled, and ml: (B, Hkv*rep,
+// C, 2) f32 scratch (each row's final softmax max and sum), or all null for
+// no statistics. window <= 0: no sliding window. Every pointer of q, k, v is
 // 16-byte aligned. Returns cudaGetLastError().
 int chunk_attend(const void* q, const void* k, const void* v, const int* pos, const int* q_pos,
                  const float* k_scale, const float* v_scale, void* out, float* ssum, float* ssq,
-                 float* last, int B, int Hkv, int rep, int C, int S, int D, float scale,
-                 int window, int q_dtype, int kv_int8, void* stream) {
+                 float* last, float* ml, int B, int Hkv, int rep, int C, int S, int D,
+                 float scale, int window, int q_dtype, int kv_int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (q_dtype == 0 && kv_int8)
     return launch_d<float, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
-                                   last, B, Hkv, rep, C, S, scale, window, st);
+                                   last, ml, B, Hkv, rep, C, S, scale, window, st);
   if (q_dtype == 0)
     return launch_d<float, float>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
-                                  last, B, Hkv, rep, C, S, scale, window, st);
+                                  last, ml, B, Hkv, rep, C, S, scale, window, st);
   if (q_dtype == 1 && kv_int8)
     return launch_d<__nv_bfloat16, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out,
-                                           ssum, ssq, last, B, Hkv, rep, C, S, scale, window,
-                                           st);
+                                           ssum, ssq, last, ml, B, Hkv, rep, C, S, scale,
+                                           window, st);
   if (q_dtype == 1)
     return launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, pos, q_pos, k_scale, v_scale,
-                                                  out, ssum, ssq, last, B, Hkv, rep, C, S,
+                                                  out, ssum, ssq, last, ml, B, Hkv, rep, C, S,
                                                   scale, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K6: write the chunk (k_c, v_c: (B, Hkv, C, D) in q's type) into slots
+// ids (B, Hkv, C) int32, distinct per head, of the cache k, v (+ k_scale,
+// v_scale for int8) and its sidecars pos, score, score_sq, counter (B, Hkv,
+// S), with pos = q_pos (B, C) and counter = counter_init (B, C) f32, then
+// attend as chunk_attend over the updated cache. A float cache is in q's
+// type. Returns the first launch error, or cudaGetLastError().
+int chunk_write_attend(const void* q, const void* k_c, const void* v_c, const int* ids,
+                       const int* q_pos, const float* cinit, void* k, void* v, int* pos,
+                       float* score, float* score_sq, float* counter, float* k_scale,
+                       float* v_scale, void* out, float* ssum, float* ssq, float* last,
+                       float* ml, int B, int Hkv, int rep, int C, int S, int D, float scale,
+                       int window, int q_dtype, int kv_int8, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C < 1 || S < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  int err;
+  if (q_dtype == 0 && kv_int8)
+    err = launch_write<float, int8_t>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score, score_sq,
+                                      counter, k_scale, v_scale, B, Hkv, C, S, D, st);
+  else if (q_dtype == 0)
+    err = launch_write<float, float>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score, score_sq,
+                                     counter, k_scale, v_scale, B, Hkv, C, S, D, st);
+  else if (q_dtype == 1 && kv_int8)
+    err = launch_write<__nv_bfloat16, int8_t>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score,
+                                              score_sq, counter, k_scale, v_scale, B, Hkv, C,
+                                              S, D, st);
+  else if (q_dtype == 1)
+    err = launch_write<__nv_bfloat16, __nv_bfloat16>(k_c, v_c, ids, q_pos, cinit, k, v, pos,
+                                                     score, score_sq, counter, k_scale,
+                                                     v_scale, B, Hkv, C, S, D, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != 0) return err;
+  return chunk_attend(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, ml, B, Hkv,
+                      rep, C, S, D, scale, window, q_dtype, kv_int8, stream);
 }
 
 }  // extern "C"

@@ -1,23 +1,41 @@
-"""Generation engine, `decoding` kv_mode (counterpart of
-easykv_tpu/engine/generate.py: EngineStatics, _prefill,
-_prefill_layer_major, _decode_loop, _engine_cache, _run_decoding, CausalLM,
-enable_fixed_kv, set_dynamicntk_rope_length, generate).
+"""Generation engine: budget-constrained KV-cache generation in the kv_modes
+decoding / encoding / auto / encoding_decoding / ppl (counterpart of
+easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
+EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
+_strided_encode_layer_major, _ce_from_hidden, _decode_loop, _engine_cache,
+_run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
+CausalLM, enable_fixed_kv, set_dynamicntk_rope_length, generate).
 
-Budget semantics (reference easykv.py:228-366): the budget covers only
-generated tokens, prompt KV is never evicted, one slot per (layer, head) is
-evicted per step once the generated count exceeds the budget, and the
-decode-phase recent window is the hard-coded 0.3 of the budget
-(easykv.py:308).
+Budget semantics (reference easykv.py:199-901):
+  * decoding: the budget covers only generated tokens, prompt KV is never
+    evicted, one slot per (layer, head) is evicted per step once the
+    generated count exceeds the budget; the decode-phase recent window is
+    the hard-coded 0.3 of the budget (easykv.py:308).
+  * encoding: float budget -> int(length*budget)+stride; idx walks down so
+    (length-idx)%stride==0, r_idx so (idx-r_idx)%stride==0
+    (easykv.py:385-392); the prefix [0, r_idx) is prefilled without
+    eviction, the rest is encoded in chunks of `stride` that evict `stride`
+    slots per (layer, head) once the cache would exceed idx; decoding then
+    keeps everything.
+  * encoding_decoding: int budget (+stride unless that reaches the
+    length), tiny prefix (ascending r_idx scan, easykv.py:551-552), and one
+    eviction per step through decode, prompt slots included
+    (easykv.py:670-748).
+  * ppl: teacher-forced CE over the tokens fed after r_idx, predicted from
+    the evicted cache (easykv.py:759-901).
 
-The decode loop never waits for the host per token: the sampled token,
-`done`, `out`, `g` and `kv_len` stay on the device, and the loop reads back
-whether every row is done at most once every ALL_DONE_CHECK_EVERY steps
-(only when there are EOS ids to stop on). Tokens after EOS are -1.
+No loop waits for the host per chunk or per token: the strided encode's
+trigger schedule is static (it is computed on the host from the lengths),
+the sampled token, `done`, `out`, `g` and `kv_len` stay on the device, and
+the decode loop reads back whether every row is done at most once every
+ALL_DONE_CHECK_EVERY steps (only when there are EOS ids to stop on).
+Tokens after EOS are -1.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -28,7 +46,8 @@ from ..cache import KVCache, init_cache
 from ..config import GenerationConfig, ModelConfig, resolve_device
 from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
-from ..policies import PHASE_DECODE, PolicySpec
+from ..policies import (PHASE_DECODE, PHASE_ENCDEC_DECODE, PHASE_ENCODE, PolicySpec,
+                        evict_cache)
 from ..sampling import sample_topp
 
 # Width of the no-eviction prompt-prefill chunks. Any width gives the same
@@ -41,19 +60,71 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def stride_align(length: int, budget: int, stride: int) -> Tuple[int, int]:
+    """Reference easykv.py:389-392: idx = largest <= budget with
+    (length-idx)%stride==0; r_idx = largest < idx with (idx-r_idx)%stride==0."""
+    idx = 0
+    for i in range(budget, -1, -1):
+        if (length - i) % stride == 0:
+            idx = i
+            break
+    r_idx = 0
+    for r in range(idx - 1, -1, -1):
+        if (idx - r) % stride == 0:
+            r_idx = r
+            break
+    return idx, r_idx
+
+
+def stride_align_encdec(length: int, budget: int, stride: int) -> Tuple[int, int]:
+    """Reference easykv.py:549-552: the same idx; r_idx = smallest >= 1 with
+    (idx-r_idx)%stride==0 (ascending scan: a tiny prefix)."""
+    idx = 0
+    for i in range(budget, -1, -1):
+        if (length - i) % stride == 0:
+            idx = i
+            break
+    r_idx = idx - 1 if idx >= 1 else 0
+    for r in range(1, idx):
+        if (idx - r) % stride == 0:
+            r_idx = r
+            break
+    return idx, r_idx
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStatics:
-    """What shapes one decoding run."""
+    """What shapes one run."""
 
     cfg: ModelConfig
     policy: str
-    length: int               # prompt length, padded to a multiple of 64
-    budget: int               # generated tokens kept
+    length: int               # prompt length (decoding: padded to a multiple of 64)
+    budget: int               # resolved integer budget (after the reference's shifts)
     max_new_tokens: int = 0
     eos_token_ids: Tuple[int, ...] = ()
     temp_length: int = 4
     recent_window_dec: int = 0  # decode-phase recent window (the 0.3 quirk)
     kv_quant: bool = False      # int8 KV cache with per-slot scales
+    mode: str = "decoding"
+    stride: int = 1
+    idx: int = 0
+    r_idx: int = 0
+    recent_window: int = 0      # encode-phase recent window
+    keep_attention: bool = False
+
+    def encode_spec(self) -> PolicySpec:
+        return PolicySpec(
+            policy=self.policy,
+            phase=PHASE_ENCODE,
+            k=self.stride,
+            sink_length=self.temp_length,
+            recent_window=self.recent_window,
+            # reference easykv.py:474: k = max(budget - recent_window - sink, stride)
+            feasible_k=min(
+                max(self.budget - self.recent_window - self.temp_length, self.stride),
+                self.idx + self.stride,
+            ),
+        )
 
     def decode_spec(self) -> Optional[PolicySpec]:
         if self.policy == "full":
@@ -69,6 +140,29 @@ class EngineStatics:
             protect_prompt=True,
         )
 
+    def encdec_decode_spec(self) -> PolicySpec:
+        return PolicySpec(
+            policy=self.policy,
+            phase=PHASE_ENCDEC_DECODE,
+            k=1,
+            sink_length=self.temp_length,
+            recent_window=self.recent_window_dec,
+            # reference easykv.py:722: k = budget - recent_window, clamped to
+            # the idx valid slots the encode leaves
+            feasible_k=max(min(self.budget - self.recent_window_dec, self.idx), 1),
+        )
+
+
+def _encode_counter_init(pos: torch.Tensor, idx: int, stride: int, keep: bool) -> torch.Tensor:
+    """Per-token initial observation counter of the encoding family, the
+    closed form of the reference's buffer initialisers and post-eviction
+    tails (easykv.py:412-418, 469, 483):
+      pos >= idx:  -((pos - idx) % stride)   (<= 0)
+      pos <  idx:  idx - pos if keep_attention else 0"""
+    tail = -(((pos - idx) % stride).to(torch.float32))
+    head = (idx - pos).to(torch.float32) if keep else torch.zeros_like(pos, dtype=torch.float32)
+    return torch.where(pos >= idx, tail, head)
+
 
 class DecodeResult(NamedTuple):
     out_ids: torch.Tensor   # (B, max_new_tokens) int32, -1 past the end
@@ -79,13 +173,17 @@ class DecodeResult(NamedTuple):
 
 @dataclasses.dataclass
 class RunStats:
-    """Host-clock timings and counts of the last generate() call."""
+    """Host-clock timings and counts of the last generate() call. prefill_s
+    is the prompt (decoding) or prefix (encoding family) prefill, encode_s
+    the strided encode, decode_s the decode loop; each ends in a
+    synchronise."""
 
     n_tokens: int
     kv_len: int
     prefill_s: float
     decode_s: float
     logits_finite: bool
+    encode_s: float = 0.0
 
 
 def _sync(device: torch.device) -> None:
@@ -99,20 +197,27 @@ def _isin_eos(token: torch.Tensor, eos: Optional[torch.Tensor]) -> torch.Tensor:
     return (token[:, None] == eos).any(dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# Phase A: prompt / prefix prefill (optionally the keep_attention bootstrap)
+# ---------------------------------------------------------------------------
+
 def _prefill(st: EngineStatics, params: LlamaParams, cache: KVCache,
-             ids: torch.Tensor, prefix_len: torch.Tensor) -> torch.Tensor:
-    """Consume the prompt into the empty cache; returns the last real
-    token's logits (B, V)."""
+             ids: torch.Tensor, prefix_len: torch.Tensor,
+             spec: Optional[PolicySpec] = None, counter_kind: str = "zero") -> torch.Tensor:
+    """Consume the prompt (or prefix) into the empty cache; returns the last
+    real token's logits (B, V). spec: the keep_attention bootstrap;
+    counter_kind 'zero' | 'encode' (_encode_counter_init)."""
     B, A = ids.shape
     if A == 0:
         return torch.zeros((B, st.cfg.vocab_size), dtype=torch.float32, device=ids.device)
     PC = min(PREFILL_CHUNK, _round_up(A, 8))
     A_pad = _round_up(A, PC)
     ids = torch.nn.functional.pad(ids, (0, A_pad - A))
-    return _prefill_layer_major(st, params, cache, ids, prefix_len, PC)
+    return _prefill_layer_major(st, params, cache, ids, prefix_len, PC, spec, counter_kind)
 
 
-def _prefill_layer_major(st, params, cache, ids, prefix_len, PC) -> torch.Tensor:
+def _prefill_layer_major(st, params, cache, ids, prefix_len, PC, spec,
+                         counter_kind) -> torch.Tensor:
     B, A_pad = ids.shape
     n = A_pad // PC
     dev = ids.device
@@ -121,13 +226,105 @@ def _prefill_layer_major(st, params, cache, ids, prefix_len, PC) -> torch.Tensor
     posb = pos[:, None, :].expand(n, B, PC)
     tok_valid = posb < prefix_len[None, :, None]
     q_pos = torch.where(tok_valid, posb, -1).to(torch.int32)
-    cinit = torch.zeros((n, B, PC), dtype=torch.float32, device=dev)
-    h = llama.prefill_layer_major(params, st.cfg, cache, ids, q_pos, cinit)
+    if counter_kind == "encode":
+        cinit = _encode_counter_init(pos, st.idx, st.stride, st.keep_attention)
+    else:
+        cinit = torch.zeros((n, PC), dtype=torch.float32, device=dev)
+    cinit = cinit[:, None, :].expand(n, B, PC).contiguous()
+    h = llama.prefill_layer_major(params, st.cfg, cache, ids, q_pos, cinit, spec)
     last = (prefix_len - 1).clamp(min=0).long()
     h_last = h[torch.arange(B, device=dev), last][:, None]              # (B, 1, D)
     logits = llama._logits_tail(h_last, params, st.cfg)[:, 0]
     return torch.where((prefix_len > 0)[:, None], logits, 0.0)
 
+
+# ---------------------------------------------------------------------------
+# Phase B: strided encoding with per-chunk eviction (reference easykv.py:426-499)
+# ---------------------------------------------------------------------------
+
+def _strided_encode_layer_major(st: EngineStatics, params: LlamaParams, cache: KVCache,
+                                input_ids: torch.Tensor, spec: PolicySpec,
+                                generator: torch.Generator, collect_ppl: bool):
+    """Consume [r_idx, length) in chunks of `stride`, layer-major
+    (llama.strided_encode_layer_major). The chunk schedule is static: every
+    row feeds st.length tokens, so the reference's per-row trigger
+    (kv_len + stride > idx, easykv.py:459) is the same for all rows and is
+    computed here on the host. Returns (last_logits (B, V), loss_sum (B,),
+    kv_len (B,))."""
+    B = input_ids.shape[0]
+    dev = input_ids.device
+    stride, idx = st.stride, st.idx
+    n = (st.length - st.r_idx) // stride
+    evicting = spec.policy != "full"
+    keep = bool(st.keep_attention)
+
+    kv = st.r_idx
+    trig, kv_before = [], []
+    for _ in range(n):
+        kv_before.append(kv)
+        t = kv + stride > idx
+        trig.append(t)
+        kv = kv + stride - (stride if (t and evicting) else 0)
+    trig_t = torch.tensor(trig, dtype=torch.bool, device=dev)[:, None].expand(n, B)
+
+    starts = st.r_idx + stride * np.arange(n)
+    pos = torch.as_tensor(starts[:, None] + np.arange(stride)[None, :], dtype=torch.int32,
+                          device=dev)                                    # (n, C)
+    cinit = _encode_counter_init(pos, idx, stride, keep)
+    if spec.policy == "random":
+        # uniform span start over ranks [0, S_enc - stride) (easykv.py:494-497)
+        S_enc = idx + stride   # the reference's encode-phase buffer width
+        u = torch.rand((n, B), generator=generator, device=dev)
+        rand_rank = (u * (S_enc - stride)).to(torch.int32)
+    else:
+        rand_rank = torch.zeros((n, B), dtype=torch.int32, device=dev)
+    ctxs = StepCtx(
+        q_pos=pos[:, None, :].expand(n, B, stride).contiguous(),
+        token_valid=torch.ones((n, B, stride), dtype=torch.bool, device=dev),
+        counter_init=cinit[:, None, :].expand(n, B, stride).contiguous(),
+        next_pos=torch.as_tensor(starts + stride, dtype=torch.int32,
+                                 device=dev)[:, None].expand(n, B).contiguous(),
+        prompt_len=torch.zeros((n, B), dtype=torch.int32, device=dev),
+        evict_gate=(trig_t if evicting else torch.zeros_like(trig_t)).contiguous(),
+        update_gate=(trig_t | keep).contiguous(),
+        rand_rank=rand_rank,
+    )
+    tokens = input_ids[:, st.r_idx: st.r_idx + n * stride]
+    h = llama.strided_encode_layer_major(params, st.cfg, cache, tokens, ctxs, spec,
+                                         kv_before, [t and evicting for t in trig])
+    last_logits = llama._logits_tail(h[:, -1:, :], params, st.cfg)[:, 0]
+    loss_sum = (_ce_from_hidden(st, params, h, tokens) if collect_ppl
+                else torch.zeros((B,), dtype=torch.float32, device=dev))
+    return last_logits, loss_sum, torch.full((B,), kv, dtype=torch.int32, device=dev)
+
+
+def _ce_from_hidden(st: EngineStatics, params: LlamaParams, h: torch.Tensor,
+                    tokens: torch.Tensor, true_len: Optional[torch.Tensor] = None):
+    """Teacher-forced CE from final hidden states: token j scored from row
+    j-1, summed over j in [1, true_len) (reference easykv.py:896-899; the
+    first fed token has no predictor). The LM head runs in PREFILL_CHUNK row
+    blocks over f32 logits, so the (B, T, V) logits are never materialised.
+    Returns (B,) f32."""
+    B, T, _ = h.shape
+    dev = h.device
+    if true_len is None:
+        true_len = torch.full((B,), T, dtype=torch.int32, device=dev)
+    PC = min(PREFILL_CHUNK, _round_up(T, 8))
+    T_pad = _round_up(T, PC)
+    h = torch.nn.functional.pad(h, (0, 0, 0, T_pad - T))
+    tgt = torch.nn.functional.pad(tokens, (0, T_pad - T + 1)).long()
+    loss = torch.zeros((B,), dtype=torch.float32, device=dev)
+    for s in range(0, T_pad, PC):
+        logp = torch.log_softmax(llama._logits_tail(h[:, s:s + PC], params, st.cfg), dim=-1)
+        ce = -logp.gather(-1, tgt[:, s + 1:s + 1 + PC, None])[..., 0]
+        mask = (s + torch.arange(PC, device=dev))[None, :] + 1 < true_len[:, None]
+        loss = loss + (ce * mask.to(torch.float32)).sum(dim=-1)
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# Decode loop (reference easykv.py:257-363 / :508-526 / :670-748)
+# ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def _decode_loop(
@@ -142,20 +339,27 @@ def _decode_loop(
     generator: torch.Generator,
     temperature: float,
     top_p: float,
+    evict_mode: str,             # 'none' | 'budget' | 'always'
 ) -> DecodeResult:
+    """Decode with the eviction cadence of `evict_mode`: 'budget' evicts
+    once the generated count exceeds the budget (decoding), 'always' on
+    every live step (encoding_decoding), 'none' never (encoding). A
+    decode-phase k=1 spec folds its eviction into K2; any other spec is
+    evicted by policies.evict_cache after the step."""
     B = first_logits.shape[0]
     M = st.max_new_tokens
     dev = first_logits.device
     eos = (torch.tensor(st.eos_token_ids, dtype=torch.int32, device=dev)
            if st.eos_token_ids else None)
     k_evict = spec.k if spec is not None else 0
-    budgeted = spec is not None
+    folded = llama.decode_evict_folded(spec)
 
     out = torch.full((B, M), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     g = torch.zeros((B,), dtype=torch.int32, device=dev)
     kv_len = kv_len0.clone()
     zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    zeros_f = torch.zeros((B,), dtype=torch.float32, device=dev)
     finite = torch.isfinite(first_logits).all()
     lastlog = first_logits
     for n in range(M):
@@ -164,17 +368,24 @@ def _decode_loop(
         newly_done = done | _isin_eos(token, eos)
         live = ~newly_done
         tok_pos = start_pos + g
-        if budgeted:
+        if evict_mode == "budget":
             gate_b = live & (g + 1 > st.budget)                   # easykv.py:302-303
             cinit = (st.budget - g).clamp(min=0).to(torch.float32)
+        elif evict_mode == "always":
+            gate_b = live                                         # easykv.py:670-748
+            cinit = zeros_f
         else:
             gate_b = torch.zeros_like(live)
-            cinit = torch.zeros((B,), dtype=torch.float32, device=dev)
-        if budgeted and spec.policy == "random":
-            # uniform over retained generated tokens (easykv.py:353-362)
+            cinit = zeros_f
+        if spec is not None and spec.policy == "random":
             u = torch.rand((B,), generator=generator, device=dev)
-            n_gen = (g + 1).clamp(max=st.budget + 1)
-            rand_rank = (u * n_gen.to(torch.float32)).to(torch.int32)
+            if spec.phase == PHASE_DECODE:
+                # uniform over retained generated tokens (easykv.py:353-362)
+                n_rank = (g + 1).clamp(max=st.budget + 1)
+            else:
+                # encdec decode: uniform over non-sink valid slots
+                n_rank = (kv_len + 1 - spec.sink_length).clamp(min=1)
+            rand_rank = (u * n_rank.to(torch.float32)).to(torch.int32)
         else:
             rand_rank = zeros_i
         ctx = StepCtx(
@@ -188,6 +399,8 @@ def _decode_loop(
             rand_rank=rand_rank,
         )
         logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec)
+        if spec is not None and not folded:
+            evict_cache(cache, spec, ctx.next_pos, prompt_len, rand_rank, gate_b)
         finite &= torch.isfinite(logits).all()
         lastlog = torch.where(newly_done[:, None], lastlog, logits[:, -1, :])
         g = g + live.to(torch.int32)
@@ -210,6 +423,25 @@ def _engine_cache(st: EngineStatics, B: int, S: int, dtype: torch.dtype,
                       dtype=dtype, device=device, quantized=st.kv_quant)
 
 
+# ---------------------------------------------------------------------------
+# The kv_modes. Each run function returns its result, the final cache and the host-clock
+# seconds of its phases (prefill, strided encode, decode).
+# ---------------------------------------------------------------------------
+
+class _Clock:
+    """Host-clock seconds of consecutive phases, each ended by a sync."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.t = time.perf_counter()
+
+    def lap(self) -> float:
+        _sync(self.device)
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        return dt
+
+
 @torch.no_grad()
 def _run_decoding(st: EngineStatics, params: LlamaParams, ids_pad: torch.Tensor,
                   prompt_len: torch.Tensor, temperature: float, top_p: float,
@@ -221,15 +453,113 @@ def _run_decoding(st: EngineStatics, params: LlamaParams, ids_pad: torch.Tensor,
     B = ids_pad.shape[0]
     gen_slots = st.max_new_tokens if st.policy == "full" else st.budget + 1
     cache = _engine_cache(st, B, st.length + gen_slots, dtype, dev)
-    t0 = time.perf_counter()
+    clock = _Clock(dev)
     last_logits = _prefill(st, params, cache, ids_pad, prompt_len)
-    _sync(dev)
-    t1 = time.perf_counter()
+    prefill_s = clock.lap()
     res = _decode_loop(st, params, cache, last_logits, prompt_len, prompt_len, prompt_len,
-                       st.decode_spec(), generator, temperature, top_p)
-    _sync(dev)
-    return res, cache, t1 - t0, time.perf_counter() - t1
+                       st.decode_spec(), generator, temperature, top_p,
+                       "none" if st.policy == "full" else "budget")
+    return res, cache, prefill_s, clock.lap()
 
+
+def _encode_phases(st: EngineStatics, params, cache, input_ids, generator, collect_ppl):
+    """Prefix prefill of [0, r_idx) (with the keep_attention bootstrap) and
+    the strided encode. Returns (last_logits, loss_sum, kv_len, prefill_s,
+    encode_s)."""
+    dev = input_ids.device
+    B = input_ids.shape[0]
+    spec = st.encode_spec()
+    clock = _Clock(dev)
+    prefix_len = torch.full((B,), st.r_idx, dtype=torch.int32, device=dev)
+    last_logits = _prefill(st, params, cache, input_ids[:, :st.r_idx], prefix_len,
+                           spec if st.keep_attention else None, "encode")
+    prefill_s = clock.lap()
+    loss_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
+    kv_len = prefix_len
+    if (st.length - st.r_idx) // st.stride > 0:
+        last_logits, loss_sum, kv_len = _strided_encode_layer_major(
+            st, params, cache, input_ids, spec, generator, collect_ppl)
+    return last_logits, loss_sum, kv_len, prefill_s, clock.lap()
+
+
+@torch.no_grad()
+def _run_encoding(st: EngineStatics, params: LlamaParams, input_ids: torch.Tensor,
+                  temperature: float, top_p: float, generator: torch.Generator,
+                  dtype: torch.dtype):
+    """kv_mode='encoding' (reference easykv.py:367-529): strided prefill
+    eviction, then decoding without eviction. Returns (result, encode
+    kv_len (B,), cache, RunStats without the token counts)."""
+    dev = input_ids.device
+    B = input_ids.shape[0]
+    cache = _engine_cache(st, B, st.idx + st.stride + st.max_new_tokens, dtype, dev)
+    last_logits, _, kv_len, prefill_s, encode_s = _encode_phases(
+        st, params, cache, input_ids, generator, collect_ppl=False)
+    clock = _Clock(dev)
+    length = torch.full((B,), st.length, dtype=torch.int32, device=dev)
+    res = _decode_loop(st, params, cache, last_logits, length, length, kv_len, None,
+                       generator, temperature, top_p, "none")
+    return res, kv_len, cache, (prefill_s, encode_s, clock.lap())
+
+
+@torch.no_grad()
+def _run_encdec(st: EngineStatics, params: LlamaParams, input_ids: torch.Tensor,
+                temperature: float, top_p: float, generator: torch.Generator,
+                dtype: torch.dtype):
+    """kv_mode='encoding_decoding' (reference easykv.py:530-753): strided
+    prefill eviction, then one eviction per live decode step. Returns
+    (result, cache, (prefill_s, encode_s, decode_s))."""
+    dev = input_ids.device
+    B = input_ids.shape[0]
+    cache = _engine_cache(st, B, st.idx + st.stride, dtype, dev)
+    last_logits, _, kv_len, prefill_s, encode_s = _encode_phases(
+        st, params, cache, input_ids, generator, collect_ppl=False)
+    clock = _Clock(dev)
+    length = torch.full((B,), st.length, dtype=torch.int32, device=dev)
+    res = _decode_loop(st, params, cache, last_logits, length, length, kv_len,
+                       st.encdec_decode_spec(), generator, temperature, top_p, "always")
+    return res, cache, (prefill_s, encode_s, clock.lap())
+
+
+@torch.no_grad()
+def _run_ppl(st: EngineStatics, params: LlamaParams, input_ids: torch.Tensor,
+             generator: torch.Generator, dtype: torch.dtype):
+    """kv_mode='ppl', budgeted (reference easykv.py:766-901). Returns (mean
+    CE (B,), kv_len (B,), (prefill_s, encode_s))."""
+    B = input_ids.shape[0]
+    cache = _engine_cache(st, B, st.idx + st.stride, dtype, input_ids.device)
+    _, loss_sum, kv_len, prefill_s, encode_s = _encode_phases(
+        st, params, cache, input_ids, generator, collect_ppl=True)
+    return loss_sum / (st.length - st.r_idx - 1), kv_len, (prefill_s, encode_s)
+
+
+@torch.no_grad()
+def _run_ppl_full(st: EngineStatics, params: LlamaParams, input_ids: torch.Tensor,
+                  dtype: torch.dtype):
+    """kv_mode='ppl', full cache (reference easykv.py:759-765): teacher
+    forcing over the whole document through the layer-major prefill.
+    Returns (mean CE (B,), prefill_s)."""
+    dev = input_ids.device
+    B, L = input_ids.shape
+    PC = min(PREFILL_CHUNK, _round_up(L, 8))
+    L_pad = _round_up(L, PC)
+    ids = torch.nn.functional.pad(input_ids, (0, L_pad - L))
+    cache = _engine_cache(st, B, L_pad, dtype, dev)
+    true_len = torch.full((B,), L, dtype=torch.int32, device=dev)
+    n = L_pad // PC
+    clock = _Clock(dev)
+    pos = (torch.arange(n, device=dev)[:, None] * PC
+           + torch.arange(PC, device=dev)[None, :]).to(torch.int32)
+    posb = pos[:, None, :].expand(n, B, PC)
+    q_pos = torch.where(posb < L, posb, -1).to(torch.int32)
+    h = llama.prefill_layer_major(params, st.cfg, cache, ids, q_pos,
+                                  torch.zeros((n, B, PC), dtype=torch.float32, device=dev))
+    loss = _ce_from_hidden(st, params, h, ids, true_len=true_len) / (L - 1)
+    return loss, clock.lap()
+
+
+# ---------------------------------------------------------------------------
+# Public API (reference enable_fixed_kv, easykv.py:903-908)
+# ---------------------------------------------------------------------------
 
 class CausalLM:
     """Model wrapper binding config and parameters (and a tokenizer).
@@ -281,21 +611,36 @@ def _as_batch(input_ids) -> np.ndarray:
     return arr.astype(np.int32)
 
 
+def _is_full_budget(budget, length) -> bool:
+    return (isinstance(budget, float) and budget >= 1.0) or (
+        isinstance(budget, int) and budget >= length)
+
+
+def _finalize(model: CausalLM, res: DecodeResult, kv_len: int, phases) -> list:
+    """Record model.last_run and return row 0's tokens (decoded if a
+    tokenizer is attached)."""
+    out_ids = res.out_ids.cpu().numpy()
+    prefill_s, encode_s, decode_s = phases
+    model.last_run = RunStats(int(res.n_tokens[0]), kv_len, prefill_s, decode_s,
+                              bool(res.finite), encode_s)
+    ids_out = [int(t) for t in out_ids[0] if t >= 0]
+    if model.tokenizer is not None:
+        return model.tokenizer.decode(ids_out, skip_special_tokens=True).strip()
+    return ids_out
+
+
 def generate(
     model: CausalLM,
     input_ids,
     generation_config,
-    kv_mode: str = "decoding",
+    kv_mode: str = "encoding",
     stride: int = 1,
     report_decoding_latency: bool = False,
 ):
-    """Reference-parity entry point (reference easykv.py:199-901), `decoding`
-    mode. Returns the decoded string if a tokenizer is attached, else the
-    list of generated token ids; timings and counts go to model.last_run."""
-    if kv_mode != "decoding":
-        raise NotImplementedError(
-            f"kv_mode {kv_mode!r} is not ported yet (ROADMAP.md open items 8-9: "
-            "encoding family and ppl modes)")
+    """Reference-parity entry point (reference easykv.py:199-901). Returns
+    the decoded string if a tokenizer is attached, else the list of
+    generated token ids; kv_mode='ppl' returns the perplexity float. Timings
+    and counts go to model.last_run."""
     if isinstance(generation_config, GenerationConfig):
         gc = generation_config
     else:
@@ -311,35 +656,110 @@ def generate(
         if tok_eos is not None:
             eos = (int(tok_eos),)
     budget = gc.budget
-    if not (isinstance(budget, int) or gc.kv_policy == "full"):
-        raise ValueError("decoding mode requires an integer budget")
-    b = int(budget)
-    P_pad = _round_up(length, 64)
-    st = EngineStatics(
-        cfg=model.cfg, policy=gc.kv_policy, length=P_pad, budget=b,
-        max_new_tokens=gc.max_new_tokens, eos_token_ids=tuple(eos),
-        temp_length=gc.temp_length,
-        recent_window_dec=int(b * 0.3),  # reference easykv.py:308 quirk
-        kv_quant=model.kv_quant,
-    )
+    mode = kv_mode
+    if mode == "auto":
+        # reference easykv.py:220-227
+        if not isinstance(budget, int):
+            raise ValueError("auto mode requires an integer budget")
+        if budget > length:
+            mode, budget = "decoding", budget - length
+        else:
+            mode = "encoding_decoding"
+
+    base = dict(cfg=model.cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
+                temp_length=gc.temp_length, keep_attention=gc.keep_attention,
+                max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant)
     dev = model.device
-    ids_pad = np.zeros((B, P_pad), np.int32)
-    ids_pad[:, :length] = ids
-    prompt_len = torch.full((B,), length, dtype=torch.int32, device=dev)
     generator = torch.Generator(device=dev).manual_seed(gc.seed)
-    res, _, prefill_s, decode_s = _run_decoding(
-        st, model.params, torch.from_numpy(ids_pad).to(dev), prompt_len,
-        float(gc.temperature), float(gc.top_p), generator, model.dtype)
-    out_ids = res.out_ids.cpu().numpy()
-    kv_len = int(res.kv_len[0])
-    n_out = int(res.n_tokens[0])
-    model.last_run = RunStats(n_out, kv_len, prefill_s, decode_s, bool(res.finite))
-    retained = kv_len - length
-    if n_out:
-        print(f"KV cache budget ratio: {retained / n_out * 100:.2f}%({retained}/{n_out})")
-    if report_decoding_latency:
-        print(f"Per-step decoding latency: {decode_s / max(n_out, 1):.3f}")
-    ids_out = [int(t) for t in out_ids[0] if t >= 0]
-    if model.tokenizer is not None:
-        return model.tokenizer.decode(ids_out, skip_special_tokens=True).strip()
-    return ids_out
+    temp, top_p = float(gc.temperature), float(gc.top_p)
+    ids_t = torch.from_numpy(ids).to(dev)
+
+    if mode == "decoding":
+        if not (isinstance(budget, int) or gc.kv_policy == "full"):
+            raise ValueError("decoding mode requires an integer budget")
+        b = int(budget)
+        P_pad = _round_up(length, 64)
+        st = EngineStatics(length=P_pad, budget=b, recent_window_dec=int(b * 0.3),  # easykv.py:308
+                           **base)
+        ids_pad = np.zeros((B, P_pad), np.int32)
+        ids_pad[:, :length] = ids
+        prompt_len = torch.full((B,), length, dtype=torch.int32, device=dev)
+        res, _, prefill_s, decode_s = _run_decoding(
+            st, model.params, torch.from_numpy(ids_pad).to(dev), prompt_len, temp, top_p,
+            generator, model.dtype)
+        kv_len = int(res.kv_len[0])
+        out = _finalize(model, res, kv_len, (prefill_s, 0.0, decode_s))
+        retained, n_out = kv_len - length, model.last_run.n_tokens
+        if n_out:
+            print(f"KV cache budget ratio: {retained / n_out * 100:.2f}%({retained}/{n_out})")
+        if report_decoding_latency:
+            print(f"Per-step decoding latency: {decode_s / max(n_out, 1):.3f}")
+        return out
+
+    if mode in ("encoding", "ppl") and _is_full_budget(budget, length):
+        if mode == "ppl":
+            st = EngineStatics(mode="ppl", length=length, budget=length, **base)
+            loss, prefill_s = _run_ppl_full(st, model.params, ids_t, model.dtype)
+            loss0 = float(loss[0])
+            model.last_run = RunStats(0, length, prefill_s, 0.0, math.isfinite(loss0))
+            return float(np.exp(loss0))
+        # full-cache encoding: no eviction at all (reference easykv.py:372-377)
+        st = EngineStatics(mode="encoding", length=length, budget=length, idx=length + stride,
+                           r_idx=length, **{**base, "policy": "full"})
+        res, _, _, phases = _run_encoding(st, model.params, ids_t, temp, top_p, generator,
+                                          model.dtype)
+        print(f"KV cache budget ratio: {length / length * 100:.2f}%({length}/{length})")
+        return _finalize(model, res, int(res.kv_len[0]), phases)
+
+    if mode in ("encoding", "ppl"):
+        # reference easykv.py:385-392 budget resolution
+        b = int(length * budget) + stride if isinstance(budget, float) else int(budget) + stride
+        # ppl takes the ascending r_idx scan (a tiny prefix), like
+        # encoding_decoding (reference easykv.py:777-780)
+        idx, r_idx = (stride_align_encdec if mode == "ppl" else stride_align)(length, b, stride)
+        if (length - r_idx) % stride != 0:
+            raise ValueError(f"length={length}, stride={stride}, budget={budget}: prefix "
+                             f"remainder not stride-aligned (idx={idx}, r_idx={r_idx})")
+        st = EngineStatics(mode=mode, length=length, budget=b, idx=idx, r_idx=r_idx,
+                           recent_window=int(b * gc.recent_ratio),
+                           recent_window_dec=int(b * 0.3), **base)
+        if mode == "ppl":
+            loss, kv_len, (prefill_s, encode_s) = _run_ppl(
+                st, model.params, ids_t, generator, model.dtype)
+            kv, loss0 = int(kv_len[0]), float(loss[0])
+            model.last_run = RunStats(0, kv, prefill_s, 0.0, math.isfinite(loss0), encode_s)
+            print(f"KV cache budget ratio: {kv / length * 100:.2f}%({kv}/{length})")
+            return float(np.exp(loss0))
+        res, kv_len, _, phases = _run_encoding(st, model.params, ids_t, temp, top_p,
+                                               generator, model.dtype)
+        kv = int(kv_len[0])
+        out = _finalize(model, res, int(res.kv_len[0]), phases)
+        print(f"KV cache budget ratio: {kv / length * 100:.2f}%({kv}/{length})")
+        if report_decoding_latency:
+            n_out = model.last_run.n_tokens
+            print(f"Per-step decoding latency: {phases[2] / max(n_out, 1):.3f}")
+        return out
+
+    if mode == "encoding_decoding":
+        if not (isinstance(budget, int) and budget <= length):
+            raise ValueError("encoding_decoding requires an int budget <= prompt length")
+        white = ["random", "recency", "tova", "roco"]
+        if gc.kv_policy not in white:   # reference easykv.py:536-537
+            raise ValueError(f"mode must be within {white}, get {gc.kv_policy} instead")
+        b = budget + stride
+        if b >= length:
+            b -= stride
+        idx, r_idx = stride_align_encdec(length, b, stride)
+        st = EngineStatics(mode=mode, length=length, budget=b, idx=idx, r_idx=r_idx,
+                           recent_window=int(b * gc.recent_ratio),
+                           recent_window_dec=int(b * 0.3), **base)
+        res, _, phases = _run_encdec(st, model.params, ids_t, temp, top_p, generator,
+                                     model.dtype)
+        kv = int(res.kv_len[0])
+        out = _finalize(model, res, kv, phases)
+        n_out = model.last_run.n_tokens
+        print(f"KV Cache Budget ratio {kv / (length + n_out) * 100:.2f}%"
+              f"[{kv}/({length}+{n_out})]")
+        return out
+
+    raise ValueError(f"unknown kv_mode {kv_mode!r}")

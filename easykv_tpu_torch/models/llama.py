@@ -1,6 +1,7 @@
 """LLaMa-family decoder over the budgeted KV ring buffer (counterpart of
 easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp,
-prefill_layer_major, _decode_forward, _logits_tail, _lm_head).
+prefill_layer_major, strided_encode_layer_major, decode_evict_folded,
+_decode_forward, _logits_tail, _lm_head).
 
 Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
@@ -11,40 +12,47 @@ sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
 all layers. With an int8 cache the prompt prefill's attention is the chunk
 kernel (K5), as the JAX package's default `auto` chunk-kernel mode has it
 (llama.py:150-169 there); a float cache keeps the plain `attend`, which the
-JAX package leaves to XLA. On CPU tensors each wrapper runs its plain
-version.
+JAX package leaves to XLA. The strided encode of the encoding family
+writes and attends each chunk of an int8 cache through K6 (the JAX
+package's `auto` mode takes `fused_chunk_write_attend` there, llama.py:429-440,
+489-495); a float cache writes with `write_tokens_at` and attends with the
+plain `attend`. The encode-phase score updates and evictions are plain
+PyTorch (policies.py). On CPU tensors each wrapper runs its plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cache import KVCache, quantize_kv, write_tokens_slice
+from ..cache import KVCache, quantize_kv, write_tokens_at, write_tokens_slice
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
-from ..ops.cuda.chunk_attention import fused_chunk_attend
+from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import fused_write_update
 from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
-from ..policies import PolicySpec
+from ..policies import (PHASE_DECODE, PolicySpec, evict_layer, update_scores,
+                        update_scores_reduced)
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp")
 BIAS_KEYS = ("bq", "bk", "bv")
 
 
 class StepCtx(NamedTuple):
-    """Per-step context of one decode token (all (B, 1) or (B,) tensors)."""
+    """Per-chunk context: (B, C) and (B,) tensors for one chunk (C = 1 for a
+    decode token); the layer-major encode takes every field stacked over a
+    leading (n_chunks,) axis."""
 
-    q_pos: torch.Tensor         # (B, 1) int32 position ids; -1 = dead row
-    token_valid: torch.Tensor   # (B, 1) bool
-    counter_init: torch.Tensor  # (B, 1) f32 initial observation counter
+    q_pos: torch.Tensor         # (B, C) int32 position ids; -1 = padding / dead row
+    token_valid: torch.Tensor   # (B, C) bool
+    counter_init: torch.Tensor  # (B, C) f32 initial observation counters
     next_pos: torch.Tensor      # (B,) int32 position the next token would get
     prompt_len: torch.Tensor    # (B,) int32
-    evict_gate: torch.Tensor    # (B,) bool: run an eviction event this step
+    evict_gate: torch.Tensor    # (B,) bool: run an eviction event this chunk
     update_gate: torch.Tensor   # (B,) bool: apply score updates
     rand_rank: torch.Tensor     # (B,) int32 pre-drawn rank for the random policy
 
@@ -155,13 +163,17 @@ def prefill_layer_major(
     token_ids: torch.Tensor,     # (B, A_pad), A_pad = n_chunks * C
     q_pos: torch.Tensor,         # (n_chunks, B, C) int32, -1 = padding
     counter_init: torch.Tensor,  # (n_chunks, B, C) f32
+    spec: Optional[PolicySpec] = None,  # keep_attention bootstrap, or None
 ) -> torch.Tensor:
     """Layer-major no-eviction prefill: one whole-width QKV/MLP matmul per
     layer; attention and the cache writes go chunk by chunk. Token j lands in
     slot j of the empty cache (write_tokens_slice); padding tokens write
     pos = -1, so their slots stay invalid. An int8 cache is attended by K5
-    over its own int8 rows and scales, the chunk's tokens included. Fills
-    `cache` in place and returns h (B, A_pad, D) before the final norm."""
+    over its own int8 rows and scales, the chunk's tokens included. With a
+    spec, every chunk's attention mass bootstraps the scores (reference
+    h2o_head_score, easykv.py:173-186): K5's statistics for an int8 cache,
+    the plain probabilities for a float one. Fills `cache` in place and
+    returns h (B, A_pad, D) before the final norm."""
     B, T = token_ids.shape
     n, _, C = q_pos.shape
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -169,6 +181,7 @@ def prefill_layer_major(
     scale = Dh ** -0.5
     q_pos_flat = q_pos.permute(1, 0, 2).reshape(B, T)
     cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
+    boot = torch.ones((B,), dtype=torch.bool, device=token_ids.device)
 
     h = params.embed[token_ids.clamp(min=0)]
     for l, p in enumerate(params.layers):
@@ -182,13 +195,93 @@ def prefill_layer_major(
             write_tokens_slice(cl, k[:, :, sl], v[:, :, sl], q_pos[c],
                                counter_init[c], c * C)
             if cl.quantized:
-                out, _, _, _ = fused_chunk_attend(
+                out, ssum, ssq, last = fused_chunk_attend(
                     q[:, :, sl].contiguous(), cl.k, cl.v, cl.pos, q_pos[c], cl.k_scale,
-                    cl.v_scale, need_scores=False, sliding_window=cfg.sliding_window)
+                    cl.v_scale, need_scores=spec is not None,
+                    sliding_window=cfg.sliding_window)
+                if spec is not None:
+                    update_scores_reduced(cl, ssum, ssq, last, spec, boot, bootstrap=True)
             else:
-                out, _ = attend(q[:, :, sl], cl.k, cl.v, cl.pos, q_pos[c],
-                                sliding_window=cfg.sliding_window, scale=scale)
+                out, probs = attend(q[:, :, sl], cl.k, cl.v, cl.pos, q_pos[c],
+                                    sliding_window=cfg.sliding_window, scale=scale)
+                if spec is not None:
+                    update_scores(cl, probs, spec, boot, bootstrap=True)
             outs.append(out)
+        h = _attn_block(h, p, cfg, torch.cat(outs, dim=2))
+    return h
+
+
+@torch.no_grad()
+def strided_encode_layer_major(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    cache: KVCache,
+    token_ids: torch.Tensor,     # (B, T), T = n_chunks * C
+    ctxs: StepCtx,               # every field stacked over a leading (n_chunks,) axis
+    spec: PolicySpec,            # the encode spec (policy 'full' evicts nothing)
+    write_start: Sequence[int],  # (n_chunks,) valid slots before each chunk
+    evict_at: Sequence[bool],    # (n_chunks,) some row's eviction gate fires
+) -> torch.Tensor:
+    """Strided encoding with per-chunk eviction, layer-major (reference
+    easykv.py:426-499): per layer, one whole-width QKV/MLP matmul over all T
+    tokens; then chunk by chunk the write and attention (K6 for an int8
+    cache; write_tokens_at and the plain `attend` for a float one), the
+    score update, and the gated eviction on the chunks the host schedule
+    marks (evict_at: no host sync per chunk). Write slots are carried, not
+    searched: contiguous while the cache fills, the sorted evicted ids of the
+    previous event afterwards. Updates `cache` in place and returns h
+    (B, T, D) before the final norm."""
+    B, T = token_ids.shape
+    n = len(write_start)
+    C = T // n
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dev = token_ids.device
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), dev)
+    scale = Dh ** -0.5
+    evicting = spec is not None and spec.policy != "full"
+    need = spec is not None and spec.policy in ("h2o_head", "roco", "tova")
+    q_pos_flat = ctxs.q_pos.permute(1, 0, 2).reshape(B, T)
+    cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
+    ar = torch.arange(C, dtype=torch.int32, device=dev)
+
+    def contiguous_ids(start: int) -> torch.Tensor:
+        return (start + ar).expand(B, Hkv, C).contiguous()
+
+    h = params.embed[token_ids.clamp(min=0)]
+    for l, p in enumerate(params.layers):
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, T, Hq, Hkv, Dh)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        cl = cache.layer(l)
+        wids = contiguous_ids(write_start[0])
+        outs = []
+        for c in range(n):
+            sl = slice(c * C, (c + 1) * C)
+            qp, cinit, gate = ctxs.q_pos[c], ctxs.counter_init[c], ctxs.update_gate[c]
+            if cl.quantized:
+                out, ssum, ssq, last = fused_chunk_write_attend(
+                    q[:, :, sl].contiguous(), k[:, :, sl].contiguous(),
+                    v[:, :, sl].contiguous(), wids, qp, cinit, cl.k, cl.v, cl.pos, cl.score,
+                    cl.score_sq, cl.counter, cl.k_scale, cl.v_scale, need_scores=need,
+                    sliding_window=cfg.sliding_window)
+                if need:
+                    update_scores_reduced(cl, ssum, ssq, last, spec, gate)
+            else:
+                write_tokens_at(cl, k[:, :, sl], v[:, :, sl], qp, cinit, wids)
+                out, probs = attend(q[:, :, sl], cl.k, cl.v, cl.pos, qp,
+                                    sliding_window=cfg.sliding_window, scale=scale)
+                if evicting:
+                    update_scores(cl, probs, spec, gate)
+                del probs
+            outs.append(out)
+            contig = contiguous_ids(write_start[c] + C)
+            if evicting and evict_at[c]:
+                eg = ctxs.evict_gate[c]
+                eids = evict_layer(cl, spec, ctxs.next_pos[c], ctxs.prompt_len[c],
+                                   ctxs.rand_rank[c], eg)
+                wids = torch.where(eg[:, None, None], eids.sort(dim=-1).values, contig)
+            else:
+                wids = contig
         h = _attn_block(h, p, cfg, torch.cat(outs, dim=2))
     return h
 
@@ -210,6 +303,14 @@ def _logits_tail(h: torch.Tensor, params: LlamaParams, cfg: ModelConfig) -> torc
     return _lm_head(h, params.lm_head)
 
 
+def decode_evict_folded(spec: Optional[PolicySpec]) -> bool:
+    """True when _decode_forward folds the step's gated eviction into K2:
+    decode-phase k=1 specs (the JAX package's decode_evict_folded). The
+    engine evicts with policies.evict_cache otherwise."""
+    return (spec is not None and spec.phase == PHASE_DECODE and spec.k == 1
+            and spec.policy != "full")
+
+
 @torch.no_grad()
 def _decode_forward(
     params: LlamaParams,
@@ -222,11 +323,12 @@ def _decode_forward(
     """One decode token through all layers with a late cache write: the
     token's K/V joins each layer's softmax in flight (K1); after the layers
     one sidecar pass picks every (layer, head)'s write slot, updates the
-    scores and applies the step's gated eviction (K2); one launch then writes
-    the K/V rows (K3). An int8 cache folds its scales into K1; the step's
-    rows are quantized once after the layers, K2 writes their scales and K3
-    their int8 bytes. Updates `cache` in place and returns logits
-    (B, 1, V) f32."""
+    scores with the policy's rule and, when decode_evict_folded(spec),
+    applies the step's gated eviction (K2); one
+    launch then writes the K/V rows (K3). An int8 cache folds its scales
+    into K1; the step's rows are quantized once after the layers, K2 writes
+    their scales and K3 their int8 bytes. Updates `cache` in place and
+    returns logits (B, 1, V) f32."""
     B = token_ids.shape[0]
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
@@ -255,7 +357,7 @@ def _decode_forward(
     p_new = torch.stack(pnew_all)                               # (L, B, Hkv, 1)
     kn = torch.stack(kn_all)                                    # (L, B, Hkv, 1, Dh)
     vn = torch.stack(vn_all)
-    ekw = {} if spec is None else dict(
+    ekw = {} if not decode_evict_folded(spec) else dict(
         espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
         prompt_len=ctx.prompt_len, rand_rank=ctx.rand_rank)
     if cache.quantized:

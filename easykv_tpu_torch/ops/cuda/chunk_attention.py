@@ -1,5 +1,6 @@
 """C-query chunk attention over the ring buffer, with the per-slot score
-statistics (kernel K5).
+statistics (kernel K5), and the strided encode's chunk write + attend
+(kernel K6).
 
 CUDA kernel: easykv_tpu_torch/csrc/chunk_attention.cu, which replaces the
 TPU kernel easykv_tpu/ops/pallas/chunk_attention.py `fused_chunk_attend`:
@@ -15,6 +16,15 @@ a masked softmax whose masked entries are exactly 0, out = (p (* v_scale))
 . v cast to q's dtype, and with need_scores the GQA mean of p over the rep
 query heads of each KV head, summed over the chunk (ssum), summed squared
 (ssq), and its row C-1 (last).
+
+K6 `fused_chunk_write_attend` (same source, entry `chunk_write_attend`)
+replaces easykv_tpu/ops/pallas/chunk_attention.py `fused_chunk_write_attend`
+(`_wa_kernel`, `_wa_flash_kernel` and the `_score_kernel` second pass): it
+writes the chunk into caller-given slots, in place, then computes K5's
+function over the updated cache. Its plain version is
+`cache.write_tokens_at` followed by `fused_chunk_attend_plain`. Unlike the
+TPU kernel, whose max-based pick clamps negative initial counters to 0, it
+writes `counter_init` exactly, as the JAX package's XLA path does.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...cache import KVCache, write_tokens_at
 from ..attention import NEG_INF
 from . import _build
 
@@ -31,8 +42,10 @@ MAX_REP = 32   # query heads per KV head that one block's 32 query rows hold
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "chunk_attend": ([_vp] * 11 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
+    "chunk_attend": ([_vp] * 12 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
     "chunk_attend_smem": ([_int], ctypes.c_size_t),
+    "chunk_write_attend": ([_vp] * 19 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp],
+                           _int),
 }
 
 
@@ -80,11 +93,52 @@ def fused_chunk_attend(
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (out (B, Hq, C, D) in q's dtype, ssum, ssq, last (B, Hkv, S)
     f32); the three statistics are None without need_scores. Padding query
-    rows give an out of exactly 0."""
+    rows give an out of exactly 0. One launch is counted per call (with
+    need_scores, the statistics launch follows the attention's on the
+    current stream)."""
     if q.device.type == "cpu":
         return fused_chunk_attend_plain(q, k, v, kv_pos, q_pos, k_scale, v_scale,
                                         need_scores=need_scores,
                                         sliding_window=sliding_window)
+    lib, quant, out, stats, ml = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale,
+                                          need_scores)
+    B, Hq, C, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    err = lib.chunk_attend(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml),
+        B, Hkv, Hq // Hkv, C, S, D, D ** -0.5, _window(sliding_window), _Q_DTYPES[q.dtype],
+        int(quant), _build.stream_of(q))
+    _build.check(err, "chunk_attend")
+    fused_chunk_attend.launches += 1
+    return (out, *stats)
+
+
+fused_chunk_attend.launches = 0
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _window(sliding_window) -> int:
+    return 0 if sliding_window is None else int(sliding_window)
+
+
+def _check(checks, device) -> None:
+    """checks: (name, tensor, dtype, shape); all contiguous on `device`."""
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: chunk attention takes contiguous tensors on one device")
+
+
+def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, need_scores):
+    """Checks K5's arguments (K6's cache half too) and allocates its
+    results: (library, quantized, out, [ssum, ssq, last] or Nones, and the
+    statistics launch's (B, Hq, C, 2) f32 scratch of each query row's final
+    softmax max and sum, or None)."""
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if Hq % Hkv != 0 or not 1 <= Hq // Hkv <= MAX_REP:
@@ -97,19 +151,15 @@ def fused_chunk_attend(
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("int8 K/V come with k_scale and v_scale; a float cache with neither")
-    checks = [("k", k, k.dtype if quant else q.dtype, (B, Hkv, S, D)),
+    checks = [("q", q, q.dtype, (B, Hq, C, D)),
+              ("k", k, k.dtype if quant else q.dtype, (B, Hkv, S, D)),
               ("v", v, k.dtype, (B, Hkv, S, D)),
               ("kv_pos", kv_pos, torch.int32, (B, Hkv, S)),
               ("q_pos", q_pos, torch.int32, (B, C))]
     if quant:
         checks += [("k_scale", k_scale, torch.float32, (B, Hkv, S)),
                    ("v_scale", v_scale, torch.float32, (B, Hkv, S))]
-    for name, t, dtype, shape in checks:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-    tensors = [q] + [c[1] for c in checks]
-    if any(t.device != q.device or not t.is_contiguous() for t in tensors):
-        raise ValueError("chunk attention takes contiguous tensors on one device")
+    _check(checks, q.device)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     lib = _build.load("chunk_attention", SIGNATURES)
@@ -117,23 +167,75 @@ def fused_chunk_attend(
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory "
                          f"(limit {_build.SMEM_LIMIT})")
-
     out = torch.empty_like(q)
-    stats = [torch.zeros((B, Hkv, S), dtype=torch.float32, device=q.device)
-             for _ in range(3)] if need_scores else [None] * 3
+    if not need_scores:
+        return lib, quant, out, [None] * 3, None
+    stats = [torch.zeros((B, Hkv, S), dtype=torch.float32, device=q.device) for _ in range(3)]
+    ml = torch.empty((B, Hq, C, 2), dtype=torch.float32, device=q.device)
+    return lib, quant, out, stats, ml
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    window = 0 if sliding_window is None else int(sliding_window)
-    err = lib.chunk_attend(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
-        ptr(k_scale), ptr(v_scale), out.data_ptr(), *map(ptr, stats),
-        B, Hkv, Hq // Hkv, C, S, D, D ** -0.5, window, _Q_DTYPES[q.dtype], int(quant),
+def fused_chunk_write_attend_plain(
+    q, k_c, v_c, ids, q_pos, counter_init, k, v, kv_pos, score, score_sq, counter,
+    k_scale=None, v_scale=None, *, need_scores: bool = True,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K6; same arguments and results."""
+    write_tokens_at(KVCache(k, v, kv_pos, score, score_sq, counter, k_scale, v_scale),
+                    k_c, v_c, q_pos, counter_init, ids)
+    return fused_chunk_attend_plain(q, k, v, kv_pos, q_pos, k_scale, v_scale,
+                                    need_scores=need_scores, sliding_window=sliding_window)
+
+
+def fused_chunk_write_attend(
+    q: torch.Tensor,             # (B, Hq, C, D) compute dtype, rotated
+    k_c: torch.Tensor,           # (B, Hkv, C, D) the chunk's keys, q's dtype, rotated
+    v_c: torch.Tensor,           # (B, Hkv, C, D)
+    ids: torch.Tensor,           # (B, Hkv, C) int32 distinct target slots per head
+    q_pos: torch.Tensor,         # (B, C) int32 positions of the chunk's tokens
+    counter_init: torch.Tensor,  # (B, C) f32 initial counters, any sign
+    k: torch.Tensor,             # (B, Hkv, S, D) cache, q's dtype or int8; in place
+    v: torch.Tensor,
+    kv_pos: torch.Tensor,        # (B, Hkv, S) int32; in place
+    score: torch.Tensor,         # (B, Hkv, S) f32; in place
+    score_sq: torch.Tensor,
+    counter: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,  # (B, Hkv, S) f32 (int8 K/V); in place
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    need_scores: bool = True,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Writes the chunk into the cache at `ids` (int8: quantized, with its
+    scales), sets pos = q_pos, counter = counter_init, score = score_sq = 0
+    there, then attends over the updated cache. Returns (out (B, Hq, C, D),
+    ssum, ssq, last (B, Hkv, S) f32 or Nones), as fused_chunk_attend. One
+    launch is counted per call (the row write, the attention and, with
+    need_scores, the statistics run back to back on the current stream)."""
+    if q.device.type == "cpu":
+        return fused_chunk_write_attend_plain(
+            q, k_c, v_c, ids, q_pos, counter_init, k, v, kv_pos, score, score_sq, counter,
+            k_scale, v_scale, need_scores=need_scores, sliding_window=sliding_window)
+    lib, quant, out, stats, ml = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale,
+                                          need_scores)
+    B, Hq, C, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    _check([("k_c", k_c, q.dtype, (B, Hkv, C, D)), ("v_c", v_c, q.dtype, (B, Hkv, C, D)),
+            ("ids", ids, torch.int32, (B, Hkv, C)),
+            ("counter_init", counter_init, torch.float32, (B, C)),
+            ("score", score, torch.float32, (B, Hkv, S)),
+            ("score_sq", score_sq, torch.float32, (B, Hkv, S)),
+            ("counter", counter, torch.float32, (B, Hkv, S))], q.device)
+    err = lib.chunk_write_attend(
+        q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), ids.data_ptr(), q_pos.data_ptr(),
+        counter_init.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
+        score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml), B, Hkv, Hq // Hkv, C, S, D,
+        D ** -0.5, _window(sliding_window), _Q_DTYPES[q.dtype], int(quant),
         _build.stream_of(q))
-    _build.check(err, "chunk_attend")
-    fused_chunk_attend.launches += 1
+    _build.check(err, "chunk_write_attend")
+    fused_chunk_write_attend.launches += 1
     return (out, *stats)
 
 
-fused_chunk_attend.launches = 0
+fused_chunk_write_attend.launches = 0

@@ -66,9 +66,12 @@ def test_generate_eos_stops_and_pads(models):
 
 
 def test_other_modes_not_ported(models):
+    """Streaming is the part of generate() still to port (ROADMAP item 10)."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        easykv_tpu_torch.generate(tm, [1, 2, 3], {"budget": 0.5}, kv_mode="encoding")
+    for mode in ("decoding", "encoding"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md open item 10"):
+            easykv_tpu_torch.generate(tm, [1, 2, 3], {"budget": 8, "streaming": True},
+                                      kv_mode=mode)
 
 
 @pytest.mark.parametrize("variant", [

@@ -4,6 +4,9 @@ decode path with the kernels against the same path with the plain versions.
 Marked `gpu`; on a machine without a CUDA device every test skips (the
 fixture decides).
 
+K6 (chunk write + attend) is held bit-exact on every cache array, int8
+bytes and scales included, and to K5's limits on out and the statistics.
+
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -17,7 +20,9 @@ import torch
 from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.llama import init_params
-from easykv_tpu_torch.ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_attend_plain
+from easykv_tpu_torch.ops.cuda.chunk_attention import (
+    fused_chunk_attend, fused_chunk_attend_plain, fused_chunk_write_attend,
+    fused_chunk_write_attend_plain)
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows, write_rows_plain
@@ -149,6 +154,79 @@ def test_k5_f32_kernel_matches_plain(cuda, kv):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
+def k6_args(dev, B, Hq, Hkv, S, n_valid, dtype, quant, scattered, negative, seed, C=96,
+            D=128):
+    """K6's arguments for one strided chunk: the cache holds positions
+    0..n_valid-1 in slots [0, n_valid); contiguous ids write slots
+    [n_valid, n_valid + C), scattered ones the C slots (sorted) that an
+    eviction just freed. The chunk's tokens sit at n_valid + 1000 + c;
+    negative initial counters are the engine's -((pos - idx) % stride)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    pos = torch.full((B, Hkv, S), -1, dtype=torch.int32)
+    pos[..., :n_valid] = torch.arange(n_valid, dtype=torch.int32)
+    cpu = torch.Generator().manual_seed(seed)
+    if scattered:
+        ids = torch.stack([torch.randperm(n_valid, generator=cpu)[:C].sort().values
+                           for _ in range(B * Hkv)]).reshape(B, Hkv, C).to(torch.int32)
+        pos.scatter_(-1, ids.long(), -1)
+    else:
+        ids = (n_valid + torch.arange(C, dtype=torch.int32)).expand(B, Hkv, C).contiguous()
+    q_pos = (n_valid + 1000 + torch.arange(C, dtype=torch.int32)).repeat(B, 1)
+    if negative:
+        cinit = -((torch.arange(C) + 5) % 8).to(torch.float32).repeat(B, 1)
+    else:
+        cinit = (torch.rand((B, C), generator=cpu) * 30).floor()
+    u = lambda: torch.rand((B, Hkv, S), generator=g, device=dev)  # noqa: E731
+    sidecars = (pos.to(dev), u(), u() * 0.1, (u() * 50).floor())
+    k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    else:
+        k, v, scales = k.to(dtype), v.to(dtype), ()
+    return (rnd(B, Hq, C, D).to(dtype), rnd(B, Hkv, C, D).to(dtype),
+            rnd(B, Hkv, C, D).to(dtype), ids.to(dev), q_pos.to(dev), cinit.to(dev),
+            k, v) + sidecars + scales
+
+
+K6_CACHE = ("k", "v", "pos", "score", "score_sq", "counter", "k_scale", "v_scale")
+
+
+def k6_compare(args, need_scores, window):
+    """(results, cache arrays) of K6 and of its plain version on copies."""
+    ka = [a.clone() for a in args]
+    kb = [a.clone() for a in args]
+    before = fused_chunk_write_attend.launches
+    got = fused_chunk_write_attend(*ka, need_scores=need_scores, sliding_window=window)
+    assert fused_chunk_write_attend.launches == before + 1
+    ref = fused_chunk_write_attend_plain(*kb, need_scores=need_scores, sliding_window=window)
+    return got, ref, ka[6:], kb[6:]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["int8", "float"])
+@pytest.mark.parametrize("scattered,scores,Hq,Hkv,window,negative", [
+    (False, True, 8, 8, None, True), (True, True, 8, 8, None, False),
+    (True, False, 8, 8, None, True), (True, True, 8, 2, None, True),
+    (True, True, 8, 8, 150, True)],
+    ids=["contiguous-scores", "scattered-scores", "scattered-noscores", "gqa4", "window"])
+def test_k6_kernel_matches_plain(cuda, dtype, kv, scattered, scores, Hq, Hkv, window,
+                                 negative):
+    args = k6_args(cuda, 2, Hq, Hkv, 512, 384, dtype, kv == "int8", scattered, negative, 6)
+    got, ref, ca, cb = k6_compare(args, scores, window)
+    for name, a, b in zip(K6_CACHE, ca, cb):
+        assert torch.equal(a, b), name          # int8 bytes and scales included
+    if negative:
+        assert (ca[5].gather(-1, args[3].long()) < 0).any()
+    assert _out_ok(got[0], ref[0])
+    if scores:
+        for a, b in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    else:
+        assert got[1:] == (None, None, None)
+
+
 @pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
 @pytest.mark.parametrize("gate", [True, False])
 @pytest.mark.parametrize("policy", [None, "h2o_head", "tova", "roco", "recency", "random"])
@@ -224,7 +302,8 @@ def _decode_paths(cuda, policy, kv_quant):
     plain_kernels = mock.patch.multiple(
         llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
         fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
-        fused_chunk_attend=fused_chunk_attend_plain)
+        fused_chunk_attend=fused_chunk_attend_plain,
+        fused_chunk_write_attend=fused_chunk_write_attend_plain)
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)

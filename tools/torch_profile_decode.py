@@ -61,7 +61,7 @@ def main():
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
         gen_mod._decode_loop(st, params, cache, last, plen, plen, plen, st.decode_spec(),
-                             gen, 1e-9, 1.0)
+                             gen, 1e-9, 1.0, "budget")
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 

@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Where the strided encode of the PyTorch port spends its time, on one
+CUDA card, and what the encoding_decoding decode step adds.
+
+Builds LLaMa-2-7B-width weights on the card from a seed (bf16) and takes
+chip_smoke.py's encoding-family workload (its model, 4096-token prompt and
+stride 96): the `encoding` roco run at budget 0.5, prefix prefilled, then
+the strided encode (22 chunks x 32 layers) once untraced and once under
+torch.profiler, with an int8 KV cache (K6 per chunk and layer) and then a
+bf16 one (write_tokens_at + plain attend); then, with the int8 cache, the
+`encoding_decoding` roco run at budget 2048: STEPS decode steps after its
+encode, each followed by policies.evict_cache, untraced and traced. Prints
+host-clock seconds of both runs, the device time (sum of kernel
+durations), the device's idle share while traced, the kernels that take
+most device time, and the PyTorch ops that take most host time (self CPU
+time under the tracer, which inflates it, with calls).
+
+    python3 tools/torch_profile_encode.py
+"""
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import ENC_PROMPT, LLAMA2_7B, STRIDE  # noqa: E402
+from easykv_tpu_torch.models.llama import init_params  # noqa: E402
+from easykv_tpu_torch.ops.cuda import _build  # noqa: E402
+
+gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+STEPS = 32       # encoding_decoding decode steps, each with an eviction
+
+
+def summarize(prof, seconds_traced, seconds_untraced, n):
+    """Per-unit (n units: chunk-layers or decode steps) device and host
+    figures of one traced window."""
+    kernels, busy_us = {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = e.time_range.elapsed_us()
+            busy_us += t
+            kernels[e.name] = kernels.get(e.name, 0.0) + t
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:10]
+    return {
+        "untraced_s": seconds_untraced,
+        "traced_s": seconds_traced,
+        "untraced_ms_per_unit": seconds_untraced / n * 1e3,
+        "device_busy_ms_per_unit": busy_us / 1e3 / n,
+        "device_idle_share_traced": 1 - (busy_us / 1e6) / seconds_traced,
+        "top_kernels_device_ms_per_unit": {k: v / 1e3 / n for k, v in top},
+        "top_host_ops_traced_ms_and_calls_per_unit": {
+            k: [t / 1e3 / n, c / n] for k, t, c in host},
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    _build.build()                  # every kernel, before any timed region
+    cfg = LLAMA2_7B
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    n = ENC_PROMPT
+    ids = torch.randint(1, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(dev)
+
+    def statics(mode, kv_quant, max_new):
+        b = int(n * 0.5) + STRIDE if mode == "encoding" else 2048 + STRIDE
+        align = gen_mod.stride_align if mode == "encoding" else gen_mod.stride_align_encdec
+        idx, r_idx = align(n, b, STRIDE)
+        return gen_mod.EngineStatics(cfg=cfg, policy="roco", length=n, budget=b,
+                                     max_new_tokens=max_new, recent_window_dec=int(b * 0.3),
+                                     kv_quant=kv_quant, mode=mode, stride=STRIDE, idx=idx,
+                                     r_idx=r_idx, recent_window=int(b * 0.1))
+
+    def prefixed(st, S):
+        cache = gen_mod._engine_cache(st, 1, S, torch.bfloat16, dev)
+        plen = torch.full((1,), st.r_idx, dtype=torch.int32, device=dev)
+        gen_mod._prefill(st, params, cache, ids[:, :st.r_idx], plen, None, "encode")
+        torch.cuda.synchronize()
+        return cache
+
+    def encode(st, cache):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        out = gen_mod._strided_encode_layer_major(st, params, cache, ids, st.encode_spec(), gen,
+                                                  False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    res = {"card": smi, "layers": L, "prompt": n, "stride": STRIDE}
+    for kv_quant in (True, False):
+        st = statics("encoding", kv_quant, 0)
+        S = st.idx + st.stride
+        units = L * ((n - st.r_idx) // STRIDE)
+        encode(st, prefixed(st, S))                          # build + warm-up
+        base_s, _ = encode(st, prefixed(st, S))
+        cache = prefixed(st, S)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            enc_s, _ = encode(st, cache)
+        res[f"strided encode, {'int8' if kv_quant else 'bf16'} KV, per chunk-layer "
+            f"({units})"] = summarize(prof, enc_s, base_s, units)
+
+    st = statics("encoding_decoding", True, STEPS)
+    spec = st.encdec_decode_spec()
+    length = torch.full((1,), n, dtype=torch.int32, device=dev)
+
+    def encoded():
+        cache = prefixed(st, st.idx + st.stride)
+        _, (last, _, kv_len) = encode(st, cache)
+        return cache, last, kv_len
+
+    def decode(cache, last, kv_len):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        gen_mod._decode_loop(st, params, cache, last, length, length, kv_len, spec, gen,
+                             1e-9, 1.0, "always")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    decode(*encoded())                                       # warm-up
+    base_s = decode(*encoded())
+    state = encoded()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dec_s = decode(*state)
+    res[f"encoding_decoding decode, int8 KV, per step ({STEPS})"] = summarize(
+        prof, dec_s, base_s, STEPS)
+    print(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    main()
