@@ -17,13 +17,24 @@ Phases, each printing its lines before the last:
      sliding window, f32), K6 chunk write + attend (S=2304, C=96: int8 and
      bf16 caches, contiguous and scattered write slots, statistics on and
      off, GQA with B=2, a sliding window, f32, negative initial counters;
-     cache arrays bit-exact);
+     cache arrays bit-exact); the ordered StreamingLLM kernels: K4 gated
+     eviction (five policies, gate on and off by row, B=2), K2 `compact`
+     (five policies, with and without the scale rows), K9 K/V shift (bf16
+     and int8, rotate on and off, victims at the first, a middle and the
+     last tile, and none) and K8 compaction (bf16 and int8) bit-exact on
+     every array; K1 `ordered` (bf16 and int8, MHA, GQA with B=2) within
+     K1's limit;
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
      with the full cache, through CausalLM / enable_fixed_kv / generate, with
      a bf16 KV cache and then an int8 one (kv_quant=True: the prefill runs
-     K5), and int8 roco at B=4; then the encoding family on a 4096-token
+     K5), and int8 roco at B=4; then StreamingLLM `decoding`
+     (streaming=True) on the same prompt and budget: bf16 and int8 over the
+     pre-rotated cache (K2 `compact` + K9 every step), int8 over the
+     rotate-at-read cache (K1 `ordered`, K4, K8 every step) and bf16 `full`,
+     each with its launch counts, retained tokens, printed ratio and the
+     age-ordered final cache; then the encoding family on a 4096-token
      prompt with stride 96 and 128 new tokens: int8 and bf16 `encoding` (roco
      at budget 0.5: the strided encode runs K6 with the int8 cache), int8
      `encoding_decoding` (roco at budget 2048: an eviction every decode step)
@@ -31,7 +42,10 @@ Phases, each printing its lines before the last:
      read just after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
-     equal greedy tokens and final positions; then `encoding` (also with
+     equal greedy tokens and final positions; StreamingLLM `decoding` over
+     the pre-rotated and the rotate-at-read cache, float and int8: equal
+     tokens and final positions (int8: layer 0, K/V within one int8 step
+     elsewhere); then `encoding` (also with
      keep_attention), `encoding_decoding` and `ppl` with roco on a
      1024-token prompt, stride 96: equal tokens and kv_len; equal final
      positions (an int8 cache: in layer 0, and K/V within one int8 step
@@ -59,10 +73,16 @@ from unittest import mock
 import torch
 
 import easykv_tpu_torch
+from easykv_tpu_torch import flags
 from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
-from easykv_tpu_torch.models.llama import init_params
+from easykv_tpu_torch.models.llama import init_params, rotation_tables
 from easykv_tpu_torch.ops.cuda import _build
+from easykv_tpu_torch.ops.cuda import sidecar_update as sidecar_mod
+from easykv_tpu_torch.ops.cuda.kv_compact import (
+    fused_compact as k8, fused_compact_plain as k8_plain, fused_kv_compact as k9,
+    fused_kv_compact_plain as k9_plain)
+from easykv_tpu_torch.ops.rope import rope_inv_freq
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
     fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
@@ -70,7 +90,8 @@ from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight as k1, fused_decode_attend_inflight_plain as k1_plain)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_plain as k3_plain
 from easykv_tpu_torch.ops.cuda.sidecar_update import (
-    fused_write_update as k2, fused_write_update_plain as k2_plain)
+    fused_evict as k4, fused_evict_plain as k4_plain, fused_write_update as k2,
+    fused_write_update_plain as k2_plain)
 from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
@@ -91,6 +112,7 @@ POLICIES = [None, "h2o_head", "tova", "roco", "recency", "random"]
 ENC_PROMPT, STRIDE, ENC_NEW = 4096, 96, 128
 ENC_IDX, ENC_RIDX, ENC_S = 2080, 1984, 2304    # encoding at budget 0.5
 ENCDEC_RIDX, ENCDEC_S = 64, 2176               # encoding_decoding at budget 2048
+STREAM_SHAPE = (32, 32, S_MAIN, 128)           # L, H, S, D of the streaming kernels' checks
 
 
 def k1_out_limit(ref):
@@ -287,6 +309,136 @@ def phase_kernels(dev):
     errs[("K3", "bf16")] = errs[("K3", "int8")] = 0.0
     errs[("K5", "int8")] = phase_k5(dev)
     errs[("K6", "int8")] = phase_k6(dev)
+    errs.update(phase_streaming_kernels(dev))
+    return errs
+
+
+def kv_rows(L, B, H, S, D, kind, dev, seed):
+    """Random K/V buffers of one cache: bf16, or int8 with its scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn((L, B, H, S, D), generator=g, device=dev)
+    v = torch.randn((L, B, H, S, D), generator=g, device=dev)
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return [k, v, ks, vs]
+    return [k.to(torch.bfloat16), v.to(torch.bfloat16)]
+
+
+def stream_victims(L, B, H, S, dev, seed, edges=False):
+    """(L, B, H) int32 victim slots among the generated tokens of the
+    ordered cache, [PROMPT, PROMPT + BUDGET); one in six heads none (S).
+    edges: a few at the first slot, in the middle, at the last tile, S."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vs = torch.randint(PROMPT, PROMPT + BUDGET, (L, B, H), generator=g, device=dev,
+                       dtype=torch.int32)
+    vs[torch.rand((L, B, H), generator=g, device=dev) < 1 / 6] = S
+    if edges:
+        vs.view(-1)[:6] = torch.tensor([0, 5, S // 2, S - 33, S - 1, S], dtype=torch.int32)
+    return vs
+
+
+def phase_streaming_kernels(dev):
+    """The ordered StreamingLLM kernels against their plain versions at the
+    main path's shapes (L=32, H=32, S=768, D=128), on copies of the same
+    inputs: K4, K8, K9 and K2 `compact` bit-exact on every array they
+    write; K1 `ordered` within K1's limits. Returns the max |err| keyed as
+    phase 5 keys its times."""
+    L, H, S, D = STREAM_SHAPE
+    errs = {}
+    state, per_b, ev, scales = k2_case(L, 2, H, S, dev, 140)
+    gate = torch.tensor([True, False], device=dev)
+    for policy in POLICIES[1:]:
+        a = [x.clone() for x in state[:4]]
+        b = [x.clone() for x in state[:4]]
+        args = (gate, ev["next_pos"], ev["prompt_len"], ev["rand_rank"], k2_spec(policy))
+        k4(*a, *args)
+        k4_plain(*b, *args)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        drop = ((state[0] >= 0).sum(-1) - (a[0] >= 0).sum(-1))
+        print(f"phase 2: K4 policy={policy} B=2 gate (on, off): bit-exact {all(same)} "
+              f"(pos, score, score_sq, counter = {same}); valid slots per row dropped by "
+              f"{drop[:, 0].unique().tolist()} / {drop[:, 1].unique().tolist()}")
+        check(all(same) and drop[:, 0].unique().tolist() == [1]
+              and drop[:, 1].unique().tolist() == [0], f"K4 policy={policy} disagrees")
+        for with_scales in (False, True):
+            kw = dict(ev, espec=k2_spec(policy), evict_gate=gate, compact=True)
+            if with_scales:
+                kw.update(zip(SCALE_NAMES, scales))
+            got = k2(*[x.clone() for x in state], *per_b.values(), policy,
+                     **{n: x.clone() if torch.is_tensor(x) and x.dim() == 4 else x
+                        for n, x in kw.items()})
+            ref = k2_plain(*[x.clone() for x in state], *per_b.values(), policy,
+                           **{n: x.clone() if torch.is_tensor(x) and x.dim() == 4 else x
+                              for n, x in kw.items()})
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(got, ref)]
+            vs = got[-1][..., 0]
+            print(f"phase 2: K2 compact policy={policy} B=2 gate (on, off) scale rows "
+                  f"{with_scales}: bit-exact {all(same)} ({len(same)} outputs, victim slot "
+                  f"last); victims in [{int(vs[:, 0].min())}, {int(vs[:, 0].max())}], "
+                  f"gate off: {vs[:, 1].unique().tolist()}")
+            check(all(same) and len(same) == (8 if with_scales else 6)
+                  and vs[:, 1].unique().tolist() == [S] and int(vs[:, 0].max()) < S,
+                  f"K2 compact policy={policy} scales={with_scales} disagrees")
+    errs[("K4", "-")] = errs[("K2 compact", "bf16")] = errs[("K2 compact", "int8")] = 0.0
+    pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(150), dev)
+    inv_freq = rope_inv_freq(D, LLAMA2_7B.rope_theta, dev)
+    for kind in ("bf16", "int8"):
+        kv = kv_rows(L, 1, H, S, D, kind, dev, 151)
+        vs = stream_victims(L, 1, H, S, dev, 152, edges=True)
+        for rotate in (True, False):
+            a = [x.clone() for x in kv]
+            b = [x.clone() for x in kv]
+            k9(a[0], a[1], vs, *a[2:], inv_freq=inv_freq, rotate=rotate)
+            k9_plain(b[0], b[1], vs, *b[2:], inv_freq=inv_freq, rotate=rotate)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(a, b)]
+            moved = not torch.equal(a[1], kv[1])
+            print(f"phase 2: K9 {kind} rotate={rotate}: bit-exact {all(same)} (k, v"
+                  f"{', k_scale, v_scale' if kind == 'int8' else ''} = {same}); victims at "
+                  f"slots 0, 5, {S // 2}, {S - 33}, {S - 1}, none and {PROMPT}..{PROMPT + BUDGET - 1}"
+                  f"; V moved {moved}")
+            check(all(same) and moved, f"K9 {kind} rotate={rotate} disagrees")
+        errs[("K9", kind)] = 0.0
+        # K8: one victim per head among the generated tokens, some heads none
+        post = pos.clone()
+        victim = stream_victims(L, 1, H, S, dev, 153)
+        fires = victim < S
+        post.scatter_(-1, victim.clamp(max=S - 1)[..., None].long(),
+                      torch.where(fires[..., None], -1, post.gather(
+                          -1, victim.clamp(max=S - 1)[..., None].long())))
+        side = list(state[1:4])
+        side = [x[:, :1].clone() for x in side]
+        arrs = [post] + side + [x for x in kv]
+        a = [x.clone() for x in arrs]
+        b = [x.clone() for x in arrs]
+        k8(pos, *a)
+        k8_plain(pos, *b)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        n = (a[0] >= 0).sum(-1)
+        contiguous = torch.equal(a[0] >= 0, torch.arange(S, device=dev) < n[..., None])
+        print(f"phase 2: K8 {kind}: bit-exact {all(same)} ({len(same)} arrays = {same}); "
+              f"{int(fires.sum())} of {fires.numel()} heads evicted; valid slots contiguous "
+              f"after {contiguous}")
+        check(all(same) and contiguous, f"K8 {kind} disagrees")
+        errs[("K8", kind)] = 0.0
+    rot = rotation_tables(S, LLAMA2_7B, dev)
+    cases = [("bf16 MHA B=1", 1, 32, 32, False), ("bf16 GQA B=2", 2, 32, 8, False),
+             ("int8 MHA B=1", 1, 32, 32, True), ("int8 GQA B=2", 2, 32, 8, True)]
+    for i, (name, B, Hq, Hkv, quant) in enumerate(cases):
+        qp = [PROMPT + NEW - 1] + [700] * (B - 1)
+        args = k1_case(B, Hq, Hkv, S, D, torch.bfloat16, qp, dev, 160 + i, quant)
+        got, ref = k1(*args, rot=rot), k1_plain(*args, rot=rot)
+        torch.cuda.synchronize()
+        e = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, ref)]
+        ratio = ((got[0].float() - ref[0].float()).abs() / k1_out_limit(ref[0])).max().item()
+        print(f"phase 2: K1 ordered {name}: max|err| out {e[0]:.3e} (at most {ratio:.2f} of "
+              f"its limit) probs {e[1]:.3e} p_new {e[2]:.3e}")
+        check(ratio <= 1 and max(e[1:]) <= 1e-5, f"K1 ordered {name} disagrees: {e}")
+        if name.endswith("MHA B=1"):
+            errs[("K1 ordered", "int8" if quant else "bf16")] = max(e)
     return errs
 
 
@@ -422,16 +574,27 @@ def phase_k6(dev):
     return main_err
 
 
-KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K5": k5, "K6": k6}
+KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9}
+# launches of a kernel's variant, counted by its wrapper beside the total
+VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K2 compact": (k2, "compact_launches")}
 
 
 def reset_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn, attr in VARIANTS.values():
+        setattr(fn, attr, 0)
 
 
 def counts():
-    return {key: fn.launches for key, fn in KERNELS.items()}
+    c = {key: fn.launches for key, fn in KERNELS.items()}
+    c.update({key: getattr(fn, attr) for key, (fn, attr) in VARIANTS.items()})
+    return c
+
+
+def zero_counts(**want):
+    """Expected launch counts: the ones given, every other kernel 0."""
+    return {**{key: 0 for key in list(KERNELS) + list(VARIANTS)}, **want}
 
 
 def kv_cache_mb(cfg, B, S, quant):
@@ -485,9 +648,80 @@ def phase_end_to_end(dev):
                   f"{name} kept {st.kv_len - PROMPT} generated tokens, not {BUDGET}")
         runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak)
     del models
+    runs.update(phase_streaming(dev, cfg, params))
     runs.update(phase_encoding(dev, cfg, params))
     del params
     torch.cuda.empty_cache()
+    return runs
+
+
+def ordered_invariant(pos):
+    """In every (layer, batch, head): the valid slots are contiguous from 0
+    and their positions strictly increase."""
+    valid = pos >= 0
+    n = valid.sum(-1)
+    contiguous = torch.equal(valid, torch.arange(pos.shape[-1], device=pos.device) < n[..., None])
+    both = valid[..., 1:] & valid[..., :-1]
+    increasing = bool((pos[..., 1:] > pos[..., :-1])[both].all())
+    return contiguous and increasing, (int(n.min()), int(n.max()))
+
+
+def phase_streaming(dev, cfg, params):
+    """StreamingLLM `decoding` (streaming=True) at 7B width: the 512-token
+    prompt, 384 new tokens, greedy; roco at budget 200 with a bf16 and an
+    int8 KV cache over the pre-rotated cache (K2 compact + K9 every step),
+    int8 over the rotate-at-read cache (K1 ordered, then K4 and K8 every
+    step), and bf16 `full` (pre-rotated, never compacts). Checks the exact
+    launch counts, the retained tokens, the printed budget ratio and the
+    ordered invariant of the final cache."""
+    L = cfg.num_hidden_layers
+    models = {kv: easykv_tpu_torch.enable_fixed_kv(
+        easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8"), None,
+        "decoding") for kv in ("bf16", "int8")}
+    prompt = torch.randint(1, cfg.vocab_size, (PROMPT,),
+                           generator=torch.Generator().manual_seed(0)).tolist()
+    gc = dict(budget=BUDGET, max_new_tokens=NEW, temperature=1e-9, top_p=1.0,
+              eos_token_ids=[], seed=0, streaming=True)
+    plan = [("bf16 stream roco prerot", "bf16", "roco", True),
+            ("int8 stream roco prerot", "int8", "roco", True),
+            ("int8 stream roco rotate-at-read", "int8", "roco", False),
+            ("bf16 stream full prerot", "bf16", "full", True)]
+    runs = {}
+    for name, kv, policy, prerot in plan:
+        flags.use_prerot(prerot)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        printed = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(printed), engine_caches() as made:
+            out = models[kv].easykv_generate(prompt, dict(gc, kv_policy=policy))
+        c = counts()
+        flags.use_prerot(None)
+        st = models[kv].last_run
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ordered, held = ordered_invariant(made[-1].pos)
+        del made
+        tok_s = st.n_tokens / st.decode_s
+        line = printed.getvalue().strip().splitlines()[-1]
+        print(f"phase 3: {name}: prefill {st.prefill_s:.3f} s, decode {st.n_tokens} tokens in "
+              f"{st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len {st.kv_len}, valid slots per "
+              f"(layer, head) {held}, ordered invariant {ordered}, peak memory {peak:.2f} GiB, "
+              f"launches {c}; printed: {line}")
+        check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
+        want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=L * PROMPT // CHUNK if kv == "int8" else 0)
+        if policy == "roco" and prerot:
+            want.update({"K9": NEW, "K2 compact": NEW})
+        elif policy == "roco":
+            want.update({"K1 ordered": L * NEW, "K4": NEW, "K8": NEW})
+        want = zero_counts(**want)
+        check(c == want, f"{name}: launch counts {c}, expected {want}")
+        kept = BUDGET if policy == "roco" else NEW
+        ratio = f"KV cache budget ratio: {kept / NEW * 100:.2f}%({kept}/{NEW})"
+        check(st.kv_len - PROMPT == kept and held == (PROMPT + kept, PROMPT + kept),
+              f"{name}: kept {st.kv_len - PROMPT} generated tokens, slots {held}, not {kept}")
+        check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
+        check(ordered, f"{name}: the final cache is not age-ordered")
+        runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak)
     return runs
 
 
@@ -570,7 +804,7 @@ def phase_encoding(dev, cfg, params):
         print(f"{desc}, valid slots per (layer, head) after the run {held}, "
               f"KV cache {kv_cache_mb(cfg, 1, S, kv == 'int8'):.1f} MB (S={S}), peak memory "
               f"{peak:.2f} GiB, launches {c}; printed: {line}")
-        want = {"K1": L * n_dec, "K2": n_dec, "K3": n_dec, "K5": n5, "K6": n6}
+        want = zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n5, K6=n6)
         check(c == want, f"{name}: launch counts {c}, expected {want}")
         check(held == (slots, slots), f"{name}: slots {held}, expected {slots}")
         check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
@@ -581,12 +815,17 @@ def phase_encoding(dev, cfg, params):
     return runs
 
 
+@contextlib.contextmanager
 def plain_kernels():
-    """The model with each kernel's wrapper swapped for its plain version."""
-    return mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
-                               fused_write_update=k2_plain, write_rows=k3_plain,
-                               fused_chunk_attend=k5_plain,
-                               fused_chunk_write_attend=k6_plain)
+    """The model with each kernel's wrapper swapped for its plain version
+    (K4 where policies.evict_cache imports it, K8 in the engine)."""
+    with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
+                             fused_write_update=k2_plain, write_rows=k3_plain,
+                             fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
+                             fused_kv_compact=k9_plain), \
+            mock.patch.object(sidecar_mod, "fused_evict", k4_plain), \
+            mock.patch.object(gen_mod, "fused_compact", k8_plain):
+        yield
 
 
 def phase_plain_vs_kernel(dev):
@@ -617,7 +856,61 @@ def phase_plain_vs_kernel(dev):
         check(same_tok and same_pos, f"{kv} KV: kernel path and plain path disagree")
         check(res[False][2]["K5"] == (2 * PROMPT // CHUNK if quant else 0)
               and sum(res[True][2].values()) == 0, f"{kv} KV: launch counts")
+    phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen)
     phase_plain_vs_kernel_encoding(dev, cfg, params)
+
+
+def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
+    """StreamingLLM `decoding`, full width, L=2, f32 weights, 32 new tokens,
+    roco at budget 8 (an eviction and a compaction on each of the last 24
+    steps): f32 and int8 caches, each with the pre-rotated and the
+    rotate-at-read cache, kernel path against plain path. Equal greedy
+    tokens and final pos. An int8 cache: layer 0's K/V bit-identical (both
+    paths write its rows from the same embeddings, and the kernels are
+    bit-exact, phase 2); in later layers, wherever both paths hold the same
+    position, V within one int8 step (a row quantized from hidden states
+    that differ in their last f32 bits, as the encoding family's check
+    allows) and K within one step over the rotate-at-read cache, two over
+    the pre-rotated one: there every shift rotates a K row by R(-theta) and
+    requantizes it, which carries a one-step difference in x1 or x2 into
+    up to |cos| + |sin| <= sqrt(2) steps of the new scale, rounded."""
+    for quant in (False, True):
+        kv = "int8" if quant else "f32"
+        st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
+                                   max_new_tokens=32, recent_window_dec=int(8 * 0.3),
+                                   kv_quant=quant, streaming=True)
+        for prerot in (True, False):
+            res = {}
+            flags.use_prerot(prerot)
+            for plain in (False, True):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                reset_counts()
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    r, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0,
+                                                           gen, torch.float32)
+                res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), cache.k.cpu(), cache.v.cpu(),
+                              counts())
+            flags.use_prerot(None)
+            (ta, pa, ka, va, k_c), (tb, pb, kb, vb, p_c) = res[False], res[True]
+            same_tok = torch.equal(ta, tb)
+            pos_diff = [int((pa[l] != pb[l]).sum()) for l in range(pa.shape[0])]
+            held = (pa >= 0) & (pa == pb)
+            ok = same_tok and sum(pos_diff) == 0
+            mode = "pre-rotated" if prerot else "rotate-at-read"
+            what = f"tokens equal {same_tok}, final pos differing per layer {pos_diff}"
+            if quant:
+                steps = [[int((x[l].float() - y[l].float()).abs()[held[l]].max())
+                          for l in range(pa.shape[0])] for x, y in ((ka, kb), (va, vb))]
+                ok = ok and steps[0][0] == steps[1][0] == 0 and max(steps[1]) <= 1 \
+                    and max(steps[0]) <= (2 if prerot else 1)
+                what += (f", int8 steps apart at the same positions per layer: K {steps[0]}, "
+                         f"V {steps[1]}")
+            print(f"phase 4: full width L=2 f32 weights, {kv} KV, streaming {mode}, roco b=8, "
+                  f"32 tokens: {what}; launches kernel path {k_c}, plain path {p_c}")
+            check(ok, f"{kv} KV streaming {mode}: kernel path and plain path disagree")
+            new = (("K9", "K2 compact") if prerot else ("K1 ordered", "K4", "K8"))
+            check(all(k_c[key] > 0 for key in new) and sum(p_c.values()) == 0,
+                  f"{kv} KV streaming {mode}: launch counts")
 
 
 def phase_plain_vs_kernel_encoding(dev, cfg, params):
@@ -787,11 +1080,123 @@ def phase_times(dev):
                                peak=F32_FLOPS)
     out[("K5", "int8")] = k5_times(dev)
     out[("K6", "int8")] = k6_times(dev)
+    out.update(streaming_times(dev))
     for r in out.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.pop("peak") * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def tail_rows(v_slot, S):
+    """Rows at and above each head's victim: what K8 and K9 move."""
+    return int((S - v_slot.clamp(max=S)).sum())
+
+
+def streaming_times(dev):
+    """The ordered StreamingLLM kernels at the main path's shapes (L=32,
+    B=1, H=32, S=768, D=128; victims among the 200 generated tokens, one
+    head in six without). Bounds: K4 reads pos, score, score_sq, counter
+    and writes pos and counter, 24 bytes a slot; K9 and K8 read and write
+    the K and V rows (and int8 scales) at and above each victim once, K8
+    also the four sidecars there and pos_mid / pos in full to find the
+    victims; K2 compact moves what K2 moves; K1 ordered what K1 moves plus
+    the (S, D/2) cos and sin tables once. No PyTorch call computes any of
+    them: library_ms is None."""
+    L, H, S, D = STREAM_SHAPE
+    slots = L * H * S
+    out = {}
+    # K4: roco, gate on; in place, so each call evicts one more slot per row
+    # (the selection reads every slot whatever was evicted before)
+    copies = []
+    for c in range(4):
+        state, per_b, ev, _ = k2_case(L, 1, H, S, dev, 170 + c)
+        copies.append((*state[:4], torch.ones(1, dtype=torch.bool, device=dev),
+                       ev["next_pos"], ev["prompt_len"], ev["rand_rank"], k2_spec("roco")))
+    out[("K4", "-")] = dict(ms=graph_ms(k4, copies, 32), plain_ms=graph_ms(k4_plain, copies, 8),
+                            library_ms=None, bytes=24 * slots + 16, flops=slots * (8 + 31 + 4),
+                            peak=F32_FLOPS)
+    del copies
+    # K2 compact: the K2 timing's inputs with compact=True
+    for kv in ("bf16", "int8"):
+        copies = []
+        for c in range(4):
+            state, per_b, ev, scales = k2_case(L, 1, H, S, dev, 180 + c)
+            kw = dict(ev, espec=k2_spec("roco"), compact=True,
+                      evict_gate=torch.ones(1, dtype=torch.bool, device=dev))
+            if kv == "int8":
+                kw.update(zip(SCALE_NAMES, scales))
+            copies.append((state, per_b, kw))
+
+        def run_k2(fn):
+            return lambda state, per_b, kw: fn(*state, *per_b.values(), "roco", **kw)
+        out[("K2 compact", kv)] = dict(
+            ms=graph_ms(run_k2(k2), copies, 64), plain_ms=graph_ms(run_k2(k2_plain), copies, 8),
+            library_ms=None, bytes=36 * slots + L * H * (12 + (16 if kv == "int8" else 0)),
+            flops=slots * (8 + 31 + 4), peak=F32_FLOPS)
+        del copies
+    inv_freq = rope_inv_freq(D, LLAMA2_7B.rope_theta, dev)
+    pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(190), dev)
+    for kv in ("bf16", "int8"):
+        kvr = kv_rows(L, 1, H, S, D, kv, dev, 191)
+        vs = stream_victims(L, 1, H, S, dev, 192)
+        rows = tail_rows(vs, S)
+        row_bytes = 2 * D * (1 if kv == "int8" else 2) + (8 if kv == "int8" else 0)
+        args = [(kvr[0], kvr[1], vs, *kvr[2:])]
+
+        def run_k9(fn):
+            return lambda *a: fn(*a, inv_freq=inv_freq, rotate=True)
+        out[("K9", kv)] = dict(ms=graph_ms(run_k9(k9), args, 64),
+                               plain_ms=graph_ms(run_k9(k9_plain), args, 8), library_ms=None,
+                               bytes=2 * rows * row_bytes + vs.numel() * 4,
+                               flops=rows * D * 6, peak=F32_FLOPS)
+        print(f"phase 5: K9 {kv} inputs: {rows} rows at and above the victims of "
+              f"{L * H} heads ({rows / (L * H):.1f} per head), "
+              f"{(2 * rows * row_bytes) / 1e6:.2f} MB to move")
+        if kv == "int8":
+            # K8 (the rotate-at-read path, int8 run): the same victims, as
+            # pos_mid -> pos; each call restores pos first (a 3 MB copy timed
+            # alone and subtracted), since K8 consumes its victims
+            post = pos.clone()
+            idx = vs.clamp(max=S - 1)[..., None].long()
+            post.scatter_(-1, idx, torch.where((vs < S)[..., None], -1, post.gather(-1, idx)))
+            state = k2_case(L, 1, H, S, dev, 193)[0]
+            work = [post.clone(), *[x.clone() for x in state[1:4]], *kvr]
+
+            def run_k8(fn):
+                def call():
+                    work[0].copy_(post)
+                    fn(pos, *work)
+                return call
+
+            def restore():
+                work[0].copy_(post)
+            t_restore = graph_ms(restore, [()], 64)
+            out[("K8", kv)] = dict(
+                ms=graph_ms(run_k8(k8), [()], 64) - t_restore,
+                plain_ms=graph_ms(run_k8(k8_plain), [()], 8) - t_restore, library_ms=None,
+                bytes=2 * rows * (row_bytes + 16) + 2 * slots * 4, flops=0, peak=F32_FLOPS)
+        del kvr
+    # K1 ordered: K1's int8 timing with the rotation tables
+    gk = torch.Generator(device=dev).manual_seed(194)
+    q, kn, vn = (torch.randn((1, H, 1, D), generator=gk, device=dev).to(torch.bfloat16)
+                 for _ in range(3))
+    qp = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
+    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
+    (kc, ksc), (vc, vsc) = (quantize_kv(torch.randn((L, 1, H, S, D), generator=gk, device=dev))
+                            for _ in range(2))
+    rot = rotation_tables(S, LLAMA2_7B, dev)
+    sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, ksc[l], vsc[l]) for l in range(L)]
+
+    def run_k1(fn):
+        return lambda *a: fn(*a, rot=rot)
+    k1_bytes = (visible * (D + 4) * 2 + H * S * 4 * 2 + H * D * 2 * 4 + H * 4 + 4
+                + S * D // 2 * 4 * 2)                     # ... and the cos, sin tables
+    out[("K1 ordered", "int8")] = dict(ms=graph_ms(run_k1(k1), sets, 320),
+                                       plain_ms=graph_ms(run_k1(k1_plain), sets, 64),
+                                       library_ms=None, bytes=k1_bytes,
+                                       flops=4 * visible * D + 6 * visible * D, peak=F32_FLOPS)
     return out
 
 
@@ -889,24 +1294,36 @@ def main():
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
 
-    meta = {
+    meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
-               "easykv_tpu/ops/pallas/decode_attention.py:207"),
+               "easykv_tpu/ops/pallas/decode_attention.py:207", "{kv} roco"),
+        "K1 ordered": ("fused_decode_attend_inflight ordered",
+                       "easykv_tpu_torch/csrc/decode_attention.cu",
+                       "easykv_tpu/ops/pallas/decode_attention.py:207",
+                       "int8 stream roco rotate-at-read"),
         "K2": ("fused_write_update", "easykv_tpu_torch/csrc/sidecar_update.cu",
-               "easykv_tpu/ops/pallas/sidecar_update.py:270"),
+               "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} roco"),
+        "K2 compact": ("fused_write_update compact", "easykv_tpu_torch/csrc/sidecar_update.cu",
+                       "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} stream roco prerot"),
         "K3": ("write_rows", "easykv_tpu_torch/csrc/row_write.cu",
-               "easykv_tpu/ops/pallas/row_write.py:36"),
+               "easykv_tpu/ops/pallas/row_write.py:36", "{kv} roco"),
+        "K4": ("fused_evict", "easykv_tpu_torch/csrc/sidecar_update.cu",
+               "easykv_tpu/ops/pallas/sidecar_update.py:419", "int8 stream roco rotate-at-read"),
         "K5": ("fused_chunk_attend", "easykv_tpu_torch/csrc/chunk_attention.cu",
-               "easykv_tpu/ops/pallas/chunk_attention.py:183"),
+               "easykv_tpu/ops/pallas/chunk_attention.py:183", "{kv} roco"),
         "K6": ("fused_chunk_write_attend", "easykv_tpu_torch/csrc/chunk_attention.cu",
-               "easykv_tpu/ops/pallas/chunk_attention.py:641"),
+               "easykv_tpu/ops/pallas/chunk_attention.py:641", "int8 encoding roco"),
+        "K8": ("fused_compact", "easykv_tpu_torch/csrc/kv_compact.cu",
+               "easykv_tpu/ops/pallas/sidecar_update.py:565", "int8 stream roco rotate-at-read"),
+        "K9": ("fused_kv_compact", "easykv_tpu_torch/csrc/kv_compact.cu",
+               "easykv_tpu/ops/pallas/sidecar_update.py:801", "{kv} stream roco prerot"),
     }
     kernels = []
     for (key, kv), t in times.items():
-        kname, src, repl = meta[key]
+        kname, src, repl, run = meta[key]
+        run = run.format(kv=kv)
         if kv == "int8":
             kname += " (int8 KV)"
-        run = "int8 encoding roco" if key == "K6" else f"{kv} roco"
         launches = runs[run]["counts"][key]
         per = "call" if key in ("K5", "K6") else "step"
         n_per = launches / (1 if per == "call" else NEW)

@@ -30,7 +30,7 @@ import torch
 
 # the scale multiplier as float32, written as a multiply so that it rounds
 # as the JAX package's quantize_kv does (cache.py:124-128 there)
-_INV_127 = float(np.float32(1.0 / 127.0))
+INV_127 = float(np.float32(1.0 / 127.0))
 
 
 @dataclasses.dataclass
@@ -101,7 +101,7 @@ def quantize_kv(x: torch.Tensor):
     x: (..., D) -> (int8 (..., D), scale f32 (...))."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1)
-    scale = amax.clamp(min=1e-8) * _INV_127
+    scale = amax.clamp(min=1e-8) * INV_127
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 

@@ -3,8 +3,15 @@
 // emitted in the same pass.
 //
 // Replaces the TPU kernel easykv_tpu/ops/pallas/decode_attention.py
-// `fused_decode_attend_inflight` (body `_kernel_inflight`), non-streaming,
-// float or int8 KV, optional sliding window.
+// `fused_decode_attend_inflight` (body `_kernel_inflight`): float or int8
+// KV, optional sliding window, and its `ordered` variant (StreamingLLM
+// decoding over the age-ordered, rotate-at-read cache): there the cached
+// K row at slot s is rotated by R(s*theta), [x1*c - x2*s, x2*c + x1*s],
+// from f32 cos/sin tables (S, D/2) that the caller builds once per run,
+// before its QK product. An int8 row is rotated raw (rotation is linear)
+// and its scale still folds into the logit. The TPU kernel's split-bf16
+// tables feed its matrix unit; here the table rows are read directly (from
+// L2: every block of a launch reads the same table).
 //
 // What bounds it on an H100: bytes. Each launch reads the K and V rows of
 // one layer's visible slots once (11.7 MB at LLaMa-2-7B width with 712 of
@@ -86,6 +93,41 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// R(s*theta) of one lane's V elements of a cached K row (ordered variant).
+// A row spans LPR lanes; element d < D/2 pairs with d + D/2, which sits
+// LPR/2 lanes away at the same index j, or in the same lane when a row is
+// one lane. The shuffle runs on every lane (the warp stays
+// converged); only a visible row reads the table.
+template <int V>
+__device__ __forceinline__ void rotate_row(float* kr, int li, int LPR, int D, int s, bool vis,
+                                           const float* cosv, const float* sinv) {
+  const int d2 = D / 2;
+  if (LPR >= 2) {
+    const int half = LPR / 2;
+    float part[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) part[j] = __shfl_xor_sync(0xffffffffu, kr[j], half);
+    if (!vis) return;
+    const bool first = li < half;
+    const float* cr = cosv + (size_t)s * d2 + (li % half) * V;
+    const float* sr = sinv + (size_t)s * d2 + (li % half) * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float a = __fmul_rn(kr[j], cr[j]), b = __fmul_rn(part[j], sr[j]);
+      kr[j] = first ? __fsub_rn(a, b) : __fadd_rn(a, b);
+    }
+  } else if (vis) {
+    const float* cr = cosv + (size_t)s * d2;
+    const float* sr = sinv + (size_t)s * d2;
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      const float x1 = kr[j], x2 = kr[j + V / 2];
+      kr[j] = __fsub_rn(__fmul_rn(x1, cr[j]), __fmul_rn(x2, sr[j]));
+      kr[j + V / 2] = __fadd_rn(__fmul_rn(x2, cr[j]), __fmul_rn(x1, sr[j]));
+    }
+  }
+}
+
 // Block-wide max or sum through `red` (kWarps floats); every thread gets it.
 template <bool kMax>
 __device__ float block_reduce(float x, float* red) {
@@ -115,7 +157,8 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                               const T* __restrict__ vn, const KV* __restrict__ k,
                               const KV* __restrict__ v, const int* __restrict__ pos,
                               const int* __restrict__ q_pos, const float* __restrict__ ksc,
-                              const float* __restrict__ vsc, T* __restrict__ out,
+                              const float* __restrict__ vsc, const float* __restrict__ rcos,
+                              const float* __restrict__ rsin, T* __restrict__ out,
                               float* __restrict__ probs, float* __restrict__ p_new,
                               int Hkv, int rep, int S, int D, float scale, int window) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
@@ -168,6 +211,11 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
           for (int j = 0; j < V; ++j) kr[u][j] = 0.f;
         }
+      }
+      if (rcos != nullptr) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          rotate_row<V>(kr[u], li, LPR, D, base + u * rpw + sub, vis[u], rcos, rsin);
       }
       for (int r = 0; r < rep; ++r) {
         const float* qr = qs + r * D + li * V;
@@ -276,7 +324,8 @@ bool shape_ok(int D) {
 
 template <typename T, typename KV>
 int launch(const void* q, const void* kn, const void* vn, const void* k, const void* v,
-           const int* pos, const int* q_pos, const float* ksc, const float* vsc, void* out,
+           const int* pos, const int* q_pos, const float* ksc, const float* vsc,
+           const float* rcos, const float* rsin, void* out,
            float* probs, float* p_new, int B, int Hkv, int rep, int S, int D, float scale,
            int window, cudaStream_t stream) {
   if (!shape_ok<KV>(D)) return (int)cudaErrorInvalidValue;
@@ -291,7 +340,7 @@ int launch(const void* q, const void* kn, const void* vn, const void* k, const v
   }
   kernel<<<B * Hkv, kThreads, smem, stream>>>(
       (const T*)q, (const T*)kn, (const T*)vn, (const KV*)k, (const KV*)v, pos, q_pos, ksc,
-      vsc, (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
+      vsc, rcos, rsin, (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
   return (int)cudaGetLastError();
 }
 
@@ -313,27 +362,34 @@ size_t decode_attend_inflight_smem(int rep, int S, int D, int dtype, int kv_int8
 // q, kn, vn and out share `dtype`; k and v too, unless kv_int8 = 1: then
 // they are int8 with per-slot dequant scales k_scale, v_scale (B, Hkv, S)
 // f32 (null otherwise). Every pointer of q..v is 16-byte aligned.
-// window <= 0: no sliding window. Returns cudaGetLastError().
+// rot_cos, rot_sin (S, D/2) f32: the ordered variant rotates the cached K
+// row at slot s by them; null for none. window <= 0: no sliding window.
+// Returns cudaGetLastError().
 int decode_attend_inflight(const void* q, const void* kn, const void* vn, const void* k,
                            const void* v, const int* pos, const int* q_pos,
-                           const float* k_scale, const float* v_scale, void* out,
+                           const float* k_scale, const float* v_scale, const float* rot_cos,
+                           const float* rot_sin, void* out,
                            float* probs, float* p_new, int B, int Hkv, int rep, int S,
                            int D, float scale, int window, int dtype, int kv_int8,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if ((rot_cos == nullptr) != (rot_sin == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && kv_int8)
-    return launch<float, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, out, probs,
-                                 p_new, B, Hkv, rep, S, D, scale, window, st);
+    return launch<float, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, rot_cos,
+                                 rot_sin, out, probs, p_new, B, Hkv, rep, S, D, scale, window,
+                                 st);
   if (dtype == 0)
-    return launch<float, float>(q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, out, probs,
-                                p_new, B, Hkv, rep, S, D, scale, window, st);
+    return launch<float, float>(q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, rot_cos,
+                                rot_sin, out, probs, p_new, B, Hkv, rep, S, D, scale, window,
+                                st);
   if (dtype == 1 && kv_int8)
-    return launch<__nv_bfloat16, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, out,
-                                         probs, p_new, B, Hkv, rep, S, D, scale, window, st);
+    return launch<__nv_bfloat16, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale,
+                                         rot_cos, rot_sin, out, probs, p_new, B, Hkv, rep, S,
+                                         D, scale, window, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(q, kn, vn, k, v, pos, q_pos, nullptr,
-                                                nullptr, out, probs, p_new, B, Hkv, rep, S,
-                                                D, scale, window, st);
+                                                nullptr, rot_cos, rot_sin, out, probs, p_new,
+                                                B, Hkv, rep, S, D, scale, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

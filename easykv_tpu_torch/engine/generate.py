@@ -2,7 +2,8 @@
 decoding / encoding / auto / encoding_decoding / ppl (counterpart of
 easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
 EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
-_strided_encode_layer_major, _ce_from_hidden, _decode_loop, _engine_cache,
+_strided_encode_layer_major, _ce_from_hidden, _prerotate_cache,
+_compact_one, _decode_loop, _engine_cache,
 _run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
 CausalLM, enable_fixed_kv, set_dynamicntk_rope_length, generate).
 
@@ -23,6 +24,9 @@ Budget semantics (reference easykv.py:199-901):
     (easykv.py:670-748).
   * ppl: teacher-forced CE over the tokens fed after r_idx, predicted from
     the evicted cache (easykv.py:759-901).
+  * streaming=True (StreamingLLM, reference llama_patch.py:251-379), in
+    `decoding` only: RoPE by cache-relative position over an age-ordered
+    cache (see _decode_loop); the other kv_modes raise NotImplementedError.
 
 No loop waits for the host per chunk or per token: the strided encode's
 trigger schedule is static (it is computed on the host from the lengths),
@@ -42,10 +46,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..cache import KVCache, init_cache
+from .. import flags
+from ..cache import KVCache, init_cache, quantize_kv
 from ..config import GenerationConfig, ModelConfig, resolve_device
 from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
+from ..ops.cuda.kv_compact import fused_compact
+from ..ops.rope import rotate
 from ..policies import (PHASE_DECODE, PHASE_ENCDEC_DECODE, PHASE_ENCODE, PolicySpec,
                         evict_cache)
 from ..sampling import sample_topp
@@ -111,6 +118,7 @@ class EngineStatics:
     r_idx: int = 0
     recent_window: int = 0      # encode-phase recent window
     keep_attention: bool = False
+    streaming: bool = False     # StreamingLLM: RoPE by cache-relative position
 
     def encode_spec(self) -> PolicySpec:
         return PolicySpec(
@@ -327,6 +335,38 @@ def _ce_from_hidden(st: EngineStatics, params: LlamaParams, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
+def _prerotate_cache(cache: KVCache, cfg: ModelConfig) -> None:
+    """One-time transform entering pre-rotated ordered streaming decoding
+    (flags.prerot_enabled), in place: every slot's K times R(slot). The
+    `decoding` prefill cached K post-RoPE at its true position (== slot in
+    the fresh ordered cache), so the composed R(slot)·R(pos)·k reproduces
+    the reference's prefix double rotation (easykv.py:232 vs :253-256). An
+    int8 cache is dequantized, rotated in f32 and requantized with
+    quantize_kv. One layer at a time, so the f32 copy stays one layer."""
+    cos, sin = llama.rotation_tables(cache.pos.shape[-1], cfg, cache.k.device)
+    for l in range(cache.k.shape[0]):
+        kf = cache.k[l].to(torch.float32)
+        if cache.quantized:
+            kf = kf * cache.k_scale[l][..., None]
+        rot = rotate(kf, cos, sin)
+        if cache.quantized:
+            cache.k[l], cache.k_scale[l] = quantize_kv(rot)
+        else:
+            cache.k[l] = rot.to(cache.k.dtype)
+
+
+def _compact_one(cache: KVCache, pos_mid: torch.Tensor) -> None:
+    """Age-ordered compaction after a k=1 eviction event, in place: per
+    (layer, batch, head), the slots above the victim (the first slot valid
+    in pos_mid and invalid now) shift down by one, so the valid slots stay
+    contiguous and age-ordered (reference truncate_kv_cache_silo,
+    easykv.py:56-68). Kernel K8 over every cache array; a head without an
+    eviction is left as it is."""
+    fused_compact(pos_mid, cache.pos, cache.score, cache.score_sq, cache.counter, cache.k,
+                  cache.v, cache.k_scale, cache.v_scale)
+
+
+@torch.no_grad()
 def _decode_loop(
     st: EngineStatics,
     params: LlamaParams,
@@ -345,14 +385,33 @@ def _decode_loop(
     once the generated count exceeds the budget (decoding), 'always' on
     every live step (encoding_decoding), 'none' never (encoding). A
     decode-phase k=1 spec folds its eviction into K2; any other spec is
-    evicted by policies.evict_cache after the step."""
+    evicted by policies.evict_cache after the step.
+
+    StreamingLLM `decoding` (st.streaming) keeps the cache age-ordered:
+    rank == slot, kept so by compacting each head at its victim after every
+    eviction. With flags.prerot_enabled (the default) the cache is
+    pre-rotated once after the prefill and each step folds eviction and
+    compaction into K2 + K9; otherwise K1 rotates by slot at read time and
+    each step runs evict_cache (K4) and _compact_one (K8) after the
+    forward. K4, K8 and K9 launch every step: a head with nothing to evict
+    is a no-op inside the kernel, so no host sync decides."""
     B = first_logits.shape[0]
     M = st.max_new_tokens
     dev = first_logits.device
     eos = (torch.tensor(st.eos_token_ids, dtype=torch.int32, device=dev)
            if st.eos_token_ids else None)
     k_evict = spec.k if spec is not None else 0
-    folded = llama.decode_evict_folded(spec)
+    if st.streaming and not (evict_mode in ("budget", "none") and st.mode == "decoding"):
+        raise NotImplementedError(
+            "StreamingLLM outside `decoding` is not ported yet (ROADMAP.md open item 10)")
+    prerot = st.streaming and flags.prerot_enabled()
+    rot = None
+    if prerot:
+        _prerotate_cache(cache, st.cfg)
+    elif st.streaming:
+        rot = llama.rotation_tables(cache.pos.shape[-1], st.cfg, dev)
+    folded = (llama.decode_evict_folded(spec, st.streaming)
+              or llama.decode_stream_folded(spec, st.streaming, prerot))
 
     out = torch.full((B, M), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -398,9 +457,13 @@ def _decode_loop(
             update_gate=live,
             rand_rank=rand_rank,
         )
-        logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec)
+        logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec,
+                                       st.streaming, prerot, rot)
         if spec is not None and not folded:
+            pos_mid = cache.pos.clone() if st.streaming else None
             evict_cache(cache, spec, ctx.next_pos, prompt_len, rand_rank, gate_b)
+            if st.streaming:
+                _compact_one(cache, pos_mid)
         finite &= torch.isfinite(logits).all()
         lastlog = torch.where(newly_done[:, None], lastlog, logits[:, -1, :])
         g = g + live.to(torch.int32)
@@ -646,8 +709,6 @@ def generate(
     else:
         gc = GenerationConfig.from_dict(dict(generation_config))
     gc = gc.with_policy()
-    if gc.streaming:
-        raise NotImplementedError("streaming is not ported yet (ROADMAP.md open item 10)")
     ids = _as_batch(input_ids)
     B, length = ids.shape
     eos = gc.eos_token_ids
@@ -666,9 +727,14 @@ def generate(
         else:
             mode = "encoding_decoding"
 
+    if gc.streaming and mode in ("encoding", "encoding_decoding", "ppl"):
+        raise NotImplementedError(
+            f"streaming in kv_mode {mode!r} is not ported yet (ROADMAP.md open item 10: "
+            "the chunk-major streaming encode, age ranks and K1's rank variant)")
     base = dict(cfg=model.cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
                 temp_length=gc.temp_length, keep_attention=gc.keep_attention,
-                max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant)
+                max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant,
+                streaming=gc.streaming)
     dev = model.device
     generator = torch.Generator(device=dev).manual_seed(gc.seed)
     temp, top_p = float(gc.temperature), float(gc.top_p)

@@ -1,0 +1,31 @@
+"""Runtime switches of the port (counterpart of easykv_tpu/flags.py:216-246,
+which holds many more; only the ones the port's paths read are here).
+
+use_prerot / prerot_enabled choose between the two strategies of ordered
+StreamingLLM decoding, exactly as in the JAX package:
+  * on (the default): the cache stores K already rotated by its slot
+    (== age rank), attention reads it with no rotation, and each
+    compaction shift applies one fixed R(-theta) to the rows it moves;
+  * off: the cache stores the raw K and decode attention rotates every
+    slot by its index at read time.
+Both give the same greedy tokens up to float rounding and int8 requant.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+_PREROT_OVERRIDE: Optional[bool] = None
+
+
+def use_prerot(enabled: Optional[bool]) -> None:
+    """Force the pre-rotated ordered streaming cache on or off; None goes
+    back to the environment variable EASYKV_TPU_PREROT (default on)."""
+    global _PREROT_OVERRIDE
+    _PREROT_OVERRIDE = enabled
+
+
+def prerot_enabled() -> bool:
+    if _PREROT_OVERRIDE is not None:
+        return _PREROT_OVERRIDE
+    return os.environ.get("EASYKV_TPU_PREROT", "1") not in ("0", "false", "off")

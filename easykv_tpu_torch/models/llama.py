@@ -1,7 +1,7 @@
 """LLaMa-family decoder over the budgeted KV ring buffer (counterpart of
 easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp,
 prefill_layer_major, strided_encode_layer_major, decode_evict_folded,
-_decode_forward, _logits_tail, _lm_head).
+decode_stream_folded, _decode_forward, _logits_tail, _lm_head).
 
 Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
@@ -17,11 +17,15 @@ writes and attends each chunk of an int8 cache through K6 (the JAX
 package's `auto` mode takes `fused_chunk_write_attend` there, llama.py:429-440,
 489-495); a float cache writes with `write_tokens_at` and attends with the
 plain `attend`. The encode-phase score updates and evictions are plain
-PyTorch (policies.py). On CPU tensors each wrapper runs its plain version.
+PyTorch (policies.py). StreamingLLM `decoding` (streaming=True) keeps the
+cache age-ordered: over the pre-rotated cache the step runs K2 with
+`compact` and then K9 (the K/V shift with R(-theta)); over the
+rotate-at-read cache K1 runs its `ordered` variant and the engine runs K4
+and K8 after the step. On CPU tensors each wrapper runs its plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +36,11 @@ from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
 from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
+from ..ops.cuda.kv_compact import fused_kv_compact
 from ..ops.cuda.row_write import write_rows
-from ..ops.cuda.sidecar_update import fused_write_update
+from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
 from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
-from ..policies import (PHASE_DECODE, PolicySpec, evict_layer, update_scores,
-                        update_scores_reduced)
+from ..policies import PolicySpec, evict_layer, update_scores, update_scores_reduced
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp")
 BIAS_KEYS = ("bq", "bk", "bv")
@@ -303,12 +307,31 @@ def _logits_tail(h: torch.Tensor, params: LlamaParams, cfg: ModelConfig) -> torc
     return _lm_head(h, params.lm_head)
 
 
-def decode_evict_folded(spec: Optional[PolicySpec]) -> bool:
+def decode_evict_folded(spec: Optional[PolicySpec], streaming: bool = False) -> bool:
     """True when _decode_forward folds the step's gated eviction into K2:
-    decode-phase k=1 specs (the JAX package's decode_evict_folded). The
-    engine evicts with policies.evict_cache otherwise."""
-    return (spec is not None and spec.phase == PHASE_DECODE and spec.k == 1
-            and spec.policy != "full")
+    decode-phase k=1 specs, not streaming (the JAX package's
+    decode_evict_folded). The engine evicts with policies.evict_cache
+    otherwise."""
+    return not streaming and evict_supported(spec)
+
+
+def decode_stream_folded(spec: Optional[PolicySpec], streaming: bool,
+                         prerotated: bool) -> bool:
+    """StreamingLLM decoding over the pre-rotated cache: K2 also compacts
+    the sidecars at each row's victim and K9 shifts the K/V rows, so the
+    engine runs neither evict_cache nor _compact_one (the JAX package's
+    decode_stream_folded; the port's streaming cache is always the ordered
+    one)."""
+    return streaming and prerotated and evict_supported(spec)
+
+
+def rotation_tables(S: int, cfg: ModelConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of R(s * theta) for every slot s, f32 (S, D/2): what K1's
+    ordered variant rotates the rotate-at-read cache by. They depend only on
+    S, so the engine builds them once per run."""
+    inv_freq = rope_inv_freq(cfg.head_dim, rope_base_for(cfg), device)
+    cos, sin = rope_cos_sin(torch.arange(S, dtype=torch.int32, device=device), inv_freq)
+    return cos.contiguous(), sin.contiguous()
 
 
 @torch.no_grad()
@@ -319,6 +342,9 @@ def _decode_forward(
     token_ids: torch.Tensor,     # (B, 1)
     ctx: StepCtx,
     spec: Optional[PolicySpec],  # None: full cache, no scores, no eviction
+    streaming: bool = False,
+    prerotated: bool = False,
+    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode token through all layers with a late cache write: the
     token's K/V joins each layer's softmax in flight (K1); after the layers
@@ -328,27 +354,48 @@ def _decode_forward(
     launch then writes the K/V rows (K3). An int8 cache folds its scales
     into K1; the step's rows are quantized once after the layers, K2 writes
     their scales and K3 their int8 bytes. Updates `cache` in place and
-    returns logits (B, 1, V) f32."""
+    returns logits (B, 1, V) f32.
+
+    StreamingLLM (streaming=True, the age-ordered cache of `decoding`,
+    reference llama_patch.py:251-379): q and the in-flight K rotate by the
+    token's cache-relative position, each layer's pre-write valid count
+    (head 0's; every head of a layer holds the same count), while the mask
+    still compares true positions. With `prerotated` the cache holds K
+    already rotated by its slot: attention is the plain K1, the stored row
+    is the rotated K, and when decode_stream_folded the step runs K2 with
+    `compact` (victim slots out), K3 at the pre-compact write slot, then K9
+    (shift + R(-theta) of the moved rows). Otherwise the cache holds the
+    raw K, K1 rotates every slot by its index from `rot` (cos, sin (S,
+    D/2)), and the engine evicts (K4) and compacts (K8) after the step."""
     B = token_ids.shape[0]
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
     q_pos = ctx.q_pos                                           # (B, 1)
     q_pos_b = q_pos[:, 0].contiguous()
-    cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)        # shared by all layers
+    if streaming:
+        if not prerotated and rot is None:
+            raise ValueError("the rotate-at-read cache needs rot = (cos, sin) per slot")
+        n_valid = (cache.pos[:, :, 0, :] >= 0).sum(dim=-1, dtype=torch.int32)  # (L, B)
+        cos_all, sin_all = rope_cos_sin(n_valid[:, :, None, None], inv_freq)  # (L, B, 1, 1, D/2)
+    else:
+        cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)    # shared by all layers
+    k1_rot = rot if streaming and not prerotated else None
 
     h = params.embed[token_ids.clamp(min=0)]
     kn_all, vn_all, probs_all, pnew_all = [], [], [], []
     for l, p in enumerate(params.layers):
         x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
         q, k, v = _proj_qkv(x, p, B, 1, Hq, Hkv, Dh)
+        if streaming:
+            cos, sin = cos_all[l], sin_all[l]
         q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
         v = v.contiguous()
         scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
         out, probs, p_new = fused_decode_attend_inflight(
             q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
-            sliding_window=cfg.sliding_window)
+            sliding_window=cfg.sliding_window, rot=k1_rot)
         h = _attn_block(h, p, cfg, out)
-        kn_all.append(kn_att)
+        kn_all.append(k if streaming and not prerotated else kn_att)
         vn_all.append(v)
         probs_all.append(probs[:, :, 0, :])
         pnew_all.append(p_new)
@@ -357,9 +404,11 @@ def _decode_forward(
     p_new = torch.stack(pnew_all)                               # (L, B, Hkv, 1)
     kn = torch.stack(kn_all)                                    # (L, B, Hkv, 1, Dh)
     vn = torch.stack(vn_all)
-    ekw = {} if not decode_evict_folded(spec) else dict(
-        espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
-        prompt_len=ctx.prompt_len, rand_rank=ctx.rand_rank)
+    fold_stream = decode_stream_folded(spec, streaming, prerotated)
+    ekw = {}
+    if decode_evict_folded(spec, streaming) or fold_stream:
+        ekw = dict(espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
+                   prompt_len=ctx.prompt_len, rand_rank=ctx.rand_rank, compact=fold_stream)
     if cache.quantized:
         kn, k_sc = quantize_kv(kn)
         vn, v_sc = quantize_kv(vn)
@@ -367,10 +416,14 @@ def _decode_forward(
                    v_scale=cache.v_scale)
     else:
         kn, vn = kn.to(cache.k.dtype), vn.to(cache.v.dtype)
-    slots = fused_write_update(
+    res = fused_write_update(
         cache.pos, cache.score, cache.score_sq, cache.counter, probs, p_new,
         q_pos_b, ctx.token_valid[:, 0].contiguous(), ctx.update_gate,
         ctx.counter_init[:, 0].contiguous(), None if spec is None else spec.policy,
-        **ekw)[4]
-    write_rows(cache.k, cache.v, kn, vn, slots[..., 0].contiguous())
+        **ekw)
+    write_rows(cache.k, cache.v, kn, vn, res[4][..., 0].contiguous())
+    if fold_stream:
+        # the rows just written shift too, as evict_cache + _compact_one would
+        fused_kv_compact(cache.k, cache.v, res[-1][..., 0].contiguous(), cache.k_scale,
+                         cache.v_scale, inv_freq=inv_freq, rotate=True)
     return _logits_tail(h, params, cfg)

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .rope import rotate
+
 NEG_INF = -1e30
 
 
@@ -71,6 +73,7 @@ def attend_inflight(
     *,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode attention where the current token's K/V is not
     yet in the cache: its logit joins the softmax directly (late write).
@@ -79,7 +82,10 @@ def attend_inflight(
     probs_kv covers the cached slots, p_new is the GQA-mean probability of
     the in-flight token. With scales (an int8 cache) the dequantization
     folds into the logits and into p, in float32, as in the TPU kernel
-    (decode_attention.py:171-197 of the JAX package)."""
+    (decode_attention.py:171-197 of the JAX package). rot = (cos, sin),
+    each (S, D/2) f32: the ordered StreamingLLM variant, which rotates the
+    cached K at slot s by R(s) in float32 (an int8 row raw, before its
+    scale) ahead of the QK product (the TPU kernel's `ordered=True`)."""
     B, Hq, T, D = q.shape
     if T != 1:
         raise ValueError(f"attend_inflight takes one query token, got {T}")
@@ -89,7 +95,10 @@ def attend_inflight(
         scale = 1.0 / (D ** 0.5)
 
     qg = q.reshape(B, Hkv, rep, D).to(torch.float32)
-    logits = torch.einsum("bhrd,bhsd->bhrs", qg, k.to(torch.float32)) * scale
+    kf = k.to(torch.float32)
+    if rot is not None:
+        kf = rotate(kf, *rot)
+    logits = torch.einsum("bhrd,bhsd->bhrs", qg, kf) * scale
     if k_scale is not None:
         logits = logits * k_scale[:, :, None, :]
     logit_new = torch.einsum("bhrd,bhsd->bhrs", qg, k_new.to(torch.float32)) * scale

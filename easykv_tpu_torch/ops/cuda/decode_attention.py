@@ -12,6 +12,9 @@ plain version rounds p to the cache dtype first, as the JAX package's XLA
 path does, so with a bf16 cache the two differ by bf16 rounding of `out`.
 With an int8 cache both fold the per-slot scales in fp32 as the TPU kernel
 does (k_scale into the logits, v_scale into p) and agree to fp32 rounding.
+With `rot` (the ordered StreamingLLM variant) both rotate each cached K
+row by its slot from the same f32 cos/sin tables, products rounded one by
+one, before the QK product.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ fused_decode_attend_inflight_plain = attend_inflight
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "decode_attend_inflight": ([_vp] * 12 + [_int] * 5 + [ctypes.c_float] + [_int] * 3 + [_vp],
+    "decode_attend_inflight": ([_vp] * 14 + [_int] * 5 + [ctypes.c_float] + [_int] * 3 + [_vp],
                                _int),
     "decode_attend_inflight_smem": ([_int] * 5, ctypes.c_size_t),
 }
@@ -47,13 +50,16 @@ def fused_decode_attend_inflight(
     v_scale: Optional[torch.Tensor] = None,
     *,
     sliding_window: Optional[int] = None,
+    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (S, D/2) f32 cos, sin
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out (B, Hq, 1, D) in q's dtype, probs (B, Hkv, 1, S) f32,
     p_new (B, Hkv, 1) f32); see ops.attention.attend_inflight. The
-    in-flight k_new / v_new are in q's dtype whatever the cache's."""
+    in-flight k_new / v_new are in q's dtype whatever the cache's. With
+    `rot` the cached K row at slot s is rotated by (cos[s], sin[s]) first
+    (ordered StreamingLLM decoding over the rotate-at-read cache)."""
     if q.device.type == "cpu":
         return attend_inflight(q, k_new, v_new, k, v, kv_pos, q_pos, k_scale, v_scale,
-                               sliding_window=sliding_window)
+                               sliding_window=sliding_window, rot=rot)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if T != 1 or Hq % Hkv != 0:
@@ -70,6 +76,9 @@ def fused_decode_attend_inflight(
     if quant:
         checks += [("k_scale", k_scale, torch.float32, (B, Hkv, S)),
                    ("v_scale", v_scale, torch.float32, (B, Hkv, S))]
+    if rot is not None:
+        checks += [("rot cos", rot[0], torch.float32, (S, D // 2)),
+                   ("rot sin", rot[1], torch.float32, (S, D // 2))]
     for name, t, dtype, shape in checks:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
@@ -94,12 +103,16 @@ def fused_decode_attend_inflight(
     err = lib.decode_attend_inflight(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_pos.data_ptr(), q_pos.data_ptr(), k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, out.data_ptr(), probs.data_ptr(),
+        v_scale.data_ptr() if quant else None, None if rot is None else rot[0].data_ptr(),
+        None if rot is None else rot[1].data_ptr(), out.data_ptr(), probs.data_ptr(),
         p_new.data_ptr(), B, Hkv, rep, S, D, D ** -0.5, window, _DTYPES[q.dtype], int(quant),
         _build.stream_of(q))
     _build.check(err, "decode_attend_inflight")
     fused_decode_attend_inflight.launches += 1
+    if rot is not None:
+        fused_decode_attend_inflight.ordered_launches += 1
     return out, probs, p_new
 
 
 fused_decode_attend_inflight.launches = 0
+fused_decode_attend_inflight.ordered_launches = 0   # those of the `ordered` variant

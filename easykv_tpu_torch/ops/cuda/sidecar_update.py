@@ -1,16 +1,20 @@
-"""Per-step sidecar pass with the folded eviction (kernel K2).
+"""Per-step sidecar pass with the folded eviction (kernel K2) and the
+stand-alone gated eviction event (kernel K4).
 
-CUDA kernel: easykv_tpu_torch/csrc/sidecar_update.cu, which replaces the
-TPU kernel easykv_tpu/ops/pallas/sidecar_update.py `fused_write_update`
-(decode phase, k = 1, no compaction; with an int8 cache it also writes the
-new rows' dequant scales). It is bound by the 36 bytes a slot it reads and
-writes; the source note says what its design does about that.
+CUDA kernels: easykv_tpu_torch/csrc/sidecar_update.cu, which replace the
+TPU kernels easykv_tpu/ops/pallas/sidecar_update.py `fused_write_update`
+(decode phase, k = 1; with an int8 cache it also writes the new rows'
+dequant scales; with `compact` it also shifts the sidecars down at each
+row's victim, for ordered StreamingLLM decoding) and `fused_evict` (decode
+phase, k = 1). Both are bound by the bytes a slot they read and write; the
+source note says what their design does about that.
 
-`fused_write_update` launches the kernel for CUDA tensors and runs
-`fused_write_update_plain` for CPU tensors. The plain version repeats the
-TPU kernel's arithmetic op by op (`_first_min_idx`, `_kth_smallest_bits`,
-`_select_victim`, `_write_kernel`), so the kernel is held to it bit for bit.
-Both update pos / score / score_sq / counter (and the scale rows) in place.
+`fused_write_update` and `fused_evict` launch their kernels for CUDA
+tensors and run `fused_write_update_plain` / `fused_evict_plain` for CPU
+tensors. The plain versions repeat the TPU kernels' arithmetic op by op
+(`_first_min_idx`, `_kth_smallest_bits`, `_select_victim`, `_write_kernel`,
+`_evict_kernel`), so the kernels are held to them bit for bit. All update
+the sidecars (and the scale rows) in place.
 """
 from __future__ import annotations
 
@@ -29,17 +33,28 @@ POLICY_CODES = {None: 0, "full": 0, "h2o_head": 1, "roco": 2, "tova": 3,
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "write_update": ([_vp] * 19 + [_int] * 9 + [_vp], _int),
+    "write_update": ([_vp] * 20 + [_int] * 10 + [_vp], _int),
     "write_update_smem": ([_int], ctypes.c_size_t),
+    "evict": ([_vp] * 8 + [_int] * 8 + [_vp], _int),
 }
 
 
+def evict_supported(spec: Optional[PolicySpec]) -> bool:
+    """Decode-phase k=1 selections, the ones the kernels implement."""
+    return (spec is not None and spec.phase == PHASE_DECODE and spec.k == 1
+            and spec.policy in POLICY_CODES and spec.policy != "full")
+
+
 def _check_espec(espec: Optional[PolicySpec]) -> None:
-    if espec is not None and not (espec.phase == PHASE_DECODE and espec.k == 1
-                                  and espec.policy in POLICY_CODES
-                                  and espec.policy != "full"):
+    if espec is not None and not evict_supported(espec):
         raise NotImplementedError(
             f"folded eviction covers decode-phase k=1 policies, got {espec}")
+
+
+def _shift_down(x: torch.Tensor, ge: torch.Tensor) -> torch.Tensor:
+    """x[..., s] <- x[..., (s + 1) % S] where ge, along the last axis (the
+    TPU kernels' roll by -1 and select)."""
+    return torch.where(ge, torch.roll(x, -1, dims=-1), x)
 
 
 def _first_min_idx(val: torch.Tensor) -> torch.Tensor:
@@ -102,10 +117,12 @@ def fused_write_update_plain(
     update_gate, counter_init, policy: Optional[str],
     espec: Optional[PolicySpec] = None, evict_gate=None, next_pos=None,
     prompt_len=None, rand_rank=None, k_sc_new=None, v_sc_new=None, k_scale=None,
-    v_scale=None,
+    v_scale=None, compact: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel; same arguments and results."""
     _check_espec(espec)
+    if compact and espec is None:
+        raise ValueError("compact needs espec")
     S = pos.shape[-1]
 
     def per_b(x):
@@ -139,21 +156,31 @@ def fused_write_update_plain(
     sc = torch.where(at_slot, s_new, sc)
     sq = torch.where(at_slot, sq_new, sq)
 
+    vslot = None
     if espec is not None:
         g_evt = per_b(evict_gate)
         cb = new_cnt + 1.0
         victim = _select_victim(new_pos, sc, sq, cb, per_b(next_pos),
                                 per_b(prompt_len), per_b(rand_rank), espec)
-        new_pos = torch.where(g_evt & (iota == victim), -1, new_pos)
+        if compact:
+            ge = g_evt & (iota >= victim)
+            new_pos = torch.where(g_evt & (iota == S - 1), -1, _shift_down(new_pos, ge))
+            sc, sq = _shift_down(sc, ge), _shift_down(sq, ge)
+            vslot = torch.where(g_evt, victim, S).to(torch.int32)
+        else:
+            new_pos = torch.where(g_evt & (iota == victim), -1, new_pos)
         new_cnt = torch.where(g_evt, cb, new_cnt)
+        if compact:
+            new_cnt = _shift_down(new_cnt, ge)
 
     pos.copy_(new_pos)
     score.copy_(sc)
     score_sq.copy_(sq)
     counter.copy_(new_cnt)
+    res = (pos, score, score_sq, counter, slot)
     if k_scale is not None:
-        return pos, score, score_sq, counter, slot, k_scale, v_scale
-    return pos, score, score_sq, counter, slot
+        res += (k_scale, v_scale)
+    return res + ((vslot,) if compact else ())
 
 
 def fused_write_update(
@@ -177,18 +204,24 @@ def fused_write_update(
     v_sc_new: Optional[torch.Tensor] = None,    # and V dequant scales (int8 KV)
     k_scale: Optional[torch.Tensor] = None,     # (L, B, H, S) f32, updated
     v_scale: Optional[torch.Tensor] = None,     # in place
+    compact: bool = False,                      # ordered streaming: shift at the victim
 ) -> Tuple[torch.Tensor, ...]:
     """Slot select, score update, new-row sidecar write and (with espec) the
     gated eviction, in place. Returns (pos, score, score_sq, counter,
     write_slot (L, B, H, 1) int32), then (k_scale, v_scale) when the scale
-    rows are given; pos and counter are post-eviction. The new scales land
-    at the write slot whether or not the row is live."""
+    rows are given, then with `compact` the victim slot (L, B, H, 1) int32
+    (S: no eviction). pos and counter are post-eviction (and post-shift);
+    the write slot stays the pre-shift one, where the caller writes the
+    step's K/V rows before shifting them with fused_kv_compact. The new
+    scales land at the write slot whether or not the row is live."""
     if pos.device.type == "cpu":
         return fused_write_update_plain(
             pos, score, score_sq, counter, probs, p_new, q_pos, token_valid,
             update_gate, counter_init, policy, espec, evict_gate, next_pos,
-            prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale, v_scale)
+            prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale, v_scale, compact)
     _check_espec(espec)
+    if compact and espec is None:
+        raise ValueError("compact needs espec")
     L, B, H, S = pos.shape
     full = (L, B, H, S)
     checks = [(pos, torch.int32, full), (score, torch.float32, full),
@@ -220,6 +253,7 @@ def fused_write_update(
                          f"(limit {_build.SMEM_LIMIT})")
 
     slot = torch.empty((L, B, H, 1), dtype=torch.int32, device=pos.device)
+    vslot = torch.empty((L, B, H, 1), dtype=torch.int32, device=pos.device) if compact else None
     ev = espec is not None
 
     def ptr(t):
@@ -229,15 +263,88 @@ def fused_write_update(
         pos.data_ptr(), score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(),
         probs.data_ptr(), p_new.data_ptr(), q_pos.data_ptr(), token_valid.data_ptr(),
         update_gate.data_ptr(), counter_init.data_ptr(), ptr(evict_gate), ptr(next_pos),
-        ptr(prompt_len), ptr(rand_rank), *map(ptr, scales), slot.data_ptr(), L, B, H, S,
-        POLICY_CODES[policy], int(ev), espec.recent_window if ev else 0,
+        ptr(prompt_len), ptr(rand_rank), *map(ptr, scales), slot.data_ptr(), ptr(vslot),
+        L, B, H, S, POLICY_CODES[policy], int(ev), int(compact),
+        espec.recent_window if ev else 0,
         max(espec.feasible_k, 1) if ev else 1, int(bool(espec.protect_prompt)) if ev else 0,
         _build.stream_of(pos))
     _build.check(err, "write_update")
     fused_write_update.launches += 1
+    if compact:
+        fused_write_update.compact_launches += 1
+    res = (pos, score, score_sq, counter, slot)
     if with_scales:
-        return pos, score, score_sq, counter, slot, k_scale, v_scale
-    return pos, score, score_sq, counter, slot
+        res += (k_scale, v_scale)
+    return res + ((vslot,) if compact else ())
 
 
 fused_write_update.launches = 0
+fused_write_update.compact_launches = 0   # those with `compact`
+
+
+def fused_evict_plain(pos, score, score_sq, counter, evict_gate, next_pos, prompt_len,
+                      rand_rank, spec: PolicySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4; same arguments and results."""
+    if not evict_supported(spec):
+        raise NotImplementedError(f"fused_evict covers decode-phase k=1 policies, got {spec}")
+    S = pos.shape[-1]
+
+    def per_b(x):
+        return x[None, :, None, None]
+
+    g = per_b(evict_gate)
+    cnt = counter + float(spec.k) * g.to(torch.float32)
+    victim = _select_victim(pos, score, score_sq, cnt, per_b(next_pos), per_b(prompt_len),
+                            per_b(rand_rank), spec)
+    iota = torch.arange(S, dtype=torch.int32, device=pos.device)
+    pos.copy_(torch.where(g & (iota == victim), -1, pos))
+    counter.copy_(cnt)
+    return pos, counter
+
+
+def fused_evict(
+    pos: torch.Tensor,         # (L, B, H, S) int32, updated in place
+    score: torch.Tensor,       # (L, B, H, S) f32, read only
+    score_sq: torch.Tensor,    # (L, B, H, S) f32, read only
+    counter: torch.Tensor,     # (L, B, H, S) f32, updated in place
+    evict_gate: torch.Tensor,  # (B,) bool
+    next_pos: torch.Tensor,    # (B,) int32
+    prompt_len: torch.Tensor,  # (B,) int32
+    rand_rank: torch.Tensor,   # (B,) int32
+    spec: PolicySpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One gated eviction event (decode phase, k = 1) over every layer:
+    counter += 1 on the rows whose gate fires, then each such row's victim
+    gets pos = -1. Returns (pos, counter). The gate is applied inside the
+    kernel: no host check of any(gate)."""
+    if pos.device.type == "cpu":
+        return fused_evict_plain(pos, score, score_sq, counter, evict_gate, next_pos,
+                                 prompt_len, rand_rank, spec)
+    if not evict_supported(spec):
+        raise NotImplementedError(f"fused_evict covers decode-phase k=1 policies, got {spec}")
+    L, B, H, S = pos.shape
+    full = (L, B, H, S)
+    for t, dtype, shape in ((pos, torch.int32, full), (score, torch.float32, full),
+                            (score_sq, torch.float32, full), (counter, torch.float32, full),
+                            (evict_gate, torch.bool, (B,)), (next_pos, torch.int32, (B,)),
+                            (prompt_len, torch.int32, (B,)), (rand_rank, torch.int32, (B,))):
+        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != pos.device
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_evict: expected contiguous {dtype} {shape} on "
+                             f"{pos.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _build.load("sidecar_update", SIGNATURES)
+    smem = lib.write_update_smem(S)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"S={S} slots need {smem} bytes of shared memory "
+                         f"(limit {_build.SMEM_LIMIT})")
+    err = lib.evict(pos.data_ptr(), score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(),
+                    evict_gate.data_ptr(), next_pos.data_ptr(), prompt_len.data_ptr(),
+                    rand_rank.data_ptr(), L, B, H, S, POLICY_CODES[spec.policy],
+                    spec.recent_window, max(spec.feasible_k, 1), int(bool(spec.protect_prompt)),
+                    _build.stream_of(pos))
+    _build.check(err, "evict")
+    fused_evict.launches += 1
+    return pos, counter
+
+
+fused_evict.launches = 0

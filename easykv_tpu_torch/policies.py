@@ -11,10 +11,10 @@ reference's buffer-order semantics translate to position tests:
   * sink protection           "scores[:, :, :4]"    -> pos <  sink_length
   * decode prompt protection  (easykv.py:290,311)   -> pos >= prompt_len
 
-The decode-phase k=1 selection also runs folded into the sidecar kernel
-(ops/cuda/sidecar_update.py). Everything here is plain PyTorch on tensors,
-where the JAX package leaves the same work to XLA, and updates the cache's
-sidecars in place.
+The decode-phase k=1 selection runs in the sidecar kernels
+(ops/cuda/sidecar_update.py): folded into K2, or as K4 through evict_cache.
+Everything else here is plain PyTorch on tensors, where the JAX package
+leaves the same work to XLA, and updates the cache's sidecars in place.
 
 Tie order: the JAX package breaks ties toward the lower slot (top_k for
 k <= 8, a stable sort above); here a stable ascending torch.sort serves
@@ -251,11 +251,20 @@ def evict_layer(cache: KVCache, spec: PolicySpec, next_pos: torch.Tensor,
 def evict_cache(cache: KVCache, spec: PolicySpec, next_pos: torch.Tensor,
                 prompt_len: torch.Tensor, rand_rank: torch.Tensor,
                 gate: torch.Tensor) -> None:
-    """One gated eviction event across all layers, in place, with the layer
-    axis folded into the batch axis (one selection over (L*B, H, S)); the
-    plain branch of the JAX package's evict_cache. It runs whatever the
-    gate: rows whose gate is off are left as they were, so no host sync
-    decides whether to run it."""
+    """One gated eviction event across all layers, in place. A decode-phase
+    k=1 spec runs kernel K4 (ops/cuda/sidecar_update.fused_evict: bump,
+    select and invalidate per row, its plain version for CPU tensors), as
+    the JAX package's evict_cache takes `fused_evict` there; any other spec
+    folds the layer axis into the batch axis for one plain selection over
+    (L*B, H, S). Either runs whatever the gate: rows whose gate is off are
+    left as they were (their counters too), so no host sync decides whether
+    to run it."""
+    from .ops.cuda.sidecar_update import evict_supported, fused_evict
+
+    if evict_supported(spec):
+        fused_evict(cache.pos, cache.score, cache.score_sq, cache.counter, gate, next_pos,
+                    prompt_len, rand_rank, spec)
+        return
     L, B = cache.pos.shape[:2]
     sidecars = KVCache(*(None,) * 2, *(x.reshape((L * B,) + x.shape[2:]) for x in (
         cache.pos, cache.score, cache.score_sq, cache.counter)))

@@ -66,11 +66,13 @@ def test_generate_eos_stops_and_pads(models):
 
 
 def test_other_modes_not_ported(models):
-    """Streaming is the part of generate() still to port (ROADMAP item 10)."""
+    """Streaming outside `decoding` is the part of generate() still to port
+    (ROADMAP item 10); each such call raises before any work."""
     _, tm = models
-    for mode in ("decoding", "encoding"):
+    for mode, budget in (("encoding", 0.5), ("encoding_decoding", 2), ("ppl", 0.5),
+                         ("auto", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md open item 10"):
-            easykv_tpu_torch.generate(tm, [1, 2, 3], {"budget": 8, "streaming": True},
+            easykv_tpu_torch.generate(tm, [1, 2, 3], {"budget": budget, "streaming": True},
                                       kv_mode=mode)
 
 

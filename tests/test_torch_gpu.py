@@ -6,6 +6,10 @@ fixture decides).
 
 K6 (chunk write + attend) is held bit-exact on every cache array, int8
 bytes and scales included, and to K5's limits on out and the statistics.
+The ordered StreamingLLM kernels (K4, K8, K9, K2 `compact`) are held
+bit-exact on every array they write, K1 `ordered` to K1's limits; the
+streaming decode path with the kernels must give the plain path's tokens
+and final positions.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -23,11 +27,17 @@ from easykv_tpu_torch.models.llama import init_params
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_attend, fused_chunk_attend_plain, fused_chunk_write_attend,
     fused_chunk_write_attend_plain)
+from easykv_tpu_torch import flags
+from easykv_tpu_torch.ops.cuda import sidecar_update
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
+from easykv_tpu_torch.ops.cuda.kv_compact import (fused_compact, fused_compact_plain,
+                                                  fused_kv_compact, fused_kv_compact_plain)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows, write_rows_plain
-from easykv_tpu_torch.ops.cuda.sidecar_update import (fused_write_update,
+from easykv_tpu_torch.ops.cuda.sidecar_update import (fused_evict, fused_evict_plain,
+                                                      fused_write_update,
                                                       fused_write_update_plain)
+from easykv_tpu_torch.ops.rope import rope_cos_sin, rope_inv_freq
 from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
 
 pytestmark = pytest.mark.gpu
@@ -340,3 +350,238 @@ def test_int8_decode_kernel_path_matches_plain_path(cuda, policy):
     assert torch.equal(outs[0][1], outs[1][1])
     if policy != "full":
         assert int(outs[0][2][0]) - 50 == 8
+
+
+# --------------------------------------------------------------------------
+# ordered StreamingLLM decoding: K4, K8, K9, K2 compact, K1 ordered
+# --------------------------------------------------------------------------
+
+SHAPES = {"small": (2, 2, 4, 256, 128), "7b": (32, 1, 32, 768, 128)}
+
+
+def _ordered_sidecars(cuda, L, B, H, S, n_valid, seed):
+    """An age-ordered cache: slots [0, n_valid) hold increasing positions
+    (prompt 0..n_valid/2, then generated tokens with gaps), the rest free."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    plen = n_valid // 2
+    pos = torch.full((L, B, H, S), -1, dtype=torch.int32)
+    gen_pos = torch.stack([plen + torch.randperm(2 * n_valid, generator=cpu)[:n_valid - plen]
+                           .sort().values for _ in range(L * B * H)])
+    pos[..., :plen] = torch.arange(plen, dtype=torch.int32)
+    pos[..., plen:n_valid] = gen_pos.reshape(L, B, H, -1).to(torch.int32)
+    pos = pos.to(cuda)
+    valid = pos >= 0
+    u = lambda: torch.rand((L, B, H, S), generator=gen, device=cuda)  # noqa: E731
+    score = torch.where(valid, u(), 0.0)
+    return pos, score, score * u(), torch.where(valid, (u() * 50).floor(), 0.0), plen
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("policy", ["h2o_head", "tova", "roco", "recency", "random"])
+def test_k4_kernel_bit_exact(cuda, policy, shape):
+    L, B, H, S, _ = SHAPES[shape]
+    n_valid = S * 3 // 4
+    pos, score, ssq, counter, plen = _ordered_sidecars(cuda, L, B, H, S, n_valid, 5)
+    B2 = max(B, 2)
+    if B2 != B:
+        pos, score, ssq, counter = (torch.cat([x, x.flip(2)], dim=1) for x in
+                                    (pos, score, ssq, counter))
+    spec = PolicySpec(policy, PHASE_DECODE, 1, 4, 12, feasible_k=30, protect_prompt=True)
+    per_b = (torch.tensor([True, False] + [True] * (B2 - 2), device=cuda),
+             torch.full((B2,), 3 * S, dtype=torch.int32, device=cuda),
+             torch.full((B2,), plen, dtype=torch.int32, device=cuda),
+             torch.arange(B2, dtype=torch.int32, device=cuda) * 7 + 3)
+    a = [x.clone() for x in (pos, score, ssq, counter)]
+    b = [x.clone() for x in (pos, score, ssq, counter)]
+    before = fused_evict.launches
+    fused_evict(*a, *per_b, spec)
+    assert fused_evict.launches == before + 1
+    fused_evict_plain(*b, *per_b, spec)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    drop = (pos >= 0).sum(-1) - (a[0] >= 0).sum(-1)
+    assert (drop[:, 0] == 1).all() and (drop[:, 1] == 0).all()
+
+
+def _kv(cuda, L, B, H, S, D, kind, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    k = torch.randn((L, B, H, S, D), generator=g, device=cuda)
+    v = torch.randn((L, B, H, S, D), generator=g, device=cuda)
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dtype), v.to(dtype), None, None
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotate", "shift"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_k9_kernel_bit_exact(cuda, kind, rotate, shape):
+    L, B, H, S, D = SHAPES[shape]
+    k, v, ks, vs = _kv(cuda, L, B, H, S, D, kind, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    v_slot = torch.randint(S // 2, S * 3 // 4, (L, B, H), generator=g, device=cuda,
+                           dtype=torch.int32)
+    flat = v_slot.view(-1)
+    flat[:5] = torch.tensor([0, 31, 32, S - 1, S], dtype=torch.int32)   # tile edges, none
+    inv_freq = rope_inv_freq(D, 10000.0, cuda)
+    arrs = [x for x in (k, v, ks, vs) if x is not None]
+    a = [x.clone() for x in arrs]
+    b = [x.clone() for x in arrs]
+    kw = lambda xs: dict(k_scale=xs[2], v_scale=xs[3]) if ks is not None else {}  # noqa: E731
+    before = fused_kv_compact.launches
+    fused_kv_compact(a[0], a[1], v_slot, inv_freq=inv_freq, rotate=rotate, **kw(a))
+    assert fused_kv_compact.launches == before + 1
+    fused_kv_compact_plain(b[0], b[1], v_slot, inv_freq=inv_freq, rotate=rotate, **kw(b))
+    for name, x, y in zip(("k", "v", "k_scale", "v_scale"), a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_k8_kernel_bit_exact(cuda, kind, shape):
+    L, B, H, S, D = SHAPES[shape]
+    pos, score, ssq, counter, plen = _ordered_sidecars(cuda, L, B, H, S, S * 3 // 4, 9)
+    k, v, ks, vs = _kv(cuda, L, B, H, S, D, kind, 10)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    victim = torch.randint(plen, S * 3 // 4, (L, B, H, 1), generator=g, device=cuda)
+    fires = torch.rand((L, B, H, 1), generator=g, device=cuda) < 0.8
+    post = pos.clone()
+    post.scatter_(-1, victim, torch.where(fires, -1, post.gather(-1, victim)))
+    arrs = [x for x in (post, score, ssq, counter, k, v, ks, vs) if x is not None]
+    a = [x.clone() for x in arrs]
+    b = [x.clone() for x in arrs]
+    before = fused_compact.launches
+    fused_compact(pos, *a)
+    assert fused_compact.launches == before + 1
+    fused_compact_plain(pos, *b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    n = (a[0] >= 0).sum(-1)
+    assert torch.equal(a[0] >= 0, torch.arange(S, device=cuda) < n[..., None])
+
+
+@pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
+@pytest.mark.parametrize("policy", ["h2o_head", "tova", "roco", "recency", "random"])
+def test_k2_compact_kernel_bit_exact(cuda, policy, scale_rows):
+    for shape in SHAPES:
+        L, B, H, S, _ = SHAPES[shape]
+        B = max(B, 2)
+        pos, score, ssq, counter, plen = _ordered_sidecars(cuda, L, B, H, S, S * 3 // 4, 12)
+        gen = torch.Generator(device=cuda).manual_seed(13)
+        state = (pos, score, ssq, counter,
+                 torch.where(pos >= 0, torch.rand(pos.shape, generator=gen, device=cuda) / S,
+                             0.0),
+                 torch.rand((L, B, H, 1), generator=gen, device=cuda) * 0.1)
+        per_b = (torch.full((B,), 3 * S, dtype=torch.int32, device=cuda),
+                 torch.ones(B, dtype=torch.bool, device=cuda),
+                 torch.ones(B, dtype=torch.bool, device=cuda),
+                 torch.zeros(B, device=cuda))
+        kw = dict(espec=PolicySpec(policy, PHASE_DECODE, 1, 4, 12, feasible_k=30,
+                                   protect_prompt=True),
+                  evict_gate=torch.tensor([True, False], device=cuda),
+                  next_pos=torch.full((B,), 3 * S + 1, dtype=torch.int32, device=cuda),
+                  prompt_len=torch.full((B,), plen, dtype=torch.int32, device=cuda),
+                  rand_rank=torch.tensor([3, 11], dtype=torch.int32, device=cuda),
+                  compact=True)
+        scales = ()
+        if scale_rows:
+            scales = (torch.rand((L, B, H, 1), generator=gen, device=cuda),
+                      torch.rand((L, B, H, 1), generator=gen, device=cuda),
+                      torch.rand(pos.shape, generator=gen, device=cuda),
+                      torch.rand(pos.shape, generator=gen, device=cuda))
+        names = ("k_sc_new", "v_sc_new", "k_scale", "v_scale")
+        got = fused_write_update(*[x.clone() for x in state], *per_b, policy, **kw,
+                                 **{n: x.clone() for n, x in zip(names, scales)})
+        ref = fused_write_update_plain(*[x.clone() for x in state], *per_b, policy, **kw,
+                                       **{n: x.clone() for n, x in zip(names, scales)})
+        assert len(got) == len(ref) == (8 if scale_rows else 6)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), shape
+        assert (got[-1][:, 1] == S).all() and (got[-1][:, 0] < S).all()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("Hq,Hkv,B", [(32, 32, 1), (32, 8, 2), (8, 8, 2)],
+                         ids=["mha-7b", "gqa-b2", "small"])
+def test_k1_ordered_kernel_matches_plain(cuda, kind, Hq, Hkv, B):
+    S, D = 768, 128
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(14)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    k, v, ks, vs = _kv(cuda, 1, B, Hkv, S, D, kind, 15)
+    k, v = k[0], v[0]
+    scales = () if ks is None else (ks[0], vs[0])
+    pos = torch.full((B, Hkv, S), -1, dtype=torch.int32, device=cuda)
+    pos[..., :712] = torch.arange(712, dtype=torch.int32, device=cuda)
+    q_pos = torch.full((B,), 800, dtype=torch.int32, device=cuda)
+    rot = tuple(x.contiguous() for x in rope_cos_sin(
+        torch.arange(S, dtype=torch.int32, device=cuda), rope_inv_freq(D, 10000.0, cuda)))
+    args = (rnd(B, Hq, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype),
+            k, v, pos, q_pos) + scales
+    before = fused_decode_attend_inflight.launches
+    got = fused_decode_attend_inflight(*args, rot=rot)
+    assert fused_decode_attend_inflight.launches == before + 1
+    ref = fused_decode_attend_inflight_plain(*args, rot=rot)
+    assert _out_ok(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+    unrot = fused_decode_attend_inflight_plain(*args)
+    assert (unrot[1] - ref[1]).abs().max() > 1e-4      # the rotation is not a no-op
+
+
+def _streaming_paths(cuda, kv_quant, prerot):
+    """(out_ids, final pos, kv_len) of a small streaming decode with the
+    kernels and with every kernel swapped for its plain version."""
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=64, budget=8,
+                               max_new_tokens=24, recent_window_dec=2, kv_quant=kv_quant,
+                               streaming=True)
+    ids = torch.randint(1, 512, (1, 64), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    plen = torch.tensor([50], dtype=torch.int32, device=cuda)
+    outs = []
+    flags.use_prerot(prerot)
+    try:
+        for plain in (False, True):
+            patches = contextlib.ExitStack()
+            if plain:
+                patches.enter_context(mock.patch.multiple(
+                    llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
+                    fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+                    fused_chunk_attend=fused_chunk_attend_plain,
+                    fused_kv_compact=fused_kv_compact_plain))
+                patches.enter_context(mock.patch.object(gen_mod, "fused_compact",
+                                                        fused_compact_plain))
+                patches.enter_context(mock.patch.object(sidecar_update, "fused_evict",
+                                                        fused_evict_plain))
+            gen = torch.Generator(device=cuda).manual_seed(0)
+            counts = (fused_evict.launches, fused_compact.launches, fused_kv_compact.launches)
+            with patches:
+                res, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0, gen,
+                                                         torch.float32)
+            launched = tuple(f.launches - c for f, c in zip(
+                (fused_evict, fused_compact, fused_kv_compact), counts))
+            outs.append((res.out_ids, cache.pos, res.kv_len, launched))
+    finally:
+        flags.use_prerot(None)
+    return outs
+
+
+@pytest.mark.parametrize("prerot", [True, False], ids=["prerot", "rotate-at-read"])
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["f32", "int8"])
+def test_streaming_kernel_path_matches_plain_path(cuda, kv_quant, prerot):
+    outs = _streaming_paths(cuda, kv_quant, prerot)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1][0], outs[1][1][0])        # layer 0 exact
+    if not kv_quant:
+        assert torch.equal(outs[0][1], outs[1][1])
+    assert int(outs[0][2][0]) - 50 == 8
+    assert outs[0][3] == ((0, 0, 24) if prerot else (24, 24, 0))
+    assert outs[1][3] == (0, 0, 0)

@@ -5,14 +5,17 @@ Builds LLaMa-2-7B-width weights on the card from a seed (bf16), prefills a
 512-token prompt, and decodes with roco at budget 200 (the chip_smoke.py
 main path, whose model, prompt length and budget it imports) for budget +
 STEPS_PAST_BUDGET tokens, once untraced and once under torch.profiler,
-with a bf16 KV cache and then with an int8 one. Prints, for each, the
+with a bf16 KV cache and then with an int8 one; with --streaming, the
+StreamingLLM decode instead (streaming=True): bf16 and int8 over the
+pre-rotated cache, then int8 over the rotate-at-read cache. Prints, for
+each, the
 host-clock time per step of both runs, the
 device time per step (sum of kernel durations), the device's idle share
 while traced, the kernels that take most device time, and the PyTorch ops
 that take most host time (self CPU time under the tracer, which inflates
 it, with calls per step).
 
-    python3 tools/torch_profile_decode.py
+    python3 tools/torch_profile_decode.py [--streaming]
 """
 import importlib
 import json
@@ -28,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import BUDGET, LLAMA2_7B, PROMPT  # noqa: E402
+from easykv_tpu_torch import flags  # noqa: E402
 from easykv_tpu_torch.models.llama import init_params  # noqa: E402
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
@@ -48,10 +52,12 @@ def main():
                         dtype=torch.int32).to(dev)
     plen = torch.full((1,), P, dtype=torch.int32, device=dev)
 
+    streaming = "--streaming" in sys.argv[1:]
+
     def prefilled(n_new, kv_quant):
         st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=P, budget=budget,
                                    max_new_tokens=n_new, recent_window_dec=int(budget * 0.3),
-                                   kv_quant=kv_quant)
+                                   kv_quant=kv_quant, streaming=streaming)
         cache = gen_mod._engine_cache(st, 1, P + budget + 1, torch.bfloat16, dev)
         last = gen_mod._prefill(st, params, cache, ids, plen)
         torch.cuda.synchronize()
@@ -70,7 +76,12 @@ def main():
     # covers budget + steps tokens, the untraced one the same
     n_steps = budget + STEPS_PAST_BUDGET
     res["decode_steps"] = n_steps
-    for kv_quant in (False, True):
+    runs = ([("bf16 KV streaming pre-rotated", False, True),
+             ("int8 KV streaming pre-rotated", True, True),
+             ("int8 KV streaming rotate-at-read", True, False)] if streaming
+            else [("bf16 KV", False, None), ("int8 KV", True, None)])
+    for name, kv_quant, prerot in runs:
+        flags.use_prerot(prerot)
         decode(*prefilled(8, kv_quant))          # build + warm-up
         base_s = decode(*prefilled(n_steps, kv_quant))
         state = prefilled(n_steps, kv_quant)
@@ -86,7 +97,8 @@ def main():
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
         host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:12]
-        res["int8 KV" if kv_quant else "bf16 KV"] = {
+        flags.use_prerot(None)
+        res[name] = {
             "untraced_ms_per_step": base_s / n_steps * 1e3,
             "traced_ms_per_step": dec_s / n_steps * 1e3,
             "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
