@@ -81,7 +81,7 @@ from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import sidecar_update as sidecar_mod
 from easykv_tpu_torch.ops.cuda.kv_compact import (
     fused_compact as k8, fused_compact_plain as k8_plain, fused_kv_compact as k9,
-    fused_kv_compact_plain as k9_plain)
+    fused_kv_compact_plain as k9_plain, shift_rotation)
 from easykv_tpu_torch.ops.rope import rope_inv_freq
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
@@ -383,15 +383,15 @@ def phase_streaming_kernels(dev):
                   f"K2 compact policy={policy} scales={with_scales} disagrees")
     errs[("K4", "-")] = errs[("K2 compact", "bf16")] = errs[("K2 compact", "int8")] = 0.0
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(150), dev)
-    inv_freq = rope_inv_freq(D, LLAMA2_7B.rope_theta, dev)
+    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
     for kind in ("bf16", "int8"):
         kv = kv_rows(L, 1, H, S, D, kind, dev, 151)
         vs = stream_victims(L, 1, H, S, dev, 152, edges=True)
         for rotate in (True, False):
             a = [x.clone() for x in kv]
             b = [x.clone() for x in kv]
-            k9(a[0], a[1], vs, *a[2:], inv_freq=inv_freq, rotate=rotate)
-            k9_plain(b[0], b[1], vs, *b[2:], inv_freq=inv_freq, rotate=rotate)
+            k9(a[0], a[1], vs, *a[2:], rot=shift if rotate else None)
+            k9_plain(b[0], b[1], vs, *b[2:], rot=shift if rotate else None)
             torch.cuda.synchronize()
             same = [torch.equal(x, y) for x, y in zip(a, b)]
             moved = not torch.equal(a[1], kv[1])
@@ -865,15 +865,18 @@ def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
     roco at budget 8 (an eviction and a compaction on each of the last 24
     steps): f32 and int8 caches, each with the pre-rotated and the
     rotate-at-read cache, kernel path against plain path. Equal greedy
-    tokens and final pos. An int8 cache: layer 0's K/V bit-identical (both
-    paths write its rows from the same embeddings, and the kernels are
-    bit-exact, phase 2); in later layers, wherever both paths hold the same
-    position, V within one int8 step (a row quantized from hidden states
-    that differ in their last f32 bits, as the encoding family's check
-    allows) and K within one step over the rotate-at-read cache, two over
-    the pre-rotated one: there every shift rotates a K row by R(-theta) and
-    requantizes it, which carries a one-step difference in x1 or x2 into
-    up to |cos| + |sin| <= sqrt(2) steps of the new scale, rounded."""
+    tokens and final pos. An int8 cache: layer 0's K/V and scales
+    bit-identical (both paths write its rows from the same embeddings, and
+    the kernels are bit-exact, phase 2); in later layers, wherever both
+    paths hold the same position, V within one int8 step (a row quantized
+    from hidden states that differ in their last f32 bits, as the encoding
+    family's check allows), and K over the rotate-at-read cache too, which
+    stores each row as quantized once. The pre-rotated cache requantizes
+    a K row at _prerotate_cache and at every shift (K9), and a one-step
+    gap can grow there (tests/test_torch_streaming.py's witness shows it
+    with the plain K9 alone), so its K is held to the bound of
+    int8_k_gap_limit, row by row, from the number of requantizations the
+    row took."""
     for quant in (False, True):
         kv = "int8" if quant else "f32"
         st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
@@ -889,9 +892,9 @@ def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
                     r, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0,
                                                            gen, torch.float32)
                 res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), cache.k.cpu(), cache.v.cpu(),
-                              counts())
+                              counts(), cache.k_scale.cpu() if quant else None)
             flags.use_prerot(None)
-            (ta, pa, ka, va, k_c), (tb, pb, kb, vb, p_c) = res[False], res[True]
+            (ta, pa, ka, va, k_c, ksa), (tb, pb, kb, vb, p_c, ksb) = res[False], res[True]
             same_tok = torch.equal(ta, tb)
             pos_diff = [int((pa[l] != pb[l]).sum()) for l in range(pa.shape[0])]
             held = (pa >= 0) & (pa == pb)
@@ -901,16 +904,51 @@ def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
             if quant:
                 steps = [[int((x[l].float() - y[l].float()).abs()[held[l]].max())
                           for l in range(pa.shape[0])] for x, y in ((ka, kb), (va, vb))]
-                ok = ok and steps[0][0] == steps[1][0] == 0 and max(steps[1]) <= 1 \
-                    and max(steps[0]) <= (2 if prerot else 1)
+                # requantizations after a row's first: one at _prerotate_cache
+                # for the prompt's rows, then one per shift; a row written at
+                # slot min(pos, prompt + budget) moved once per shift
+                slot = torch.arange(pa.shape[-1])
+                shifts = pa.clamp(max=PROMPT + st.budget) - slot
+                requants = (shifts + (pa < PROMPT).int() if prerot else torch.zeros_like(pa))
+                gap_ok, gap = int8_k_gap_limit(ka, ksa, kb, ksb, requants, held)
+                ok = (ok and steps[0][0] == steps[1][0] == 0 and torch.equal(ksa[0], ksb[0])
+                      and max(steps[1]) <= 1 and (prerot or max(steps[0]) <= 1)
+                      and bool((shifts[held] >= 0).all()) and gap_ok)
                 what += (f", int8 steps apart at the same positions per layer: K {steps[0]}, "
-                         f"V {steps[1]}")
+                         f"V {steps[1]}; {gap}")
             print(f"phase 4: full width L=2 f32 weights, {kv} KV, streaming {mode}, roco b=8, "
                   f"32 tokens: {what}; launches kernel path {k_c}, plain path {p_c}")
             check(ok, f"{kv} KV streaming {mode}: kernel path and plain path disagree")
             new = (("K9", "K2 compact") if prerot else ("K1 ordered", "K4", "K8"))
             check(all(k_c[key] > 0 for key in new) and sum(p_c.values()) == 0,
                   f"{kv} KV streaming {mode}: launch counts")
+
+
+def int8_k_gap_limit(ka, ksa, kb, ksb, requants, held):
+    """Two int8 K caches against each other, row by row at the held slots,
+    dequantized: a row of path A and of path B first quantized from nearly
+    equal values sit within one step of the larger scale s per value (a
+    pair (x1, x2) within sqrt(2) s); each later requantization (a rotation,
+    which keeps the pair's gap, then rounding) adds at most sqrt(2) s to
+    it, and s never exceeded sqrt(2) times the row's final scale, since
+    the rotations keep each pair's norm. So a row that took r
+    requantizations stays within 2 (1 + r) steps of the larger final
+    scale, and its scales within that over 127 (each scale is the row's
+    largest value over 127; 1e-6 relative for the f32 arithmetic of the
+    scale). Returns (within the limit, a reading)."""
+    smax = torch.maximum(ksa, ksb)
+    gap = (ka.float() * ksa[..., None] - kb.float() * ksb[..., None]).abs().amax(-1)
+    limit = 2 * (1 + requants).float()
+    rel = gap / smax                                       # steps of the larger scale
+    sc = (ksa - ksb).abs() / smax
+    ok = bool((rel <= limit)[held].all()) and bool((sc <= limit / 127 + 1e-6)[held].all())
+    worst = torch.where(held, rel / limit, 0).flatten().argmax()
+    reading = (f"K dequantized: largest gap {float(rel[held].max()):.3f} steps, worst against "
+               f"its limit {float(rel.flatten()[worst]):.3f} of {float(limit.flatten()[worst]):g} "
+               f"steps (r = {int(requants.flatten()[worst])}), requantizations per row up to "
+               f"{int(requants[held].max())}; k_scale largest relative gap "
+               f"{float(sc[held].max()):.3e}")
+    return ok, reading
 
 
 def phase_plain_vs_kernel_encoding(dev, cfg, params):
@@ -1097,9 +1135,10 @@ def tail_rows(v_slot, S):
 def streaming_times(dev):
     """The ordered StreamingLLM kernels at the main path's shapes (L=32,
     B=1, H=32, S=768, D=128; victims among the 200 generated tokens, one
-    head in six without). Bounds: K4 reads pos, score, score_sq, counter
-    and writes pos and counter, 24 bytes a slot; K9 and K8 read and write
-    the K and V rows (and int8 scales) at and above each victim once, K8
+    head in six without). Bounds: K4 reads pos, score, score_sq and
+    counter (16 bytes a slot) and writes counter (4) and one pos per row;
+    K9 and K8 read and write the K and V rows (and int8 scales) at and
+    above each victim once, K8
     also the four sidecars there and pos_mid / pos in full to find the
     victims; K2 compact moves what K2 moves; K1 ordered what K1 moves plus
     the (S, D/2) cos and sin tables once. No PyTorch call computes any of
@@ -1115,8 +1154,8 @@ def streaming_times(dev):
         copies.append((*state[:4], torch.ones(1, dtype=torch.bool, device=dev),
                        ev["next_pos"], ev["prompt_len"], ev["rand_rank"], k2_spec("roco")))
     out[("K4", "-")] = dict(ms=graph_ms(k4, copies, 32), plain_ms=graph_ms(k4_plain, copies, 8),
-                            library_ms=None, bytes=24 * slots + 16, flops=slots * (8 + 31 + 4),
-                            peak=F32_FLOPS)
+                            library_ms=None, bytes=20 * slots + L * H * 4 + 16,
+                            flops=slots * (8 + 31 + 4), peak=F32_FLOPS)
     del copies
     # K2 compact: the K2 timing's inputs with compact=True
     for kv in ("bf16", "int8"):
@@ -1136,7 +1175,7 @@ def streaming_times(dev):
             library_ms=None, bytes=36 * slots + L * H * (12 + (16 if kv == "int8" else 0)),
             flops=slots * (8 + 31 + 4), peak=F32_FLOPS)
         del copies
-    inv_freq = rope_inv_freq(D, LLAMA2_7B.rope_theta, dev)
+    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(190), dev)
     for kv in ("bf16", "int8"):
         kvr = kv_rows(L, 1, H, S, D, kv, dev, 191)
@@ -1146,7 +1185,7 @@ def streaming_times(dev):
         args = [(kvr[0], kvr[1], vs, *kvr[2:])]
 
         def run_k9(fn):
-            return lambda *a: fn(*a, inv_freq=inv_freq, rotate=True)
+            return lambda *a: fn(*a, rot=shift)
         out[("K9", kv)] = dict(ms=graph_ms(run_k9(k9), args, 64),
                                plain_ms=graph_ms(run_k9(k9_plain), args, 8), library_ms=None,
                                bytes=2 * rows * row_bytes + vs.numel() * 4,

@@ -401,15 +401,11 @@ def _decode_loop(
     eos = (torch.tensor(st.eos_token_ids, dtype=torch.int32, device=dev)
            if st.eos_token_ids else None)
     k_evict = spec.k if spec is not None else 0
-    if st.streaming and not (evict_mode in ("budget", "none") and st.mode == "decoding"):
-        raise NotImplementedError(
-            "StreamingLLM outside `decoding` is not ported yet (ROADMAP.md open item 10)")
     prerot = st.streaming and flags.prerot_enabled()
-    rot = None
+    stream = (llama.stream_tables(cache.pos.shape[-1], st.cfg, dev, prerot)
+              if st.streaming else None)
     if prerot:
         _prerotate_cache(cache, st.cfg)
-    elif st.streaming:
-        rot = llama.rotation_tables(cache.pos.shape[-1], st.cfg, dev)
     folded = (llama.decode_evict_folded(spec, st.streaming)
               or llama.decode_stream_folded(spec, st.streaming, prerot))
 
@@ -458,7 +454,7 @@ def _decode_loop(
             rand_rank=rand_rank,
         )
         logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec,
-                                       st.streaming, prerot, rot)
+                                       stream)
         if spec is not None and not folded:
             pos_mid = cache.pos.clone() if st.streaming else None
             evict_cache(cache, spec, ctx.next_pos, prompt_len, rand_rank, gate_b)

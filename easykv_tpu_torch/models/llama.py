@@ -36,7 +36,7 @@ from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
 from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
-from ..ops.cuda.kv_compact import fused_kv_compact
+from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
 from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
@@ -334,6 +334,22 @@ def rotation_tables(S: int, cfg: ModelConfig, device) -> Tuple[torch.Tensor, tor
     return cos.contiguous(), sin.contiguous()
 
 
+class StreamRot(NamedTuple):
+    """The ordered StreamingLLM strategy of a run and the rotation tables
+    its decode step reads, built once per run by stream_tables."""
+
+    prerotated: bool     # K stored rotated by its slot (flags.prerot_enabled)
+    cos: torch.Tensor    # prerotated: K9's R(theta), (D/2,); else K1's R(s * theta), (S, D/2)
+    sin: torch.Tensor
+
+
+def stream_tables(S: int, cfg: ModelConfig, device, prerotated: bool) -> StreamRot:
+    if prerotated:
+        inv_freq = rope_inv_freq(cfg.head_dim, rope_base_for(cfg), device)
+        return StreamRot(True, *shift_rotation(inv_freq))
+    return StreamRot(False, *rotation_tables(S, cfg, device))
+
+
 @torch.no_grad()
 def _decode_forward(
     params: LlamaParams,
@@ -342,9 +358,7 @@ def _decode_forward(
     token_ids: torch.Tensor,     # (B, 1)
     ctx: StepCtx,
     spec: Optional[PolicySpec],  # None: full cache, no scores, no eviction
-    streaming: bool = False,
-    prerotated: bool = False,
-    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    stream: Optional[StreamRot] = None,   # None: not StreamingLLM
 ) -> torch.Tensor:
     """One decode token through all layers with a late cache write: the
     token's K/V joins each layer's softmax in flight (K1); after the layers
@@ -356,30 +370,31 @@ def _decode_forward(
     their scales and K3 their int8 bytes. Updates `cache` in place and
     returns logits (B, 1, V) f32.
 
-    StreamingLLM (streaming=True, the age-ordered cache of `decoding`,
-    reference llama_patch.py:251-379): q and the in-flight K rotate by the
-    token's cache-relative position, each layer's pre-write valid count
-    (head 0's; every head of a layer holds the same count), while the mask
-    still compares true positions. With `prerotated` the cache holds K
+    StreamingLLM (`stream`, the age-ordered cache of `decoding`, reference
+    llama_patch.py:251-379): q and the in-flight K rotate by the token's
+    cache-relative position, each layer's pre-write valid count (head 0's;
+    every head of a layer holds the same count), while the mask still
+    compares true positions. With stream.prerotated the cache holds K
     already rotated by its slot: attention is the plain K1, the stored row
     is the rotated K, and when decode_stream_folded the step runs K2 with
     `compact` (victim slots out), K3 at the pre-compact write slot, then K9
-    (shift + R(-theta) of the moved rows). Otherwise the cache holds the
-    raw K, K1 rotates every slot by its index from `rot` (cos, sin (S,
-    D/2)), and the engine evicts (K4) and compacts (K8) after the step."""
+    (shift + R(-theta) of the moved rows, from stream's tables). Otherwise
+    the cache holds the raw K, K1 rotates every slot by its index from
+    stream's (S, D/2) tables, and the engine evicts (K4) and compacts (K8)
+    after the step."""
     B = token_ids.shape[0]
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
     q_pos = ctx.q_pos                                           # (B, 1)
     q_pos_b = q_pos[:, 0].contiguous()
+    streaming = stream is not None
+    prerotated = streaming and stream.prerotated
     if streaming:
-        if not prerotated and rot is None:
-            raise ValueError("the rotate-at-read cache needs rot = (cos, sin) per slot")
         n_valid = (cache.pos[:, :, 0, :] >= 0).sum(dim=-1, dtype=torch.int32)  # (L, B)
         cos_all, sin_all = rope_cos_sin(n_valid[:, :, None, None], inv_freq)  # (L, B, 1, 1, D/2)
     else:
         cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)    # shared by all layers
-    k1_rot = rot if streaming and not prerotated else None
+    k1_rot = (stream.cos, stream.sin) if streaming and not prerotated else None
 
     h = params.embed[token_ids.clamp(min=0)]
     kn_all, vn_all, probs_all, pnew_all = [], [], [], []
@@ -425,5 +440,5 @@ def _decode_forward(
     if fold_stream:
         # the rows just written shift too, as evict_cache + _compact_one would
         fused_kv_compact(cache.k, cache.v, res[-1][..., 0].contiguous(), cache.k_scale,
-                         cache.v_scale, inv_freq=inv_freq, rotate=True)
+                         cache.v_scale, rot=(stream.cos, stream.sin))
     return _logits_tail(h, params, cfg)

@@ -38,22 +38,22 @@ SIGNATURES = {
 
 
 def shift_rotation(inv_freq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) of inv_freq, f32 (D/2,): the fixed R(-theta) one shift
-    applies. The kernel and its plain version read the same tensors."""
+    """(cos, sin) of inv_freq, f32 (D/2,): the `rot` of fused_kv_compact,
+    whose fixed R(-theta) one shift applies. Built once per run; the kernel
+    and its plain version read the same tensors."""
     f = inv_freq.to(torch.float32)
     return torch.cos(f).contiguous(), torch.sin(f).contiguous()
 
 
-def fused_kv_compact_plain(k, v, v_slot, k_scale=None, v_scale=None, inv_freq=None,
-                           rotate: bool = False):
+def fused_kv_compact_plain(k, v, v_slot, k_scale=None, v_scale=None, rot=None):
     """Plain PyTorch version of K9; same arguments and results."""
     S, D = k.shape[3], k.shape[4]
     ge = torch.arange(S, dtype=torch.int32, device=k.device) >= v_slot[..., None]
     ge5 = ge[..., None]
     quant = k_scale is not None
     k_roll = torch.roll(k, -1, dims=3)
-    if rotate:
-        c, s = shift_rotation(inv_freq)
+    if rot is not None:
+        c, s = rot
         kf = k_roll.to(torch.float32)
         x1, x2 = kf[..., :D // 2], kf[..., D // 2:]
         y = torch.cat([x1 * c + x2 * s, x2 * c - x1 * s], dim=-1)   # R(-theta)
@@ -116,23 +116,21 @@ def fused_kv_compact(
     v_slot: torch.Tensor,     # (L, B, H) int32 victim slot per head; S = no eviction
     k_scale: Optional[torch.Tensor] = None,   # (L, B, H, S) f32 (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
-    inv_freq: Optional[torch.Tensor] = None,  # (D/2,) f32, with rotate
-    rotate: bool = False,
+    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (cos, sin) (D/2,) f32
 ):
     """Shifts each head's K/V rows (and scales) at and above its victim down
-    by one; with `rotate`, each shifted K row takes R(-theta) (an int8 row is
-    requantized, its scale rebuilt from the old one). Returns (k, v[,
-    k_scale, v_scale])."""
+    by one; with `rot` (shift_rotation(inv_freq)), each shifted K row takes
+    R(-theta) (an int8 row is requantized, its scale rebuilt from the old
+    one). Returns (k, v[, k_scale, v_scale])."""
     if k.device.type == "cpu":
-        return fused_kv_compact_plain(k, v, v_slot, k_scale, v_scale, inv_freq, rotate)
+        return fused_kv_compact_plain(k, v, v_slot, k_scale, v_scale, rot)
     L, B, H, S, D = k.shape
     _check_kv(k, v, k_scale, v_scale)
     _check([("v_slot", v_slot, torch.int32, (L, B, H))], k.device)
-    cos = sin = None
-    if rotate:
-        if inv_freq is None or tuple(inv_freq.shape) != (D // 2,):
-            raise ValueError("rotate needs inv_freq of shape (D/2,)")
-        cos, sin = shift_rotation(inv_freq.to(k.device))
+    cos, sin = (None, None) if rot is None else rot
+    if rot is not None:
+        _check([("cos", cos, torch.float32, (D // 2,)), ("sin", sin, torch.float32, (D // 2,))],
+               k.device)
     lib = _lib(k, S, False)
 
     def ptr(t):
@@ -140,7 +138,7 @@ def fused_kv_compact(
 
     err = lib.kv_compact(k.data_ptr(), v.data_ptr(), v_slot.data_ptr(), ptr(k_scale),
                          ptr(v_scale), ptr(cos), ptr(sin), L * B * H, S, D, _DTYPES[k.dtype],
-                         int(rotate), _build.stream_of(k))
+                         int(rot is not None), _build.stream_of(k))
     _build.check(err, "kv_compact")
     fused_kv_compact.launches += 1
     return (k, v) if k_scale is None else (k, v, k_scale, v_scale)

@@ -32,7 +32,8 @@ from easykv_tpu_torch.ops.cuda import sidecar_update
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
 from easykv_tpu_torch.ops.cuda.kv_compact import (fused_compact, fused_compact_plain,
-                                                  fused_kv_compact, fused_kv_compact_plain)
+                                                  fused_kv_compact, fused_kv_compact_plain,
+                                                  shift_rotation)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows, write_rows_plain
 from easykv_tpu_torch.ops.cuda.sidecar_update import (fused_evict, fused_evict_plain,
                                                       fused_write_update,
@@ -426,15 +427,15 @@ def test_k9_kernel_bit_exact(cuda, kind, rotate, shape):
                            dtype=torch.int32)
     flat = v_slot.view(-1)
     flat[:5] = torch.tensor([0, 31, 32, S - 1, S], dtype=torch.int32)   # tile edges, none
-    inv_freq = rope_inv_freq(D, 10000.0, cuda)
+    rot = shift_rotation(rope_inv_freq(D, 10000.0, cuda)) if rotate else None
     arrs = [x for x in (k, v, ks, vs) if x is not None]
     a = [x.clone() for x in arrs]
     b = [x.clone() for x in arrs]
     kw = lambda xs: dict(k_scale=xs[2], v_scale=xs[3]) if ks is not None else {}  # noqa: E731
     before = fused_kv_compact.launches
-    fused_kv_compact(a[0], a[1], v_slot, inv_freq=inv_freq, rotate=rotate, **kw(a))
+    fused_kv_compact(a[0], a[1], v_slot, rot=rot, **kw(a))
     assert fused_kv_compact.launches == before + 1
-    fused_kv_compact_plain(b[0], b[1], v_slot, inv_freq=inv_freq, rotate=rotate, **kw(b))
+    fused_kv_compact_plain(b[0], b[1], v_slot, rot=rot, **kw(b))
     for name, x, y in zip(("k", "v", "k_scale", "v_scale"), a, b):
         assert torch.equal(x, y), name
 

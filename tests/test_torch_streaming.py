@@ -16,6 +16,9 @@ tests/test_rope_streaming.py and tests/test_sidecar_kernel.py run them.
                    int8 K within one step, k_scale within 1e-6 relative
                    (cos and sin of the two frameworks may differ in the
                    last bit)
+  K9 requant gap   two int8 rows one step apart, both shifted 24 times
+                   through the plain K9: the gap grows past one step, and
+                   stays within chip_smoke.py's int8_k_gap_limit
   K2 `compact`     plain against Pallas `fused_write_update(compact=True)`,
                    five policies, with and without the int8 scale rows:
                    bit-exact, victim slot included
@@ -47,16 +50,19 @@ from easykv_tpu.ops.pallas.decode_attention import fused_decode_attend_inflight 
 from easykv_tpu.ops.rope import apply_rope as japply_rope
 from easykv_tpu.ops.rope import rope_inv_freq as jinv_freq
 
+from chip_smoke import int8_k_gap_limit
 from easykv_tpu_torch import flags as tflags
 from easykv_tpu_torch import policies as tpol
-from easykv_tpu_torch.cache import KVCache, init_cache
+from easykv_tpu_torch.cache import KVCache, init_cache, quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.llama import rotation_tables
 from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight as tk1
 from easykv_tpu_torch.ops.cuda.kv_compact import fused_compact as tk8
 from easykv_tpu_torch.ops.cuda.kv_compact import fused_kv_compact as tk9
+from easykv_tpu_torch.ops.cuda.kv_compact import shift_rotation
 from easykv_tpu_torch.ops.cuda.sidecar_update import fused_evict as tk4
 from easykv_tpu_torch.ops.cuda.sidecar_update import fused_write_update as tk2
+from easykv_tpu_torch.ops.rope import rope_inv_freq as tinv_freq
 
 jgen = importlib.import_module("easykv_tpu.engine.generate")
 tgen = importlib.import_module("easykv_tpu_torch.engine.generate")
@@ -220,7 +226,7 @@ def test_k9_plain_matches_pallas(rotate, quant, S):
         **kw)
     tk, tv = t(k), t(v)
     tkw = dict(k_scale=t(ksc), v_scale=t(vsc)) if quant else {}
-    out = tk9(tk, tv, t(v_slot), inv_freq=t(inv_freq), rotate=rotate, **tkw)
+    out = tk9(tk, tv, t(v_slot), rot=shift_rotation(t(inv_freq)) if rotate else None, **tkw)
     assert out[0] is tk and len(out) == len(ref)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(ref[1]))
     if quant:
@@ -242,6 +248,39 @@ def test_k9_plain_matches_pallas(rotate, quant, S):
     moved = ~below
     moved[..., -1] = False
     np.testing.assert_array_equal(tv.numpy()[moved], np.roll(v, -1, axis=3)[moved])
+
+
+def test_k9_requant_gap_grows_within_limit():
+    """The pre-rotated int8 cache requantizes a K row at every shift. Two
+    rows one int8 step apart (one value of each pair of rows), both shifted
+    by the plain K9 alone: their dequantized gap grows past one step, as
+    the kernel path and the plain path drift apart on the card, and stays
+    within the per-row bound chip_smoke.py holds those paths to."""
+    N, D = 128, 128
+    rng = np.random.default_rng(17)
+    q, s = quantize_kv(torch.from_numpy(rng.standard_normal((1, 1, N, 1, D)).astype(np.float32)))
+    qb = q.clone()
+    j = torch.from_numpy(rng.integers(0, D, N))
+    one = qb[0, 0, torch.arange(N), 0, j]
+    qb[0, 0, torch.arange(N), 0, j] = torch.where(one < 127, one + 1, one - 1)
+    # heads [0, N) hold path A's rows, [N, 2N) path B's; S = 1, so each
+    # call moves every row onto its own slot: one shift
+    k, ks = torch.cat([q, qb], dim=2), torch.cat([s, s], dim=2)
+    v, vs = torch.zeros_like(k), torch.ones_like(ks)
+    v_slot = torch.zeros((1, 1, 2 * N), dtype=torch.int32)
+    rot = shift_rotation(tinv_freq(D, 10000.0, torch.device("cpu")))
+    held = torch.ones((1, 1, N, 1), dtype=torch.bool)
+    largest = 0.0
+    for n in range(1, 25):
+        tk9(k, v, v_slot, ks, vs, rot=rot)
+        a, b = k[:, :, :N], k[:, :, N:]
+        ok, reading = int8_k_gap_limit(a, ks[:, :, :N], b, ks[:, :, N:],
+                                       torch.full((1, 1, N, 1), n), held)
+        assert ok, f"after {n} shifts: {reading}"
+        sa, sb = ks[:, :, :N], ks[:, :, N:]
+        gap = (a.float() * sa[..., None] - b.float() * sb[..., None]).abs().amax(-1)
+        largest = max(largest, float((gap / torch.maximum(sa, sb)).max()))
+    assert largest >= 2.0          # the growth: more than one step, from K9's math alone
 
 
 # --------------------------------------------------------------------------

@@ -128,13 +128,11 @@ def test_streaming_decode_lockstep(models, policy, pre, quant):
                                                jnp.asarray(plen), None, "zero"))(
         jgen._engine_cache(jst, B, P + budget + 1))
     tcache = cache_from_jax(cache)
-    rot = None
+    stream = tllama.stream_tables(tcache.pos.shape[-1], tcfg, "cpu", pre)
     if pre:
         cache = jax.jit(lambda c: jgen._prerotate_cache(c, jcfg))(cache)
         tgen._prerotate_cache(tcache, tcfg)
         assert_cache_close(tcache, cache, "after _prerotate_cache")
-    else:
-        rot = tllama.rotation_tables(tcache.pos.shape[-1], tcfg, "cpu")
     rot_if = jinv_freq(jcfg.head_dim, jrope_base(jcfg)) if pre else None
 
     @jax.jit
@@ -162,7 +160,7 @@ def test_streaming_decode_lockstep(models, policy, pre, quant):
         tctx = tllama.StepCtx(**{k: t(v) for k, v in ctx_np.items()})
         jlog, cache = jstep(cache, jnp.asarray(toks[g][:, None]), jctx)
         tlog = tllama._decode_forward(tparams, tcfg, tcache, t(toks[g][:, None]), tctx, spec_t,
-                                      True, pre, rot)
+                                      stream)
         if not folded:
             pos_mid = tcache.pos.clone()
             tevict_cache(tcache, spec_t, tctx.next_pos, tctx.prompt_len, tctx.rand_rank,
