@@ -23,7 +23,11 @@ Phases, each printing its lines before the last:
      and int8, rotate on and off, victims at the first, a middle and the
      last tile, and none) and K8 compaction (bf16 and int8) bit-exact on
      every array; K1 `ordered` (bf16 and int8, MHA, GQA with B=2) within
-     K1's limit;
+     K1's limit; the quantized-weight kernels at the 7B products (x bf16 and
+     f32): K10 and K12 at M=1 over the split tree's widths, K11 at M=4, 128,
+     512 over them, K13 at M=1, 4, 256 over the fused tree's and the LM head
+     (N=32000, with f32 logits), each within 1e-5 of max|ref| (plus
+     one bf16 ulp of the value in bf16) of its plain version;
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
@@ -38,8 +42,17 @@ Phases, each printing its lines before the last:
      prompt with stride 96 and 128 new tokens: int8 and bf16 `encoding` (roco
      at budget 0.5: the strided encode runs K6 with the int8 cache), int8
      `encoding_decoding` (roco at budget 2048: an eviction every decode step)
-     and int8 `ppl`. Launch counters are zeroed just before each run and
-     read just after;
+     and int8 `ppl`; then quantized weights, quantized on the card from the
+     same bf16 weights by the port's quantize_params(_int4) and
+     fuse_gemv_params, on the 512-token prompt with 384 new tokens: int4
+     arithmetic split with an int8 KV cache (roco, `full`, roco at B=4:
+     K10, or K11 at B=4, for the layers, K13 for the head, K11 in the B=1
+     prefill), int8 fused with an int8 KV cache (K13) and int4 halves split
+     with a bf16 KV cache (K12), each with its launch counts, weight bytes
+     per step and retained tokens. (The int4 arithmetic fused tree is left
+     out: at B <= 16 the JAX package decodes it with its one-kernel decode
+     steps, which the port has not ported yet.) Launch counters are zeroed
+     just before each run and read just after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
      equal greedy tokens and final positions; StreamingLLM `decoding` over
@@ -50,9 +63,14 @@ Phases, each printing its lines before the last:
      1024-token prompt, stride 96: equal tokens and kv_len; equal final
      positions (an int8 cache: in layer 0, and K/V within one int8 step
      elsewhere); ppl within 1e-5 relative;
+     then the int8 fused, int4 arithmetic split and int4 halves split trees
+     of those weights, f32 KV: equal tokens and final positions;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
-     each cache dtype the main path gives the kernel.
+     each cache dtype the main path gives the kernel; K10-K13 at each 7B
+     product of their phase-3 trees (bf16 activations) with enough weight copies cycled that L2 is
+     cold, the library call torch.matmul over a bf16 copy dequantized
+     beforehand.
 
 It exits non-zero, without a result line, when there is no CUDA device, a
 kernel does not build, or any check fails. The last line is
@@ -92,6 +110,13 @@ from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_pla
 from easykv_tpu_torch.ops.cuda.sidecar_update import (
     fused_evict as k4, fused_evict_plain as k4_plain, fused_write_update as k2,
     fused_write_update_plain as k2_plain)
+from easykv_tpu_torch.ops import quant as quant_mod
+from easykv_tpu_torch.ops.cuda.quant_matmul import (quant_matmul as k13,
+                                                    quant_matmul_plain as k13_plain)
+from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv as k12, w4a16_gemv_plain as k12_plain
+from easykv_tpu_torch.ops.cuda.w4_stream import (
+    w4a16_gemm_arith as k11, w4a16_gemm_arith_plain as k11_plain, w4a16_gemv_arith as k10,
+    w4a16_gemv_arith_plain as k10_plain)
 from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
@@ -574,7 +599,8 @@ def phase_k6(dev):
     return main_err
 
 
-KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9}
+KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9,
+           "K10": k10, "K11": k11, "K12": k12, "K13": k13}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K2 compact": (k2, "compact_launches")}
 
@@ -650,6 +676,7 @@ def phase_end_to_end(dev):
     del models
     runs.update(phase_streaming(dev, cfg, params))
     runs.update(phase_encoding(dev, cfg, params))
+    runs.update(phase_quant(dev, cfg, params))
     del params
     torch.cuda.empty_cache()
     return runs
@@ -818,13 +845,16 @@ def phase_encoding(dev, cfg, params):
 @contextlib.contextmanager
 def plain_kernels():
     """The model with each kernel's wrapper swapped for its plain version
-    (K4 where policies.evict_cache imports it, K8 in the engine)."""
+    (K4 where policies.evict_cache imports it, K8 in the engine, K10-K13
+    where ops.quant.mm calls them)."""
     with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
                              fused_write_update=k2_plain, write_rows=k3_plain,
                              fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
                              fused_kv_compact=k9_plain), \
             mock.patch.object(sidecar_mod, "fused_evict", k4_plain), \
-            mock.patch.object(gen_mod, "fused_compact", k8_plain):
+            mock.patch.object(gen_mod, "fused_compact", k8_plain), \
+            mock.patch.multiple(quant_mod, quant_matmul=k13_plain, w4a16_gemv=k12_plain,
+                                w4a16_gemv_arith=k10_plain, w4a16_gemm_arith=k11_plain):
         yield
 
 
@@ -858,6 +888,7 @@ def phase_plain_vs_kernel(dev):
               and sum(res[True][2].values()) == 0, f"{kv} KV: launch counts")
     phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen)
     phase_plain_vs_kernel_encoding(dev, cfg, params)
+    phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen)
 
 
 def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
@@ -1309,6 +1340,318 @@ def k6_times(dev):
                 peak=BF16_FLOPS)
 
 
+# ---------------------------------------------------------------------------
+# quantized weights: K10-K13
+# ---------------------------------------------------------------------------
+
+# (K, N) of each product at LLaMa-2-7B width: the fused tree's four, the
+# split tree's widths, the LM head (N = 32000, not a multiple of 512)
+QSHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "wgu": (4096, 22016),
+           "wd": (11008, 4096), "wq": (4096, 4096), "wg": (4096, 11008), "head": (4096, 32000)}
+FUSED = ("wqkv", "wo", "wgu", "wd")
+SPLIT_SHAPES = ("wq", "wg", "wd")          # wq = wk = wv = wo, wg = wu
+K11_MS, K13_MS = (4, 128, 512), (1, 4, 256)
+SPLIT_USES = {"wq": 4, "wg": 2, "wd": 1}   # products a layer of the split tree runs per width
+QUANT_RUNS = {  # the phase-3 run whose launches a quantized kernel reports
+    "K10": "int4 arith split roco", "K11": "int4 arith split roco B=4",
+    "K12": "int4 halves split roco", "K13": "int8 fused roco"}
+
+
+def quant_limit(ref):
+    """Limit on |kernel - plain| for K10-K13: 1e-5 of max|ref| (the order of
+    the f32 sums), plus in bf16 one bf16 ulp of the reference value (the
+    two f32 sums round to the same or adjacent bf16 values)."""
+    lim = 1e-5 * ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        lim = lim + 2**-7 * ref.float().abs()
+    return lim
+
+
+def quant_case(name, fmt, dev, seed):
+    """A quantized linear of shape QSHAPES[name], made on the card with the
+    port's quantizer from N(0, 0.02) weights."""
+    K, N = QSHAPES[name]
+    w = torch.randn((K, N), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    w.mul_(0.02)
+    if fmt == "int8":
+        return quant_mod.quantize_linear(w)
+    return quant_mod.quantize_linear_int4(w, 128, fmt)
+
+
+QARGS = {"K10": ("q4a", "gs3"), "K11": ("q4a", "gs"), "K12": ("q4p", "gs"), "K13": ("q", "s")}
+
+
+def quant_args(kernel, ql):
+    """The leaves of a QuantLinear that a kernel takes after x."""
+    return tuple(ql[k] for k in QARGS[kernel])
+
+
+QPAIRS = {"K10": (k10, k10_plain), "K11": (k11, k11_plain), "K12": (k12, k12_plain),
+          "K13": (k13, k13_plain)}
+
+
+def phase_quant_kernels(dev):
+    """K10-K13 against their plain versions at the 7B shapes of their
+    phase-3 trees, x in bf16 and f32: K10 and K12 at M = 1 (split widths),
+    K11 at M = 4, 128, 512 (split widths), K13 at M = 1, 4, 256 (fused
+    widths; the head with a float32 result). Returns the max |err| keyed
+    (kernel, shape, M, x dtype)."""
+    plan = [("K10", "arith", SPLIT_SHAPES + ("head",), (1,)),
+            ("K12", "halves", SPLIT_SHAPES + ("head",), (1,)),
+            ("K11", "arith", SPLIT_SHAPES, K11_MS),
+            ("K13", "int8", FUSED + ("head",), K13_MS)]
+    errs = {}
+    for i, (kernel, fmt, names, ms) in enumerate(plan):
+        fn, plain = QPAIRS[kernel]
+        for j, name in enumerate(names):
+            args = quant_args(kernel, quant_case(name, fmt, dev, 300 + 10 * i + j))
+            K, N = QSHAPES[name]
+            for dtype in (torch.bfloat16, torch.float32):
+                line = []
+                for M in ms:
+                    x = torch.randn((M, K), generator=torch.Generator(device=dev).manual_seed(M),
+                                    device=dev).to(dtype)
+                    kw = dict(out_f32=True) if kernel == "K13" and name == "head" else {}
+                    got, ref = fn(x, *args, **kw), plain(x, *args, **kw)
+                    torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs()
+                    ratio = (err / quant_limit(ref)).max().item()
+                    check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1
+                          and bool(torch.isfinite(got).all()),
+                          f"{kernel} {name} M={M} {dtype}: {ratio:.3f} of its limit")
+                    errs[(kernel, name, M, dtype)] = err.max().item()
+                    line.append(f"M={M} max|err| {err.max().item():.3e} "
+                                f"({ratio:.2f} of its limit)")
+                dt = "bf16" if dtype == torch.bfloat16 else "f32"
+                out = " f32 out" if kernel == "K13" and name == "head" else ""
+                print(f"phase 2: {kernel} {name} (K={K}, N={N}) x {dt}{out}: " + "; ".join(line))
+    return errs
+
+
+def step_weight_gb(params):
+    """GB of weights one M = 1 decode step reads: each linear's M = 1 leaf
+    (q4a + gs3, q4p + gs, or q + s) and the LM head; and GB resident."""
+    def leaf_bytes(w, step):
+        if not isinstance(w, quant_mod.QuantLinear):
+            return w.numel() * w.element_size()
+        keys = (("q4a", "gs3") if "q4a" in w else ("q4p", "gs") if "q4p" in w
+                else ("q", "s")) if step else w.keys()
+        return sum(w[k].numel() * w[k].element_size() for k in keys)
+    lin = [w for p in params.layers for n, w in list(p.named_parameters(recurse=False))
+           + list(p.named_children()) if n.startswith("w")] + [params.lm_head]
+    return (sum(leaf_bytes(w, True) for w in lin) / 1e9,
+            sum(leaf_bytes(w, False) for w in lin) / 1e9)
+
+
+def phase_quant(dev, cfg, params):
+    """Quantized weights at 7B width, quantized on the card from the phase's
+    bf16 weights with the port's own functions; the 512-token prompt, 384
+    new tokens, greedy: int4 arithmetic split with an int8 KV cache (bench.py's
+    headline format; its fused tree is the JAX package's one-kernel decode
+    step, still to port) roco and `full`, and roco at B=4; int8 fused,
+    int8 KV, roco; int4 halves split, bf16 KV, roco. Exact launch counts,
+    200 retained tokens and the printed ratio line."""
+    L = cfg.num_hidden_layers
+    g = torch.Generator().manual_seed(0)
+    prompts = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)
+    gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=NEW, temperature=1e-9,
+              top_p=1.0, eos_token_ids=[], seed=0)
+    trees = [
+        ("int4 arith split", lambda: quant_mod.quantize_params_int4(params, layout="arith"),
+         "int8", [("roco", 1), ("full", 1), ("roco", B_WIDE)]),
+        ("int8 fused", lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
+         "int8", [("roco", 1)]),
+        ("int4 halves split", lambda: quant_mod.quantize_params_int4(params), "bf16",
+         [("roco", 1)]),
+    ]
+    n_k5 = L * PROMPT // CHUNK
+    runs = {}
+    for tree, make, kv, plan in trees:
+        t0 = time.perf_counter()
+        qparams = make()
+        torch.cuda.synchronize()
+        step_gb, held_gb = step_weight_gb(qparams)
+        print(f"phase 3: {tree}: quantized on the card in {time.perf_counter() - t0:.1f} s; "
+              f"weights read per M=1 step {step_gb:.3f} GB (at 3.35 TB/s "
+              f"{step_gb / 3.35:.3f} ms), resident {held_gb:.3f} GB")
+        model = easykv_tpu_torch.enable_fixed_kv(
+            easykv_tpu_torch.CausalLM(cfg, qparams, device=dev, kv_quant=kv == "int8"), None,
+            "decoding")
+        model.easykv_generate(prompts[0].tolist(), dict(gc, max_new_tokens=8))   # warm-up
+        for policy, B in plan:
+            name = f"{tree} {policy}" + (f" B={B}" if B > 1 else "")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            printed = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(printed):
+                out = model.easykv_generate(prompts[0].tolist() if B == 1
+                                            else prompts[:B].numpy(), dict(gc, kv_policy=policy))
+            c = counts()
+            st = model.last_run
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            tok_s = B * st.n_tokens / st.decode_s
+            line = printed.getvalue().strip().splitlines()[-1]
+            print(f"phase 3: {name} ({kv} KV): prefill {st.prefill_s:.3f} s, decode "
+                  f"{B}x{st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len "
+                  f"{st.kv_len}, weights {step_gb:.3f} GB per step, peak memory {peak:.2f} GiB, "
+                  f"launches {c}; printed: {line}")
+            check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
+            want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=n_k5 if kv == "int8" else 0,
+                        K13=NEW + 1)
+            if tree == "int4 arith split" and B == 1:
+                want.update(K10=7 * L * NEW, K11=7 * L)         # prefill: K11 at M = 512
+            elif tree == "int4 arith split":
+                want.update(K11=7 * L * NEW)                    # prefill M = 2048: dense, plain
+            elif tree == "int8 fused":
+                want.update(K13=(4 * L + 1) * NEW + 1)          # prefill M = 512: plain
+            else:
+                want.update(K12=7 * L * NEW)                    # prefill M = 512: plain
+            want = zero_counts(**want)
+            check(c == want, f"{name}: launch counts {c}, expected {want}")
+            kept = BUDGET if policy == "roco" else NEW
+            ratio = f"KV cache budget ratio: {kept / NEW * 100:.2f}%({kept}/{NEW})"
+            check(st.kv_len - PROMPT == kept, f"{name} kept {st.kv_len - PROMPT} tokens")
+            check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
+            runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak,
+                              weight_gb=step_gb)
+        del model, qparams
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
+    """The decode path over quantized trees of the phase's L=2 f32 weights
+    (int8 fused, int4 arithmetic split, int4 halves split), f32 KV cache,
+    roco at budget 8, 32 new tokens: kernel path (K10 / K12 / K13 per step,
+    K11 or a plain branch in the prefill) against the plain path. Equal
+    greedy tokens and final pos."""
+    trees = {"int8 fused": lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
+             "int4 arith split": lambda: quant_mod.quantize_params_int4(params, layout="arith"),
+             "int4 halves split": lambda: quant_mod.quantize_params_int4(params)}
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
+                               max_new_tokens=32, recent_window_dec=int(8 * 0.3))
+    for tree, make in trees.items():
+        qparams = make()
+        res = {}
+        for plain in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            reset_counts()
+            with plain_kernels() if plain else contextlib.nullcontext():
+                r, cache, _, _ = gen_mod._run_decoding(st, qparams, ids, plen, 1e-9, 1.0, gen,
+                                                       torch.float32)
+            res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), counts())
+        same_tok = torch.equal(res[False][0], res[True][0])
+        same_pos = torch.equal(res[False][1], res[True][1])
+        k_c = {k: v for k, v in res[False][2].items() if k in ("K10", "K11", "K12", "K13")}
+        print(f"phase 4: full width L=2 f32 weights, {tree} tree, f32 KV, roco b=8, 32 tokens: "
+              f"tokens equal {same_tok}, final pos equal {same_pos}; quantized-kernel launches "
+              f"kernel path {k_c}, plain path total {sum(res[True][2].values())}")
+        check(same_tok and same_pos, f"{tree}: kernel path and plain path disagree")
+        per_step = {"int8 fused": "K13", "int4 arith split": "K10",
+                    "int4 halves split": "K12"}[tree]
+        check(k_c[per_step] > 0 and k_c["K13"] > 0 and sum(res[True][2].values()) == 0,
+              f"{tree}: launch counts")
+        del qparams
+
+
+def quant_copies(nbytes, cap=32):
+    """Copies of a weight to cycle so that they exceed the 50 MB L2 twice."""
+    return max(2, min(cap, math.ceil(100e6 / nbytes)))
+
+
+def quant_times(dev):
+    """K10-K13 at the 7B shapes, bf16 activations: K10 and K12 at the split
+    tree's three widths (M = 1), K11 at them at M = 4 (B=4 decode) and M =
+    512 (the prompt's prefill), K13 at the fused tree's four products and
+    the head (f32 logits), M = 1. Each
+    graph cycles enough copies of the weight that L2 is cold. Bound: the
+    weight, scale, x and out bytes at 3.35 TB/s, or 2 M K N operations at
+    989 TFLOP/s (bf16 x) where that is larger. Library: torch.matmul of x
+    with a bf16 copy dequantized beforehand (not timed)."""
+    plan = [("K10", "arith", SPLIT_SHAPES, (1,)), ("K12", "halves", SPLIT_SHAPES, (1,)),
+            ("K11", "arith", SPLIT_SHAPES, (4, 512)), ("K13", "int8", FUSED + ("head",), (1,))]
+    out = {}
+    for i, (kernel, fmt, names, ms) in enumerate(plan):
+        fn, plain = QPAIRS[kernel]
+        for j, name in enumerate(names):
+            K, N = QSHAPES[name]
+            ql = quant_case(name, fmt, dev, 400 + 10 * i + j)
+            args = quant_args(kernel, ql)
+            wbytes = sum(a.numel() * a.element_size() for a in args)
+            n = quant_copies(wbytes)
+            copies = [tuple(a.clone() for a in args) for _ in range(n)]
+            deq = quant_mod.dequantize(ql, torch.bfloat16)
+            lib_w = [deq.clone() for _ in range(quant_copies(deq.numel() * 2, 8))]
+            del ql, deq
+            for M in ms:
+                x = torch.randn((M, K), generator=torch.Generator(device=dev).manual_seed(M),
+                                device=dev).to(torch.bfloat16)
+                f32_out = kernel == "K13" and name == "head"
+                kw = dict(out_f32=True) if f32_out else {}
+                sets = [(x, *c) for c in copies]
+                reps = 256 if M == 1 else (64 if M < 512 else 8)
+                ms_k = graph_ms(lambda *a: fn(*a, **kw), sets, reps)
+                ms_p = graph_ms(lambda *a: plain(*a, **kw), sets[:2], 4 if M < 512 else 2)
+                ms_l = graph_ms(torch.matmul, [(x, w) for w in lib_w], 64 if M < 512 else 16)
+                out_bytes = M * N * (4 if f32_out else 2)
+                out[(kernel, name, M)] = dict(
+                    ms=ms_k, plain_ms=ms_p, library_ms=ms_l, copies=n,
+                    bytes=wbytes + M * K * 2 + out_bytes, flops=2 * M * K * N, peak=BF16_FLOPS)
+            del copies, lib_w
+            torch.cuda.empty_cache()
+    for r in out.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / r.pop("peak") * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+QMETA = {  # name, source, TPU kernel it replaces
+    "K10": ("w4a16_gemv_arith", "easykv_tpu_torch/csrc/w4_stream.cu",
+            "easykv_tpu/ops/pallas/w4_stream.py:258"),
+    "K11": ("w4a16_gemm_arith", "easykv_tpu_torch/csrc/w4_stream.cu",
+            "easykv_tpu/ops/pallas/w4_stream.py:182"),
+    "K12": ("w4a16_gemv", "easykv_tpu_torch/csrc/w4_matmul.cu",
+            "easykv_tpu/ops/pallas/w4_matmul.py:62"),
+    "K13": ("quant_matmul", "easykv_tpu_torch/csrc/quant_matmul.cu",
+            "easykv_tpu/ops/pallas/quant_matmul.py:41"),
+}
+
+
+def quant_records(qtimes, errs, runs):
+    """Phase 5's lines and `kernels` entries of K10-K13, one per (kernel,
+    shape, M); launches are the kernel's total in its phase-3 run (K11 at
+    M = 512: the prefill of the int4 arithmetic roco run). Per decode step:
+    K10 and K12 over the split tree's seven products a layer, K13 over the
+    fused tree's four."""
+    records = []
+    for (kernel, name, M), t in qtimes.items():
+        kname, src, repl = QMETA[kernel]
+        run = "int4 arith split roco" if (kernel, M) == ("K11", 512) else QUANT_RUNS[kernel]
+        launches = runs[run]["counts"][kernel]
+        K, N = QSHAPES[name]
+        label = f"{kname} {name} (M={M}, K={K}, N={N}{', f32 out' if name == 'head' else ''})"
+        print(f"phase 5: {kernel} {label}: {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, library {t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {t['copies']} weight copies "
+              f"cycled; {launches} launches of {kernel} in the {run} run")
+        records.append({"name": label, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches,
+                        "max_abs_err": errs[(kernel, name, M, torch.bfloat16)], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for kernel, uses in (("K10", SPLIT_USES), ("K12", SPLIT_USES),
+                         ("K13", dict.fromkeys(FUSED, 1))):
+        step = sum(qtimes[(kernel, n, 1)]["ms"] * k for n, k in uses.items()) * 32
+        bound = sum(qtimes[(kernel, n, 1)]["bound_ms"] * k for n, k in uses.items()) * 32
+        layer = ", ".join(f"{k}x {n}" for n, k in uses.items())
+        print(f"phase 5: {kernel} per decode step (32 layers x {layer}): "
+              f"{step:.3f} ms, bound {bound:.3f} ms")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1329,9 +1672,11 @@ def main():
                 print(f"phase 1: ptxas {src}: {line.strip()}")
 
     errs = phase_kernels(dev)
+    errs.update(phase_quant_kernels(dev))
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
+    qtimes = quant_times(dev)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
@@ -1375,6 +1720,7 @@ def main():
                         "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += quant_records(qtimes, errs, runs)
     print("phase 5: K5 launches in the encoding family's runs: " + ", ".join(
         f"{run} {r['counts']['K5']}" for run, r in runs.items()
         if "encod" in run or "ppl" in run))

@@ -5,7 +5,9 @@ the JAX package is the reference the port is held against. Its hot path
 runs hand-written CUDA kernels built from csrc/ at first use; on CPU
 tensors each kernel's plain PyTorch version runs instead.
 `CausalLM(cfg, params, kv_quant=True)` keeps the KV cache in int8 with
-per-slot scales, as the JAX package's compressed-KV mode does.
+per-slot scales, as the JAX package's compressed-KV mode does. Weights may
+be int8 (`quantize_params`) or int4 (`quantize_params_int4`, halves or
+arithmetic layout), split or fused (`fuse_gemv_params`).
 
 Public API mirrors the reference (reference easykv/__init__.py:1-2):
     enable_fixed_kv(model, tokenizer, mode, stride)
@@ -22,6 +24,7 @@ from .engine.generate import (
     stride_align,
     stride_align_encdec,
 )
+from .ops.quant import fuse_gemv_params, quantize_params, quantize_params_int4
 
 __version__ = "0.1.0"
 
@@ -31,7 +34,10 @@ __all__ = [
     "ModelConfig",
     "canonical_policy",
     "enable_fixed_kv",
+    "fuse_gemv_params",
     "generate",
+    "quantize_params",
+    "quantize_params_int4",
     "set_dynamicntk_rope_length",
     "stride_align",
     "stride_align_encdec",

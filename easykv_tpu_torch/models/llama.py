@@ -5,8 +5,12 @@ decode_stream_folded, _decode_forward, _logits_tail, _lm_head).
 
 Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
-module (the JAX tree stacks them over a leading L axis). Projections stay
-`torch.matmul`, as the JAX package leaves them to XLA. The decode step
+module (the JAX tree stacks them over a leading L axis), split (wq, wk, wv,
+wg, wu) or fused (wqkv, wgu, bqkv: ops.quant.fuse_gemv_params). Every
+projection goes through ops.quant.mm: a plain weight is `torch.matmul`, as
+the JAX package leaves it to XLA; a QuantLinear (int8 or int4) runs K10-K13
+or their plain branches by the shape of the product (ops/quant.py). The
+int8 LM head is K13 with f32 logits (ops.quant.lm_head_mm). The decode step
 always runs three CUDA kernels: decode attention per layer (K1), then one
 sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
 all layers. With an int8 cache the prompt prefill's attention is the chunk
@@ -25,7 +29,7 @@ and K8 after the step. On CPU tensors each wrapper runs its plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,11 +43,14 @@ from ..ops.cuda.decode_attention import fused_decode_attend_inflight
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
+from ..ops.quant import QuantLinear, lm_head_mm, mm
 from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
 from ..policies import PolicySpec, evict_layer, update_scores, update_scores_reduced
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp")
+FUSED_LAYER_KEYS = ("wqkv", "wo", "wgu", "wd", "ln_attn", "ln_mlp")
 BIAS_KEYS = ("bq", "bk", "bv")
+FUSED_BIAS_KEYS = ("bqkv",)
 
 
 class StepCtx(NamedTuple):
@@ -61,26 +68,34 @@ class StepCtx(NamedTuple):
     rand_rank: torch.Tensor     # (B,) int32 pre-drawn rank for the random policy
 
 
-class DecoderLayer(nn.Module):
-    """One layer's weights: LAYER_KEYS, and BIAS_KEYS with attention_bias."""
+def _keep(t):
+    return t if isinstance(t, QuantLinear) else nn.Parameter(t, requires_grad=False)
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+
+class DecoderLayer(nn.Module):
+    """One layer's weights: LAYER_KEYS (or FUSED_LAYER_KEYS), and BIAS_KEYS
+    (FUSED_BIAS_KEYS) with attention_bias. Each projection is a tensor or a
+    QuantLinear."""
+
+    def __init__(self, tensors: Dict[str, Union[torch.Tensor, QuantLinear]]):
         super().__init__()
         for name, t in tensors.items():
-            setattr(self, name, nn.Parameter(t, requires_grad=False))
+            setattr(self, name, _keep(t))
 
 
 class LlamaParams(nn.Module):
     """embed (V, D), final_norm (D,), layers (one DecoderLayer each),
-    lm_head (D, V) unless the embedding is tied."""
+    lm_head (D, V), a tensor or a QuantLinear, unless the embedding is
+    tied."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 layers: List[Dict[str, torch.Tensor]], lm_head: Optional[torch.Tensor] = None):
+                 layers: List[Dict[str, Union[torch.Tensor, QuantLinear]]],
+                 lm_head: Optional[Union[torch.Tensor, QuantLinear]] = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(DecoderLayer(t) for t in layers)
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+        self.lm_head = None if lm_head is None else _keep(lm_head)
 
 
 @torch.no_grad()
@@ -130,7 +145,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _qkv(x: torch.Tensor, p: DecoderLayer, name: str) -> torch.Tensor:
-    y = x @ getattr(p, "w" + name)
+    y = mm(x, getattr(p, "w" + name))
     bias = getattr(p, "b" + name, None)
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -138,23 +153,33 @@ def _qkv(x: torch.Tensor, p: DecoderLayer, name: str) -> torch.Tensor:
 
 
 def _proj_qkv(x, p, B, C, Hq, Hkv, Dh):
-    """(q (B, Hq, C, Dh), k (B, Hkv, C, Dh), v)."""
-    q, k, v = _qkv(x, p, "q"), _qkv(x, p, "k"), _qkv(x, p, "v")
+    """(q (B, Hq, C, Dh), k (B, Hkv, C, Dh), v) from the split wq / wk / wv
+    or the fused wqkv (one product, split at Hq*Dh and Hkv*Dh)."""
+    if hasattr(p, "wqkv"):
+        y = _qkv(x, p, "qkv")
+        nq, nk = Hq * Dh, Hkv * Dh
+        q, k, v = y[..., :nq], y[..., nq:nq + nk], y[..., nq + nk:]
+    else:
+        q, k, v = _qkv(x, p, "q"), _qkv(x, p, "k"), _qkv(x, p, "v")
     return (q.reshape(B, C, Hq, Dh).transpose(1, 2),
             k.reshape(B, C, Hkv, Dh).transpose(1, 2),
             v.reshape(B, C, Hkv, Dh).transpose(1, 2))
 
 
 def _mlp(x2: torch.Tensor, p: DecoderLayer) -> torch.Tensor:
-    """SwiGLU MLP."""
-    return (F.silu(x2 @ p.wg) * (x2 @ p.wu)) @ p.wd
+    """SwiGLU MLP; the fused wgu is gate|up, split at F."""
+    if hasattr(p, "wgu"):
+        gu = mm(x2, p.wgu)
+        F_ = gu.shape[-1] // 2
+        return mm(F.silu(gu[..., :F_]) * gu[..., F_:], p.wd)
+    return mm(F.silu(mm(x2, p.wg)) * mm(x2, p.wu), p.wd)
 
 
 def _attn_block(h, p, cfg: ModelConfig, out: torch.Tensor):
     """Residual O projection and MLP after attention; out (B, Hq, C, Dh)."""
     B, _, C, _ = out.shape
     attn_out = out.transpose(1, 2).reshape(B, C, -1)
-    h = h + attn_out @ p.wo
+    h = h + mm(attn_out, p.wo)
     x2 = rmsnorm(h, p.ln_mlp, cfg.rms_norm_eps)
     return h + _mlp(x2, p)
 
@@ -290,8 +315,10 @@ def strided_encode_layer_major(
     return h
 
 
-def _lm_head(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+def _lm_head(h: torch.Tensor, head: Union[torch.Tensor, QuantLinear]) -> torch.Tensor:
     """LM head with float32 accumulation and a float32 result."""
+    if isinstance(head, QuantLinear):
+        return lm_head_mm(h, head)
     if head.dtype == torch.float32:
         return h.to(torch.float32) @ head
     if h.device.type == "cpu":

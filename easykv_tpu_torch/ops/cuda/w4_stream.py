@@ -1,0 +1,117 @@
+"""w4a16 products over the arithmetic int4 carrier: kernels K10
+(`w4a16_gemv_arith`, M = 1) and K11 (`w4a16_gemm_arith`, 1 < M <= 512).
+
+CUDA kernels: easykv_tpu_torch/csrc/w4_stream.cu (on
+csrc/weight_stream.cuh), which replace the TPU kernels
+easykv_tpu/ops/pallas/w4_stream.py `w4a16_gemv_arith` and
+`w4a16_gemm_arith`. K10 is bound by the carrier bytes; K11 by them at
+small M and by the fp32 FMAs at M = 512. The source notes say what the
+design does about that.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors: the carrier unpacked (hi = (p + 8) >> 4, lo =
+p - 16 hi), one grouped f32 product per half, the group scales on the f32
+group sums (`grouped_int4`, the JAX package's grouped einsum). K10 takes the
+bf16 scale pair gs3 = [gs_hi; gs_lo] / 16, K11 the f32 group scales gs;
+gs3 * 16 == gs for the bf16-representable scales quantize_linear_int4 makes.
+Kernel and plain version differ only in the order of the f32 sums (the TPU
+kernel's xl - xh/16 rounding in bf16 is not carried over).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _wstream
+
+MAX_M = 512
+GROUP = 128
+SIGNATURES = {"w4a16_gemv_arith": _wstream.SIGNATURE, "w4a16_gemm_arith": _wstream.SIGNATURE}
+
+
+def unpack_int4_arith(p: torch.Tensor):
+    """(.., K/2, N) arithmetic carrier -> (lo, hi) nibble values; lo =
+    rows [0, K/2), hi = rows [K/2, K)."""
+    hi = (p + 8) >> 4                                 # round(p / 16), exact
+    return (p - 16 * hi).to(torch.int8), hi
+
+
+def grouped_int4(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, s_lo: torch.Tensor,
+                 s_hi: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ [lo; hi] (K, N) int4 values, group scales s_lo / s_hi
+    (gc/2, N) on the f32 sums of each group of each half -> (M, N) in x's
+    dtype (easykv_tpu/ops/quant.py:135-154, 326-339)."""
+    M = x.shape[0]
+    Kh, N = lo.shape
+    gch = s_lo.shape[0]
+    G = Kh // gch
+
+    def half(xh, wh, sh):
+        y = torch.einsum("mgk,gkn->mgn", xh.to(torch.float32).reshape(M, gch, G),
+                         wh.to(torch.float32).reshape(gch, G, N))
+        return (y * sh).sum(dim=1)
+    return (half(x[:, :Kh], lo, s_lo) + half(x[:, Kh:], hi, s_hi)).to(x.dtype)
+
+
+def w4a16_gemv_arith_plain(x: torch.Tensor, p: torch.Tensor, gs3: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K10; same arguments and result."""
+    gch = gs3.shape[0] // 2
+    s = gs3.to(torch.float32) * 16.0
+    return grouped_int4(x, *unpack_int4_arith(p), s[gch:], s[:gch])
+
+
+def w4a16_gemm_arith_plain(x: torch.Tensor, p: torch.Tensor, gs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11; same arguments and result."""
+    gch = gs.shape[0] // 2
+    return grouped_int4(x, *unpack_int4_arith(p), gs[:gch], gs[gch:])
+
+
+def _shapes(x, p, scales, what):
+    """(M, K, N, gc, G) of a product the wrappers take; raises otherwise."""
+    if x.dim() != 2 or p.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"{what}: x, carrier and scales must be 2-D")
+    M, K = x.shape
+    Kh, N = p.shape
+    gc = scales.shape[0]
+    if K != 2 * Kh or gc % 2 or Kh % (gc // 2):
+        raise ValueError(f"{what}: x {tuple(x.shape)}, carrier {tuple(p.shape)}, scales "
+                         f"{tuple(scales.shape)} do not fit")
+    return M, K, N, gc, K // gc
+
+
+def w4a16_gemv_arith(
+    x: torch.Tensor,      # (1, K) f32 or bf16
+    p: torch.Tensor,      # (K/2, N) int8 arithmetic carrier
+    gs3: torch.Tensor,    # (K/G, N) bf16 pair [gs_hi; gs_lo] / 16, G a multiple of 8
+) -> torch.Tensor:
+    """x @ dequant(p, gs3) -> (1, N) in x's dtype."""
+    if x.device.type == "cpu":
+        return w4a16_gemv_arith_plain(x, p, gs3)
+    M, K, N, gc, G = _shapes(x, p, gs3, "w4a16_gemv_arith")
+    if M != 1:
+        raise ValueError(f"w4a16_gemv_arith takes one row, got {M}")
+    out = _wstream.launch("w4_stream", "w4a16_gemv_arith", SIGNATURES, x, p, gs3,
+                          torch.bfloat16, (gc, N), G)
+    w4a16_gemv_arith.launches += 1
+    return out
+
+
+def w4a16_gemm_arith(
+    x: torch.Tensor,      # (M, K) f32 or bf16, 1 < M <= 512
+    p: torch.Tensor,      # (K/2, N) int8 arithmetic carrier, (K/2) % 128 == 0
+    gs: torch.Tensor,     # (K/128, N) f32 group scales
+) -> torch.Tensor:
+    """x @ dequant(p, gs) -> (M, N) in x's dtype."""
+    if x.device.type == "cpu":
+        return w4a16_gemm_arith_plain(x, p, gs)
+    M, K, N, gc, G = _shapes(x, p, gs, "w4a16_gemm_arith")
+    if not 1 < M <= MAX_M or G != GROUP or (K // 2) % GROUP:
+        raise ValueError(f"w4a16_gemm_arith takes 1 < M <= {MAX_M}, group {GROUP} and "
+                         f"(K/2) % {GROUP} == 0; got M={M}, group {G}, K={K}")
+    out = _wstream.launch("w4_stream", "w4a16_gemm_arith", SIGNATURES, x, p, gs,
+                          torch.float32, (gc, N), G)
+    w4a16_gemm_arith.launches += 1
+    return out
+
+
+w4a16_gemv_arith.launches = 0
+w4a16_gemm_arith.launches = 0

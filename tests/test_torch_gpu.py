@@ -9,7 +9,10 @@ bytes and scales included, and to K5's limits on out and the statistics.
 The ordered StreamingLLM kernels (K4, K8, K9, K2 `compact`) are held
 bit-exact on every array they write, K1 `ordered` to K1's limits; the
 streaming decode path with the kernels must give the plain path's tokens
-and final positions.
+and final positions. The quantized-weight kernels K10-K13 are held to
+their plain versions at LLaMa-2-7B widths and a ragged N (1e-5 of max|ref|
+in f32, one bf16 ulp more in bf16), raise on what they do not take, and the
+decode path over int8 / int4 trees gives the plain path's tokens.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -586,3 +589,235 @@ def test_streaming_kernel_path_matches_plain_path(cuda, kv_quant, prerot):
     assert int(outs[0][2][0]) - 50 == 8
     assert outs[0][3] == ((0, 0, 24) if prerot else (24, 24, 0))
     assert outs[1][3] == (0, 0, 0)
+
+
+# --------------------------------------------------------------------------
+# quantized weights: K10-K13 against their plain versions
+# --------------------------------------------------------------------------
+
+# (K, N) at LLaMa-2-7B width: the fused tree, the split tree's extra widths,
+# the LM head (N = 32000 is not a multiple of 512) and a ragged N whose rows
+# are not a whole number of 16-byte loads
+W7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "wgu": (4096, 22016), "wd": (11008, 4096),
+       "wg": (4096, 11008), "head": (4096, 32000), "n300": (4096, 300)}
+
+
+def _quant_close(got, ref):
+    """f32: within 1e-5 of max|ref| (the order of the f32 sums); bf16: the
+    two f32 sums round to the same or adjacent bf16 values, so one bf16 ulp
+    of the reference value plus that."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-5 * ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        tol = tol + 2**-7 * ref.float().abs()
+    return bool((err <= tol).all())
+
+
+def _qweights(cuda, name, seed):
+    from easykv_tpu_torch.ops import quant
+    K, N = W7B[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return quant, torch.randn((K, N), generator=g, device=cuda) * 0.02
+
+
+def _qx(cuda, M, K, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((M, K), generator=g, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "head", "n300"])
+def test_k10_kernel_matches_plain(cuda, name, dtype):
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    quant, w = _qweights(cuda, name, 1)
+    ql = quant.quantize_linear_int4(w, 128, "arith")
+    x = _qx(cuda, 1, w.shape[0], dtype, 2)
+    before = w4a16_gemv_arith.launches
+    got = w4a16_gemv_arith(x, ql["q4a"], ql["gs3"])
+    ref = w4a16_gemv_arith_plain(x, ql["q4a"], ql["gs3"])
+    torch.cuda.synchronize()
+    assert w4a16_gemv_arith.launches == before + 1
+    assert _quant_close(got, ref)
+
+
+@pytest.mark.parametrize("M", [4, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "n300"])
+def test_k11_kernel_matches_plain(cuda, name, dtype, M):
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemm_arith, w4a16_gemm_arith_plain
+    quant, w = _qweights(cuda, name, 3)
+    ql = quant.quantize_linear_int4(w, 128, "arith")
+    x = _qx(cuda, M, w.shape[0], dtype, 4)
+    got = w4a16_gemm_arith(x, ql["q4a"], ql["gs"])
+    ref = w4a16_gemm_arith_plain(x, ql["q4a"], ql["gs"])
+    torch.cuda.synchronize()
+    assert _quant_close(got, ref)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["wo", "wg", "wd", "head", "n300"])
+def test_k12_kernel_matches_plain(cuda, name, dtype, M):
+    from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv, w4a16_gemv_plain
+    quant, w = _qweights(cuda, name, 5)
+    ql = quant.quantize_linear_int4(w, 128, "halves")
+    x = _qx(cuda, M, w.shape[0], dtype, 6)
+    got = w4a16_gemv(x, ql["q4p"], ql["gs"])
+    ref = w4a16_gemv_plain(x, ql["q4p"], ql["gs"])
+    torch.cuda.synchronize()
+    assert _quant_close(got, ref)
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["x-dtype", "f32-out"])
+@pytest.mark.parametrize("M", [1, 4, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["wqkv", "wo", "wd", "head", "n300"])
+def test_k13_kernel_matches_plain(cuda, name, dtype, M, out_f32):
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    quant, w = _qweights(cuda, name, 7)
+    ql = quant.quantize_linear(w)
+    x = _qx(cuda, M, w.shape[0], dtype, 8)
+    got = quant_matmul(x, ql["q"], ql["s"], out_f32=out_f32)
+    ref = quant_matmul_plain(x, ql["q"], ql["s"], out_f32=out_f32)
+    torch.cuda.synchronize()
+    assert _quant_close(got, ref)
+
+
+def test_quant_kernels_raise_on_what_they_do_not_take(cuda):
+    """A CUDA tensor of a type, shape or layout a kernel does not take
+    raises, and nothing runs: neither the kernel nor its plain version."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda import quant_matmul as k13, w4_matmul as k12, w4_stream
+    w = torch.randn((512, 256), device=cuda) * 0.02
+    q8, q4a, q4p = (quant.quantize_linear(w), quant.quantize_linear_int4(w, 128, "arith"),
+                    quant.quantize_linear_int4(w, 128, "halves"))
+    q4a64 = quant.quantize_linear_int4(w, 64, "arith")
+    x1 = torch.randn((1, 512), device=cuda)
+    cases = [
+        (TypeError, lambda: k13.quant_matmul(x1.half(), q8["q"], q8["s"])),
+        (ValueError, lambda: k13.quant_matmul(torch.randn((257, 512), device=cuda), q8["q"],
+                                              q8["s"])),
+        (ValueError, lambda: k13.quant_matmul(x1, q8["q"].t().contiguous().t(), q8["s"])),
+        (ValueError, lambda: k13.quant_matmul(x1, q8["q"].float(), q8["s"])),
+        (TypeError, lambda: k12.w4a16_gemv(x1.double(), q4p["q4p"], q4p["gs"])),
+        (ValueError, lambda: k12.w4a16_gemv(torch.randn((9, 512), device=cuda), q4p["q4p"],
+                                            q4p["gs"])),
+        (ValueError, lambda: w4_stream.w4a16_gemv_arith(torch.randn((2, 512), device=cuda),
+                                                        q4a["q4a"], q4a["gs3"])),
+        (ValueError, lambda: w4_stream.w4a16_gemv_arith(x1, q4a["q4a"], q4a["gs"])),
+        (ValueError, lambda: w4_stream.w4a16_gemm_arith(torch.randn((4, 512), device=cuda),
+                                                        q4a64["q4a"], q4a64["gs"])),
+        (ValueError, lambda: w4_stream.w4a16_gemm_arith(
+            torch.randn((512, 4), device=cuda).t(), q4a["q4a"], q4a["gs"])),
+    ]
+    fns = (k13.quant_matmul, k12.w4a16_gemv, w4_stream.w4a16_gemv_arith,
+           w4_stream.w4a16_gemm_arith)
+    before = [f.launches for f in fns]
+    plains = {n: mock.Mock(side_effect=AssertionError("plain version ran"))
+              for n in ("quant_matmul_plain", "w4a16_gemv_plain")}
+    with mock.patch.multiple(k13, quant_matmul_plain=plains["quant_matmul_plain"]), \
+            mock.patch.multiple(k12, w4a16_gemv_plain=plains["w4a16_gemv_plain"]), \
+            mock.patch.object(w4_stream, "grouped_int4",
+                              mock.Mock(side_effect=AssertionError("plain version ran"))):
+        for exc, call in cases:
+            with pytest.raises(exc):
+                call()
+    assert [f.launches for f in fns] == before
+
+
+def test_quant_kernels_reject_groups_of_other_than_8_rows(cuda):
+    """An int4 group of 86 rows (in-dim 1376) is not a whole number of the
+    kernels' row chunks: K10 and K12 raise for it, and mm sends it to the
+    grouped product, which gives the CPU's result without a launch."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda import w4_matmul, w4_stream
+    w = torch.randn((1376, 512), device=cuda) * 0.02
+    x = torch.randn((1, 1376), device=cuda)
+    G = quant._fit_group(1376, 128)
+    assert G == 86
+    fns = (w4_stream.w4a16_gemv_arith, w4_matmul.w4a16_gemv)
+    before = [f.launches for f in fns]
+    for layout, fn, keys in (("arith", fns[0], ("q4a", "gs3")), ("halves", fns[1], ("q4p", "gs"))):
+        ql = quant.quantize_linear_int4(w, G, layout)
+        with pytest.raises(ValueError, match="group of 86"):
+            fn(x, *(ql[k] for k in keys))
+        got = quant.mm(x, ql)
+        ref = quant.mm(x.cpu(), quant.QuantLinear(**{k: ql[k].cpu() for k in ql.keys()}))
+        assert _quant_close(got.cpu(), ref)
+    assert [f.launches for f in fns] == before
+
+
+def test_split_products_on_two_streams(cuda):
+    """Split-row products in flight on two streams at once take their
+    tickets from separate rows, and every result matches its plain
+    version."""
+    from easykv_tpu_torch.ops.cuda import _wstream
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    quant, w = _qweights(cuda, "wo", 11)
+    q8, q4 = quant.quantize_linear(w), quant.quantize_linear_int4(w, 128, "arith")
+    assert _wstream.plan(1, 4096, 4096, 0, False)[3] > 1
+    assert _wstream.plan(1, 2048, 4096, 128, True)[3] > 1
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    xs = [_qx(cuda, 1, 4096, torch.bfloat16, 20 + i) for i in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(64):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                outs.append((i, quant_matmul(x, q8["q"], q8["s"]),
+                             w4a16_gemv_arith(x, q4["q4a"], q4["gs3"])))
+    torch.cuda.synchronize()
+    rows = {_wstream._rows[(xs[0].device, s.cuda_stream)].data_ptr() for s in streams}
+    assert len(rows) == 2
+    refs = [(quant_matmul_plain(x, q8["q"], q8["s"]),
+             w4a16_gemv_arith_plain(x, q4["q4a"], q4["gs3"])) for x in xs]
+    for i, y8, y4 in outs:
+        assert torch.equal(y8, outs[i][1]) and torch.equal(y4, outs[i][2])   # run to run
+        assert _quant_close(y8, refs[i][0]) and _quant_close(y4, refs[i][1])
+
+
+def _quant_decode_paths(cuda, tree, B):
+    """(out_ids, final pos) of a small decode run on a quantized tree with
+    the kernels, and with K10-K13 swapped for their plain versions."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
+    from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv_plain
+    from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
+                                                     w4a16_gemv_arith_plain)
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    plain = mock.patch.multiple(quant, quant_matmul=quant_matmul_plain,
+                                w4a16_gemv=w4a16_gemv_plain,
+                                w4a16_gemv_arith=w4a16_gemv_arith_plain,
+                                w4a16_gemm_arith=w4a16_gemm_arith_plain)
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=768,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    params = {"int8": lambda p: quant.fuse_gemv_params(quant.quantize_params(p)),
+              "int4 arith fused": lambda p: quant.fuse_gemv_params(
+                  quant.quantize_params_int4(p, layout="arith")),
+              "int4 arith split": lambda p: quant.quantize_params_int4(p, layout="arith"),
+              "int4 halves split": quant.quantize_params_int4}[tree](params)
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=64, budget=8,
+                               max_new_tokens=24, recent_window_dec=2)
+    ids = torch.randint(1, 512, (B, 64), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    plen = torch.full((B,), 50, dtype=torch.int32, device=cuda)
+    outs = []
+    for use_plain in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        with plain if use_plain else contextlib.nullcontext():
+            res, cache, _, _ = gen_mod._run_decoding(st, params, ids, plen, 1e-9, 1.0, gen,
+                                                     torch.float32)
+        outs.append((res.out_ids, cache.pos))
+    return outs
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("tree", ["int8", "int4 arith split", "int4 arith fused",
+                                  "int4 halves split"])
+def test_quant_decode_kernel_path_matches_plain_path(cuda, tree, B):
+    outs = _quant_decode_paths(cuda, tree, B)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])

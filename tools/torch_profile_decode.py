@@ -7,15 +7,17 @@ main path, whose model, prompt length and budget it imports) for budget +
 STEPS_PAST_BUDGET tokens, once untraced and once under torch.profiler,
 with a bf16 KV cache and then with an int8 one; with --streaming, the
 StreamingLLM decode instead (streaming=True): bf16 and int8 over the
-pre-rotated cache, then int8 over the rotate-at-read cache. Prints, for
-each, the
+pre-rotated cache, then int8 over the rotate-at-read cache; with --quant,
+the same decode over quantized weights made on the card from the bf16 ones
+(int4 arithmetic split with an int8 KV cache, int8 fused with an int8 KV
+cache, int4 halves split with a bf16 one). Prints, for each, the
 host-clock time per step of both runs, the
 device time per step (sum of kernel durations), the device's idle share
 while traced, the kernels that take most device time, and the PyTorch ops
 that take most host time (self CPU time under the tracer, which inflates
 it, with calls per step).
 
-    python3 tools/torch_profile_decode.py [--streaming]
+    python3 tools/torch_profile_decode.py [--streaming | --quant]
 """
 import importlib
 import json
@@ -33,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import BUDGET, LLAMA2_7B, PROMPT  # noqa: E402
 from easykv_tpu_torch import flags  # noqa: E402
 from easykv_tpu_torch.models.llama import init_params  # noqa: E402
+from easykv_tpu_torch.ops import quant  # noqa: E402
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
 STEPS_PAST_BUDGET = 16     # decode steps that run the eviction
@@ -54,16 +57,16 @@ def main():
 
     streaming = "--streaming" in sys.argv[1:]
 
-    def prefilled(n_new, kv_quant):
+    def prefilled(n_new, kv_quant, params):
         st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=P, budget=budget,
                                    max_new_tokens=n_new, recent_window_dec=int(budget * 0.3),
                                    kv_quant=kv_quant, streaming=streaming)
         cache = gen_mod._engine_cache(st, 1, P + budget + 1, torch.bfloat16, dev)
         last = gen_mod._prefill(st, params, cache, ids, plen)
         torch.cuda.synchronize()
-        return st, cache, last
+        return st, cache, last, params
 
-    def decode(st, cache, last):
+    def decode(st, cache, last, params):
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
         gen_mod._decode_loop(st, params, cache, last, plen, plen, plen, st.decode_spec(),
@@ -76,15 +79,27 @@ def main():
     # covers budget + steps tokens, the untraced one the same
     n_steps = budget + STEPS_PAST_BUDGET
     res["decode_steps"] = n_steps
-    runs = ([("bf16 KV streaming pre-rotated", False, True),
-             ("int8 KV streaming pre-rotated", True, True),
-             ("int8 KV streaming rotate-at-read", True, False)] if streaming
-            else [("bf16 KV", False, None), ("int8 KV", True, None)])
-    for name, kv_quant, prerot in runs:
+    def bf16():
+        return params
+    if streaming:
+        runs = [("bf16 KV streaming pre-rotated", False, True, bf16),
+                ("int8 KV streaming pre-rotated", True, True, bf16),
+                ("int8 KV streaming rotate-at-read", True, False, bf16)]
+    elif "--quant" in sys.argv[1:]:
+        runs = [("int4 arith split weights, int8 KV", True, None,
+                 lambda: quant.quantize_params_int4(params, layout="arith")),
+                ("int8 fused weights, int8 KV", True, None,
+                 lambda: quant.fuse_gemv_params(quant.quantize_params(params))),
+                ("int4 halves split weights, bf16 KV", False, None,
+                 lambda: quant.quantize_params_int4(params))]
+    else:
+        runs = [("bf16 KV", False, None, bf16), ("int8 KV", True, None, bf16)]
+    for name, kv_quant, prerot, weights in runs:
         flags.use_prerot(prerot)
-        decode(*prefilled(8, kv_quant))          # build + warm-up
-        base_s = decode(*prefilled(n_steps, kv_quant))
-        state = prefilled(n_steps, kv_quant)
+        w = weights()
+        decode(*prefilled(8, kv_quant, w))          # build + warm-up
+        base_s = decode(*prefilled(n_steps, kv_quant, w))
+        state = prefilled(n_steps, kv_quant, w)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dec_s = decode(*state)
         kernels = {}
