@@ -27,7 +27,12 @@ Phases, each printing its lines before the last:
      f32): K10 and K12 at M=1 over the split tree's widths, K11 at M=4, 128,
      512 over them, K13 at M=1, 4, 256 over the fused tree's and the LM head
      (N=32000, with f32 logits), each within 1e-5 of max|ref| (plus
-     one bf16 ulp of the value in bf16) of its plain version;
+     one bf16 ulp of the value in bf16) of its plain version; K14, the
+     one-kernel decode step, at 7B width with L=2 (bf16 activations; bf16
+     and int8 KV; RoPE at q_pos and at rope_pos; the main path's holes and
+     scattered dead slots), each output within 1e-3 of its largest |value|
+     (plus one bf16 ulp of the value for h, kn, vn) of its plain version
+     (held again at L=32 in phase 5, see there);
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
@@ -45,14 +50,16 @@ Phases, each printing its lines before the last:
      and int8 `ppl`; then quantized weights, quantized on the card from the
      same bf16 weights by the port's quantize_params(_int4) and
      fuse_gemv_params, on the 512-token prompt with 384 new tokens: int4
-     arithmetic split with an int8 KV cache (roco, `full`, roco at B=4:
-     K10, or K11 at B=4, for the layers, K13 for the head, K11 in the B=1
-     prefill), int8 fused with an int8 KV cache (K13) and int4 halves split
-     with a bf16 KV cache (K12), each with its launch counts, weight bytes
-     per step and retained tokens. (The int4 arithmetic fused tree is left
-     out: at B <= 16 the JAX package decodes it with its one-kernel decode
-     steps, which the port has not ported yet.) Launch counters are zeroed
-     just before each run and read just after;
+     arithmetic fused, bench.py's headline tree (K14 once a decode step for
+     all layers, K11 in the prefill, K13 for the head): int8 KV roco and
+     `full`, bf16 KV roco, StreamingLLM roco over the pre-rotated int8
+     cache (K2 compact + K9 every step); int4 arithmetic split with an int8
+     KV cache (roco, `full`, roco at B=4: K10, or K11 at B=4, for the
+     layers, K13 for the head, K11 in the B=1 prefill), int8 fused with an
+     int8 KV cache (K13) and int4 halves split with a bf16 KV cache (K12),
+     each with its launch counts, weight bytes per step and retained
+     tokens. Launch counters are zeroed just before each run and read just
+     after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
      equal greedy tokens and final positions; StreamingLLM `decoding` over
@@ -63,14 +70,21 @@ Phases, each printing its lines before the last:
      1024-token prompt, stride 96: equal tokens and kv_len; equal final
      positions (an int8 cache: in layer 0, and K/V within one int8 step
      elsewhere); ppl within 1e-5 relative;
-     then the int8 fused, int4 arithmetic split and int4 halves split trees
-     of those weights, f32 KV: equal tokens and final positions;
+     then the int4 arithmetic fused (K14), int8 fused, int4 arithmetic split
+     and int4 halves split trees of those weights, f32 KV: equal tokens and
+     final positions; the fused tree with an int8 KV cache too: equal
+     tokens, layer 0's positions equal, K/V within one int8 step elsewhere;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel; K10-K13 at each 7B
      product of their phase-3 trees (bf16 activations) with enough weight copies cycled that L2 is
      cold, the library call torch.matmul over a bf16 copy dequantized
-     beforehand.
+     beforehand; K14 for a whole decode step at 7B width (L=32, S=768),
+     bf16 and int8 KV, first held to its plain version on the same
+     arguments within the larger of phase 2's limit and twice the plain
+     version's own spread when its input moves by one f32 ulp (the
+     record's max_abs_err), then timed with CUDA events over back-to-back
+     launches, its bound from the bytes the step reads and writes.
 
 It exits non-zero, without a result line, when there is no CUDA device, a
 kernel does not build, or any check fails. The last line is
@@ -106,6 +120,9 @@ from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend_inflight as k1, fused_decode_attend_inflight_plain as k1_plain)
+from easykv_tpu_torch.ops.cuda import fused_decode as k14_fd
+from easykv_tpu_torch.ops.cuda.fused_decode import (fused_decode_step as k14,
+                                                    fused_decode_step_plain as k14_plain)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_plain as k3_plain
 from easykv_tpu_torch.ops.cuda.sidecar_update import (
     fused_evict as k4, fused_evict_plain as k4_plain, fused_write_update as k2,
@@ -600,7 +617,7 @@ def phase_k6(dev):
 
 
 KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9,
-           "K10": k10, "K11": k11, "K12": k12, "K13": k13}
+           "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K2 compact": (k2, "compact_launches")}
 
@@ -850,7 +867,7 @@ def plain_kernels():
     with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
                              fused_write_update=k2_plain, write_rows=k3_plain,
                              fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
-                             fused_kv_compact=k9_plain), \
+                             fused_kv_compact=k9_plain, fused_decode_step=k14_plain), \
             mock.patch.object(sidecar_mod, "fused_evict", k4_plain), \
             mock.patch.object(gen_mod, "fused_compact", k8_plain), \
             mock.patch.multiple(quant_mod, quant_matmul=k13_plain, w4a16_gemv=k12_plain,
@@ -1446,27 +1463,32 @@ def step_weight_gb(params):
 def phase_quant(dev, cfg, params):
     """Quantized weights at 7B width, quantized on the card from the phase's
     bf16 weights with the port's own functions; the 512-token prompt, 384
-    new tokens, greedy: int4 arithmetic split with an int8 KV cache (bench.py's
-    headline format; its fused tree is the JAX package's one-kernel decode
-    step, still to port) roco and `full`, and roco at B=4; int8 fused,
-    int8 KV, roco; int4 halves split, bf16 KV, roco. Exact launch counts,
-    200 retained tokens and the printed ratio line."""
+    new tokens, greedy: int4 arithmetic fused (bench.py's headline tree: K14
+    once a decode step) with an int8 KV cache, roco and `full`, roco with a
+    bf16 KV cache and StreamingLLM roco over the pre-rotated int8 cache;
+    int4 arithmetic split, int8 KV, roco and `full`, and roco at B=4; int8
+    fused, int8 KV, roco; int4 halves split, bf16 KV, roco. Exact launch
+    counts, 200 retained tokens and the printed ratio line."""
     L = cfg.num_hidden_layers
     g = torch.Generator().manual_seed(0)
     prompts = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)
     gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=NEW, temperature=1e-9,
               top_p=1.0, eos_token_ids=[], seed=0)
-    trees = [
+    trees = [  # tree, make, runs (policy, B, KV, streaming)
+        ("int4 arith fused", lambda: quant_mod.fuse_gemv_params(
+            quant_mod.quantize_params_int4(params, layout="arith")),
+         [("roco", 1, "int8", False), ("full", 1, "int8", False), ("roco", 1, "bf16", False),
+          ("roco", 1, "int8", True)]),
         ("int4 arith split", lambda: quant_mod.quantize_params_int4(params, layout="arith"),
-         "int8", [("roco", 1), ("full", 1), ("roco", B_WIDE)]),
+         [("roco", 1, "int8", False), ("full", 1, "int8", False), ("roco", B_WIDE, "int8", False)]),
         ("int8 fused", lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
-         "int8", [("roco", 1)]),
-        ("int4 halves split", lambda: quant_mod.quantize_params_int4(params), "bf16",
-         [("roco", 1)]),
+         [("roco", 1, "int8", False)]),
+        ("int4 halves split", lambda: quant_mod.quantize_params_int4(params),
+         [("roco", 1, "bf16", False)]),
     ]
     n_k5 = L * PROMPT // CHUNK
     runs = {}
-    for tree, make, kv, plan in trees:
+    for tree, make, plan in trees:
         t0 = time.perf_counter()
         qparams = make()
         torch.cuda.synchronize()
@@ -1474,22 +1496,29 @@ def phase_quant(dev, cfg, params):
         print(f"phase 3: {tree}: quantized on the card in {time.perf_counter() - t0:.1f} s; "
               f"weights read per M=1 step {step_gb:.3f} GB (at 3.35 TB/s "
               f"{step_gb / 3.35:.3f} ms), resident {held_gb:.3f} GB")
-        model = easykv_tpu_torch.enable_fixed_kv(
+        models = {kv: easykv_tpu_torch.enable_fixed_kv(
             easykv_tpu_torch.CausalLM(cfg, qparams, device=dev, kv_quant=kv == "int8"), None,
-            "decoding")
-        model.easykv_generate(prompts[0].tolist(), dict(gc, max_new_tokens=8))   # warm-up
-        for policy, B in plan:
-            name = f"{tree} {policy}" + (f" B={B}" if B > 1 else "")
+            "decoding") for kv in sorted({r[2] for r in plan})}
+        for model in models.values():
+            model.easykv_generate(prompts[0].tolist(), dict(gc, max_new_tokens=8))   # warm-up
+        for policy, B, kv, streaming in plan:
+            name = (f"{tree} {'stream ' if streaming else ''}{policy}"
+                    + (f" B={B}" if B > 1 else "") + (" bf16 KV" if tree == "int4 arith fused"
+                                                      and kv == "bf16" else ""))
+            model = models[kv]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             printed = io.StringIO()
             reset_counts()
-            with contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed), engine_caches() as made:
                 out = model.easykv_generate(prompts[0].tolist() if B == 1
-                                            else prompts[:B].numpy(), dict(gc, kv_policy=policy))
+                                            else prompts[:B].numpy(),
+                                            dict(gc, kv_policy=policy, streaming=streaming))
             c = counts()
             st = model.last_run
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            ordered = ordered_invariant(made[-1].pos)[0] if streaming else True
+            del made
             tok_s = B * st.n_tokens / st.decode_s
             line = printed.getvalue().strip().splitlines()[-1]
             print(f"phase 3: {name} ({kv} KV): prefill {st.prefill_s:.3f} s, decode "
@@ -1499,7 +1528,11 @@ def phase_quant(dev, cfg, params):
             check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
             want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=n_k5 if kv == "int8" else 0,
                         K13=NEW + 1)
-            if tree == "int4 arith split" and B == 1:
+            if tree == "int4 arith fused":
+                want.update(K1=0, K14=NEW, K11=4 * L)           # prefill: K11 at M = 512
+                if streaming:
+                    want.update({"K9": NEW, "K2 compact": NEW})
+            elif tree == "int4 arith split" and B == 1:
                 want.update(K10=7 * L * NEW, K11=7 * L)         # prefill: K11 at M = 512
             elif tree == "int4 arith split":
                 want.update(K11=7 * L * NEW)                    # prefill M = 2048: dense, plain
@@ -1513,45 +1546,69 @@ def phase_quant(dev, cfg, params):
             ratio = f"KV cache budget ratio: {kept / NEW * 100:.2f}%({kept}/{NEW})"
             check(st.kv_len - PROMPT == kept, f"{name} kept {st.kv_len - PROMPT} tokens")
             check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
+            check(ordered, f"{name}: the final cache is not age-ordered")
             runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak,
                               weight_gb=step_gb)
-        del model, qparams
+        del models, model, qparams
         torch.cuda.empty_cache()
     return runs
 
 
 def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
     """The decode path over quantized trees of the phase's L=2 f32 weights
-    (int8 fused, int4 arithmetic split, int4 halves split), f32 KV cache,
-    roco at budget 8, 32 new tokens: kernel path (K10 / K12 / K13 per step,
-    K11 or a plain branch in the prefill) against the plain path. Equal
-    greedy tokens and final pos."""
-    trees = {"int8 fused": lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
+    (int4 arithmetic fused, int8 fused, int4 arithmetic split, int4 halves
+    split), f32 KV cache, roco at budget 8, 32 new tokens: kernel path (K14
+    a step over the int4 arithmetic fused tree; K10 / K12 / K13 per product
+    over the others; K11 or a plain branch in the prefill) against the plain
+    path. Equal greedy tokens and final pos; the fused tree also with an
+    int8 KV cache, under the int8 rule (equal tokens, layer 0's pos equal,
+    int8 K/V within one step wherever the two caches hold the same
+    position)."""
+    trees = {"int4 arith fused": lambda: quant_mod.fuse_gemv_params(
+                 quant_mod.quantize_params_int4(params, layout="arith")),
+             "int8 fused": lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
              "int4 arith split": lambda: quant_mod.quantize_params_int4(params, layout="arith"),
              "int4 halves split": lambda: quant_mod.quantize_params_int4(params)}
-    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
-                               max_new_tokens=32, recent_window_dec=int(8 * 0.3))
     for tree, make in trees.items():
         qparams = make()
-        res = {}
-        for plain in (False, True):
-            gen = torch.Generator(device=dev).manual_seed(0)
-            reset_counts()
-            with plain_kernels() if plain else contextlib.nullcontext():
-                r, cache, _, _ = gen_mod._run_decoding(st, qparams, ids, plen, 1e-9, 1.0, gen,
-                                                       torch.float32)
-            res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), counts())
-        same_tok = torch.equal(res[False][0], res[True][0])
-        same_pos = torch.equal(res[False][1], res[True][1])
-        k_c = {k: v for k, v in res[False][2].items() if k in ("K10", "K11", "K12", "K13")}
-        print(f"phase 4: full width L=2 f32 weights, {tree} tree, f32 KV, roco b=8, 32 tokens: "
-              f"tokens equal {same_tok}, final pos equal {same_pos}; quantized-kernel launches "
-              f"kernel path {k_c}, plain path total {sum(res[True][2].values())}")
-        check(same_tok and same_pos, f"{tree}: kernel path and plain path disagree")
-        per_step = {"int8 fused": "K13", "int4 arith split": "K10",
-                    "int4 halves split": "K12"}[tree]
-        check(k_c[per_step] > 0 and k_c["K13"] > 0 and sum(res[True][2].values()) == 0,
-              f"{tree}: launch counts")
+        for quant in ((False, True) if tree == "int4 arith fused" else (False,)):
+            st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
+                                       max_new_tokens=32, recent_window_dec=int(8 * 0.3),
+                                       kv_quant=quant)
+            res = {}
+            for plain in (False, True):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                reset_counts()
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    r, cache, _, _ = gen_mod._run_decoding(st, qparams, ids, plen, 1e-9, 1.0,
+                                                           gen, torch.float32)
+                res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), counts(), cache.k.cpu(),
+                              cache.v.cpu())
+            same_tok = torch.equal(res[False][0], res[True][0])
+            pa, pb = res[False][1], res[True][1]
+            pos_diff = [int((pa[l] != pb[l]).sum()) for l in range(pa.shape[0])]
+            k_c = {k: v for k, v in res[False][2].items()
+                   if k in ("K10", "K11", "K12", "K13", "K14")}
+            kv = "int8" if quant else "f32"
+            what = f"tokens equal {same_tok}, final pos differing per layer {pos_diff}"
+            if quant:
+                held = (pa >= 0) & (pa == pb)
+                step = max(int((res[False][i].int() - res[True][i].int()).abs()[held].max())
+                           for i in (3, 4))
+                what += f", int8 K/V at the same positions within {step} step(s)"
+                ok = same_tok and pos_diff[0] == 0 and step <= 1
+            else:
+                ok = same_tok and sum(pos_diff) == 0
+            print(f"phase 4: full width L=2 f32 weights, {tree} tree, {kv} KV, roco b=8, "
+                  f"32 tokens: {what}; quantized-kernel launches kernel path {k_c}, plain path "
+                  f"total {sum(res[True][2].values())}")
+            check(ok, f"{tree} {kv} KV: kernel path and plain path disagree")
+            per_step = {"int8 fused": "K13", "int4 arith split": "K10",
+                        "int4 halves split": "K12", "int4 arith fused": "K14"}[tree]
+            check(k_c[per_step] > 0 and k_c["K13"] > 0 and sum(res[True][2].values()) == 0,
+                  f"{tree}: launch counts")
+            if tree == "int4 arith fused":
+                check(k_c["K14"] == 32 and k_c["K10"] == 0, f"{tree}: K14 / K10 launches {k_c}")
         del qparams
 
 
@@ -1652,6 +1709,229 @@ def quant_records(qtimes, errs, runs):
     return records
 
 
+# ---------------------------------------------------------------------------
+# K14: the one-kernel decode step over the fused arithmetic-int4 tree
+# ---------------------------------------------------------------------------
+
+K14_META = ("fused_decode_step", "easykv_tpu_torch/csrc/fused_decode.cu",
+            "easykv_tpu/ops/pallas/fused_decode.py:79")
+K14_RUNS = {"int8": "int4 arith fused roco", "bf16": "int4 arith fused roco bf16 KV"}
+
+
+def k14_limit(ref):
+    """Limit on |K14 - plain| for each output: 1e-3 of the output's largest
+    |value| (the JAX package's bar for this feed against its scan: the
+    two-plane feed rounds each product input, so a one-ulp difference
+    before the rounding moves the input by a step of the feed,
+    max|X_g| / 127^2), plus one bf16 ulp of the value for the bf16 outputs
+    (h, kn, vn), whose two f32 values may round to adjacent bf16 values."""
+    lim = 1e-3 * ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        lim = lim + 2**-7 * ref.float().abs()
+    return lim
+
+
+def k14_tree(dev, L, seed):
+    """(config, the fused arithmetic-int4 tree) at LLaMa-2-7B width with L
+    layers, quantized on the card from bf16 weights drawn from `seed`."""
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=L)
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device=dev)
+    tree = quant_mod.fuse_gemv_params(quant_mod.quantize_params_int4(params, layout="arith"))
+    del params
+    torch.cuda.empty_cache()
+    return cfg, tree
+
+
+def k14_case(dev, cfg, kv, rope, scattered, seed):
+    """K14's arguments at the main path's cache (S = 768, the prompt and
+    200 generated tokens with holes; with `scattered` a fifth of the other
+    slots dead too), the token at position 895 (rope_pos 712 with `rope`)."""
+    L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed), dev)
+    if scattered:
+        pos[torch.rand(pos.shape, generator=g, device=dev) < 0.2] = -1
+    k, v = (torch.randn((L, 1, H, S, D), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    scales = ()
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    h0 = (torch.randn((1, cfg.hidden_size), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    q_pos = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
+    rope_pos = torch.tensor([PROMPT + BUDGET], dtype=torch.int32, device=dev) if rope else None
+    return (k, v, pos, h0, q_pos, *scales), rope_pos
+
+
+def phase_k14(dev):
+    """K14 against its plain version at LLaMa-2-7B width (D=4096, F=11008,
+    32 heads, S=768), L=2, bf16 activations: bf16 and int8 KV, RoPE at
+    q_pos and at rope_pos, the main path's holes and scattered dead slots;
+    every output within k14_limit. The `kernels` record's max_abs_err comes
+    from k14_check at L=32, the main path's depth."""
+    cfg, tree = k14_tree(dev, 2, 7)
+    for kv in ("bf16", "int8"):
+        for rope, scattered in ((False, False), (True, False), (True, True)):
+            args, rope_pos = k14_case(dev, cfg, kv, rope, scattered, 700 + rope + 2 * scattered)
+            what = (f"{kv} KV, L=2, RoPE at {'rope_pos' if rope else 'q_pos'}"
+                    + (", scattered dead slots" if scattered else ""))
+            k14_check("phase 2", what, tree.layers, cfg, args, rope_pos)
+    del tree
+    torch.cuda.empty_cache()
+
+
+K14_OUTPUTS = ("h", "kn", "vn", "probs", "p_new")
+
+
+def k14_shares(got, ref, spread=None):
+    """(worst share of its limit over the outputs, max |err|, one text per
+    output) of `got` against the plain version's `ref`: k14_limit, or,
+    given `spread` (k14_ulp_spread), the larger of k14_limit and twice the
+    output's one-ulp spread."""
+    line, worst, err = [], 0.0, 0.0
+    for name, a, b in zip(K14_OUTPUTS, got, ref):
+        e = (a.float() - b.float()).abs()
+        lim = k14_limit(b)
+        if spread is not None:
+            lim = torch.clamp(lim, min=2 * spread[name])
+        ratio = (e / lim).max().item()
+        worst, err = max(worst, ratio), max(err, e.max().item())
+        line.append(f"{name} {e.max().item():.3e} ({ratio:.2f}"
+                    + ("" if spread is None else f"; one-ulp spread {spread[name]:.3e}") + ")")
+    return worst, err, line
+
+
+def k14_check(phase, what, layers, cfg, args, rope_pos=None, spread=None):
+    """K14 and its plain version once each on the same arguments: every
+    output finite, of the plain version's dtype and shape, and within its
+    limit (k14_shares). Prints each output's max |err| and its share of
+    the limit; returns (max |err| over the outputs, the plain outputs)."""
+    got = k14(layers, cfg, *args, rope_pos=rope_pos)
+    ref = k14_plain(layers, cfg, *args, rope_pos=rope_pos)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K14_OUTPUTS, got, ref):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and bool(torch.isfinite(a.float()).all()), f"K14 {what} {name}: bad output")
+    worst, err, line = k14_shares(got, ref, spread)
+    print(f"{phase}: K14 {what}: max|err| (share of its limit) " + ", ".join(line))
+    check(worst <= 1, f"K14 {what}: {worst:.3f} of its limit")
+    return err, ref
+
+
+def k14_bf16_control(phase, what, layers, cfg, args, ref, spread):
+    """The bar of k14_check must catch a wrong function: the plain K14 with
+    each product's output rounded to bf16 (what the per-layer scan does in
+    bf16) must miss it."""
+    real = k14_fd._product
+    with mock.patch.object(k14_fd, "_product",
+                           lambda x, w: real(x, w).to(torch.bfloat16).float()):
+        bad = k14_plain(layers, cfg, *args)
+    worst, _, line = k14_shares(bad, ref, spread)
+    print(f"{phase}: K14 {what}, control (bf16-rounded products): " + ", ".join(line))
+    check(worst > 1, f"K14 {what}: bf16-rounded products within the bar ({worst:.3f})")
+
+
+def k14_ulp_spread(layers, cfg, args, draws=4):
+    """How far the plain K14's outputs move when its input h0, taken to
+    f32, moves by one f32 ulp in a seeded half of its elements: the
+    largest |move| of each output over `draws` draws. The kernel adds in
+    other orders than its plain version, so the two differ by ulps before
+    every rounding of the two-plane feed, and at depth by what those
+    roundings make of them through the layers: this is the function's own
+    spread under such noise, measured on the same arguments."""
+    k, v, pos, h0, q_pos, *scales = args
+    x = h0.float()
+    base = k14_plain(layers, cfg, k, v, pos, x, q_pos, *scales)
+    spread = dict.fromkeys(K14_OUTPUTS, 0.0)
+    for draw in range(draws):
+        g = torch.Generator(device=x.device).manual_seed(draw)
+        up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
+        x1 = torch.where(up, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
+        moved = k14_plain(layers, cfg, k, v, pos, x1, q_pos, *scales)
+        for name, a, b in zip(K14_OUTPUTS, moved, base):
+            spread[name] = max(spread[name], (a - b).abs().max().item())
+    return spread
+
+
+def event_ms(fn, arg_sets, reps):
+    """Device time of one call: `reps` calls cycling through arg_sets,
+    launched back to back and timed with CUDA events (K14's cooperative
+    launch is not captured in a graph; a call's few milliseconds of device
+    time cover its launch)."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k14_times(dev):
+    """K14 at the main path's step: LLaMa-2-7B width, L=32, S=768, the
+    prompt and 200 generated tokens visible, bf16 and int8 KV. The weights
+    (3.3 GB) and the K/V (0.2-0.4 GB) far exceed the 50 MB L2, so every call
+    finds them cold. Bound: the bytes one step reads once (every layer's
+    carriers, scale pairs and norm weights; the visible K/V rows, with
+    their int8 scales; pos) and writes once (probs, kn, vn, p_new, h) at
+    3.35 TB/s; its operations (~3 integer operations a weight byte on the
+    CUDA cores) take less. library_ms: None, no PyTorch call computes a
+    decode step. Before the timing, k14_check holds K14 to its plain
+    version on these arguments, each output within the larger of phase 2's
+    limit and twice its one-ulp spread (k14_ulp_spread): the f32 residual
+    carries the feed's roundings through 32 layers, and p_new read 1.12 of
+    phase 2's fixed limit at this depth (PERF.md section 2). Its max |err|
+    is the record's max_abs_err; the plain version with bf16-rounded
+    products must miss that bar."""
+    cfg, tree = k14_tree(dev, 32, 0)
+    L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
+    wbytes = sum(t.numel() * t.element_size() for p in tree.layers
+                 for t in [getattr(p, n)[k] for n in ("wqkv", "wo", "wgu", "wd")
+                           for k in ("q4a", "gs3")] + [p.ln_attn, p.ln_mlp])
+    out = {}
+    for kv in ("bf16", "int8"):
+        args, _ = k14_case(dev, cfg, kv, False, False, 800)
+        visible = int(((args[2] >= 0) & (args[2] <= args[4])).sum())
+        row = D * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+        kv_bytes = 2 * visible * row + L * H * S * 4                 # K, V rows; pos
+        out_bytes = L * H * S * 4 + 2 * L * H * D * 2 + L * H * 4 + cfg.hidden_size * 2
+        what, spread = f"{kv} KV, L={L}, RoPE at q_pos", k14_ulp_spread(tree.layers, cfg, args)
+        err, ref = k14_check("phase 5", what, tree.layers, cfg, args, spread=spread)
+        k14_bf16_control("phase 5", what, tree.layers, cfg, args, ref, spread)
+        del ref
+        ms = event_ms(lambda *a: k14(tree.layers, cfg, *a), [args], 20)
+        plain = event_ms(lambda *a: k14_plain(tree.layers, cfg, *a), [args], 2)
+        nbytes = wbytes + kv_bytes + out_bytes
+        out[kv] = dict(ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes, max_abs_err=err,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                       weight_gb=wbytes / 1e9, kv_gb=kv_bytes / 1e9)
+        del args
+    del tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def k14_records(ktimes, runs):
+    records = []
+    kname, src, repl = K14_META
+    for kv, t in ktimes.items():
+        run = K14_RUNS[kv]
+        launches = runs[run]["counts"]["K14"]
+        label = f"{kname} ({kv} KV, L=32, S={S_MAIN})"
+        print(f"phase 5: K14 {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library none, bound {t['bound_ms'] * 1e3:.2f} us (bytes: weights "
+              f"{t['weight_gb']:.3f} GB, K/V and pos {t['kv_gb']:.3f} GB), {launches / NEW:g} "
+              f"launches/step in the {run} run")
+        records.append({"name": label, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1673,10 +1953,12 @@ def main():
 
     errs = phase_kernels(dev)
     errs.update(phase_quant_kernels(dev))
+    phase_k14(dev)
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
     qtimes = quant_times(dev)
+    ktimes = k14_times(dev)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
@@ -1721,6 +2003,7 @@ def main():
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kernels += quant_records(qtimes, errs, runs)
+    kernels += k14_records(ktimes, runs)
     print("phase 5: K5 launches in the encoding family's runs: " + ", ".join(
         f"{run} {r['counts']['K5']}" for run, r in runs.items()
         if "encod" in run or "ppl" in run))

@@ -48,50 +48,15 @@
 
 #include <type_traits>
 
+#include "decode_common.cuh"
+
 namespace {
+
+using namespace decode_common;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
-constexpr float kNegInf = -1e30f;
-
-template <typename T> struct VecOf { static constexpr int n = 16 / sizeof(T); };
-
-// 16 bytes of T at p (16-byte aligned) as floats.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load16(const int8_t* p, float* out) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = (float)b[i];
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // R(s*theta) of one lane's V elements of a cached K row (ordered variant).
 // A row spans LPR lanes; element d < D/2 pairs with d + D/2, which sits
@@ -128,25 +93,9 @@ __device__ __forceinline__ void rotate_row(float* kr, int li, int LPR, int D, in
   }
 }
 
-// Block-wide max or sum through `red` (kWarps floats); every thread gets it.
 template <bool kMax>
-__device__ float block_reduce(float x, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = lane < kWarps ? red[lane] : (kMax ? kNegInf : 0.f);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  __syncthreads();
-  return x;
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  return decode_common::block_reduce<kMax, kWarps>(x, red);
 }
 
 // T: the type of q, kn, vn and out; KV: the cache's type (T, or int8 with

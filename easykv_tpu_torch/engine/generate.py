@@ -51,6 +51,7 @@ from ..cache import KVCache, init_cache, quantize_kv
 from ..config import GenerationConfig, ModelConfig, resolve_device
 from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
+from ..ops.aux_math import confidence
 from ..ops.cuda.kv_compact import fused_compact
 from ..ops.rope import rotate
 from ..policies import (PHASE_DECODE, PHASE_ENCDEC_DECODE, PHASE_ENCODE, PolicySpec,
@@ -119,6 +120,7 @@ class EngineStatics:
     recent_window: int = 0      # encode-phase recent window
     keep_attention: bool = False
     streaming: bool = False     # StreamingLLM: RoPE by cache-relative position
+    collect_stats: bool = False  # keep each step's token probability and confidence
 
     def encode_spec(self) -> PolicySpec:
         return PolicySpec(
@@ -177,6 +179,12 @@ class DecodeResult(NamedTuple):
     n_tokens: torch.Tensor  # (B,) tokens emitted (including EOS)
     kv_len: torch.Tensor    # (B,) final valid cache slots
     finite: torch.Tensor    # () bool: every step's logits were finite
+    # With st.collect_stats, the reference's decode-loop bookkeeping
+    # (easykv.py:236-285): the sampled token's raw softmax probability and
+    # the step's exp(-entropy) confidence, (B, max_new_tokens) f32, 0 past
+    # the emitted tokens; None otherwise.
+    token_probs: Optional[torch.Tensor] = None
+    confidence: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -394,7 +402,11 @@ def _decode_loop(
     compaction into K2 + K9; otherwise K1 rotates by slot at read time and
     each step runs evict_cache (K4) and _compact_one (K8) after the
     forward. K4, K8 and K9 launch every step: a head with nothing to evict
-    is a no-op inside the kernel, so no host sync decides."""
+    is a no-op inside the kernel, so no host sync decides.
+
+    With st.collect_stats each step also keeps the sampled token's
+    probability under the raw temperature softmax and that softmax's
+    exp(-entropy), on the device (no host sync per token)."""
     B = first_logits.shape[0]
     M = st.max_new_tokens
     dev = first_logits.device
@@ -417,9 +429,17 @@ def _decode_loop(
     zeros_f = torch.zeros((B,), dtype=torch.float32, device=dev)
     finite = torch.isfinite(first_logits).all()
     lastlog = first_logits
+    tps = confs = None
+    if st.collect_stats:
+        tps = torch.zeros((B, M), dtype=torch.float32, device=dev)
+        confs = torch.zeros_like(tps)
     for n in range(M):
         token = sample_topp(generator, lastlog, temperature, top_p)
         out[:, n] = torch.where(done, -1, token)
+        if st.collect_stats:
+            raw = torch.softmax(lastlog.to(torch.float32) / max(temperature, 1e-9), dim=-1)
+            tps[:, n] = torch.where(done, 0.0, raw.gather(-1, token[:, None].long())[:, 0])
+            confs[:, n] = torch.where(done, 0.0, confidence(raw))
         newly_done = done | _isin_eos(token, eos)
         live = ~newly_done
         tok_pos = start_pos + g
@@ -468,7 +488,7 @@ def _decode_loop(
         if eos is not None and (n + 1) % ALL_DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
     emitted = (out >= 0).sum(dim=-1)
-    return DecodeResult(out, emitted, kv_len, finite)
+    return DecodeResult(out, emitted, kv_len, finite, tps, confs)
 
 
 def _engine_cache(st: EngineStatics, B: int, S: int, dtype: torch.dtype,
@@ -675,6 +695,22 @@ def _is_full_budget(budget, length) -> bool:
         isinstance(budget, int) and budget >= length)
 
 
+def _report_confidence(res: DecodeResult) -> None:
+    """The verbose summary of the decode-loop bookkeeping of row 0
+    (reference easykv.py:261 token_probs, :279 exp(-entropy)), as the JAX
+    package prints it."""
+    if res.confidence is None or not bool(res.confidence.any()):
+        return
+    emitted = res.out_ids[0] >= 0
+    if not bool(emitted.any()):
+        return
+    conf = res.confidence[0][emitted].cpu().numpy()
+    tp = res.token_probs[0][emitted].cpu().numpy()
+    print(f"Decoding confidence exp(-entropy): mean {conf.mean():.4f} "
+          f"min {conf.min():.4f}; token prob: mean {tp.mean():.4f} "
+          f"min {tp.min():.4f}")
+
+
 def _finalize(model: CausalLM, res: DecodeResult, kv_len: int, phases) -> list:
     """Record model.last_run and return row 0's tokens (decoded if a
     tokenizer is attached)."""
@@ -730,7 +766,7 @@ def generate(
     base = dict(cfg=model.cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
                 temp_length=gc.temp_length, keep_attention=gc.keep_attention,
                 max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant,
-                streaming=gc.streaming)
+                streaming=gc.streaming, collect_stats=report_decoding_latency)
     dev = model.device
     generator = torch.Generator(device=dev).manual_seed(gc.seed)
     temp, top_p = float(gc.temperature), float(gc.top_p)
@@ -756,6 +792,7 @@ def generate(
             print(f"KV cache budget ratio: {retained / n_out * 100:.2f}%({retained}/{n_out})")
         if report_decoding_latency:
             print(f"Per-step decoding latency: {decode_s / max(n_out, 1):.3f}")
+            _report_confidence(res)
         return out
 
     if mode in ("encoding", "ppl") and _is_full_budget(budget, length):
@@ -800,6 +837,7 @@ def generate(
         if report_decoding_latency:
             n_out = model.last_run.n_tokens
             print(f"Per-step decoding latency: {phases[2] / max(n_out, 1):.3f}")
+            _report_confidence(res)
         return out
 
     if mode == "encoding_decoding":

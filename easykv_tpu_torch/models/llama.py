@@ -13,7 +13,9 @@ or their plain branches by the shape of the product (ops/quant.py). The
 int8 LM head is K13 with f32 logits (ops.quant.lm_head_mm). The decode step
 always runs three CUDA kernels: decode attention per layer (K1), then one
 sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
-all layers. With an int8 cache the prompt prefill's attention is the chunk
+all layers; over the fused arithmetic-int4 tree at B = 1 the layers are
+one launch of the one-kernel decode step K14 (mega_tree, as the JAX
+package's default). With an int8 cache the prompt prefill's attention is the chunk
 kernel (K5), as the JAX package's default `auto` chunk-kernel mode has it
 (llama.py:150-169 there); a float cache keeps the plain `attend`, which the
 JAX package leaves to XLA. The strided encode of the encoding family
@@ -39,7 +41,9 @@ from ..cache import KVCache, quantize_kv, write_tokens_at, write_tokens_slice
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
 from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
+from .. import flags
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
+from ..ops.cuda.fused_decode import fused_decode_step
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
@@ -377,6 +381,17 @@ def stream_tables(S: int, cfg: ModelConfig, device, prerotated: bool) -> StreamR
     return StreamRot(False, *rotation_tables(S, cfg, device))
 
 
+def mega_tree(params: LlamaParams) -> bool:
+    """The fused arithmetic-int4 tree K14 decodes: wqkv with its carrier and
+    bf16 scale pair, wgu's carrier, no bqkv (the JAX package's mega_tree,
+    llama.py:818-826 there; the dual tree's int8 copy beside them passes
+    too)."""
+    p = params.layers[0]
+    wqkv, wgu = getattr(p, "wqkv", None), getattr(p, "wgu", None)
+    return (isinstance(wqkv, QuantLinear) and "q4a" in wqkv and "gs3" in wqkv
+            and isinstance(wgu, QuantLinear) and "q4a" in wgu and not hasattr(p, "bqkv"))
+
+
 @torch.no_grad()
 def _decode_forward(
     params: LlamaParams,
@@ -408,44 +423,33 @@ def _decode_forward(
     (shift + R(-theta) of the moved rows, from stream's tables). Otherwise
     the cache holds the raw K, K1 rotates every slot by its index from
     stream's (S, D/2) tables, and the engine evicts (K4) and compacts (K8)
-    after the step."""
+    after the step.
+
+    Over the fused arithmetic-int4 tree (mega_tree) at B == 1, not streaming
+    or streaming over the pre-rotated cache, with flags.mega_kernel_enabled,
+    the layers are one K14 launch instead (ops/cuda/fused_decode.py: f32
+    residual, two-plane int8 activations), RoPE at layer 0's pre-write valid
+    count under streaming; its outputs feed the same tail."""
     B = token_ids.shape[0]
-    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
     q_pos = ctx.q_pos                                           # (B, 1)
     q_pos_b = q_pos[:, 0].contiguous()
     streaming = stream is not None
     prerotated = streaming and stream.prerotated
-    if streaming:
-        n_valid = (cache.pos[:, :, 0, :] >= 0).sum(dim=-1, dtype=torch.int32)  # (L, B)
-        cos_all, sin_all = rope_cos_sin(n_valid[:, :, None, None], inv_freq)  # (L, B, 1, 1, D/2)
-    else:
-        cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)    # shared by all layers
-    k1_rot = (stream.cos, stream.sin) if streaming and not prerotated else None
-
     h = params.embed[token_ids.clamp(min=0)]
-    kn_all, vn_all, probs_all, pnew_all = [], [], [], []
-    for l, p in enumerate(params.layers):
-        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
-        q, k, v = _proj_qkv(x, p, B, 1, Hq, Hkv, Dh)
-        if streaming:
-            cos, sin = cos_all[l], sin_all[l]
-        q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
-        v = v.contiguous()
-        scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
-        out, probs, p_new = fused_decode_attend_inflight(
-            q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
-            sliding_window=cfg.sliding_window, rot=k1_rot)
-        h = _attn_block(h, p, cfg, out)
-        kn_all.append(k if streaming and not prerotated else kn_att)
-        vn_all.append(v)
-        probs_all.append(probs[:, :, 0, :])
-        pnew_all.append(p_new)
-
-    probs = torch.stack(probs_all)                              # (L, B, Hkv, S)
-    p_new = torch.stack(pnew_all)                               # (L, B, Hkv, 1)
-    kn = torch.stack(kn_all)                                    # (L, B, Hkv, 1, Dh)
-    vn = torch.stack(vn_all)
+    if (B == 1 and (not streaming or prerotated) and flags.mega_kernel_enabled()
+            and mega_tree(params)):
+        rope_pos = ((cache.pos[0, 0, 0] >= 0).sum(dtype=torch.int32)[None]
+                    if streaming else None)
+        scales = (cache.k_scale, cache.v_scale) if cache.quantized else ()
+        hm, kn, vn, probs, p_new = fused_decode_step(
+            params.layers, cfg, cache.k, cache.v, cache.pos, h[0], q_pos_b, *scales,
+            rope_pos=rope_pos)
+        h = hm[None]                                            # (1, 1, D)
+        kn, vn = kn[:, None], vn[:, None]                       # (L, 1, Hkv, 1, Dh)
+        probs = probs[:, None, :, 0, :]                         # (L, 1, Hkv, S)
+        p_new = p_new[:, None, :, None]                         # (L, 1, Hkv, 1)
+    else:
+        h, kn, vn, probs, p_new = _decode_layers(params, cfg, cache, h, q_pos, stream)
     fold_stream = decode_stream_folded(spec, streaming, prerotated)
     ekw = {}
     if decode_evict_folded(spec, streaming) or fold_stream:
@@ -469,3 +473,41 @@ def _decode_forward(
         fused_kv_compact(cache.k, cache.v, res[-1][..., 0].contiguous(), cache.k_scale,
                          cache.v_scale, rot=(stream.cos, stream.sin))
     return _logits_tail(h, params, cfg)
+
+
+def _decode_layers(params: LlamaParams, cfg: ModelConfig, cache: KVCache, h: torch.Tensor,
+                   q_pos: torch.Tensor, stream: Optional[StreamRot]):
+    """_decode_forward's per-layer loop (K1 per layer): returns (h, kn, vn
+    (L, B, Hkv, 1, Dh), probs (L, B, Hkv, S), p_new (L, B, Hkv, 1))."""
+    B = h.shape[0]
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), h.device)
+    q_pos_b = q_pos[:, 0].contiguous()
+    streaming = stream is not None
+    prerotated = streaming and stream.prerotated
+    if streaming:
+        n_valid = (cache.pos[:, :, 0, :] >= 0).sum(dim=-1, dtype=torch.int32)  # (L, B)
+        cos_all, sin_all = rope_cos_sin(n_valid[:, :, None, None], inv_freq)  # (L, B, 1, 1, D/2)
+    else:
+        cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)    # shared by all layers
+    k1_rot = (stream.cos, stream.sin) if streaming and not prerotated else None
+
+    kn_all, vn_all, probs_all, pnew_all = [], [], [], []
+    for l, p in enumerate(params.layers):
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, 1, Hq, Hkv, Dh)
+        if streaming:
+            cos, sin = cos_all[l], sin_all[l]
+        q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
+        v = v.contiguous()
+        scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
+        out, probs, p_new = fused_decode_attend_inflight(
+            q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
+            sliding_window=cfg.sliding_window, rot=k1_rot)
+        h = _attn_block(h, p, cfg, out)
+        kn_all.append(k if streaming and not prerotated else kn_att)
+        vn_all.append(v)
+        probs_all.append(probs[:, :, 0, :])
+        pnew_all.append(p_new)
+    return (h, torch.stack(kn_all), torch.stack(vn_all), torch.stack(probs_all),
+            torch.stack(pnew_all))

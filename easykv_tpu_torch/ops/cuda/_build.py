@@ -27,15 +27,17 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
 SOURCES = ("decode_attention", "sidecar_update", "row_write", "chunk_attention",
-           "kv_compact", "quant_matmul", "w4_matmul", "w4_stream")
+           "kv_compact", "quant_matmul", "w4_matmul", "w4_stream", "fused_decode")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The sidecar pass and the K/V compaction must round like their plain
 # PyTorch versions, op by op: an FMA contraction of roco's `ssq/c - mean*mean`
 # moves the k-th smallest std, one of the rotation's `x1*c + x2*s` moves an
-# int8 requant.
-EXTRA_FLAGS = {"sidecar_update": ["--fmad=false"], "kv_compact": ["--fmad=false"]}
+# int8 requant. The one-kernel decode step's elementwise steps (the int8
+# activation planes above all) follow its plain version the same way.
+EXTRA_FLAGS = {"sidecar_update": ["--fmad=false"], "kv_compact": ["--fmad=false"],
+               "fused_decode": ["--fmad=false"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,12 +12,17 @@ streaming decode path with the kernels must give the plain path's tokens
 and final positions. The quantized-weight kernels K10-K13 are held to
 their plain versions at LLaMa-2-7B widths and a ragged N (1e-5 of max|ref|
 in f32, one bf16 ulp more in bf16), raise on what they do not take, and the
-decode path over int8 / int4 trees gives the plain path's tokens.
+decode path over int8 / int4 trees gives the plain path's tokens. The
+one-kernel decode step K14 is held to its plain version at small and
+LLaMa-2-7B widths (each output within 1e-3 of its largest |value|, one bf16
+ulp more in bf16), launches once a decode step only where the JAX package
+would, and raises when its cooperative grid cannot be co-resident.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
 import contextlib
+import functools
 import importlib
 from unittest import mock
 
@@ -786,11 +791,16 @@ def _quant_decode_paths(cuda, tree, B):
     from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv_plain
     from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
                                                      w4a16_gemv_arith_plain)
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step_plain
     gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
-    plain = mock.patch.multiple(quant, quant_matmul=quant_matmul_plain,
-                                w4a16_gemv=w4a16_gemv_plain,
-                                w4a16_gemv_arith=w4a16_gemv_arith_plain,
-                                w4a16_gemm_arith=w4a16_gemm_arith_plain)
+    llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
+    plain = contextlib.ExitStack()
+    plain.enter_context(mock.patch.multiple(quant, quant_matmul=quant_matmul_plain,
+                                            w4a16_gemv=w4a16_gemv_plain,
+                                            w4a16_gemv_arith=w4a16_gemv_arith_plain,
+                                            w4a16_gemm_arith=w4a16_gemm_arith_plain))
+    plain.enter_context(mock.patch.object(llama_mod, "fused_decode_step",
+                                          fused_decode_step_plain))
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=768,
                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
@@ -821,3 +831,147 @@ def test_quant_decode_kernel_path_matches_plain_path(cuda, tree, B):
     outs = _quant_decode_paths(cuda, tree, B)
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# K14: the one-kernel decode step
+# ---------------------------------------------------------------------------
+
+K14_SHAPES = {  # D, F, Hq, Hkv, L, S, group
+    "small": (256, 512, 4, 2, 2, 256, 64),
+    "7b": (4096, 11008, 32, 32, 2, 768, 128),
+}
+
+
+def _k14_close(got, ref):
+    """Within 1e-3 of the output's largest |value| (the two-plane feed
+    rounds, so one-ulp differences before it move a product by a step of
+    the feed; the JAX package holds this feed to its scan at 1e-3), plus
+    one bf16 ulp of the value in bf16."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-3 * ref.float().abs().max()
+    if ref.dtype == torch.bfloat16:
+        tol = tol + 2**-7 * ref.float().abs()
+    return bool((err <= tol).all()) and bool(torch.isfinite(got.float()).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _k14_tree(shape, dtype):
+    from easykv_tpu_torch.ops import quant
+    D, F, Hq, Hkv, L, S, group = K14_SHAPES[shape]
+    cfg = ModelConfig(vocab_size=256, hidden_size=D, intermediate_size=F, num_hidden_layers=L,
+                      num_attention_heads=Hq, num_key_value_heads=Hkv,
+                      max_position_embeddings=4096)
+    params = init_params(cfg, seed=3, dtype=dtype, device=torch.device("cuda"))
+    return cfg, quant.fuse_gemv_params(quant.quantize_params_int4(params, group, layout="arith"))
+
+
+def _k14_args(cuda, shape, kv, rope, seed):
+    dtype = torch.float32 if kv == "f32" else torch.bfloat16
+    cfg, tree = _k14_tree(shape, dtype)
+    D, F, Hq, Hkv, L, S, group = K14_SHAPES[shape]
+    Dh = D // Hq
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)  # noqa: E731
+    k, v = rnd(L, 1, Hkv, S, Dh), rnd(L, 1, Hkv, S, Dh)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).expand(L, 1, Hkv, S).clone()
+    pos[..., S - S // 8:] = -1
+    pos[torch.rand(pos.shape, generator=g, device=cuda) < 0.2] = -1     # dead slots
+    scales = ()
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    q_pos = torch.tensor([S - S // 8], dtype=torch.int32, device=cuda)
+    rope_pos = torch.tensor([S // 2], dtype=torch.int32, device=cuda) if rope else None
+    return cfg, tree, (k, v, pos, rnd(1, D), q_pos, *scales), rope_pos
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["q_pos", "rope_pos"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("shape", list(K14_SHAPES))
+def test_k14_kernel_matches_plain(cuda, shape, kv, rope):
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step, fused_decode_step_plain
+    cfg, tree, args, rope_pos = _k14_args(cuda, shape, kv, rope, 5)
+    before = fused_decode_step.launches
+    got = fused_decode_step(tree.layers, cfg, *args, rope_pos=rope_pos)
+    ref = fused_decode_step_plain(tree.layers, cfg, *args, rope_pos=rope_pos)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    for a, b in zip(got, ref):
+        assert _k14_close(a, b)
+    again = fused_decode_step(tree.layers, cfg, *args, rope_pos=rope_pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # the same in every run
+
+
+def test_k14_dead_row(cuda):
+    """q_pos = -1: every probability is 0 on both sides."""
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step, fused_decode_step_plain
+    cfg, tree, args, _ = _k14_args(cuda, "small", "bf16", False, 6)
+    args = args[:4] + (torch.tensor([-1], dtype=torch.int32, device=cuda),) + args[5:]
+    got = fused_decode_step(tree.layers, cfg, *args)
+    ref = fused_decode_step_plain(tree.layers, cfg, *args)
+    torch.cuda.synchronize()
+    assert not got[3].any() and not got[4].any()
+    for a, b in zip(got, ref):
+        assert _k14_close(a, b)
+
+
+def test_k14_too_large_grid_raises(cuda):
+    """A cooperative grid the card cannot hold at once is refused: the
+    wrapper raises, counts no launch and runs nothing else; the next
+    launch runs."""
+    from easykv_tpu_torch.ops.cuda import fused_decode as k14
+    cfg, tree, args, _ = _k14_args(cuda, "small", "bf16", False, 7)
+    before = k14.fused_decode_step.launches
+    with mock.patch.object(k14, "fused_decode_step_plain",
+                           mock.Mock(side_effect=AssertionError("plain version ran"))), \
+            mock.patch.object(k14, "_GRID", 1 << 20):
+        with pytest.raises(RuntimeError, match="fused_decode_step launch failed"):
+            k14.fused_decode_step(tree.layers, cfg, *args)
+    assert k14.fused_decode_step.launches == before
+    ref = k14.fused_decode_step_plain(tree.layers, cfg, *args)
+    got = k14.fused_decode_step(tree.layers, cfg, *args)
+    torch.cuda.synchronize()
+    assert all(_k14_close(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("case", ["fused-B1", "fused-B2", "split-B1", "mega-off-B1",
+                                  "fused-B1-streaming"])
+def test_k14_launch_gating(cuda, case):
+    """K14 launches once a decode step for the fused arithmetic tree at
+    B = 1 (streaming over the pre-rotated cache too), and K10 never in the
+    decode loop there; it never launches at B = 2, for the split tree or
+    with the mega flag off."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=768,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    tree = quant.quantize_params_int4(params, layout="arith")
+    if case != "split-B1":
+        tree = quant.fuse_gemv_params(tree)
+    B = 2 if case == "fused-B2" else 1
+    n = 12
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=64, budget=4, max_new_tokens=n,
+                               recent_window_dec=1, streaming=case.endswith("streaming"))
+    ids = torch.randint(1, 512, (B, 64), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    plen = torch.full((B,), 64, dtype=torch.int32, device=cuda)
+    flags.use_mega(False if case == "mega-off-B1" else None)
+    try:
+        k14_0, k10_0 = fused_decode_step.launches, w4a16_gemv_arith.launches
+        gen_mod._run_decoding(st, tree, ids, plen, 1e-9, 1.0,
+                              torch.Generator(device=cuda).manual_seed(0), torch.float32)
+        torch.cuda.synchronize()
+    finally:
+        flags.use_mega(None)
+    k14_n = fused_decode_step.launches - k14_0
+    k10_n = w4a16_gemv_arith.launches - k10_0
+    if case.startswith("fused-B1"):
+        assert k14_n == n and k10_n == 0
+    else:
+        assert k14_n == 0
+        assert k10_n == (4 if case != "split-B1" else 7) * 2 * n * (B == 1)

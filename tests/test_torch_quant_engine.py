@@ -12,8 +12,12 @@ temperature 1e-9.
   held): equal greedy tokens and printed budget ratio.
 
 The JAX package runs its default CPU path (XLA: its mm's einsum and
-dequant-dot branches, the int8 matmul in f32); the port's wrappers run
-their plain versions, so only the order of f32 sums differs.
+dequant-dot branches, the int8 matmul in f32), which decodes the fused
+arithmetic-int4 and dual trees with its per-layer scan; the port's
+wrappers run their plain versions, so only the order of f32 sums differs.
+The port's one-kernel decode step is switched off here (flags.use_mega)
+so that both packages run that scan; tests/test_torch_fused_decode.py holds
+it against the JAX package's, which runs with Pallas on.
 """
 import importlib
 import re
@@ -26,6 +30,7 @@ import torch
 
 import easykv_tpu
 import easykv_tpu_torch
+from easykv_tpu_torch import flags as tflags
 from easykv_tpu.config import ModelConfig as JModelConfig
 from easykv_tpu.models import llama as jllama
 from easykv_tpu.ops import quant as jq
@@ -54,6 +59,15 @@ LENGTH, STRIDE = 90, 8
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(autouse=True)
+def per_layer_scan():
+    """The port decodes every tree per layer, as the JAX package's CPU path
+    does."""
+    tflags.use_mega(False)
+    yield
+    tflags.use_mega(None)
 
 
 @pytest.fixture(scope="module")

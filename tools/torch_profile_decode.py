@@ -9,8 +9,9 @@ with a bf16 KV cache and then with an int8 one; with --streaming, the
 StreamingLLM decode instead (streaming=True): bf16 and int8 over the
 pre-rotated cache, then int8 over the rotate-at-read cache; with --quant,
 the same decode over quantized weights made on the card from the bf16 ones
-(int4 arithmetic split with an int8 KV cache, int8 fused with an int8 KV
-cache, int4 halves split with a bf16 one). Prints, for each, the
+(int4 arithmetic fused with an int8 KV cache, decoded by the one-kernel
+step K14; int4 arithmetic split with an int8 KV cache, int8 fused with an
+int8 KV cache, int4 halves split with a bf16 one). Prints, for each, the
 host-clock time per step of both runs, the
 device time per step (sum of kernel durations), the device's idle share
 while traced, the kernels that take most device time, and the PyTorch ops
@@ -86,7 +87,10 @@ def main():
                 ("int8 KV streaming pre-rotated", True, True, bf16),
                 ("int8 KV streaming rotate-at-read", True, False, bf16)]
     elif "--quant" in sys.argv[1:]:
-        runs = [("int4 arith split weights, int8 KV", True, None,
+        runs = [("int4 arith fused weights (K14), int8 KV", True, None,
+                 lambda: quant.fuse_gemv_params(quant.quantize_params_int4(params,
+                                                                           layout="arith"))),
+                ("int4 arith split weights, int8 KV", True, None,
                  lambda: quant.quantize_params_int4(params, layout="arith")),
                 ("int8 fused weights, int8 KV", True, None,
                  lambda: quant.fuse_gemv_params(quant.quantize_params(params))),
