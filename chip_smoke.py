@@ -32,7 +32,12 @@ Phases, each printing its lines before the last:
      and int8 KV; RoPE at q_pos and at rope_pos; the main path's holes and
      scattered dead slots), each output within 1e-3 of its largest |value|
      (plus one bf16 ulp of the value for h, kn, vn) of its plain version
-     (held again at L=32 in phase 5, see there);
+     (held again at L=32 in phase 5, see there); K15, the batched step, at
+     LLaMa-2-7B width (B=4 and 16) and Mistral-7B's widths (GQA, B=8, a
+     512-slot window), L=2, bf16 and int8 KV, RoPE at q_pos and rope_pos,
+     holes and a dead row: each output within the larger of that limit and
+     twice the plain version's reorder spread (k15_spread), and its bf16
+     feed rounded as the plain version rounds it (k15_feed_check);
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
@@ -53,13 +58,16 @@ Phases, each printing its lines before the last:
      arithmetic fused, bench.py's headline tree (K14 once a decode step for
      all layers, K11 in the prefill, K13 for the head): int8 KV roco and
      `full`, bf16 KV roco, StreamingLLM roco over the pre-rotated int8
-     cache (K2 compact + K9 every step); int4 arithmetic split with an int8
+     cache (K2 compact + K9 every step); the same tree through K15 (one
+     launch a step for all rows) at B=4 (int8 and bf16 KV roco, streaming
+     roco) and B=16 (int8 and bf16 KV roco, int8 `full`); int4 arithmetic split with an int8
      KV cache (roco, `full`, roco at B=4: K10, or K11 at B=4, for the
      layers, K13 for the head, K11 in the B=1 prefill), int8 fused with an
      int8 KV cache (K13) and int4 halves split with a bf16 KV cache (K12),
      each with its launch counts, weight bytes per step and retained
-     tokens. Launch counters are zeroed just before each run and read just
-     after;
+     tokens (row 0's kv_len, and the valid slots of every (layer, row,
+     head) of the final cache). Launch counters are zeroed just before
+     each run and read just after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
      equal greedy tokens and final positions; StreamingLLM `decoding` over
@@ -70,10 +78,11 @@ Phases, each printing its lines before the last:
      1024-token prompt, stride 96: equal tokens and kv_len; equal final
      positions (an int8 cache: in layer 0, and K/V within one int8 step
      elsewhere); ppl within 1e-5 relative;
-     then the int4 arithmetic fused (K14), int8 fused, int4 arithmetic split
-     and int4 halves split trees of those weights, f32 KV: equal tokens and
-     final positions; the fused tree with an int8 KV cache too: equal
-     tokens, layer 0's positions equal, K/V within one int8 step elsewhere;
+     then the int4 arithmetic fused (K14; K15 at B=4), int8 fused, int4
+     arithmetic split and int4 halves split trees of those weights, f32 KV:
+     equal tokens and final positions; the fused tree with an int8 KV cache
+     too (B=1 and 4): equal tokens, layer 0's positions equal, K/V within
+     one int8 step elsewhere;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel; K10-K13 at each 7B
@@ -84,7 +93,11 @@ Phases, each printing its lines before the last:
      arguments within the larger of phase 2's limit and twice the plain
      version's own spread when its input moves by one f32 ulp (the
      record's max_abs_err), then timed with CUDA events over back-to-back
-     launches, its bound from the bytes the step reads and writes.
+     launches, its bound from the bytes the step reads and writes; K15 the
+     same way at B=4 and 16 (bar: twice its reorder spread), then
+     k15_control: at f32 activations, B=4 and 16, f32 and int8 KV, K15
+     within the bar and the plain K15 with its residual rounded to bf16
+     between the layers over it.
 
 It exits non-zero, without a result line, when there is no CUDA device, a
 kernel does not build, or any check fails. The last line is
@@ -123,6 +136,10 @@ from easykv_tpu_torch.ops.cuda.decode_attention import (
 from easykv_tpu_torch.ops.cuda import fused_decode as k14_fd
 from easykv_tpu_torch.ops.cuda.fused_decode import (fused_decode_step as k14,
                                                     fused_decode_step_plain as k14_plain)
+from easykv_tpu_torch.ops.cuda.fused_decode_batch import (
+    fused_decode_step_batch as k15, fused_decode_step_batch_plain as k15_plain)
+from easykv_tpu_torch.ops.cuda.step_bars import (STEP_OUTPUTS, k14_ulp_spread, k15_feed_share,
+                                                 k15_spread, step_shares)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_plain as k3_plain
 from easykv_tpu_torch.ops.cuda.sidecar_update import (
     fused_evict as k4, fused_evict_plain as k4_plain, fused_write_update as k2,
@@ -149,6 +166,7 @@ PROMPT, BUDGET, NEW = 512, 200, 384
 S_MAIN = 768                 # the engine's slot count for that run: 512 + 201 -> 768
 CHUNK = 128                  # the prefill's chunk width (engine PREFILL_CHUNK)
 B_WIDE = 4                   # the batched int8 run
+B_MAX = 16                   # the widest K15 run
 POLICIES = [None, "h2o_head", "tova", "roco", "recency", "random"]
 # the encoding family's runs: a 4096-token prompt encoded in chunks of 96
 ENC_PROMPT, STRIDE, ENC_NEW = 4096, 96, 128
@@ -617,7 +635,7 @@ def phase_k6(dev):
 
 
 KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9,
-           "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14}
+           "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K2 compact": (k2, "compact_launches")}
 
@@ -863,11 +881,12 @@ def phase_encoding(dev, cfg, params):
 def plain_kernels():
     """The model with each kernel's wrapper swapped for its plain version
     (K4 where policies.evict_cache imports it, K8 in the engine, K10-K13
-    where ops.quant.mm calls them)."""
+    where ops.quant.mm calls them, K14 and K15 in the decode step)."""
     with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
                              fused_write_update=k2_plain, write_rows=k3_plain,
                              fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
-                             fused_kv_compact=k9_plain, fused_decode_step=k14_plain), \
+                             fused_kv_compact=k9_plain, fused_decode_step=k14_plain,
+                             fused_decode_step_batch=k15_plain), \
             mock.patch.object(sidecar_mod, "fused_evict", k4_plain), \
             mock.patch.object(gen_mod, "fused_compact", k8_plain), \
             mock.patch.multiple(quant_mod, quant_matmul=k13_plain, w4a16_gemv=k12_plain,
@@ -1464,21 +1483,27 @@ def phase_quant(dev, cfg, params):
     """Quantized weights at 7B width, quantized on the card from the phase's
     bf16 weights with the port's own functions; the 512-token prompt, 384
     new tokens, greedy: int4 arithmetic fused (bench.py's headline tree: K14
-    once a decode step) with an int8 KV cache, roco and `full`, roco with a
-    bf16 KV cache and StreamingLLM roco over the pre-rotated int8 cache;
-    int4 arithmetic split, int8 KV, roco and `full`, and roco at B=4; int8
-    fused, int8 KV, roco; int4 halves split, bf16 KV, roco. Exact launch
-    counts, 200 retained tokens and the printed ratio line."""
+    once a decode step at B=1, K15 at B=4 and 16) with an int8 KV cache,
+    roco and `full`, roco with a bf16 KV cache and StreamingLLM roco over
+    the pre-rotated int8 cache at B=1; roco at B=4 and 16 (int8 and bf16
+    KV), `full` at B=16 and StreamingLLM roco at B=4; int4 arithmetic split,
+    int8 KV, roco and `full`, and roco at B=4; int8 fused, int8 KV, roco;
+    int4 halves split, bf16 KV, roco. Exact launch counts, 200 retained
+    tokens (384 under `full`) in row 0's kv_len and in the final cache's
+    valid slots of every (layer, row, head), and the printed ratio line."""
     L = cfg.num_hidden_layers
     g = torch.Generator().manual_seed(0)
-    prompts = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)
+    prompts = torch.randint(1, cfg.vocab_size, (B_MAX, PROMPT), generator=g)
     gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=NEW, temperature=1e-9,
               top_p=1.0, eos_token_ids=[], seed=0)
     trees = [  # tree, make, runs (policy, B, KV, streaming)
         ("int4 arith fused", lambda: quant_mod.fuse_gemv_params(
             quant_mod.quantize_params_int4(params, layout="arith")),
          [("roco", 1, "int8", False), ("full", 1, "int8", False), ("roco", 1, "bf16", False),
-          ("roco", 1, "int8", True)]),
+          ("roco", 1, "int8", True), ("roco", B_WIDE, "int8", False),
+          ("roco", B_MAX, "int8", False), ("roco", B_WIDE, "bf16", False),
+          ("roco", B_MAX, "bf16", False), ("full", B_MAX, "int8", False),
+          ("roco", B_WIDE, "int8", True)]),
         ("int4 arith split", lambda: quant_mod.quantize_params_int4(params, layout="arith"),
          [("roco", 1, "int8", False), ("full", 1, "int8", False), ("roco", B_WIDE, "int8", False)]),
         ("int8 fused", lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
@@ -1517,19 +1542,24 @@ def phase_quant(dev, cfg, params):
             c = counts()
             st = model.last_run
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
-            ordered = ordered_invariant(made[-1].pos)[0] if streaming else True
+            ordered, held = ordered_invariant(made[-1].pos)
+            ordered = ordered or not streaming
             del made
             tok_s = B * st.n_tokens / st.decode_s
             line = printed.getvalue().strip().splitlines()[-1]
             print(f"phase 3: {name} ({kv} KV): prefill {st.prefill_s:.3f} s, decode "
                   f"{B}x{st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len "
-                  f"{st.kv_len}, weights {step_gb:.3f} GB per step, peak memory {peak:.2f} GiB, "
-                  f"launches {c}; printed: {line}")
+                  f"{st.kv_len}, valid slots per (layer, row, head) {held}, weights "
+                  f"{step_gb:.3f} GB per step, peak memory {peak:.2f} GiB, launches {c}; "
+                  f"printed: {line}")
             check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
             want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=n_k5 if kv == "int8" else 0,
                         K13=NEW + 1)
             if tree == "int4 arith fused":
-                want.update(K1=0, K14=NEW, K11=4 * L)           # prefill: K11 at M = 512
+                if B == 1:
+                    want.update(K1=0, K14=NEW, K11=4 * L)       # prefill: K11 at M = 512
+                else:
+                    want.update(K1=0, K15=NEW)                  # prefill M = 512 B: dense, plain
                 if streaming:
                     want.update({"K9": NEW, "K2 compact": NEW})
             elif tree == "int4 arith split" and B == 1:
@@ -1544,7 +1574,8 @@ def phase_quant(dev, cfg, params):
             check(c == want, f"{name}: launch counts {c}, expected {want}")
             kept = BUDGET if policy == "roco" else NEW
             ratio = f"KV cache budget ratio: {kept / NEW * 100:.2f}%({kept}/{NEW})"
-            check(st.kv_len - PROMPT == kept, f"{name} kept {st.kv_len - PROMPT} tokens")
+            check(st.kv_len - PROMPT == kept and held == (PROMPT + kept, PROMPT + kept),
+                  f"{name} kept {st.kv_len - PROMPT} tokens, slots {held}, not {kept}")
             check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
             check(ordered, f"{name}: the final cache is not age-ordered")
             runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak,
@@ -1558,20 +1589,26 @@ def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
     """The decode path over quantized trees of the phase's L=2 f32 weights
     (int4 arithmetic fused, int8 fused, int4 arithmetic split, int4 halves
     split), f32 KV cache, roco at budget 8, 32 new tokens: kernel path (K14
-    a step over the int4 arithmetic fused tree; K10 / K12 / K13 per product
-    over the others; K11 or a plain branch in the prefill) against the plain
-    path. Equal greedy tokens and final pos; the fused tree also with an
-    int8 KV cache, under the int8 rule (equal tokens, layer 0's pos equal,
-    int8 K/V within one step wherever the two caches hold the same
-    position)."""
+    a step over the int4 arithmetic fused tree at B=1, K15 at B=4; K10 /
+    K12 / K13 per product over the others; K11 or a plain branch in the
+    prefill) against the plain path. Equal greedy tokens and final pos; the
+    fused tree also with an int8 KV cache, under the int8 rule (equal
+    tokens, layer 0's pos equal, int8 K/V within one step wherever the two
+    caches hold the same position)."""
     trees = {"int4 arith fused": lambda: quant_mod.fuse_gemv_params(
                  quant_mod.quantize_params_int4(params, layout="arith")),
              "int8 fused": lambda: quant_mod.fuse_gemv_params(quant_mod.quantize_params(params)),
              "int4 arith split": lambda: quant_mod.quantize_params_int4(params, layout="arith"),
              "int4 halves split": lambda: quant_mod.quantize_params_int4(params)}
+    wide = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT),
+                         generator=torch.Generator().manual_seed(2), dtype=torch.int32).to(dev)
+    prompts = {1: (ids, plen), B_WIDE: (wide, torch.full((B_WIDE,), PROMPT, dtype=torch.int32,
+                                                          device=dev))}
     for tree, make in trees.items():
         qparams = make()
-        for quant in ((False, True) if tree == "int4 arith fused" else (False,)):
+        fused = tree == "int4 arith fused"
+        for B, quant in ([(1, False), (1, True), (B_WIDE, False), (B_WIDE, True)] if fused
+                         else [(1, False)]):
             st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=PROMPT, budget=8,
                                        max_new_tokens=32, recent_window_dec=int(8 * 0.3),
                                        kv_quant=quant)
@@ -1580,7 +1617,7 @@ def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
                 gen = torch.Generator(device=dev).manual_seed(0)
                 reset_counts()
                 with plain_kernels() if plain else contextlib.nullcontext():
-                    r, cache, _, _ = gen_mod._run_decoding(st, qparams, ids, plen, 1e-9, 1.0,
+                    r, cache, _, _ = gen_mod._run_decoding(st, qparams, *prompts[B], 1e-9, 1.0,
                                                            gen, torch.float32)
                 res[plain] = (r.out_ids.cpu(), cache.pos.cpu(), counts(), cache.k.cpu(),
                               cache.v.cpu())
@@ -1588,7 +1625,7 @@ def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
             pa, pb = res[False][1], res[True][1]
             pos_diff = [int((pa[l] != pb[l]).sum()) for l in range(pa.shape[0])]
             k_c = {k: v for k, v in res[False][2].items()
-                   if k in ("K10", "K11", "K12", "K13", "K14")}
+                   if k in ("K10", "K11", "K12", "K13", "K14", "K15")}
             kv = "int8" if quant else "f32"
             what = f"tokens equal {same_tok}, final pos differing per layer {pos_diff}"
             if quant:
@@ -1599,16 +1636,18 @@ def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
                 ok = same_tok and pos_diff[0] == 0 and step <= 1
             else:
                 ok = same_tok and sum(pos_diff) == 0
-            print(f"phase 4: full width L=2 f32 weights, {tree} tree, {kv} KV, roco b=8, "
+            print(f"phase 4: full width L=2 f32 weights, {tree} tree, B={B}, {kv} KV, roco b=8, "
                   f"32 tokens: {what}; quantized-kernel launches kernel path {k_c}, plain path "
                   f"total {sum(res[True][2].values())}")
-            check(ok, f"{tree} {kv} KV: kernel path and plain path disagree")
+            check(ok, f"{tree} B={B} {kv} KV: kernel path and plain path disagree")
             per_step = {"int8 fused": "K13", "int4 arith split": "K10",
-                        "int4 halves split": "K12", "int4 arith fused": "K14"}[tree]
+                        "int4 halves split": "K12",
+                        "int4 arith fused": "K14" if B == 1 else "K15"}[tree]
             check(k_c[per_step] > 0 and k_c["K13"] > 0 and sum(res[True][2].values()) == 0,
                   f"{tree}: launch counts")
-            if tree == "int4 arith fused":
-                check(k_c["K14"] == 32 and k_c["K10"] == 0, f"{tree}: K14 / K10 launches {k_c}")
+            if fused:
+                check(k_c[per_step] == 32 and k_c["K14" if B > 1 else "K15"] == 0
+                      and k_c["K10"] == 0, f"{tree} B={B}: K14 / K15 / K10 launches {k_c}")
         del qparams
 
 
@@ -1718,48 +1757,41 @@ K14_META = ("fused_decode_step", "easykv_tpu_torch/csrc/fused_decode.cu",
 K14_RUNS = {"int8": "int4 arith fused roco", "bf16": "int4 arith fused roco bf16 KV"}
 
 
-def k14_limit(ref):
-    """Limit on |K14 - plain| for each output: 1e-3 of the output's largest
-    |value| (the JAX package's bar for this feed against its scan: the
-    two-plane feed rounds each product input, so a one-ulp difference
-    before the rounding moves the input by a step of the feed,
-    max|X_g| / 127^2), plus one bf16 ulp of the value for the bf16 outputs
-    (h, kn, vn), whose two f32 values may round to adjacent bf16 values."""
-    lim = 1e-3 * ref.float().abs().max()
-    if ref.dtype == torch.bfloat16:
-        lim = lim + 2**-7 * ref.float().abs()
-    return lim
-
-
-def k14_tree(dev, L, seed):
-    """(config, the fused arithmetic-int4 tree) at LLaMa-2-7B width with L
-    layers, quantized on the card from bf16 weights drawn from `seed`."""
-    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=L)
-    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device=dev)
+def step_tree(dev, L, seed, base=LLAMA2_7B, dtype=torch.bfloat16):
+    """(config, the fused arithmetic-int4 tree) at the widths of `base`
+    (LLaMa-2-7B) with L layers, quantized on the card from `dtype` weights
+    drawn from `seed`."""
+    cfg = dataclasses.replace(base, num_hidden_layers=L)
+    params = init_params(cfg, seed=seed, dtype=dtype, device=dev)
     tree = quant_mod.fuse_gemv_params(quant_mod.quantize_params_int4(params, layout="arith"))
     del params
     torch.cuda.empty_cache()
     return cfg, tree
 
 
-def k14_case(dev, cfg, kv, rope, scattered, seed):
-    """K14's arguments at the main path's cache (S = 768, the prompt and
-    200 generated tokens with holes; with `scattered` a fifth of the other
-    slots dead too), the token at position 895 (rope_pos 712 with `rope`)."""
+def step_case(dev, cfg, B, kv, rope, seed, holes=False, dead_row=False):
+    """A one-kernel step's arguments (K14 at B=1, K15) at the main path's
+    cache (S = 768, the prompt and 200 generated tokens with holes) for B
+    rows at positions 895 - 3 b (rope_pos 712 - b with `rope`); with
+    `holes` a fifth of the other slots dead too, with `dead_row` row 1 dead
+    (q_pos -1)."""
     L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(seed)
-    pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed), dev)
-    if scattered:
+    pos = slot_positions(L, B, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed), dev)
+    if holes:
         pos[torch.rand(pos.shape, generator=g, device=dev) < 0.2] = -1
-    k, v = (torch.randn((L, 1, H, S, D), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((L, B, H, S, D), generator=g, device=dev).to(torch.bfloat16)
             for _ in range(2))
     scales = ()
     if kv == "int8":
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
         scales = (ks, vs)
-    h0 = (torch.randn((1, cfg.hidden_size), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-    q_pos = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
-    rope_pos = torch.tensor([PROMPT + BUDGET], dtype=torch.int32, device=dev) if rope else None
+    h0 = (torch.randn((B, cfg.hidden_size), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    q_pos = (PROMPT + NEW - 1 - 3 * rows).to(torch.int32)
+    if dead_row:
+        q_pos[1] = -1
+    rope_pos = (PROMPT + BUDGET - rows).to(torch.int32) if rope else None
     return (k, v, pos, h0, q_pos, *scales), rope_pos
 
 
@@ -1768,89 +1800,50 @@ def phase_k14(dev):
     32 heads, S=768), L=2, bf16 activations: bf16 and int8 KV, RoPE at
     q_pos and at rope_pos, the main path's holes and scattered dead slots;
     every output within k14_limit. The `kernels` record's max_abs_err comes
-    from k14_check at L=32, the main path's depth."""
-    cfg, tree = k14_tree(dev, 2, 7)
+    from step_check at L=32, the main path's depth."""
+    cfg, tree = step_tree(dev, 2, 7)
     for kv in ("bf16", "int8"):
         for rope, scattered in ((False, False), (True, False), (True, True)):
-            args, rope_pos = k14_case(dev, cfg, kv, rope, scattered, 700 + rope + 2 * scattered)
+            args, rope_pos = step_case(dev, cfg, 1, kv, rope, 700 + rope + 2 * scattered,
+                                        holes=scattered)
             what = (f"{kv} KV, L=2, RoPE at {'rope_pos' if rope else 'q_pos'}"
                     + (", scattered dead slots" if scattered else ""))
-            k14_check("phase 2", what, tree.layers, cfg, args, rope_pos)
+            step_check("phase 2", what, tree.layers, cfg, args, rope_pos)
     del tree
     torch.cuda.empty_cache()
 
 
-K14_OUTPUTS = ("h", "kn", "vn", "probs", "p_new")
-
-
-def k14_shares(got, ref, spread=None):
-    """(worst share of its limit over the outputs, max |err|, one text per
-    output) of `got` against the plain version's `ref`: k14_limit, or,
-    given `spread` (k14_ulp_spread), the larger of k14_limit and twice the
-    output's one-ulp spread."""
-    line, worst, err = [], 0.0, 0.0
-    for name, a, b in zip(K14_OUTPUTS, got, ref):
-        e = (a.float() - b.float()).abs()
-        lim = k14_limit(b)
-        if spread is not None:
-            lim = torch.clamp(lim, min=2 * spread[name])
-        ratio = (e / lim).max().item()
-        worst, err = max(worst, ratio), max(err, e.max().item())
-        line.append(f"{name} {e.max().item():.3e} ({ratio:.2f}"
-                    + ("" if spread is None else f"; one-ulp spread {spread[name]:.3e}") + ")")
-    return worst, err, line
-
-
-def k14_check(phase, what, layers, cfg, args, rope_pos=None, spread=None):
-    """K14 and its plain version once each on the same arguments: every
-    output finite, of the plain version's dtype and shape, and within its
-    limit (k14_shares). Prints each output's max |err| and its share of
-    the limit; returns (max |err| over the outputs, the plain outputs)."""
-    got = k14(layers, cfg, *args, rope_pos=rope_pos)
-    ref = k14_plain(layers, cfg, *args, rope_pos=rope_pos)
+def step_check(phase, what, layers, cfg, args, rope_pos=None, spread=None, key="K14"):
+    """The step kernel `key` (K14, or K15) and its plain version once each on
+    the same arguments: every output finite, of the plain version's dtype
+    and shape, and within its limit (step_shares). Prints each output's max
+    |err| and its share of the limit; returns (max |err| over the outputs,
+    the plain outputs)."""
+    kernel, plain = {"K14": (k14, k14_plain), "K15": (k15, k15_plain)}[key]
+    got = kernel(layers, cfg, *args, rope_pos=rope_pos)
+    ref = plain(layers, cfg, *args, rope_pos=rope_pos)
     torch.cuda.synchronize()
-    for name, a, b in zip(K14_OUTPUTS, got, ref):
+    for name, a, b in zip(STEP_OUTPUTS, got, ref):
         check(a.dtype == b.dtype and a.shape == b.shape
-              and bool(torch.isfinite(a.float()).all()), f"K14 {what} {name}: bad output")
-    worst, err, line = k14_shares(got, ref, spread)
-    print(f"{phase}: K14 {what}: max|err| (share of its limit) " + ", ".join(line))
-    check(worst <= 1, f"K14 {what}: {worst:.3f} of its limit")
+              and bool(torch.isfinite(a.float()).all()), f"{key} {what} {name}: bad output")
+    worst, err, line = step_shares(got, ref, spread,
+                                   "one-ulp spread" if key == "K14" else "reorder spread")
+    print(f"{phase}: {key} {what}: max|err| (share of its limit) " + ", ".join(line))
+    check(worst <= 1, f"{key} {what}: {worst:.3f} of its limit")
     return err, ref
 
 
 def k14_bf16_control(phase, what, layers, cfg, args, ref, spread):
-    """The bar of k14_check must catch a wrong function: the plain K14 with
+    """The bar of step_check must catch a wrong function: the plain K14 with
     each product's output rounded to bf16 (what the per-layer scan does in
     bf16) must miss it."""
     real = k14_fd._product
     with mock.patch.object(k14_fd, "_product",
                            lambda x, w: real(x, w).to(torch.bfloat16).float()):
         bad = k14_plain(layers, cfg, *args)
-    worst, _, line = k14_shares(bad, ref, spread)
+    worst, _, line = step_shares(bad, ref, spread)
     print(f"{phase}: K14 {what}, control (bf16-rounded products): " + ", ".join(line))
     check(worst > 1, f"K14 {what}: bf16-rounded products within the bar ({worst:.3f})")
-
-
-def k14_ulp_spread(layers, cfg, args, draws=4):
-    """How far the plain K14's outputs move when its input h0, taken to
-    f32, moves by one f32 ulp in a seeded half of its elements: the
-    largest |move| of each output over `draws` draws. The kernel adds in
-    other orders than its plain version, so the two differ by ulps before
-    every rounding of the two-plane feed, and at depth by what those
-    roundings make of them through the layers: this is the function's own
-    spread under such noise, measured on the same arguments."""
-    k, v, pos, h0, q_pos, *scales = args
-    x = h0.float()
-    base = k14_plain(layers, cfg, k, v, pos, x, q_pos, *scales)
-    spread = dict.fromkeys(K14_OUTPUTS, 0.0)
-    for draw in range(draws):
-        g = torch.Generator(device=x.device).manual_seed(draw)
-        up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
-        x1 = torch.where(up, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
-        moved = k14_plain(layers, cfg, k, v, pos, x1, q_pos, *scales)
-        for name, a, b in zip(K14_OUTPUTS, moved, base):
-            spread[name] = max(spread[name], (a - b).abs().max().item())
-    return spread
 
 
 def event_ms(fn, arg_sets, reps):
@@ -1870,8 +1863,9 @@ def event_ms(fn, arg_sets, reps):
     return start.elapsed_time(end) / reps
 
 
-def k14_times(dev):
-    """K14 at the main path's step: LLaMa-2-7B width, L=32, S=768, the
+def k14_times(dev, cfg, tree):
+    """K14 at the main path's step: LLaMa-2-7B width, L=32 (cfg, tree:
+    step_tree's), S=768, the
     prompt and 200 generated tokens visible, bf16 and int8 KV. The weights
     (3.3 GB) and the K/V (0.2-0.4 GB) far exceed the 50 MB L2, so every call
     finds them cold. Bound: the bytes one step reads once (every layer's
@@ -1879,27 +1873,24 @@ def k14_times(dev):
     their int8 scales; pos) and writes once (probs, kn, vn, p_new, h) at
     3.35 TB/s; its operations (~3 integer operations a weight byte on the
     CUDA cores) take less. library_ms: None, no PyTorch call computes a
-    decode step. Before the timing, k14_check holds K14 to its plain
+    decode step. Before the timing, step_check holds K14 to its plain
     version on these arguments, each output within the larger of phase 2's
     limit and twice its one-ulp spread (k14_ulp_spread): the f32 residual
     carries the feed's roundings through 32 layers, and p_new read 1.12 of
     phase 2's fixed limit at this depth (PERF.md section 2). Its max |err|
     is the record's max_abs_err; the plain version with bf16-rounded
     products must miss that bar."""
-    cfg, tree = k14_tree(dev, 32, 0)
     L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
-    wbytes = sum(t.numel() * t.element_size() for p in tree.layers
-                 for t in [getattr(p, n)[k] for n in ("wqkv", "wo", "wgu", "wd")
-                           for k in ("q4a", "gs3")] + [p.ln_attn, p.ln_mlp])
+    wbytes = step_tree_bytes(tree)
     out = {}
     for kv in ("bf16", "int8"):
-        args, _ = k14_case(dev, cfg, kv, False, False, 800)
+        args, _ = step_case(dev, cfg, 1, kv, False, 800)
         visible = int(((args[2] >= 0) & (args[2] <= args[4])).sum())
         row = D * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
         kv_bytes = 2 * visible * row + L * H * S * 4                 # K, V rows; pos
         out_bytes = L * H * S * 4 + 2 * L * H * D * 2 + L * H * 4 + cfg.hidden_size * 2
         what, spread = f"{kv} KV, L={L}, RoPE at q_pos", k14_ulp_spread(tree.layers, cfg, args)
-        err, ref = k14_check("phase 5", what, tree.layers, cfg, args, spread=spread)
+        err, ref = step_check("phase 5", what, tree.layers, cfg, args, spread=spread)
         k14_bf16_control("phase 5", what, tree.layers, cfg, args, ref, spread)
         del ref
         ms = event_ms(lambda *a: k14(tree.layers, cfg, *a), [args], 20)
@@ -1909,9 +1900,16 @@ def k14_times(dev):
                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                        weight_gb=wbytes / 1e9, kv_gb=kv_bytes / 1e9)
         del args
-    del tree
     torch.cuda.empty_cache()
     return out
+
+
+def step_tree_bytes(tree):
+    """Bytes of a fused arithmetic-int4 tree that one step reads: every
+    layer's carriers, scale pairs and norm weights."""
+    return sum(t.numel() * t.element_size() for p in tree.layers
+               for t in [getattr(p, n)[k] for n in ("wqkv", "wo", "wgu", "wd")
+                         for k in ("q4a", "gs3")] + [p.ln_attn, p.ln_mlp])
 
 
 def k14_records(ktimes, runs):
@@ -1922,6 +1920,172 @@ def k14_records(ktimes, runs):
         launches = runs[run]["counts"]["K14"]
         label = f"{kname} ({kv} KV, L=32, S={S_MAIN})"
         print(f"phase 5: K14 {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library none, bound {t['bound_ms'] * 1e3:.2f} us (bytes: weights "
+              f"{t['weight_gb']:.3f} GB, K/V and pos {t['kv_gb']:.3f} GB), {launches / NEW:g} "
+              f"launches/step in the {run} run")
+        records.append({"name": label, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return records
+
+
+# ---------------------------------------------------------------------------
+# K15: the batched one-kernel decode step over the fused arithmetic-int4 tree
+# ---------------------------------------------------------------------------
+
+K15_META = ("fused_decode_step_batch", "easykv_tpu_torch/csrc/fused_decode_batch.cu",
+            "easykv_tpu/ops/pallas/fused_decode_batch.py:73")
+K15_RUNS = {(B_WIDE, "int8"): "int4 arith fused roco B=4",
+            (B_WIDE, "bf16"): "int4 arith fused roco B=4 bf16 KV",
+            (B_MAX, "int8"): "int4 arith fused roco B=16",
+            (B_MAX, "bf16"): "int4 arith fused roco B=16 bf16 KV"}
+# Mistral-7B's published widths (GQA: 32 query heads, 8 KV heads, F 14336), with
+# a sliding window of 512 slots, shorter than the 712 the main path's cache
+# holds visible (Mistral's own window, 4096, would hide none of them)
+MISTRAL_7B = dataclasses.replace(LLAMA2_7B, intermediate_size=14336, num_key_value_heads=8,
+                                 sliding_window=512)
+
+
+def k15_feed_check(phase, what, layers, cfg, args, rope_pos=None):
+    """K15 rounds each product's input to bf16 as its plain version does:
+    at least 99.9% of layer 0's kn and vn bit-equal to the plain version's,
+    where the plain version with an f32 feed (the rounding left out) must
+    stay under 90% (it reads ~55%)."""
+    share = k15_feed_share(layers, cfg, args, rope_pos)
+    control = k15_feed_share(layers, cfg, args, rope_pos, torch.float32)
+    print(f"{phase}: K15 {what}: layer 0's kn / vn bit-equal to the plain version's: "
+          f"{share[0]:.4f} / {share[1]:.4f}; control (an f32 feed): {control[0]:.4f} / "
+          f"{control[1]:.4f}")
+    check(min(share) >= 0.999 and max(control) < 0.9,
+          f"K15 {what}: layer 0's rows {share}, the f32-feed control {control}")
+
+
+def phase_k15(dev):
+    """K15 against its plain version at 7B widths, L=2, S=768, bf16
+    activations, the main path's holes plus a fifth of the other slots dead,
+    row 1 dead (q_pos -1): LLaMa-2-7B (MHA) at B=4 and 16 and Mistral-7B's
+    widths (GQA) at B=8 with a 512-slot sliding window, bf16 and int8 KV,
+    RoPE at q_pos and at rope_pos. Every output within the larger of
+    k14_limit and twice the plain version's reorder spread (k15_spread); the
+    dead row's probabilities all 0; the feed rounded as the plain version
+    rounds it (k15_feed_check)."""
+    for base, Bs in ((LLAMA2_7B, (B_WIDE, B_MAX)), (MISTRAL_7B, (8,))):
+        cfg, tree = step_tree(dev, 2, 7, base)
+        model = "LLaMa-2-7B" if base is LLAMA2_7B else "Mistral-7B widths, window 512"
+        for B in Bs:
+            for kv in ("bf16", "int8"):
+                for rope in (False, True):
+                    args, rope_pos = step_case(dev, cfg, B, kv, rope, 900 + B + 2 * rope,
+                                              holes=True, dead_row=True)
+                    what = (f"{model}, B={B}, {kv} KV, L=2, RoPE at "
+                            f"{'rope_pos' if rope else 'q_pos'}, holes, row 1 dead")
+                    spread = k15_spread(tree.layers, cfg, args, rope_pos)
+                    _, ref = step_check("phase 2", what, tree.layers, cfg, args, rope_pos,
+                                        spread, key="K15")
+                    check(not ref[3][:, 1].any() and not ref[4][:, 1].any(),
+                          f"K15 {what}: the dead row has probabilities")
+                    k15_feed_check("phase 2", what, tree.layers, cfg, args, rope_pos)
+        del tree
+        torch.cuda.empty_cache()
+
+
+def k15_rounded_residual(layers, cfg, args, dt):
+    """The known-wrong control: the plain K15 one layer at a time, its
+    residual h rounded to dt between the layers (the per-layer scan's
+    rounding, which K15 does not do). Returns the step's five outputs."""
+    k, v, pos, h, q_pos, *scales = args
+    outs = []
+    for l in range(len(layers)):
+        one = lambda t: t[l:l + 1]  # noqa: E731
+        o = k15_plain(layers[l:l + 1], cfg, one(k), one(v), one(pos), h, q_pos,
+                      *(one(t) for t in scales))
+        h = o[0].to(dt).to(h.dtype)
+        outs.append(o)
+    return (outs[-1][0],) + tuple(torch.cat([o[i] for o in outs]) for i in range(1, 5))
+
+
+def k15_times(dev, cfg, tree):
+    """K15 at the main path's step: LLaMa-2-7B width, L=32 (cfg, tree:
+    step_tree's), S=768, the prompt and 200 generated tokens visible in every
+    row, B=4 and 16, bf16 and int8 KV. Bound: the bytes one step reads once
+    (every layer's carriers, scale pairs and norms; every row's visible K/V
+    rows with their int8 scales; pos) and writes once (probs, kn, vn, p_new,
+    h) at 3.35 TB/s; its operations (3 B multiply-adds a carrier byte on the
+    tensor cores) take less. library_ms: None, no PyTorch call computes a
+    decode step. Before the timing, step_check holds K15 to its plain version
+    within the larger of phase 2's limit and twice its reorder spread
+    (k15_spread); its max |err| is the record's max_abs_err. No known-wrong
+    control separates from K15 at this depth in bf16 (the residual rounded
+    between the layers reads within ~1.6x of K15 itself, PERF.md section
+    2): k15_control holds the same bar where one does."""
+    L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
+    wbytes = step_tree_bytes(tree)
+    out = {}
+    for B in (B_WIDE, B_MAX):
+        for kv in ("bf16", "int8"):
+            args, _ = step_case(dev, cfg, B, kv, False, 800)
+            pos, q_pos = args[2], args[4]
+            visible = int(((pos >= 0) & (pos <= q_pos[None, :, None, None])).sum())
+            row = D * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+            kv_bytes = 2 * visible * row + L * B * H * S * 4               # K, V rows; pos
+            out_bytes = (L * B * H * S * 4 + 2 * L * B * H * D * 2 + L * B * H * 4
+                         + B * cfg.hidden_size * 2)
+            what = f"B={B}, {kv} KV, L={L}, RoPE at q_pos"
+            spread = k15_spread(tree.layers, cfg, args, draws=2)
+            err, _ = step_check("phase 5", what, tree.layers, cfg, args, spread=spread,
+                                key="K15")
+            ms = event_ms(lambda *a: k15(tree.layers, cfg, *a), [args], 20)
+            plain = event_ms(lambda *a: k15_plain(tree.layers, cfg, *a), [args], 2)
+            nbytes = wbytes + kv_bytes + out_bytes
+            out[(B, kv)] = dict(ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes,
+                                max_abs_err=err, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                                bound_by="bytes", weight_gb=wbytes / 1e9, kv_gb=kv_bytes / 1e9)
+            del args
+            torch.cuda.empty_cache()
+    return out
+
+
+def k15_control(dev):
+    """The bar that catches the per-layer rounding K15 must not do: with f32
+    activations nothing in K15 rounds (an int8 cache is read as its f32
+    values times their scales), so the kernel and its plain version agree to
+    f32 sums at LLaMa-2-7B width, L=32, B=4 and 16, with an f32 and with an
+    int8 KV cache, while the plain version with its residual rounded to
+    bf16 between the layers (k15_rounded_residual) must miss the same bar
+    (k14_limit, with twice the reorder spread) in every case."""
+    cfg, tree = step_tree(dev, 32, 5, dtype=torch.float32)
+    for B in (B_WIDE, B_MAX):
+        for kv in ("f32", "int8"):
+            args, _ = step_case(dev, cfg, B, "int8" if kv == "int8" else "bf16", False, 801)
+            k, v, pos, h0, q_pos, *scales = args
+            if kv == "f32":
+                k, v = k.float(), v.float()
+            args = (k, v, pos, h0.float(), q_pos, *scales)
+            what = f"B={B}, f32 activations, {kv} KV, L=32"
+            spread = k15_spread(tree.layers, cfg, args, draws=2)
+            _, ref = step_check("phase 5", what, tree.layers, cfg, args, spread=spread,
+                                key="K15")
+            bad = k15_rounded_residual(tree.layers, cfg, args, torch.bfloat16)
+            worst, _, line = step_shares(bad, ref, spread, "reorder spread")
+            print(f"phase 5: K15 {what}, control (residual rounded to bf16 between the layers): "
+                  + ", ".join(line))
+            check(worst > 1,
+                  f"K15 {what}: the per-layer rounded residual within the bar ({worst:.3f})")
+            del args, k, v, scales, ref, bad
+            torch.cuda.empty_cache()
+    del tree
+    torch.cuda.empty_cache()
+
+
+def k15_records(ktimes, runs):
+    records = []
+    kname, src, repl = K15_META
+    for (B, kv), t in ktimes.items():
+        run = K15_RUNS[(B, kv)]
+        launches = runs[run]["counts"]["K15"]
+        label = f"{kname} (B={B}, {kv} KV, L=32, S={S_MAIN})"
+        print(f"phase 5: K15 {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library none, bound {t['bound_ms'] * 1e3:.2f} us (bytes: weights "
               f"{t['weight_gb']:.3f} GB, K/V and pos {t['kv_gb']:.3f} GB), {launches / NEW:g} "
               f"launches/step in the {run} run")
@@ -1954,11 +2118,17 @@ def main():
     errs = phase_kernels(dev)
     errs.update(phase_quant_kernels(dev))
     phase_k14(dev)
+    phase_k15(dev)
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
     qtimes = quant_times(dev)
-    ktimes = k14_times(dev)
+    cfg32, tree32 = step_tree(dev, 32, 0)
+    ktimes = k14_times(dev, cfg32, tree32)
+    btimes = k15_times(dev, cfg32, tree32)
+    del tree32
+    torch.cuda.empty_cache()
+    k15_control(dev)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
@@ -2004,6 +2174,7 @@ def main():
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kernels += quant_records(qtimes, errs, runs)
     kernels += k14_records(ktimes, runs)
+    kernels += k15_records(btimes, runs)
     print("phase 5: K5 launches in the encoding family's runs: " + ", ".join(
         f"{run} {r['counts']['K5']}" for run, r in runs.items()
         if "encod" in run or "ppl" in run))

@@ -45,10 +45,10 @@
 //   * each block that holds an item rebuilds the product's input (RMSNorm
 //     of h, the attention output, or SwiGLU of gate|up) and its int8 planes in shared
 //     memory, so the prep costs no barrier;
-//   * attention splits each KV head's slots into C chunks (C = blocks /
-//     KV heads, at most 8: 4 at 7B on 132 SMs), one block a chunk, the K1
-//     design within it (decode_common.cuh: rows of visible slots read once
-//     with 16-byte loads, f32 logits in shared memory): each chunk writes
+//   * attention (fused_step.cuh, shared with K15) splits each KV head's
+//     slots into C chunks (C = blocks / KV heads, at most 8: 4 at 7B on 132
+//     SMs), one block a chunk, the K1 design within it (rows of visible
+//     slots read once with 16-byte loads, f32 logits in shared memory): each chunk writes
 //     its max, its exp(logit - max) and their sum, and its unnormalised PV;
 //     the next phase combines the chunks (out = sum_c e^(m_c - M) PV_c /
 //     denom + p_new vn) and rescales the probabilities to the row's max. The
@@ -65,54 +65,18 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <type_traits>
-
-#include "decode_common.cuh"
+#include "fused_step.cuh"
 
 namespace cg = cooperative_groups;
-
-// Phase clock (tools/torch_k14_phases.py builds this file with
-// -DK14_STAMPS): block 0 reads the card's nanosecond clock once before the
-// layers (after a barrier) and once after each phase's barrier, 9 a layer,
-// 1 + 9 L reads in all; fused_decode_stamps copies them out. Without the
-// flag STAMP_BEGIN, STAMP and STAMP_END compile to nothing.
-#ifdef K14_STAMPS
-constexpr int kMaxStamps = 8192;
-__device__ unsigned long long g_stamps[kMaxStamps];
-__device__ int g_stamp_n;
-__device__ __forceinline__ void stamp(int& n) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    if (n < kMaxStamps) g_stamps[n] = t;
-  }
-  ++n;
-}
-#define STAMP_BEGIN() \
-  int stamp_n = 0;    \
-  grid.sync();        \
-  stamp(stamp_n)
-#define STAMP() stamp(stamp_n)
-#define STAMP_END() \
-  if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp_n = stamp_n
-#else
-#define STAMP_BEGIN() ((void)0)
-#define STAMP() ((void)0)
-#define STAMP_END() ((void)0)
-#endif
 
 namespace {
 
 using namespace decode_common;
+using namespace fused_step;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 4;              // columns of a lane in a product tile
 constexpr int kTN = 32 * kCols;       // columns of a tile
 constexpr int kQuads = 4;             // 4-row quads a lane loads before it multiplies
-constexpr int kUnroll = 4;            // attention: K/V rows a lane loads at a time
-constexpr int kPtrs = 10;             // per-layer pointers in the layer table
 constexpr float kR127 = (float)(1.0 / 127.0);
 
 struct Args {
@@ -136,20 +100,9 @@ struct Args {
   float eps, scale;
 };
 
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
-  return decode_common::block_reduce<kMax, kWarps>(x, red);
-}
-
 // ---------------------------------------------------------------------------
 // products: input rows -> two int8 planes per group -> integer dots
 // ---------------------------------------------------------------------------
-
-struct Product {
-  const int8_t* p;              // (kh, N) carrier
-  const __nv_bfloat16* gs3;     // (2 gch, N) [gs_hi; gs_lo] / 16
-  int kh, N, gch;
-};
 
 __host__ __device__ inline int group_pad(int G) { return (G + 4 * kQuads - 1) / (4 * kQuads) * (4 * kQuads); }
 __host__ __device__ inline int tiles_of(int N) { return (N + kTN - 1) / kTN; }
@@ -213,15 +166,6 @@ __device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
   col[1] = __byte_perm(t0, t1, 0x7632);
   col[2] = __byte_perm(t2, t3, 0x5410);
   col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// One 4-byte row segment (the lane's columns), or byte loads at the ragged
-// edge (zeros past `valid`).
-__device__ __forceinline__ uint32_t load_seg(const int8_t* p, bool vec_ok, int valid) {
-  if (vec_ok) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  uint32_t word = 0;
-  for (int b = 0; b < valid; ++b) word |= (uint32_t)(uint8_t)p[b] << (8 * b);
-  return word;
 }
 
 // Rows r .. r + 4 kQuads of a group (zeros past its G rows).
@@ -407,275 +351,8 @@ __device__ float rms_scale(const float* ssq, int nb, const T* h0, int D, float e
 }
 
 // ---------------------------------------------------------------------------
-// attention: each KV head's slots split into C chunks, one block a chunk
-// (the K1 design within a chunk), combined where the O product reads them
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxChunks = 8;
-
-// The attention part of the workspace.
-struct AttnWs {
-  float* pe;      // (Hq, S): exp(logit - the chunk's max), 0 at masked slots
-  float* stats;   // (Hkv, C, rep, 2): the chunk's max and sum of pe
-  float* ov;      // (Hkv, C, rep, Dh): sum over the chunk of pe * v_scale * V
-  float* lnew;    // (Hq): the in-flight logit (-1e30 for a dead row)
-  float* vn;      // (Hkv, Dh): the in-flight V row, f32
-};
-
-__device__ __forceinline__ int chunks_of(int Hkv) {
-  const int c = (int)gridDim.x / Hkv;
-  return c < 1 ? 1 : (c > kMaxChunks ? kMaxChunks : c);
-}
-
-// One chunk of one KV head: q, K and V summed from the QKV partials
-// (qkv_part (gq, Nq)), RoPE, the chunk's logits, its max, exp and sum, and
-// its unnormalised PV; chunk 0 also emits the rotated K row and the V row.
-template <typename T, typename KV>
-__device__ __noinline__ void attend_chunk(const Args& a, int l, int head, int c, int C,
-                                          const float* qkv_part, const AttnWs& w, float* smem) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  constexpr int V = VecOf<KV>::n;
-  const int Dh = a.Dh, S = a.S, Hkv = a.Hkv, rep = a.Hq / a.Hkv, d2 = Dh / 2;
-  const int LPR = Dh / V, G = kThreads / LPR;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int clen = (S + C - 1) / C, s0 = c * clen;
-  const int n = S - s0 < clen ? (S - s0 > 0 ? S - s0 : 0) : clen;   // the chunk's slots
-  float* qs = smem;               // rep * Dh, rotated
-  float* lg = qs + rep * Dh;      // rep * clen: logits, then exp
-  float* lnew = lg + rep * clen;  // rep
-  float* red = lnew + rep;        // kWarps
-  float* pv = red + kWarps;       // G * Dh: PV partial sums
-  float* cs = pv + G * Dh;        // Dh / 2
-  float* sn = cs + d2;            // Dh / 2
-  float* knr = sn + d2;           // Dh: the new K row, rotated
-  float* vnr = knr + Dh;          // Dh
-  float* raw = vnr + Dh;          // (rep + 2) * Dh: the head's q rows, K, V before RoPE
-
-  const size_t row0 = ((size_t)l * Hkv + head) * S;
-  const KV* kb = static_cast<const KV*>(a.k) + row0 * Dh;
-  const KV* vb = static_cast<const KV*>(a.v) + row0 * Dh;
-  const int* pb = a.pos + row0;
-  const int qp = a.q_pos[0];
-  const bool live = qp >= 0;
-  const int rp = a.rope_pos != nullptr ? a.rope_pos[0] : qp;
-  for (int i = tid; i < d2; i += kThreads) {
-    const float ang = (float)max(rp, 0) * a.inv_freq[i];
-    cs[i] = cosf(ang);
-    sn[i] = sinf(ang);
-  }
-  const int nq = a.Hq * Dh, Nq = nq + 2 * Hkv * Dh;
-  for (int i = tid; i < (rep + 2) * Dh; i += kThreads) {
-    const int m = i < rep * Dh ? head * rep * Dh + i
-                  : i < (rep + 1) * Dh ? nq + head * Dh + i - rep * Dh
-                                       : nq + (Hkv + head) * Dh + i - (rep + 1) * Dh;
-    raw[i] = group_sum(qkv_part, a.gq, Nq, m);
-  }
-  __syncthreads();
-  for (int i = tid; i < (rep + 1) * Dh; i += kThreads) {   // q rows, then K
-    const int r = i / Dh, d = i % Dh;
-    const float x1 = raw[r * Dh + d % d2], x2 = raw[r * Dh + d2 + d % d2];
-    const float y = d < d2 ? x1 * cs[d] - x2 * sn[d] : x2 * cs[d - d2] + x1 * sn[d - d2];
-    if (r < rep) qs[i] = y; else knr[d] = y;
-  }
-  for (int d = tid; d < Dh; d += kThreads) vnr[d] = raw[(rep + 1) * Dh + d];
-  __syncthreads();
-
-  for (int r = warp; r < rep; r += kWarps) {
-    float acc = 0.f;
-    for (int d = lane; d < Dh; d += 32) acc += qs[r * Dh + d] * knr[d];
-    acc = warp_sum(acc);
-    if (lane == 0) lnew[r] = live ? acc * a.scale : kNegInf;
-  }
-
-  {
-    const int rpw = 32 / LPR;
-    const int sub = lane / LPR, li = lane % LPR;
-    const int step = kWarps * rpw * kUnroll;
-    for (int base = warp * rpw * kUnroll; base < n; base += step) {
-      float kr[kUnroll][V];
-      bool vis[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + base + u * rpw + sub;
-        const int p = base + u * rpw + sub < n ? pb[s] : -1;
-        vis[u] = p >= 0 && p <= qp && (a.window <= 0 || p > qp - a.window);
-        if (vis[u]) {
-          load16(kb + (size_t)s * Dh + li * V, kr[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) kr[u][j] = 0.f;
-        }
-      }
-      for (int r = 0; r < rep; ++r) {
-        const float* qr = qs + r * Dh + li * V;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float acc = 0.f;
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc += qr[j] * kr[u][j];
-          for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-          const int i = base + u * rpw + sub;
-          if (li == 0 && i < n) {
-            float x = acc * a.scale;
-            if (kQuant) x *= a.ksc[row0 + s0 + i];
-            lg[r * clen + i] = vis[u] ? x : -INFINITY;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // per query row: the chunk's max m, e = exp(logit - m) (0 where masked), sum e
-  float* stats = w.stats + ((size_t)(head * C + c) * rep) * 2;
-  for (int r = 0; r < rep; ++r) {
-    float* lr = lg + r * clen;
-    float m = kNegInf;
-    for (int i = tid; i < n; i += kThreads) m = fmaxf(m, lr[i]);
-    m = block_reduce<true>(m, red);
-    float sum = 0.f;
-    float* pe = w.pe + (size_t)(head * rep + r) * S + s0;
-    for (int i = tid; i < n; i += kThreads) {
-      const float e = lr[i] == -INFINITY ? 0.f : expf(lr[i] - m);
-      lr[i] = e;
-      pe[i] = e;
-      sum += e;
-    }
-    sum = block_reduce<false>(sum, red);
-    if (tid == 0) {
-      stats[2 * r] = m;
-      stats[2 * r + 1] = sum;
-    }
-  }
-  if (c == 0) {
-    T* kn = static_cast<T*>(a.kn) + ((size_t)l * Hkv + head) * Dh;
-    T* vn = static_cast<T*>(a.vn) + ((size_t)l * Hkv + head) * Dh;
-    for (int d = tid; d < Dh; d += kThreads) {
-      kn[d] = from_f<T>(knr[d]);
-      vn[d] = from_f<T>(vnr[d]);
-      w.vn[(size_t)head * Dh + d] = vnr[d];
-    }
-    for (int r = tid; r < rep; r += kThreads) w.lnew[head * rep + r] = lnew[r];
-  }
-  __syncthreads();
-
-  // ov[r] = sum over the chunk of (e * v_scale) V, f32
-  const int li = tid % LPR, g = tid / LPR;
-  for (int r = 0; r < rep; ++r) {
-    const float* pr = lg + r * clen;
-    float acc[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int base = g; base < n; base += G * kUnroll) {
-      float vr[kUnroll][V];
-      float wt[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * G;
-        wt[u] = i < n ? pr[i] : 0.f;
-        if (wt[u] != 0.f) {
-          if (kQuant) wt[u] *= a.vsc[row0 + s0 + i];
-          load16(vb + (size_t)(s0 + i) * Dh + li * V, vr[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) vr[u][j] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] += wt[u] * vr[u][j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) pv[g * Dh + li * V + j] = acc[j];
-    __syncthreads();
-    float* ov = w.ov + ((size_t)(head * C + c) * rep + r) * Dh;
-    for (int d = tid; d < Dh; d += kThreads) {
-      float o = 0.f;
-      for (int j = 0; j < G; ++j) o += pv[j * Dh + d];
-      ov[d] = o;
-    }
-    __syncthreads();
-  }
-}
-
-// Query row hr (= head * rep + r) over all chunks: the max M over the
-// chunks and the in-flight logit, the softmax denominator, and the
-// in-flight token's exp, from the chunk statistics (other blocks wrote
-// them: read through L2).
-__device__ __forceinline__ void row_stats(const AttnWs& w, int hr, int rep, int C, bool live,
-                                          float* M, float* denom, float* e_new) {
-  const int head = hr / rep, r = hr % rep;
-  const float ln = __ldcg(w.lnew + hr);
-  float m = ln;
-  for (int c = 0; c < C; ++c) m = fmaxf(m, __ldcg(w.stats + ((size_t)(head * C + c) * rep + r) * 2));
-  float sum = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float* st = w.stats + ((size_t)(head * C + c) * rep + r) * 2;
-    sum += __ldcg(st + 1) * expf(__ldcg(st) - m);
-  }
-  const float en = live ? expf(ln - m) : 0.f;
-  *M = m;
-  *e_new = en;
-  *denom = fmaxf(sum + en, 1e-30f);
-}
-
-// The chunks combined, one element a thread of the grid (grid-stride past
-// its size): the attention output (Hq Dh) into out, out = (sum_c
-// exp(m_c - M) ov_c) / denom + (e_new / denom) vn; then probs (L, Hkv, S)
-// of layer l, each slot's e rescaled to its row's max and denominator and
-// averaged over the rep query rows; then p_new (L, Hkv).
-__device__ void combine_attention(const Args& a, const AttnWs& w, float* out, int l, int C,
-                                  bool live) {
-  const int Hq = a.Hq, Hkv = a.Hkv, Dh = a.Dh, S = a.S, rep = Hq / Hkv;
-  const int clen = (S + C - 1) / C;
-  const int n_out = Hq * Dh, n_probs = Hkv * S, n = n_out + n_probs + Hkv;
-  const int gtid = blockIdx.x * kThreads + threadIdx.x, gstride = gridDim.x * kThreads;
-  for (int i = gtid; i < n; i += gstride) {
-    if (i < n_out) {
-      const int hr = i / Dh, d = i % Dh, head = hr / rep, r = hr % rep;
-      float M, denom, en;
-      row_stats(w, hr, rep, C, live, &M, &denom, &en);
-      float o = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const size_t k = (size_t)(head * C + c) * rep + r;
-        o += __ldcg(w.ov + k * Dh + d) * expf(__ldcg(w.stats + 2 * k) - M);
-      }
-      out[i] = o / denom + (en / denom) * __ldcg(w.vn + (size_t)head * Dh + d);
-    } else if (i < n_out + n_probs) {
-      const int j = i - n_out, head = j / S, s = j % S, c = s / clen;
-      float acc = 0.f;
-      for (int r = 0; r < rep; ++r) {
-        float M, denom, en;
-        row_stats(w, head * rep + r, rep, C, live, &M, &denom, &en);
-        const float m_c = __ldcg(w.stats + ((size_t)(head * C + c) * rep + r) * 2);
-        acc += __ldcg(w.pe + (size_t)(head * rep + r) * S + s) * expf(m_c - M) / denom;
-      }
-      a.probs[((size_t)l * Hkv + head) * S + s] = acc / (float)rep;
-    } else {
-      const int head = i - n_out - n_probs;
-      float acc = 0.f;
-      for (int r = 0; r < rep; ++r) {
-        float M, denom, en;
-        row_stats(w, head * rep + r, rep, C, live, &M, &denom, &en);
-        acc += en / denom;
-      }
-      a.p_new[(size_t)l * Hkv + head] = acc / (float)rep;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the step
 // ---------------------------------------------------------------------------
-
-template <typename KV>
-__host__ __device__ inline size_t attn_floats(int rep, int S, int Dh) {
-  const int G = kThreads / (Dh / VecOf<KV>::n);
-  return (size_t)rep * Dh + (size_t)rep * S + rep + kWarps + (size_t)G * Dh + 3 * Dh +
-         (size_t)(rep + 2) * Dh;
-}
 
 // Bytes of the product prep: xs (2 G f32), red (kWarps f32), sr (3 f32,
 // padded to 4), planes (6 Gp int8), for the largest group of the four
@@ -691,10 +368,6 @@ __host__ __device__ inline size_t prep_bytes(const Args& a) {
   const int G = group_max(a);
   return sizeof(float) * (2 * (size_t)G + kWarps + 4) + 6 * (size_t)group_pad(G);
 }
-
-__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
-
-constexpr int kMaxBlocks = 1024;      // of the cooperative grid
 
 // The f32 workspace: h (D), the blocks' sums of squares of h (kMaxBlocks),
 // the attention output (Hq Dh), SwiGLU (F), the attention chunks (AttnWs, for
@@ -713,13 +386,11 @@ __host__ __device__ inline size_t workspace_floats(int D, int F, int Hq, int Hkv
   part = (size_t)gg * 2 * F > part ? (size_t)gg * 2 * F : part;
   part = (size_t)gd * D > part ? (size_t)gd * D : part;
   const size_t o_h = 0, o_ss = o_h + round4(D), o_at = o_ss + kMaxBlocks,
-               o_sw = o_at + round4((size_t)Hq * Dh), o_pe = o_sw + round4(F),
-               o_st = o_pe + round4((size_t)Hq * S), o_ov = o_st + round4((size_t)Hq * kMaxChunks * 2),
-               o_ln = o_ov + round4((size_t)Hq * kMaxChunks * Dh), o_vn = o_ln + round4(Hq),
-               o_part = o_vn + round4((size_t)Hkv * Dh);
+               o_sw = o_at + round4((size_t)Hq * Dh), o_aw = o_sw + round4(F),
+               o_part = o_aw + attn_ws_floats(1, Hq, Hkv, Dh, S, nullptr, nullptr);
   if (w != nullptr) {
     *w = Workspace{base + o_h, base + o_ss, base + o_at, base + o_sw, base + o_part};
-    *aw = AttnWs{base + o_pe, base + o_st, base + o_ov, base + o_ln, base + o_vn};
+    attn_ws_floats(1, Hq, Hkv, Dh, S, base + o_aw, aw);
   }
   return o_part + part;
 }
@@ -739,45 +410,45 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
   Workspace ws;
   AttnWs aw;
   workspace_floats(D, F, Hq, Hkv, Dh, a.S, a.gq, a.go, a.gg, a.gd, &ws, &aw, a.ws);
+  const AttnArgs at{a.k, a.v, a.pos, a.ksc, a.vsc, a.q_pos, a.rope_pos, a.inv_freq, a.kn,
+                    a.vn, a.probs, a.p_new, 1, Hq, Hkv, Dh, a.S, a.window, a.scale};
   const int C = chunks_of(Hkv);
-  const bool live = a.q_pos[0] >= 0;
   const T* h0 = static_cast<const T*>(a.h0);
   T* h_out = static_cast<T*>(a.h_out);
 
   STAMP_BEGIN();
   for (int l = 0; l < L; ++l) {
     const long long* t = a.table + (size_t)l * kPtrs;
-    auto prod = [&](int i, int kh, int N, int gch) {
-      return Product{reinterpret_cast<const int8_t*>(t[2 * i]),
-                     reinterpret_cast<const __nv_bfloat16*>(t[2 * i + 1]), kh, N, gch};
-    };
     const T* ln_attn = reinterpret_cast<const T*>(t[8]);
     const T* ln_mlp = reinterpret_cast<const T*>(t[9]);
     const bool first = l == 0, last = l == L - 1;
 
     // QKV product of RMSNorm(h)
     float r = rms_scale(ws.ssq, gridDim.x, first ? h0 : nullptr, D, a.eps, red);
-    product_phase(prod(0, D / 2, Nq, a.gq), ws.part, xs, planes, sr, [&](int e) {
+    product_phase(layer_product(t, 0, D / 2, Nq, a.gq), ws.part, xs, planes, sr, [&](int e) {
       return (first ? to_f(h0[e]) : __ldcg(ws.h + e)) * r * to_f(ln_attn[e]);
     });
     grid.sync();
     STAMP();
 
     // attention: C chunks of each KV head's slots, one block a chunk
+    const float* qkv_part = ws.part;
+    const int gq = a.gq;
     for (int it = blockIdx.x; it < Hkv * C; it += gridDim.x) {
-      attend_chunk<T, KV>(a, l, it / C, it % C, C, ws.part, aw, att_smem);
+      attend_chunk<T, KV>(at, l, 0, it / C, it % C, C,
+                          [=](int m) { return group_sum(qkv_part, gq, Nq, m); }, aw, att_smem);
       __syncthreads();
     }
     grid.sync();
     STAMP();
 
     // the chunks combined: the attention output, probs and p_new
-    combine_attention(a, aw, ws.attn, l, C, live);
+    combine_attention(at, aw, ws.attn, l, C);
     grid.sync();
     STAMP();
 
     // O product of the attention output; then h += its sum
-    product_phase(prod(1, Hq * Dh / 2, D, a.go), ws.part, xs, planes, sr,
+    product_phase(layer_product(t, 1, Hq * Dh / 2, D, a.go), ws.part, xs, planes, sr,
                   [&](int e) { return __ldcg(ws.attn + e); });
     grid.sync();
     STAMP();
@@ -792,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
 
     // gate|up product of RMSNorm(h); then SwiGLU of its sums
     r = rms_scale(ws.ssq, gridDim.x, (const T*)nullptr, D, a.eps, red);
-    product_phase(prod(2, D / 2, 2 * F, a.gg), ws.part, xs, planes, sr,
+    product_phase(layer_product(t, 2, D / 2, 2 * F, a.gg), ws.part, xs, planes, sr,
                   [&](int e) { return __ldcg(ws.h + e) * r * to_f(ln_mlp[e]); });
     grid.sync();
     STAMP();
@@ -805,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
 
     // down product of SwiGLU; then h += its sum (and h out after the last
     // layer)
-    product_phase(prod(3, F / 2, D, a.gd), ws.part, xs, planes, sr,
+    product_phase(layer_product(t, 3, F / 2, D, a.gd), ws.part, xs, planes, sr,
                   [&](int e) { return __ldcg(ws.sw + e); });
     grid.sync();
     STAMP();
@@ -829,57 +500,11 @@ size_t smem_bytes(const Args& a) {
   return prep > att ? prep : att;
 }
 
-template <typename KV>
-bool head_dim_ok(int Dh) {
-  const int lpr = Dh / VecOf<KV>::n;
-  return Dh % VecOf<KV>::n == 0 && Dh % 2 == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
-}
-
-// Launches the step; grid <= 0: as many blocks as are co-resident. A grid
-// the card cannot hold at once is refused by the cooperative launch
-// (cudaErrorCooperativeLaunchTooLarge).
+// Launches the step; grid <= 0: as many blocks as are co-resident.
 template <typename T, typename KV>
 int launch(Args a, int grid, cudaStream_t stream) {
   if (!head_dim_ok<KV>(a.Dh)) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_decode_kernel<T, KV>;
-  const size_t smem = smem_bytes<T, KV>(a);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  // the shared-memory attribute and the co-resident blocks per SM, kept per
-  // (device, shared memory) of this instantiation
-  static std::mutex mu;
-  static int c_dev = -1, c_per_sm = 0, c_sms = 0;
-  static size_t c_smem = 0;
-  int per_sm, sms;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (c_dev != dev || c_smem != smem) {
-      if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem)) != cudaSuccess ||
-          (err = cudaDeviceGetAttribute(&c_sms, cudaDevAttrMultiProcessorCount, dev)) !=
-              cudaSuccess ||
-          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c_per_sm, kernel, kThreads,
-                                                               smem)) != cudaSuccess) {
-        c_dev = -1;
-        return (int)err;
-      }
-      c_dev = dev;
-      c_smem = smem;
-    }
-    per_sm = c_per_sm;
-    sms = c_sms;
-  }
-  if (grid <= 0) {
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    grid = per_sm * sms < kMaxBlocks ? per_sm * sms : kMaxBlocks;
-  }
-  if (grid > kMaxBlocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args, smem,
-                                    stream);
-  const cudaError_t last = cudaGetLastError();   // clears a refused launch's error
-  return (int)(err != cudaSuccess ? err : last);
+  return cooperative_launch(fused_decode_kernel<T, KV>, a, smem_bytes<T, KV>(a), grid, stream);
 }
 
 }  // namespace
@@ -937,15 +562,9 @@ int fused_decode_step(const long long* table, const void* k, const void* v, cons
   return (int)cudaErrorInvalidValue;
 }
 
-#ifdef K14_STAMPS
-// The last launch's clock reads: copies min(n, kMaxStamps) of them to dst
-// (host memory) and their count n to *n. Returns the copy's error.
-int fused_decode_stamps(unsigned long long* dst, int* n) {
-  cudaError_t err = cudaMemcpyFromSymbol(n, g_stamp_n, sizeof(int));
-  if (err != cudaSuccess) return (int)err;
-  const int m = *n < kMaxStamps ? *n : kMaxStamps;
-  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(unsigned long long) * m);
-}
+#ifdef STEP_STAMPS
+// The last launch's clock reads (fused_step.cuh's phase clock).
+int fused_decode_stamps(unsigned long long* dst, int* n) { return copy_stamps(dst, n); }
 #endif
 
 }  // extern "C"

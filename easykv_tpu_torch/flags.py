@@ -6,6 +6,11 @@ use_mega / mega_kernel_enabled switch the one-kernel decode step K14
 (ops/cuda/fused_decode.py) for the fused arithmetic-int4 tree at B == 1,
 as EASYKV_TPU_MEGA does in the JAX package: on by default; off, that tree
 decodes through K10 per product, the JAX package's per-layer scan.
+use_mega_batch / mega_batch_enabled switch its batched twin K15
+(ops/cuda/fused_decode_batch.py) for that tree at 1 < B <= 16 (MHA) or
+<= 8 (GQA), as EASYKV_TPU_MEGA_BATCH does (easykv_tpu/flags.py:155-166):
+on wherever the mega flag is, off with it; off, those rows decode through
+K11 per product.
 
 use_prerot / prerot_enabled choose between the two strategies of ordered
 StreamingLLM decoding, exactly as in the JAX package:
@@ -23,6 +28,7 @@ from typing import Optional
 
 _PREROT_OVERRIDE: Optional[bool] = None
 _MEGA_OVERRIDE: Optional[bool] = None
+_MEGA_BATCH_OVERRIDE: Optional[bool] = None
 
 
 def _env_on(name: str) -> bool:
@@ -53,3 +59,17 @@ def mega_kernel_enabled() -> bool:
     if _MEGA_OVERRIDE is not None:
         return _MEGA_OVERRIDE
     return _env_on("EASYKV_TPU_MEGA")
+
+
+def use_mega_batch(enabled: Optional[bool]) -> None:
+    """Force the batched one-kernel decode step on or off; None goes back to
+    the environment variable EASYKV_TPU_MEGA_BATCH (default on). Either
+    way it runs only where mega_kernel_enabled() holds."""
+    global _MEGA_BATCH_OVERRIDE
+    _MEGA_BATCH_OVERRIDE = enabled
+
+
+def mega_batch_enabled() -> bool:
+    if _MEGA_BATCH_OVERRIDE is not None:
+        return _MEGA_BATCH_OVERRIDE and mega_kernel_enabled()
+    return _env_on("EASYKV_TPU_MEGA_BATCH") and mega_kernel_enabled()

@@ -13,9 +13,10 @@ or their plain branches by the shape of the product (ops/quant.py). The
 int8 LM head is K13 with f32 logits (ops.quant.lm_head_mm). The decode step
 always runs three CUDA kernels: decode attention per layer (K1), then one
 sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
-all layers; over the fused arithmetic-int4 tree at B = 1 the layers are
-one launch of the one-kernel decode step K14 (mega_tree, as the JAX
-package's default). With an int8 cache the prompt prefill's attention is the chunk
+all layers; over the fused arithmetic-int4 tree the layers are one launch
+of the one-kernel decode step, K14 at B = 1 and K15 at 1 < B <= 16 (8 for
+GQA) (mega_tree, as the JAX package's default). With an int8 cache the
+prompt prefill's attention is the chunk
 kernel (K5), as the JAX package's default `auto` chunk-kernel mode has it
 (llama.py:150-169 there); a float cache keeps the plain `attend`, which the
 JAX package leaves to XLA. The strided encode of the encoding family
@@ -44,6 +45,7 @@ from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_att
 from .. import flags
 from ..ops.cuda.decode_attention import fused_decode_attend_inflight
 from ..ops.cuda.fused_decode import fused_decode_step
+from ..ops.cuda.fused_decode_batch import fused_decode_step_batch, max_rows
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
@@ -425,22 +427,28 @@ def _decode_forward(
     stream's (S, D/2) tables, and the engine evicts (K4) and compacts (K8)
     after the step.
 
-    Over the fused arithmetic-int4 tree (mega_tree) at B == 1, not streaming
-    or streaming over the pre-rotated cache, with flags.mega_kernel_enabled,
-    the layers are one K14 launch instead (ops/cuda/fused_decode.py: f32
-    residual, two-plane int8 activations), RoPE at layer 0's pre-write valid
-    count under streaming; its outputs feed the same tail."""
+    Over the fused arithmetic-int4 tree (mega_tree), not streaming or
+    streaming over the pre-rotated cache, with flags.mega_kernel_enabled,
+    the layers are one launch instead (the JAX package's use_mega /
+    use_mega_b, llama.py:818-833 there): K14 at B == 1
+    (ops/cuda/fused_decode.py: f32 residual, two-plane int8 activations),
+    K15 at 1 < B <= max_rows(cfg) (16 MHA, 8 GQA) with
+    flags.mega_batch_enabled (ops/cuda/fused_decode_batch.py: f32 residual,
+    activations rounded to the compute dtype); RoPE at layer 0's pre-write
+    valid count of each row under streaming; their outputs feed the same
+    tail."""
     B = token_ids.shape[0]
     q_pos = ctx.q_pos                                           # (B, 1)
     q_pos_b = q_pos[:, 0].contiguous()
     streaming = stream is not None
     prerotated = streaming and stream.prerotated
     h = params.embed[token_ids.clamp(min=0)]
-    if (B == 1 and (not streaming or prerotated) and flags.mega_kernel_enabled()
-            and mega_tree(params)):
+    mega = ((not streaming or prerotated) and flags.mega_kernel_enabled()
+            and mega_tree(params))
+    scales = (cache.k_scale, cache.v_scale) if cache.quantized else ()
+    if mega and B == 1:
         rope_pos = ((cache.pos[0, 0, 0] >= 0).sum(dtype=torch.int32)[None]
                     if streaming else None)
-        scales = (cache.k_scale, cache.v_scale) if cache.quantized else ()
         hm, kn, vn, probs, p_new = fused_decode_step(
             params.layers, cfg, cache.k, cache.v, cache.pos, h[0], q_pos_b, *scales,
             rope_pos=rope_pos)
@@ -448,6 +456,15 @@ def _decode_forward(
         kn, vn = kn[:, None], vn[:, None]                       # (L, 1, Hkv, 1, Dh)
         probs = probs[:, None, :, 0, :]                         # (L, 1, Hkv, S)
         p_new = p_new[:, None, :, None]                         # (L, 1, Hkv, 1)
+    elif mega and 1 < B <= max_rows(cfg) and flags.mega_batch_enabled():
+        rope_pos = ((cache.pos[0, :, 0] >= 0).sum(dim=-1, dtype=torch.int32)
+                    if streaming else None)
+        hm, kn, vn, probs, p_new = fused_decode_step_batch(
+            params.layers, cfg, cache.k, cache.v, cache.pos, h[:, 0], q_pos_b, *scales,
+            rope_pos=rope_pos)
+        h = hm[:, None]                                         # (B, 1, D)
+        probs = probs[:, :, :, 0, :]                            # (L, B, Hkv, S)
+        p_new = p_new[..., None]                                # (L, B, Hkv, 1)
     else:
         h, kn, vn, probs, p_new = _decode_layers(params, cfg, cache, h, q_pos, stream)
     fold_stream = decode_stream_folded(spec, streaming, prerotated)

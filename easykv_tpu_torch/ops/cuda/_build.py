@@ -27,17 +27,18 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
 SOURCES = ("decode_attention", "sidecar_update", "row_write", "chunk_attention",
-           "kv_compact", "quant_matmul", "w4_matmul", "w4_stream", "fused_decode")
+           "kv_compact", "quant_matmul", "w4_matmul", "w4_stream", "fused_decode",
+           "fused_decode_batch")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The sidecar pass and the K/V compaction must round like their plain
 # PyTorch versions, op by op: an FMA contraction of roco's `ssq/c - mean*mean`
 # moves the k-th smallest std, one of the rotation's `x1*c + x2*s` moves an
-# int8 requant. The one-kernel decode step's elementwise steps (the int8
-# activation planes above all) follow its plain version the same way.
+# int8 requant. The one-kernel decode steps' elementwise steps (K14's int8
+# activation planes, K15's rounded feed) follow their plain versions the same way.
 EXTRA_FLAGS = {"sidecar_update": ["--fmad=false"], "kv_compact": ["--fmad=false"],
-               "fused_decode": ["--fmad=false"]}
+               "fused_decode": ["--fmad=false"], "fused_decode_batch": ["--fmad=false"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -105,6 +106,26 @@ def load(name: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def load_debug(name: str, define: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    """A debug build of one source: compiled anew with -D`define` (the
+    source's own instrumentation, such as STEP_STAMPS or STEP_DUMP) into
+    BUILD/lib<name>_<define>.so and loaded with `signatures` declared. The
+    wrappers go on loading the normal build unless the caller puts this
+    one in _libs[name]."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    lib = BUILD / f"lib{name}_{define.lower()}.so"
+    out = subprocess.run([nvcc_path(), *_flags(name), f"-D{define}", "-o", str(lib),
+                          str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"CUDA build of {name}.cu with -D{define} failed:\n"
+                           f"{out.stdout}{out.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(dll, fn).argtypes = argtypes
+        getattr(dll, fn).restype = restype
+    return dll
 
 
 def check(err: int, what: str) -> None:

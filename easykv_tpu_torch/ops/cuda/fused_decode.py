@@ -27,7 +27,9 @@ kernel reads each layer's weights through a device table of per-layer
 pointers, built once per layer list and kept while every tensor it points
 at is still the one the layers name (the tensors are held with it; moving
 the weights elsewhere, or putting a new layer, weight or norm storage in
-place of one, builds a new table).
+place of one, builds a new table). The plain layer loop (step_plain), the
+argument checks (check_step_args) and the layer table are shared with the
+batched step K15 (ops/cuda/fused_decode_batch.py).
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _planes(X: torch.Tensor):
-    """(gch, G) f32 rows -> (P1, P2) integer-valued f32 and sr (gch, 1)."""
+    """(..., G) f32 rows -> (P1, P2) integer-valued f32 and sr (..., 1)."""
     sr = X.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30) * R127
     q = X / sr
     p1 = torch.round(q).clamp(-127, 127)
@@ -73,26 +75,39 @@ def _planes(X: torch.Tensor):
     return p1, p2, sr
 
 
-def _product(x: torch.Tensor, w) -> torch.Tensor:
-    """x (1, K) f32 @ the arithmetic carrier w["q4a"] (K/2, N) with its pair
-    w["gs3"], through the two-plane feed -> (1, N) f32."""
-    p, gs3 = w["q4a"], w["gs3"]
-    kh, N = p.shape
+def scale_groups(r_hi: torch.Tensor, r_lo: torch.Tensor, gs3: torch.Tensor) -> torch.Tensor:
+    """Per-group sums (B, gch, N) of the hi and lo halves -> (B, N) f32:
+    each group's sums times its scale pair [hi; lo] / 16, added over the
+    groups."""
     gch = gs3.shape[0] // 2
-    G = kh // gch
-    xl, xh = x[0, :kh].reshape(gch, G), x[0, kh:].reshape(gch, G)
+    g = gs3.to(torch.float32)
+    return (r_hi * g[:gch] + r_lo * g[gch:]).sum(dim=1)
+
+
+def carrier_planes(w):
+    """The carrier w["q4a"] (K/2, N) as f32 (gch, G, N) planes p (the byte,
+    16 hi + lo) and u = (p << 4) as int8 = 16 lo, with w["gs3"]."""
+    p, gs3 = w["q4a"], w["gs3"]
+    gch, N = gs3.shape[0] // 2, p.shape[1]
     lo, _ = unpack_int4_arith(p)
-    pf = p.to(torch.float32).reshape(gch, G, N)
-    uf = (16 * lo.to(torch.float32)).reshape(gch, G, N)    # (p << 4) as int8: 16 lo
+    return (p.to(torch.float32).reshape(gch, -1, N),
+            (16 * lo.to(torch.float32)).reshape(gch, -1, N), gs3)
+
+
+def _product(x: torch.Tensor, w) -> torch.Tensor:
+    """x (B, K) f32 @ the arithmetic carrier w["q4a"] (K/2, N) with its pair
+    w["gs3"], through the two-plane feed -> (B, N) f32."""
+    pf, uf, gs3 = carrier_planes(w)
+    gch, kh = pf.shape[0], pf.shape[0] * pf.shape[1]
+    xl, xh = x[:, :kh].unflatten(1, (gch, -1)), x[:, kh:].unflatten(1, (gch, -1))
 
     def part(X, W):
         p1, p2, sr = _planes(X)
-        dot = lambda P: torch.einsum("gk,gkn->gn", P, W)  # noqa: E731
+        dot = lambda P: torch.einsum("bgk,gkn->bgn", P, W)  # noqa: E731
         return (dot(p1) + dot(p2) * R127) * sr
 
     af, bf, cf = part(xh, pf), part(xl - xh * 0.0625, uf), part(xl, uf)
-    r = torch.cat([af + bf - cf, cf])
-    return (r * gs3.to(torch.float32)).sum(dim=0, keepdim=True)
+    return scale_groups(af + bf - cf, cf, gs3)
 
 
 def _rot(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -101,10 +116,15 @@ def _rot(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def fused_decode_step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale=None, v_scale=None,
-                            rope_pos=None):
-    """Plain PyTorch version of K14; same arguments and results."""
-    L, _, Hkv, S, Dh = k.shape
+def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, product):
+    """The layers of one decode step at B rows, in plain PyTorch, with
+    `product(x (B, K) f32, w) -> (B, N) f32` for each quantized product:
+    K14's and K15's plain versions are this loop with their feeds. The
+    residual and every intermediate stay f32; h is rounded to h0's dtype
+    once, at the end. Returns (h (B, D), kn (L, B, Hkv, 1, Dh) rotated, vn,
+    probs (L, B, Hkv, 1, S) f32 averaged over each KV head's query heads,
+    p_new (L, B, Hkv) f32)."""
+    L, B, Hkv, S, Dh = k.shape
     Hq, F_ = cfg.num_attention_heads, cfg.intermediate_size
     rep, nq = Hq // Hkv, Hq * Dh
     eps, scale, window = cfg.rms_norm_eps, Dh ** -0.5, cfg.sliding_window
@@ -112,26 +132,26 @@ def fused_decode_step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale=None, v_s
     dev, dt = h0.device, h0.dtype
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), dev)
     rp = q_pos if rope_pos is None else rope_pos
-    ang = rp[0].clamp(min=0).to(torch.float32) * inv_freq
+    ang = rp.clamp(min=0).to(torch.float32)[:, None, None, None] * inv_freq   # (B, 1, 1, Dh/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    qp = q_pos[0]
+    qp = q_pos[:, None, None, None]
     live = qp >= 0
 
     h = h0.to(torch.float32)
-    kn_o = torch.empty((L, Hkv, 1, Dh), dtype=dt, device=dev)
+    kn_o = torch.empty((L, B, Hkv, 1, Dh), dtype=dt, device=dev)
     vn_o = torch.empty_like(kn_o)
-    probs_o = torch.empty((L, Hkv, 1, S), dtype=torch.float32, device=dev)
-    pnew_o = torch.empty((L, Hkv), dtype=torch.float32, device=dev)
+    probs_o = torch.empty((L, B, Hkv, 1, S), dtype=torch.float32, device=dev)
+    pnew_o = torch.empty((L, B, Hkv), dtype=torch.float32, device=dev)
     for l, p in enumerate(layers):
-        qkv = _product(_rms(h, p.ln_attn, eps), p.wqkv)
-        q_rot = _rot(qkv[0, :nq].reshape(Hkv, rep, Dh), cos, sin)
-        kn_rot = _rot(qkv[0, nq:nq + Hkv * Dh].reshape(Hkv, 1, Dh), cos, sin)
-        vn = qkv[0, nq + Hkv * Dh:].reshape(Hkv, 1, Dh)
-        logits = torch.einsum("hrd,hsd->hrs", q_rot, k[l, 0].to(torch.float32)) * scale
+        qkv = product(_rms(h, p.ln_attn, eps), p.wqkv)
+        q_rot = _rot(qkv[:, :nq].reshape(B, Hkv, rep, Dh), cos, sin)
+        kn_rot = _rot(qkv[:, nq:nq + Hkv * Dh].reshape(B, Hkv, 1, Dh), cos, sin)
+        vn = qkv[:, nq + Hkv * Dh:].reshape(B, Hkv, 1, Dh)
+        logits = torch.einsum("bhrd,bhsd->bhrs", q_rot, k[l].to(torch.float32)) * scale
         if quant:
-            logits = logits * k_scale[l, 0][:, None, :]
+            logits = logits * k_scale[l][:, :, None, :]
         logit_new = (q_rot * kn_rot).sum(dim=-1, keepdim=True) * scale
-        pv = pos[l, 0][:, None, :]
+        pv = pos[l][:, :, None, :]
         mask = (pv >= 0) & (pv <= qp)
         if window is not None:
             mask &= pv > qp - window
@@ -142,18 +162,26 @@ def fused_decode_step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale=None, v_s
         e_new = torch.where(live, torch.exp(logit_new - m), 0.0)
         denom = (e.sum(dim=-1, keepdim=True) + e_new).clamp(min=1e-30)
         pr, p_new = e / denom, e_new / denom
-        pvv = pr * v_scale[l, 0][:, None, :] if quant else pr
-        out = torch.einsum("hrs,hsd->hrd", pvv, v[l, 0].to(torch.float32)) + p_new * vn
-        probs_o[l] = pr.mean(dim=1, keepdim=True)
-        pnew_o[l] = p_new.mean(dim=1)[:, 0]
+        pvv = pr * v_scale[l][:, :, None, :] if quant else pr
+        out = torch.einsum("bhrs,bhsd->bhrd", pvv, v[l].to(torch.float32)) + p_new * vn
+        probs_o[l] = pr.mean(dim=2, keepdim=True)
+        pnew_o[l] = p_new.mean(dim=2)[..., 0]
         kn_o[l] = kn_rot.to(dt)
         vn_o[l] = vn.to(dt)
 
-        h = h + _product(out.reshape(1, nq), p.wo)
-        gu = _product(_rms(h, p.ln_mlp, eps), p.wgu)
+        h = h + product(out.reshape(B, nq), p.wo)
+        gu = product(_rms(h, p.ln_mlp, eps), p.wgu)
         g, up = gu[:, :F_], gu[:, F_:]
-        h = h + _product(g * torch.sigmoid(g) * up, p.wd)
+        h = h + product(g * torch.sigmoid(g) * up, p.wd)
     return h.to(dt), kn_o, vn_o, probs_o, pnew_o
+
+
+def fused_decode_step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale=None, v_scale=None,
+                            rope_pos=None):
+    """Plain PyTorch version of K14; same arguments and results."""
+    h, kn, vn, probs, p_new = step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale,
+                                         rope_pos, _product)
+    return h, kn[:, 0], vn[:, 0], probs[:, 0], p_new[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +234,8 @@ def _layer_table(layers, carriers, dt: torch.dtype, dev: torch.device):
                 if (t.dtype != dtype or t.device != dev or not t.is_contiguous()
                         or t.data_ptr() % 16 or tuple(t.shape) != shape):
                     raise ValueError(f"layer {l} {n}[{leaf}]: {t.dtype} {tuple(t.shape)} on "
-                                     f"{t.device}; K14 takes a contiguous 16-byte aligned "
-                                     f"{dtype} {shape} on {dev}")
+                                     f"{t.device}; the one-kernel step takes a contiguous "
+                                     f"16-byte aligned {dtype} {shape} on {dev}")
                 held.append(t)
                 row.append(t.data_ptr())
         for n in ("ln_attn", "ln_mlp"):
@@ -225,6 +253,45 @@ def _layer_table(layers, carriers, dt: torch.dtype, dev: torch.device):
 @functools.lru_cache(maxsize=None)
 def _inv_freq(Dh: int, base: float, dev: torch.device) -> torch.Tensor:
     return rope_inv_freq(Dh, base, dev)
+
+
+def check_step_args(key, max_rows, layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale,
+                    rope_pos):
+    """What the C side of a one-kernel step (K14, K15) cannot check: types,
+    shapes, devices and layout of its arguments for 1 .. max_rows rows.
+    Returns (the layer table, its group counts, whether the cache is
+    int8)."""
+    L, B, Hkv, S, Dh = k.shape
+    D, F_, Hq = cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads
+    dt, dev = h0.dtype, h0.device
+    if dt not in _DTYPES:
+        raise TypeError(f"{key} takes float32 or bfloat16 activations, got {dt}")
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 K/V come with k_scale and v_scale; a float cache with neither")
+    if not 1 <= B <= max_rows or len(layers) != L or Hq % Hkv or Dh != cfg.head_dim:
+        raise ValueError(f"{key} takes 1 to {max_rows} rows and one cache layer per layer: k "
+                         f"{tuple(k.shape)}, {len(layers)} layers, {Hq} query heads, head_dim "
+                         f"{cfg.head_dim}")
+    checks = [("k", k, torch.int8 if quant else dt, (L, B, Hkv, S, Dh)),
+              ("v", v, torch.int8 if quant else dt, (L, B, Hkv, S, Dh)),
+              ("pos", pos, torch.int32, (L, B, Hkv, S)), ("h0", h0, dt, (B, D)),
+              ("q_pos", q_pos, torch.int32, (B,))]
+    if quant:
+        checks += [("k_scale", k_scale, torch.float32, (L, B, Hkv, S)),
+                   ("v_scale", v_scale, torch.float32, (L, B, Hkv, S))]
+    if rope_pos is not None:
+        checks.append(("rope_pos", rope_pos, torch.int32, (B,)))
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} takes contiguous tensors on {dev}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must be 16-byte aligned")
+    carriers = {"wqkv": (D // 2, (Hq + 2 * Hkv) * Dh), "wo": (Hq * Dh // 2, D),
+                "wgu": (D // 2, 2 * F_), "wd": (F_ // 2, D)}
+    return (*_layer_table(layers, carriers, dt, dev), quant)
 
 
 def fused_decode_step(
@@ -249,34 +316,8 @@ def fused_decode_step(
     L, B, Hkv, S, Dh = k.shape
     D, F_, Hq = cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads
     dt, dev = h0.dtype, h0.device
-    if dt not in _DTYPES:
-        raise TypeError(f"K14 takes float32 or bfloat16 activations, got {dt}")
-    quant = k.dtype == torch.int8
-    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError("int8 K/V come with k_scale and v_scale; a float cache with neither")
-    if B != 1 or len(layers) != L or Hq % Hkv or Dh != cfg.head_dim:
-        raise ValueError(f"K14 takes B = 1 and one cache layer per layer: k {tuple(k.shape)}, "
-                         f"{len(layers)} layers, {Hq} query heads, head_dim {cfg.head_dim}")
-    checks = [("k", k, torch.int8 if quant else dt, (L, 1, Hkv, S, Dh)),
-              ("v", v, torch.int8 if quant else dt, (L, 1, Hkv, S, Dh)),
-              ("pos", pos, torch.int32, (L, 1, Hkv, S)), ("h0", h0, dt, (1, D)),
-              ("q_pos", q_pos, torch.int32, (1,))]
-    if quant:
-        checks += [("k_scale", k_scale, torch.float32, (L, 1, Hkv, S)),
-                   ("v_scale", v_scale, torch.float32, (L, 1, Hkv, S))]
-    if rope_pos is not None:
-        checks.append(("rope_pos", rope_pos, torch.int32, (1,)))
-    for name, t, dtype, shape in checks:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: K14 takes contiguous tensors on {dev}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k and v must be 16-byte aligned")
-    nq = (Hq + 2 * Hkv) * Dh
-    carriers = {"wqkv": (D // 2, nq), "wo": (Hq * Dh // 2, D), "wgu": (D // 2, 2 * F_),
-                "wd": (F_ // 2, D)}
-    table, groups = _layer_table(layers, carriers, dt, dev)
+    table, groups, quant = check_step_args("K14", 1, layers, cfg, k, v, pos, h0, q_pos,
+                                           k_scale, v_scale, rope_pos)
     lib = _build.load("fused_decode", SIGNATURES)
     smem = lib.fused_decode_step_smem(D, F_, Hq, Hkv, Dh, S, *groups, _DTYPES[dt], int(quant))
     if smem == 0:

@@ -16,7 +16,9 @@ decode path over int8 / int4 trees gives the plain path's tokens. The
 one-kernel decode step K14 is held to its plain version at small and
 LLaMa-2-7B widths (each output within 1e-3 of its largest |value|, one bf16
 ulp more in bf16), launches once a decode step only where the JAX package
-would, and raises when its cooperative grid cannot be co-resident.
+would, and raises when its cooperative grid cannot be co-resident; its
+batched twin K15 likewise, at 1 < B <= 16 (8 for GQA), MHA and GQA, with
+bf16, int8 and f32 caches and a dead row.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -792,6 +794,7 @@ def _quant_decode_paths(cuda, tree, B):
     from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
                                                      w4a16_gemv_arith_plain)
     from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step_plain
+    from easykv_tpu_torch.ops.cuda.fused_decode_batch import fused_decode_step_batch_plain
     gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
     llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
     plain = contextlib.ExitStack()
@@ -799,8 +802,9 @@ def _quant_decode_paths(cuda, tree, B):
                                             w4a16_gemv=w4a16_gemv_plain,
                                             w4a16_gemv_arith=w4a16_gemv_arith_plain,
                                             w4a16_gemm_arith=w4a16_gemm_arith_plain))
-    plain.enter_context(mock.patch.object(llama_mod, "fused_decode_step",
-                                          fused_decode_step_plain))
+    plain.enter_context(mock.patch.multiple(
+        llama_mod, fused_decode_step=fused_decode_step_plain,
+        fused_decode_step_batch=fused_decode_step_batch_plain))
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=768,
                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
@@ -857,20 +861,21 @@ def _k14_close(got, ref):
 
 
 @functools.lru_cache(maxsize=None)
-def _k14_tree(shape, dtype):
+def _fused_tree(D, F, Hq, Hkv, L, group, window, dtype):
+    """(config, the fused arithmetic-int4 tree) of L layers at these widths,
+    quantized on the card from `dtype` weights drawn from seed 3."""
     from easykv_tpu_torch.ops import quant
-    D, F, Hq, Hkv, L, S, group = K14_SHAPES[shape]
     cfg = ModelConfig(vocab_size=256, hidden_size=D, intermediate_size=F, num_hidden_layers=L,
                       num_attention_heads=Hq, num_key_value_heads=Hkv,
-                      max_position_embeddings=4096)
+                      max_position_embeddings=4096, sliding_window=window)
     params = init_params(cfg, seed=3, dtype=dtype, device=torch.device("cuda"))
     return cfg, quant.fuse_gemv_params(quant.quantize_params_int4(params, group, layout="arith"))
 
 
 def _k14_args(cuda, shape, kv, rope, seed):
     dtype = torch.float32 if kv == "f32" else torch.bfloat16
-    cfg, tree = _k14_tree(shape, dtype)
     D, F, Hq, Hkv, L, S, group = K14_SHAPES[shape]
+    cfg, tree = _fused_tree(D, F, Hq, Hkv, L, group, None, dtype)
     Dh = D // Hq
     g = torch.Generator(device=cuda).manual_seed(seed)
     rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)  # noqa: E731
@@ -975,3 +980,138 @@ def test_k14_launch_gating(cuda, case):
     else:
         assert k14_n == 0
         assert k10_n == (4 if case != "split-B1" else 7) * 2 * n * (B == 1)
+
+
+# ---------------------------------------------------------------------------
+# K15: the batched one-kernel decode step
+# ---------------------------------------------------------------------------
+
+K15_SHAPES = {  # D, F, Hq, Hkv, L, S, group, B, sliding window
+    "small-mha-B5": (256, 512, 4, 4, 2, 256, 64, 5, None),
+    "small-gqa-B8-window": (256, 512, 4, 2, 2, 256, 64, 8, 100),
+    "small-mha-B16": (256, 512, 4, 4, 2, 256, 64, 16, None),
+    "7b-B4": (4096, 11008, 32, 32, 2, 768, 128, 4, None),
+    "7b-B16": (4096, 11008, 32, 32, 2, 768, 128, 16, None),
+    "mistral-B8-window": (4096, 14336, 32, 8, 2, 768, 128, 8, 512),
+}
+
+
+def _k15_args(cuda, shape, kv, rope, seed):
+    """K15's arguments: 7/8 of the slots visible with a fifth of them dead,
+    row 1 dead (q_pos -1), the other rows at scattered positions."""
+    dtype = torch.float32 if kv == "f32" else torch.bfloat16
+    D, F, Hq, Hkv, L, S, group, B, window = K15_SHAPES[shape]
+    cfg, tree = _fused_tree(D, F, Hq, Hkv, L, group, window, dtype)
+    Dh = D // Hq
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)  # noqa: E731
+    k, v = rnd(L, B, Hkv, S, Dh), rnd(L, B, Hkv, S, Dh)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).expand(L, B, Hkv, S).clone()
+    pos[..., S - S // 8:] = -1
+    pos[torch.rand(pos.shape, generator=g, device=cuda) < 0.2] = -1     # dead slots
+    scales = ()
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    q_pos = torch.randint(S // 2, S - S // 8 + 1, (B,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    q_pos[1] = -1
+    rope_pos = (q_pos.clamp(min=0) * 3 // 4).to(torch.int32) if rope else None
+    return cfg, tree, (k, v, pos, rnd(B, D), q_pos, *scales), rope_pos
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["q_pos", "rope_pos"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("shape", list(K15_SHAPES))
+def test_k15_kernel_matches_plain(cuda, shape, kv, rope):
+    """Every output within the larger of _k14_close's limit and twice the
+    plain K15's reorder spread (step_bars.k15_spread: the bf16 feed makes
+    the function move by more than 1e-3 of its largest value when only the
+    order of its sums and the last ulps of its steps change; with f32
+    activations nothing rounds and the spread is f32 rounding); row 1 is
+    dead (no probability anywhere); with bf16 activations the feed is
+    rounded as the plain version rounds it (step_bars.k15_feed_share:
+    layer 0's K and V rows bit-equal, which an f32 feed misses); the same
+    bits in every run (partials added in a fixed order)."""
+    from easykv_tpu_torch.ops.cuda.step_bars import k15_feed_share, k15_spread, step_shares
+    from easykv_tpu_torch.ops.cuda.fused_decode_batch import (fused_decode_step_batch,
+                                                              fused_decode_step_batch_plain)
+    cfg, tree, args, rope_pos = _k15_args(cuda, shape, kv, rope, 5)
+    before = fused_decode_step_batch.launches
+    got = fused_decode_step_batch(tree.layers, cfg, *args, rope_pos=rope_pos)
+    ref = fused_decode_step_batch_plain(tree.layers, cfg, *args, rope_pos=rope_pos)
+    torch.cuda.synchronize()
+    assert fused_decode_step_batch.launches == before + 1
+    assert all(a.dtype == b.dtype and a.shape == b.shape and bool(torch.isfinite(a.float()).all())
+               for a, b in zip(got, ref))
+    draws = 32 if shape.startswith("small") else 8      # few flips a draw at small widths
+    worst, _, line = step_shares(got, ref, k15_spread(tree.layers, cfg, args, rope_pos, draws),
+                                 "reorder spread")
+    assert worst <= 1, line
+    assert not got[3][:, 1].any() and not got[4][:, 1].any()
+    if kv != "f32":      # bf16 activations: layer 0's rows come from one rounded product
+        assert min(k15_feed_share(tree.layers, cfg, args, rope_pos)) >= 0.999
+        assert max(k15_feed_share(tree.layers, cfg, args, rope_pos, torch.float32)) < 0.9
+    again = fused_decode_step_batch(tree.layers, cfg, *args, rope_pos=rope_pos)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # the same in every run
+
+
+def test_k15_too_large_grid_raises(cuda):
+    """A cooperative grid the card cannot hold at once is refused: the
+    wrapper raises, counts no launch and runs nothing else; the next launch
+    runs."""
+    from easykv_tpu_torch.ops.cuda import fused_decode_batch as k15
+    cfg, tree, args, _ = _k15_args(cuda, "small-mha-B5", "bf16", False, 7)
+    before = k15.fused_decode_step_batch.launches
+    with mock.patch.object(k15, "fused_decode_step_batch_plain",
+                           mock.Mock(side_effect=AssertionError("plain version ran"))), \
+            mock.patch.object(k15, "_GRID", 1 << 20):
+        with pytest.raises(RuntimeError, match="fused_decode_step_batch launch failed"):
+            k15.fused_decode_step_batch(tree.layers, cfg, *args)
+    assert k15.fused_decode_step_batch.launches == before
+    ref = k15.fused_decode_step_batch_plain(tree.layers, cfg, *args)
+    got = k15.fused_decode_step_batch(tree.layers, cfg, *args)
+    torch.cuda.synchronize()
+    assert all(_k14_close(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("case", ["fused-B4", "fused-B8", "fused-B9", "fused-B1", "split-B4",
+                                  "mega-off-B4", "mega-batch-off-B4", "fused-B4-streaming"])
+def test_k15_launch_gating(cuda, case):
+    """K15 launches once a decode step for the fused arithmetic tree at
+    1 < B <= 8 (a GQA model; streaming over the pre-rotated cache too), and
+    K11 never in the decode loop there; never at B = 9 or B = 1, for the
+    split tree, or with either mega flag off."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.fused_decode_batch import fused_decode_step_batch
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemm_arith
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=768,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    tree = quant.quantize_params_int4(params, layout="arith")
+    if not case.startswith("split"):
+        tree = quant.fuse_gemv_params(tree)
+    B = int(case.split("-B")[1].split("-")[0])
+    n = 12
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=64, budget=4, max_new_tokens=n,
+                               recent_window_dec=1, streaming=case.endswith("streaming"))
+    ids = torch.randint(1, 512, (B, 64), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    plen = torch.full((B,), 64, dtype=torch.int32, device=cuda)
+    flags.use_mega(False if case.startswith("mega-off") else None)
+    flags.use_mega_batch(False if case.startswith("mega-batch-off") else None)
+    try:
+        k15_0, k11_0 = fused_decode_step_batch.launches, w4a16_gemm_arith.launches
+        gen_mod._run_decoding(st, tree, ids, plen, 1e-9, 1.0,
+                              torch.Generator(device=cuda).manual_seed(0), torch.float32)
+        torch.cuda.synchronize()
+    finally:
+        flags.use_mega(None)
+        flags.use_mega_batch(None)
+    k15_n = fused_decode_step_batch.launches - k15_0
+    k11_n = w4a16_gemm_arith.launches - k11_0
+    if case in ("fused-B4", "fused-B8", "fused-B4-streaming"):
+        assert k15_n == n and k11_n == 4 * 2      # K11 in the prefill (M = 64 B) only
+    else:
+        assert k15_n == 0

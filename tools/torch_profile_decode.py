@@ -10,8 +10,9 @@ StreamingLLM decode instead (streaming=True): bf16 and int8 over the
 pre-rotated cache, then int8 over the rotate-at-read cache; with --quant,
 the same decode over quantized weights made on the card from the bf16 ones
 (int4 arithmetic fused with an int8 KV cache, decoded by the one-kernel
-step K14; int4 arithmetic split with an int8 KV cache, int8 fused with an
-int8 KV cache, int4 halves split with a bf16 one). Prints, for each, the
+step K14, then at B=4 by its batched twin K15; int4 arithmetic split with
+an int8 KV cache, int8 fused with an int8 KV cache, int4 halves split with
+a bf16 one). Prints, for each, the
 host-clock time per step of both runs, the
 device time per step (sum of kernel durations), the device's idle share
 while traced, the kernels that take most device time, and the PyTorch ops
@@ -33,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import BUDGET, LLAMA2_7B, PROMPT  # noqa: E402
+from chip_smoke import B_WIDE, BUDGET, LLAMA2_7B, PROMPT  # noqa: E402
 from easykv_tpu_torch import flags  # noqa: E402
 from easykv_tpu_torch.models.llama import init_params  # noqa: E402
 from easykv_tpu_torch.ops import quant  # noqa: E402
@@ -52,22 +53,22 @@ def main():
     cfg = LLAMA2_7B
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     P, budget = PROMPT, BUDGET
-    ids = torch.randint(1, cfg.vocab_size, (1, P), generator=torch.Generator().manual_seed(0),
-                        dtype=torch.int32).to(dev)
-    plen = torch.full((1,), P, dtype=torch.int32, device=dev)
+    ids = torch.randint(1, cfg.vocab_size, (B_WIDE, P),
+                        generator=torch.Generator().manual_seed(0), dtype=torch.int32).to(dev)
 
     streaming = "--streaming" in sys.argv[1:]
 
-    def prefilled(n_new, kv_quant, params):
+    def prefilled(n_new, kv_quant, params, B):
         st = gen_mod.EngineStatics(cfg=cfg, policy="roco", length=P, budget=budget,
                                    max_new_tokens=n_new, recent_window_dec=int(budget * 0.3),
                                    kv_quant=kv_quant, streaming=streaming)
-        cache = gen_mod._engine_cache(st, 1, P + budget + 1, torch.bfloat16, dev)
-        last = gen_mod._prefill(st, params, cache, ids, plen)
+        cache = gen_mod._engine_cache(st, B, P + budget + 1, torch.bfloat16, dev)
+        plen = torch.full((B,), P, dtype=torch.int32, device=dev)
+        last = gen_mod._prefill(st, params, cache, ids[:B], plen)
         torch.cuda.synchronize()
-        return st, cache, last, params
+        return st, cache, last, params, plen
 
-    def decode(st, cache, last, params):
+    def decode(st, cache, last, params, plen):
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
         gen_mod._decode_loop(st, params, cache, last, plen, plen, plen, st.decode_spec(),
@@ -82,28 +83,29 @@ def main():
     res["decode_steps"] = n_steps
     def bf16():
         return params
+    def fused():
+        return quant.fuse_gemv_params(quant.quantize_params_int4(params, layout="arith"))
     if streaming:
-        runs = [("bf16 KV streaming pre-rotated", False, True, bf16),
-                ("int8 KV streaming pre-rotated", True, True, bf16),
-                ("int8 KV streaming rotate-at-read", True, False, bf16)]
+        runs = [("bf16 KV streaming pre-rotated", False, True, bf16, 1),
+                ("int8 KV streaming pre-rotated", True, True, bf16, 1),
+                ("int8 KV streaming rotate-at-read", True, False, bf16, 1)]
     elif "--quant" in sys.argv[1:]:
-        runs = [("int4 arith fused weights (K14), int8 KV", True, None,
-                 lambda: quant.fuse_gemv_params(quant.quantize_params_int4(params,
-                                                                           layout="arith"))),
+        runs = [("int4 arith fused weights (K14), int8 KV", True, None, fused, 1),
+                ("int4 arith fused weights (K15), int8 KV, B=4", True, None, fused, B_WIDE),
                 ("int4 arith split weights, int8 KV", True, None,
-                 lambda: quant.quantize_params_int4(params, layout="arith")),
+                 lambda: quant.quantize_params_int4(params, layout="arith"), 1),
                 ("int8 fused weights, int8 KV", True, None,
-                 lambda: quant.fuse_gemv_params(quant.quantize_params(params))),
+                 lambda: quant.fuse_gemv_params(quant.quantize_params(params)), 1),
                 ("int4 halves split weights, bf16 KV", False, None,
-                 lambda: quant.quantize_params_int4(params))]
+                 lambda: quant.quantize_params_int4(params), 1)]
     else:
-        runs = [("bf16 KV", False, None, bf16), ("int8 KV", True, None, bf16)]
-    for name, kv_quant, prerot, weights in runs:
+        runs = [("bf16 KV", False, None, bf16, 1), ("int8 KV", True, None, bf16, 1)]
+    for name, kv_quant, prerot, weights, B in runs:
         flags.use_prerot(prerot)
         w = weights()
-        decode(*prefilled(8, kv_quant, w))          # build + warm-up
-        base_s = decode(*prefilled(n_steps, kv_quant, w))
-        state = prefilled(n_steps, kv_quant, w)
+        decode(*prefilled(8, kv_quant, w, B))          # build + warm-up
+        base_s = decode(*prefilled(n_steps, kv_quant, w, B))
+        state = prefilled(n_steps, kv_quant, w, B)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dec_s = decode(*state)
         kernels = {}
