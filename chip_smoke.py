@@ -37,7 +37,11 @@ Phases, each printing its lines before the last:
      512-slot window), L=2, bf16 and int8 KV, RoPE at q_pos and rope_pos,
      holes and a dead row: each output within the larger of that limit and
      twice the plain version's reorder spread (k15_spread), and its bf16
-     feed rounded as the plain version rounds it (k15_feed_check);
+     feed rounded as the plain version rounds it (k15_feed_check); K1's
+     rank variant and fused_decode_attend at the `encoding` decode's shapes
+     (S=2304, 2144 valid slots a head scattered over the cache, their age
+     ranks; bf16, int8 and f32; MHA B=1, GQA rep 4 B=2 with a dead row;
+     fused_decode_attend also with a 512-slot window) within K1's limits;
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
@@ -52,7 +56,14 @@ Phases, each printing its lines before the last:
      prompt with stride 96 and 128 new tokens: int8 and bf16 `encoding` (roco
      at budget 0.5: the strided encode runs K6 with the int8 cache), int8
      `encoding_decoding` (roco at budget 2048: an eviction every decode step)
-     and int8 `ppl`; then quantized weights, quantized on the card from the
+     and int8 `ppl`, then the same four with streaming=True (StreamingLLM:
+     the chunk-major encode over the unordered cache, K rotated by its age
+     rank, the decode through K1's rank variant with carried ranks, checked
+     against _age_ranks of the final cache) and a streaming int8 `encoding`
+     at stride 1 (every encode chunk a decode step through K1 rank), and
+     llama.forward at C=1 with the keep_attention bootstrap (32
+     fused_decode_attend launches, each held to its plain version on its
+     own inputs); then quantized weights, quantized on the card from the
      same bf16 weights by the port's quantize_params(_int4) and
      fuse_gemv_params, on the 512-token prompt with 384 new tokens: int4
      arithmetic fused, bench.py's headline tree (K14 once a decode step for
@@ -77,7 +88,8 @@ Phases, each printing its lines before the last:
      keep_attention), `encoding_decoding` and `ppl` with roco on a
      1024-token prompt, stride 96: equal tokens and kv_len; equal final
      positions (an int8 cache: in layer 0, and K/V within one int8 step
-     elsewhere); ppl within 1e-5 relative;
+     elsewhere); ppl within 1e-5 relative; the same for StreamingLLM
+     `encoding` at stride 96 and 1 and `ppl`;
      then the int4 arithmetic fused (K14; K15 at B=4), int8 fused, int4
      arithmetic split and int4 halves split trees of those weights, f32 KV:
      equal tokens and final positions; the fused tree with an int8 KV cache
@@ -85,7 +97,8 @@ Phases, each printing its lines before the last:
      one int8 step elsewhere;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
-     each cache dtype the main path gives the kernel; K10-K13 at each 7B
+     each cache dtype the main path gives the kernel (K1's rank variant
+     and fused_decode_attend at S=2304); K10-K13 at each 7B
      product of their phase-3 trees (bf16 activations) with enough weight copies cycled that L2 is
      cold, the library call torch.matmul over a bf16 copy dequantized
      beforehand; K14 for a whole decode step at 7B width (L=32, S=768),
@@ -121,7 +134,7 @@ import easykv_tpu_torch
 from easykv_tpu_torch import flags
 from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
-from easykv_tpu_torch.models.llama import init_params, rotation_tables
+from easykv_tpu_torch.models.llama import StepCtx, age_ranks_all, init_params, rotation_tables
 from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import sidecar_update as sidecar_mod
 from easykv_tpu_torch.ops.cuda.kv_compact import (
@@ -132,7 +145,8 @@ from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
     fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
 from easykv_tpu_torch.ops.cuda.decode_attention import (
-    fused_decode_attend_inflight as k1, fused_decode_attend_inflight_plain as k1_plain)
+    fused_decode_attend as kda, fused_decode_attend_inflight as k1,
+    fused_decode_attend_inflight_plain as k1_plain, fused_decode_attend_plain as kda_plain)
 from easykv_tpu_torch.ops.cuda import fused_decode as k14_fd
 from easykv_tpu_torch.ops.cuda.fused_decode import (fused_decode_step as k14,
                                                     fused_decode_step_plain as k14_plain)
@@ -635,9 +649,11 @@ def phase_k6(dev):
 
 
 KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9,
-           "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15}
+           "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15,
+           "decode_attend": kda}
 # launches of a kernel's variant, counted by its wrapper beside the total
-VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K2 compact": (k2, "compact_launches")}
+VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K1 rank": (k1, "rank_launches"),
+            "K2 compact": (k2, "compact_launches")}
 
 
 def reset_counts():
@@ -788,25 +804,41 @@ def phase_streaming(dev, cfg, params):
 
 
 @contextlib.contextmanager
-def engine_caches():
-    """Records every KV cache the engine allocates, so that a run through
-    generate() can be read back after it."""
-    made, make = [], gen_mod._engine_cache
+def recorded(name, last_only=False):
+    """Records the results of the engine's function `name` (every one, or
+    the last), so that a run through generate() can be read back after it."""
+    made, fn = [], getattr(gen_mod, name)
 
     def record(*args):
-        made.append(make(*args))
+        if last_only:
+            made.clear()
+        made.append(fn(*args))
         return made[-1]
-    with mock.patch.object(gen_mod, "_engine_cache", record):
+    with mock.patch.object(gen_mod, name, record):
         yield made
+
+
+def engine_caches():
+    """Every KV cache the engine allocates."""
+    return recorded("_engine_cache")
 
 
 def phase_encoding(dev, cfg, params):
     """The encoding family at 7B width on a 4096-token prompt, stride 96,
     128 new tokens, greedy, through generate() and enable_fixed_kv's
-    easykv_ppl. Checks the exact launch counts, the slot counts and the
-    printed budget ratios. The slots left by the encode are counted in the
-    final cache: `encoding` then adds one per decode step, encoding_decoding
-    writes one and evicts one, ppl does not decode."""
+    easykv_ppl: int8 and bf16 `encoding` (budget 0.5), int8
+    `encoding_decoding` (budget 2048) and int8 `ppl` (budget 0.5), then the
+    same runs with streaming=True (StreamingLLM: the chunk-major encode over
+    the unordered cache, K rotated by its age rank, the decode through K1's
+    rank variant with carried ranks), then a streaming int8 `encoding` at
+    stride 1 on the prompt's first 512 tokens (32 new tokens), whose every
+    encode chunk is a decode step through K1's rank variant. Checks the
+    exact launch counts, the slot counts, the printed budget ratios and,
+    after each streaming decode, that the carried ranks equal _age_ranks of
+    the final cache. The slots left by the encode are counted in the final
+    cache: `encoding` then adds one per decode step, encoding_decoding
+    writes one and evicts one, ppl does not decode. Prints the streaming
+    runs' phase times beside the non-streaming ones'."""
     L = cfg.num_hidden_layers
     n_prefix = L * ((ENC_RIDX + CHUNK - 1) // CHUNK)      # K5: 16 chunks of 128 per layer
     n_enc = L * ((ENC_PROMPT - ENC_RIDX) // STRIDE)        # K6: 22 chunks per layer
@@ -819,62 +851,173 @@ def phase_encoding(dev, cfg, params):
         easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8"), None,
         "encoding", stride=STRIDE) for kv in ("bf16", "int8")}
     for model in models.values():                                       # warm-up
-        model.easykv_generate(prompt[:1024], dict(gc, budget=0.5, max_new_tokens=4))
-    plan = [  # name, kv, mode, budget, K5, K6, decode launches, slots after the run
+        for streaming in (False, True):
+            model.easykv_generate(prompt[:1024], dict(gc, budget=0.5, max_new_tokens=4,
+                                                      streaming=streaming))
+    ratio_enc = f"KV cache budget ratio: {ENC_IDX / ENC_PROMPT * 100:.2f}%({ENC_IDX}/{ENC_PROMPT})"
+    ratio_encdec = (f"KV Cache Budget ratio {ENC_IDX / (ENC_PROMPT + ENC_NEW) * 100:.2f}%"
+                    f"[{ENC_IDX}/({ENC_PROMPT}+{ENC_NEW})]")
+    plan = [  # name, kv, mode, budget, K5, K6, decode steps, slots after the run, ratio line
         ("int8 encoding roco", "int8", "encoding", 0.5, n_prefix, n_enc, ENC_NEW,
-         ENC_IDX + ENC_NEW,
-         f"KV cache budget ratio: {ENC_IDX / ENC_PROMPT * 100:.2f}%({ENC_IDX}/{ENC_PROMPT})"),
+         ENC_IDX + ENC_NEW, ratio_enc),
         ("bf16 encoding roco", "bf16", "encoding", 0.5, 0, 0, ENC_NEW, ENC_IDX + ENC_NEW,
-         f"KV cache budget ratio: {ENC_IDX / ENC_PROMPT * 100:.2f}%({ENC_IDX}/{ENC_PROMPT})"),
+         ratio_enc),
         ("int8 encoding_decoding roco", "int8", "encoding_decoding", 2048, L, n_encdec,
-         ENC_NEW, ENC_IDX, f"KV Cache Budget ratio "
-         f"{ENC_IDX / (ENC_PROMPT + ENC_NEW) * 100:.2f}%[{ENC_IDX}/({ENC_PROMPT}+{ENC_NEW})]"),
-        ("int8 ppl roco", "int8", "ppl", 0.5, L, n_encdec, 0, ENC_IDX,
-         f"KV cache budget ratio: {ENC_IDX / ENC_PROMPT * 100:.2f}%({ENC_IDX}/{ENC_PROMPT})"),
+         ENC_NEW, ENC_IDX, ratio_encdec),
+        ("int8 ppl roco", "int8", "ppl", 0.5, L, n_encdec, 0, ENC_IDX, ratio_enc),
     ]
+    plan += [(name.replace(" ", " stream ", 1), kv, mode, budget, n5, 0, n_dec, slots, ratio)
+             for name, kv, mode, budget, n5, _, n_dec, slots, ratio in plan]
     runs = {}
     for name, kv, mode, budget, n5, n6, n_dec, slots, ratio in plan:
-        model = models[kv]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        printed = io.StringIO()
-        reset_counts()
-        with contextlib.redirect_stdout(printed), engine_caches() as made:
-            if mode == "ppl":
-                out = model.easykv_ppl(prompt, dict(gc, budget=budget))
-            else:
-                out = easykv_tpu_torch.generate(model, prompt, dict(gc, budget=budget),
-                                                kv_mode=mode, stride=STRIDE)
-        c = counts()
-        st = model.last_run
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        valid = (made[-1].pos >= 0).sum(dim=-1)
-        held = (int(valid.min()), int(valid.max()))
-        del made
-        S = ENC_S if mode == "encoding" else ENCDEC_S
-        line = printed.getvalue().strip().splitlines()[-1]
-        desc = (f"phase 3: {name}: prefix prefill {st.prefill_s:.3f} s, strided encode "
-                f"{st.encode_s:.3f} s")
-        if mode == "ppl":
-            desc += f", ppl {out:.4f}"
-            tok_s = None
-            check(math.isfinite(out) and st.logits_finite, f"{name}: ppl {out}")
-        else:
-            tok_s = st.n_tokens / st.decode_s
-            desc += f", decode {st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s"
-            check(len(out) == ENC_NEW and st.logits_finite, f"{name}: bad output / NaN logits")
-        print(f"{desc}, valid slots per (layer, head) after the run {held}, "
-              f"KV cache {kv_cache_mb(cfg, 1, S, kv == 'int8'):.1f} MB (S={S}), peak memory "
-              f"{peak:.2f} GiB, launches {c}; printed: {line}")
-        want = zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n5, K6=n6)
-        check(c == want, f"{name}: launch counts {c}, expected {want}")
-        check(held == (slots, slots), f"{name}: slots {held}, expected {slots}")
-        check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
-        if mode == "encoding_decoding":
-            check(st.kv_len == ENC_IDX, f"{name}: kv_len {st.kv_len} after decode")
-        runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s,
-                          encode_s=st.encode_s, peak_gib=peak)
+        streaming = " stream " in name
+        runs[name] = encoding_run(
+            models[kv], name, prompt, dict(gc, budget=budget, streaming=streaming), mode,
+            STRIDE, zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n5, K6=n6,
+                                **{"K1 rank": L * n_dec if streaming else 0}),
+            slots, ratio, ENC_S if mode == "encoding" else ENCDEC_S, cfg)
+    for name, r in runs.items():
+        if " stream " in name:
+            base = runs[name.replace(" stream ", " ")]
+            print(f"phase 3: {name} against {base['name']}: prefix prefill {r['prefill_s']:.3f} / "
+                  f"{base['prefill_s']:.3f} s, strided encode {r['encode_s']:.3f} / "
+                  f"{base['encode_s']:.3f} s"
+                  + ("" if r["tok_s"] is None else
+                     f", decode {r['tok_s']:.2f} / {base['tok_s']:.2f} tok/s"))
+    # stride 1: every encode chunk is a decode step (_decode_forward, K1 rank)
+    n1, new1 = 512, 32
+    idx1, ridx1 = gen_mod.stride_align(n1, int(n1 * 0.5) + 1, 1)
+    steps = (n1 - ridx1) + new1
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=True)
+    name = "int8 stream encoding roco stride 1"
+    runs[name] = encoding_run(
+        model, name, prompt[:n1], dict(gc, budget=0.5, max_new_tokens=new1, streaming=True),
+        "encoding", 1, zero_counts(K1=L * steps, K2=steps, K3=steps,
+                                   K5=L * ((ridx1 + CHUNK - 1) // CHUNK),
+                                   **{"K1 rank": L * steps}),
+        idx1 + new1, f"KV cache budget ratio: {idx1 / n1 * 100:.2f}%({idx1}/{n1})",
+        gen_mod._round_up(idx1 + 1 + new1, 128), cfg, n_new=new1)
+    for kv in ("bf16", "int8"):
+        runs[f"{kv} forward bootstrap"] = forward_bootstrap(dev, cfg, params, kv, prompt)
     return runs
+
+
+def encoding_run(model, name, prompt, gc, mode, stride, want, slots, ratio, S, cfg,
+                 n_new=ENC_NEW):
+    """One run of the encoding family through generate() (ppl through
+    enable_fixed_kv's easykv_ppl), checked: launch counts `want`, `slots`
+    valid slots in every (layer, head) of the final cache, the printed
+    ratio line, and with streaming the decode's carried ranks equal to
+    _age_ranks of the final cache. Returns its figures."""
+    dev = model.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    printed = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(printed), engine_caches() as made, \
+            recorded("_carry_ranks", last_only=True) as ranks:
+        if mode == "ppl":
+            out = easykv_tpu_torch.generate(model, prompt, gc, kv_mode="ppl", stride=stride)
+        else:
+            out = easykv_tpu_torch.generate(model, prompt, gc, kv_mode=mode, stride=stride)
+    c = counts()
+    st = model.last_run
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pos = made[-1].pos
+    valid = (pos >= 0).sum(dim=-1)
+    held = (int(valid.min()), int(valid.max()))
+    line = printed.getvalue().strip().splitlines()[-1]
+    desc = (f"phase 3: {name}: prefix prefill {st.prefill_s:.3f} s, strided encode "
+            f"{st.encode_s:.3f} s")
+    if mode == "ppl":
+        desc += f", ppl {out:.4f}"
+        tok_s = None
+        check(math.isfinite(out) and st.logits_finite, f"{name}: ppl {out}")
+    else:
+        tok_s = st.n_tokens / st.decode_s
+        desc += f", decode {st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s"
+        check(len(out) == n_new and st.logits_finite, f"{name}: bad output / NaN logits")
+    if gc.get("streaming") and mode != "ppl":
+        same = bool(ranks) and torch.equal(ranks[-1], age_ranks_all(pos))
+        desc += f", carried ranks equal _age_ranks of the final cache {same}"
+        check(same, f"{name}: the carried ranks are not the final cache's age ranks")
+    del made, ranks, pos
+    print(f"{desc}, valid slots per (layer, head) after the run {held}, "
+          f"KV cache {kv_cache_mb(cfg, 1, S, model.kv_quant):.1f} MB (S={S}), peak memory "
+          f"{peak:.2f} GiB, launches {c}; printed: {line}")
+    check(c == want, f"{name}: launch counts {c}, expected {want}")
+    check(held == (slots, slots), f"{name}: slots {held}, expected {slots}")
+    check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
+    if mode == "encoding_decoding":
+        check(st.kv_len == ENC_IDX, f"{name}: kv_len {st.kv_len} after decode")
+    return dict(name=name, counts=c, tok_s=tok_s, prefill_s=st.prefill_s,
+                encode_s=st.encode_s, peak_gib=peak)
+
+
+def forward_bootstrap(dev, cfg, params, kv, prompt):
+    """llama.forward at C == 1 with bootstrap=True, the branch that
+    reaches fused_decode_attend (the keep_attention prefix accumulation
+    token by token, which no engine path takes today; serving's prefill
+    will): the prompt's first 512 tokens prefilled with the bootstrap, then
+    one token, at 7B width with a `kv` cache. Counts the launches (32
+    fused_decode_attend, nothing else), holds every layer's
+    fused_decode_attend to its plain version on that layer's own inputs
+    (K1's limits), and the kernel path's cache to the plain path's: pos and
+    counters exact in every layer, layer 0's scores within 1e-5 (both paths
+    give it the same inputs; later layers' inputs part by the bf16
+    rounding of the attention outputs before them, printed)."""
+    L = cfg.num_hidden_layers
+    st = gen_mod.EngineStatics(cfg=cfg, policy="roco", mode="encoding", length=PROMPT,
+                               budget=PROMPT, idx=PROMPT + 1, r_idx=PROMPT, stride=1,
+                               kv_quant=kv == "int8", keep_attention=True)
+    spec = st.encode_spec()
+    cache = gen_mod._engine_cache(st, 1, PROMPT + 1, params.embed.dtype, dev)
+    ids = torch.tensor([prompt[:PROMPT]], dtype=torch.int32, device=dev)
+    gen_mod._prefill(st, params, cache, ids, torch.full((1,), PROMPT, dtype=torch.int32,
+                                                        device=dev), spec, "encode")
+    twin = dataclasses.replace(cache, **{f.name: getattr(cache, f.name).clone()
+                                         for f in dataclasses.fields(cache)
+                                         if getattr(cache, f.name) is not None})
+    one = lambda x, dt: torch.tensor([x], dtype=dt, device=dev)  # noqa: E731
+    ctx = StepCtx(q_pos=one([PROMPT], torch.int32), token_valid=one([True], torch.bool),
+                  counter_init=one([0.0], torch.float32), next_pos=one(PROMPT + 1, torch.int32),
+                  prompt_len=one(PROMPT, torch.int32), evict_gate=one(False, torch.bool),
+                  update_gate=one(True, torch.bool), rand_rank=one(0, torch.int32))
+    tok = one([prompt[PROMPT]], torch.int32)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append((a, kw, kda(*a, **kw)))
+        return seen[-1][2]
+    torch.cuda.synchronize()
+    reset_counts()
+    with mock.patch.object(llama_mod, "fused_decode_attend", spy):
+        logits = llama_mod.forward(params, cfg, cache, tok, ctx, spec, bootstrap=True)
+    torch.cuda.synchronize()
+    c = counts()
+    with mock.patch.object(llama_mod, "fused_decode_attend", kda_plain):
+        ref = llama_mod.forward(params, cfg, twin, tok, ctx, spec, bootstrap=True)
+    worst = 0.0
+    for a, kw, got in seen:
+        want = kda_plain(*a, **kw)
+        ratio = ((got[0].float() - want[0].float()).abs() / k1_out_limit(want[0])).max().item()
+        e_probs = (got[1] - want[1]).abs().max().item()
+        worst = max(worst, ratio)
+        check(ratio <= 1 and e_probs <= 1e-5,
+              f"forward bootstrap {kv}: a layer's fused_decode_attend disagrees "
+              f"({ratio:.3f} of the out limit, probs {e_probs:.3e})")
+    same_pos = torch.equal(cache.pos, twin.pos) and torch.equal(cache.counter, twin.counter)
+    e_score = (cache.score[0] - twin.score[0]).abs().max().item()
+    e_logit = ((logits - ref).abs().max() / ref.abs().max()).item()
+    print(f"phase 3: forward C=1 bootstrap, {kv} KV, 7B width: launches {c}; every layer's "
+          f"fused_decode_attend within {worst:.2f} of its limit of the plain version on its own "
+          f"inputs; pos and counters equal to the plain path {same_pos}; layer 0 scores "
+          f"max|err| {e_score:.3e}; logits max|diff| {e_logit:.3e} of max|logit|")
+    check(c == zero_counts(decode_attend=L) and len(seen) == L,
+          f"forward bootstrap {kv}: launches {c}")
+    check(same_pos and e_score <= 1e-5, f"forward bootstrap {kv}: the cache disagrees")
+    check(bool(torch.isfinite(logits).all()), f"forward bootstrap {kv}: NaN logits")
+    return dict(counts=c)
 
 
 @contextlib.contextmanager
@@ -883,6 +1026,7 @@ def plain_kernels():
     (K4 where policies.evict_cache imports it, K8 in the engine, K10-K13
     where ops.quant.mm calls them, K14 and K15 in the decode step)."""
     with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
+                             fused_decode_attend=kda_plain,
                              fused_write_update=k2_plain, write_rows=k3_plain,
                              fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
                              fused_kv_compact=k9_plain, fused_decode_step=k14_plain,
@@ -1035,40 +1179,52 @@ def phase_plain_vs_kernel_encoding(dev, cfg, params):
     encoding_decoding encode). There: equal tokens and kv_len, layer 0's pos
     equal, K/V within one int8 step wherever both paths hold the same
     position, ppl within 1e-5 relative (measured: 1.32e-6); the differing
-    positions of later layers are printed."""
-    n = 1024
-    ids = torch.randint(1, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(2),
+    positions of later layers are printed.
+
+    Then StreamingLLM (streaming=True: the chunk-major encode over the
+    unordered cache, K rotated by rank; the decode through K1's rank
+    variant): `encoding` at stride 96 and at stride 1 (a 256-token prompt:
+    every chunk a decode step) and `ppl` at stride 96, under the same
+    rules."""
+    ids = torch.randint(1, cfg.vocab_size, (1, 1024), generator=torch.Generator().manual_seed(2),
                         dtype=torch.int32).to(dev)
-    runs = [("encoding", 0.5, False), ("encoding", 0.5, True), ("encoding_decoding", 512, False),
-            ("ppl", 0.5, False)]
+    runs = [  # mode, budget, keep_attention, stride, streaming, prompt length
+        ("encoding", 0.5, False, STRIDE, False, 1024), ("encoding", 0.5, True, STRIDE, False, 1024),
+        ("encoding_decoding", 512, False, STRIDE, False, 1024),
+        ("ppl", 0.5, False, STRIDE, False, 1024),
+        ("encoding", 0.5, False, STRIDE, True, 1024), ("encoding", 0.5, False, 1, True, 256),
+        ("ppl", 0.5, False, STRIDE, True, 1024)]
     for quant in (False, True):
         kv = "int8" if quant else "f32"
-        for mode, budget, keep in runs:
-            b = int(n * budget) + STRIDE if isinstance(budget, float) else budget + STRIDE
+        for mode, budget, keep, stride, streaming, n in runs:
+            b = int(n * budget) + stride if isinstance(budget, float) else budget + stride
             align = gen_mod.stride_align if mode == "encoding" else gen_mod.stride_align_encdec
-            idx, r_idx = align(n, b, STRIDE)
+            idx, r_idx = align(n, b, stride)
             st = gen_mod.EngineStatics(
                 cfg=cfg, policy="roco", length=n, budget=b, max_new_tokens=32,
-                recent_window_dec=int(b * 0.3), kv_quant=quant, mode=mode, stride=STRIDE,
-                idx=idx, r_idx=r_idx, recent_window=int(b * 0.1), keep_attention=keep)
+                recent_window_dec=int(b * 0.3), kv_quant=quant, mode=mode, stride=stride,
+                idx=idx, r_idx=r_idx, recent_window=int(b * 0.1), keep_attention=keep,
+                streaming=streaming)
             res = {}
             for plain in (False, True):
                 gen = torch.Generator(device=dev).manual_seed(0)
                 reset_counts()
                 with plain_kernels() if plain else contextlib.nullcontext():
                     if mode == "ppl":
-                        loss, kv_len, _ = gen_mod._run_ppl(st, params, ids, gen, torch.float32)
+                        loss, kv_len, _ = gen_mod._run_ppl(st, params, ids[:, :n], gen,
+                                                           torch.float32)
                         res[plain] = (float(loss[0]), None, int(kv_len[0]), counts())
                     else:
                         run = gen_mod._run_encoding if mode == "encoding" else gen_mod._run_encdec
-                        out = run(st, params, ids, 1e-9, 1.0, gen, torch.float32)
+                        out = run(st, params, ids[:, :n], 1e-9, 1.0, gen, torch.float32)
                         cache = out[-2]
                         res[plain] = (out[0].out_ids.cpu(), (cache.pos.cpu(), cache.k.cpu(),
                                                              cache.v.cpu()),
                                       int(out[0].kv_len[0]), counts())
             (ta, ca, la, k_c), (tb, cb, lb, p_c) = res[False], res[True]
-            n6 = 2 * ((n - r_idx) // STRIDE) if quant else 0
-            name = f"{mode}" + (" keep_attention" if keep else "")
+            n6 = 2 * ((n - r_idx) // stride) if quant and not streaming else 0
+            name = (("streaming " if streaming else "") + mode
+                    + (" keep_attention" if keep else ""))
             if mode == "ppl":
                 rel = abs(ta - tb) / abs(tb)
                 ok = rel <= 1e-5 and la == lb
@@ -1086,11 +1242,14 @@ def phase_plain_vs_kernel_encoding(dev, cfg, params):
                     ok = same_tok and sum(pos_diff) == 0
                 ok = ok and la == lb
             print(f"phase 4: full width L=2 f32 weights, {kv} KV, {name} roco, {n} tokens, "
-                  f"stride {STRIDE}: {what}, kv_len {la} / {lb}; launches kernel path {k_c}, "
+                  f"stride {stride}: {what}, kv_len {la} / {lb}; launches kernel path {k_c}, "
                   f"plain path {p_c}")
-            check(ok, f"{kv} KV {name}: kernel path and plain path disagree")
+            check(ok, f"{kv} KV {name} stride {stride}: kernel path and plain path disagree")
+            ranked = streaming and mode != "ppl"      # its decode (and stride 1's chunks)
             check(k_c["K6"] == n6 and sum(p_c.values()) == 0
-                  and (k_c["K5"] > 0) == quant, f"{kv} KV {name}: launch counts")
+                  and (k_c["K5"] > 0) == quant and (k_c["K1 rank"] > 0) == ranked
+                  and k_c["K1 rank"] == (k_c["K1"] if streaming else 0),
+                  f"{kv} KV {name} stride {stride}: launch counts")
 
 
 def graph_ms(fn, arg_sets, reps):
@@ -2096,6 +2255,175 @@ def k15_records(ktimes, runs):
     return records
 
 
+# ---------------------------------------------------------------------------
+# StreamingLLM in the encoding family: K1's rank variant, fused_decode_attend
+# ---------------------------------------------------------------------------
+
+RANK_VALID = ENC_IDX + ENC_NEW // 2     # valid slots a head midway through `encoding`'s decode
+RANK_META = {  # key: (name, TPU kernel it replaces)
+    "K1 rank": ("fused_decode_attend_inflight rank",
+                "easykv_tpu/ops/pallas/decode_attention.py:207"),
+    "decode_attend": ("fused_decode_attend", "easykv_tpu/ops/pallas/decode_attention.py:406"),
+}
+
+
+def scrambled_positions(B, H, S, n_valid, dev, seed, dead_row=False):
+    """(B, H, S) positions of the encoding family's unordered cache: n_valid
+    distinct positions of the 4096-token prompt and its decode, scattered
+    over random slots of each head (eviction leaves holes anywhere and
+    write_tokens refills the lowest ones), the rest -1; dead_row: the last
+    row all -1."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.full((B * H, S), -1, dtype=torch.int32)
+    for r in range(B * H):
+        slots = torch.randperm(S, generator=g)[:n_valid]
+        keep = torch.randperm(ENC_PROMPT + ENC_NEW, generator=g)[:n_valid].sort().values
+        pos[r, slots] = keep.to(torch.int32)
+    pos = pos.view(B, H, S)
+    if dead_row:
+        pos[-1] = -1
+    return pos.to(dev)
+
+
+def rank_case(B, Hq, Hkv, dtype, quant, dev, seed, dead_row=False, S=ENC_S, D=128):
+    """K1's arguments over the unordered cache at the `encoding` decode's
+    shapes, with the query one past the newest position (a dead row: -1),
+    and the rank variant's tables and age ranks: (args, rot, ranks)."""
+    args = k1_case(B, Hq, Hkv, S, D, dtype, [ENC_PROMPT + ENC_NEW] * B, dev, seed, quant)
+    pos = scrambled_positions(B, Hkv, S, RANK_VALID, dev, seed, dead_row)
+    q_pos = args[6].clone()
+    if dead_row:
+        q_pos[-1] = -1
+    args = args[:5] + (pos, q_pos) + args[7:]
+    return args, rotation_tables(S, LLAMA2_7B, dev), age_ranks_all(pos[None])[0]
+
+
+def phase_rank_kernels(dev):
+    """K1's rank variant and fused_decode_attend against their plain
+    versions at the `encoding` decode's shapes (S=2304, D=128, 2144 valid
+    slots a head scattered over the cache, ranks of that cache): bf16 and
+    int8 KV, LLaMa-2-7B's 32 heads at B=1, and B=2 with a dead row and
+    Mistral-style GQA (32 query heads on 8 KV heads, rep 4: 4 x 2304 logits
+    in shared memory); fused_decode_attend also with a 512-slot window.
+    K1's limits: out within k1_out_limit, probs and p_new within 1e-5; a
+    dead row all zero. Returns the max |err| of the B=1 cases keyed as
+    phase 5 keys its times."""
+    errs = {}
+    cases = [("bf16 MHA B=1", 1, 32, 32, torch.bfloat16, False, False, None),
+             ("int8 MHA B=1", 1, 32, 32, torch.bfloat16, True, False, None),
+             ("bf16 GQA rep 4 B=2 dead row", 2, 32, 8, torch.bfloat16, False, True, None),
+             ("int8 GQA rep 4 B=2 dead row", 2, 32, 8, torch.bfloat16, True, True, None),
+             ("bf16 MHA B=1 window 512", 1, 32, 32, torch.bfloat16, False, False, 512),
+             ("f32 MHA B=1", 1, 32, 32, torch.float32, False, False, None)]
+    for i, (name, B, Hq, Hkv, dtype, quant, dead, window) in enumerate(cases):
+        args, rot, ranks = rank_case(B, Hq, Hkv, dtype, quant, dev, 200 + i, dead)
+        da_args = (args[0],) + args[3:]
+        pairs = [("decode_attend", kda(*da_args, sliding_window=window),
+                  kda_plain(*da_args, sliding_window=window))]
+        if window is None:
+            pairs.insert(0, ("K1 rank", k1(*args, rot=rot, rank=ranks),
+                             k1_plain(*args, rot=rot, rank=ranks)))
+        torch.cuda.synchronize()
+        for key, got, ref in pairs:
+            e = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+            ratio = ((got[0].float() - ref[0].float()).abs() / k1_out_limit(ref[0])).max().item()
+            print(f"phase 2: {key} {name}: max|err| out {e[0]:.3e} (at most {ratio:.2f} of its "
+                  f"limit) probs {e[1]:.3e}" + (f" p_new {e[2]:.3e}" if len(e) > 2 else ""))
+            check(ratio <= 1 and max(e[1:]) <= 1e-5, f"{key} {name} disagrees: {e}")
+            if dead:
+                check(got[0][1].abs().max().item() == 0 and got[1][1].abs().max().item() == 0,
+                      f"{key} {name}: the dead row is not all zero")
+            if name.endswith("MHA B=1"):
+                errs[(key, "int8" if quant else "bf16")] = max(e)
+        if name == "bf16 MHA B=1":
+            by_slot = k1_plain(*args, rot=rot)[1]
+            moved = (by_slot - pairs[0][2][1]).abs().max().item()
+            print(f"phase 2: K1 rank {name}: probs move by {moved:.3e} when slots stand for "
+                  f"ranks")
+            check(moved > 1e-4, "K1 rank: the ranks do not move the rotation")
+    return errs
+
+
+def rank_times(dev):
+    """K1's rank variant and fused_decode_attend at the `encoding` decode's
+    shapes (B=1, 32 heads, S=2304, 2144 valid slots a head, all visible),
+    one layer per launch, 32 layers' K/V cycled (604 MB bf16): cold L2.
+    Bounds (bytes at 3.35 TB/s): the visible K and V rows (and int8
+    scales) read once, pos read, probs written, q (kn, vn), out (p_new);
+    K1 rank also the (B, H, S) int32 ranks and the (S, D/2) cos and sin
+    tables once. library_ms: None, no PyTorch call emits the probabilities
+    (scaled_dot_product_attention does not)."""
+    L, H, S, D = 32, 32, ENC_S, 128
+    out = {}
+    gk = torch.Generator(device=dev).manual_seed(210)
+    q, kn, vn = (torch.randn((1, H, 1, D), generator=gk, device=dev).to(torch.bfloat16)
+                 for _ in range(3))
+    qp = torch.tensor([ENC_PROMPT + ENC_NEW], dtype=torch.int32, device=dev)
+    pos = torch.stack([scrambled_positions(1, H, S, RANK_VALID, dev, 211 + l)
+                       for l in range(L)])
+    ranks = age_ranks_all(pos)
+    rot = rotation_tables(S, LLAMA2_7B, dev)
+    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
+    for kv in ("bf16", "int8"):
+        kc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
+        vc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
+        scales = [()] * L
+        row_bytes = D * 2
+        if kv == "int8":
+            (kc, ksc), (vc, vsc) = quantize_kv(kc), quantize_kv(vc)
+            scales = [(ksc[l], vsc[l]) for l in range(L)]
+            row_bytes = D + 4
+        common = visible * row_bytes * 2 + H * S * 4 * 2 + H * D * 2 * 2 + 4  # K, V; pos, probs; q, out
+        k1_sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, ranks[l], *scales[l]) for l in range(L)]
+        da_sets = [(q, kc[l], vc[l], pos[l], qp, *scales[l]) for l in range(L)]
+
+        def run_k1(fn):
+            return lambda *a: fn(*a[:7], *a[8:], rot=rot, rank=a[7])
+        out[("K1 rank", kv)] = dict(
+            ms=graph_ms(run_k1(k1), k1_sets, 320), plain_ms=graph_ms(run_k1(k1_plain), k1_sets, 32),
+            library_ms=None,
+            bytes=common + H * D * 2 * 2 + H * 4 + H * S * 4 + S * D // 2 * 4 * 2,
+            flops=4 * visible * D + 6 * visible * D, peak=F32_FLOPS)
+        out[("decode_attend", kv)] = dict(
+            ms=graph_ms(kda, da_sets, 320), plain_ms=graph_ms(kda_plain, da_sets, 32),
+            library_ms=None, bytes=common, flops=4 * visible * D, peak=F32_FLOPS)
+        del kc, vc, k1_sets, da_sets, scales
+        torch.cuda.empty_cache()
+    print(f"phase 5: K1 rank / fused_decode_attend inputs: {visible / H:.0f} of {S} slots "
+          f"visible per head, {H} heads, {L} layers' K/V cycled")
+    for r in out.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / r.pop("peak") * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def rank_records(rtimes, errs, runs):
+    """The kernels-line records of K1 rank (launches from the streaming
+    `encoding` run of the same cache dtype, 32 a decode step) and
+    fused_decode_attend (from phase 3's forward bootstrap call, 32 a
+    call)."""
+    records = []
+    for (key, kv), t in rtimes.items():
+        kname, repl = RANK_META[key]
+        if key == "K1 rank":
+            run, unit, n = f"{kv} stream encoding roco", "step", ENC_NEW
+        else:
+            run, unit, n = f"{kv} forward bootstrap", "call", 1
+        launches = runs[run]["counts"][key]
+        label = kname + (" (int8 KV)" if kv == "int8" else "")
+        print(f"phase 5: {key} {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+              f"us, library none, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), "
+              f"{launches / n:g} launches/{unit} in the {run} run")
+        records.append({"name": label, "route": "cuda",
+                        "source": "easykv_tpu_torch/csrc/decode_attention.cu", "replaces": repl,
+                        "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2116,12 +2444,14 @@ def main():
                 print(f"phase 1: ptxas {src}: {line.strip()}")
 
     errs = phase_kernels(dev)
+    errs.update(phase_rank_kernels(dev))
     errs.update(phase_quant_kernels(dev))
     phase_k14(dev)
     phase_k15(dev)
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
+    rtimes = rank_times(dev)
     qtimes = quant_times(dev)
     cfg32, tree32 = step_tree(dev, 32, 0)
     ktimes = k14_times(dev, cfg32, tree32)
@@ -2172,6 +2502,7 @@ def main():
                         "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += rank_records(rtimes, errs, runs)
     kernels += quant_records(qtimes, errs, runs)
     kernels += k14_records(ktimes, runs)
     kernels += k15_records(btimes, runs)

@@ -10,7 +10,9 @@
 
   * The encoding family writes each strided chunk into caller-given slots
     per head (write_tokens_at): contiguous while the cache fills, the
-    previous eviction's slots afterwards.
+    previous eviction's slots afterwards. The chunk-major forward (the
+    StreamingLLM encode) writes a chunk into the lowest free slots
+    (write_tokens).
 
   * An int8 cache (`init_cache(..., quantized=True)`) stores K/V as int8
     with one f32 dequant scale per (layer, batch, head, slot), the JAX
@@ -127,6 +129,55 @@ def free_slot_ids(pos: torch.Tensor, count: int) -> torch.Tensor:
     sort_key = torch.where(pos < 0, 2 * S - slot_idx, torch.zeros_like(slot_idx))
     _, ids = torch.sort(-sort_key, dim=-1, stable=True)
     return ids[..., :count].to(torch.int32)
+
+
+def write_tokens(
+    cache: KVCache,              # one layer: k (B, H, S, D), pos (B, H, S)
+    new_k: torch.Tensor,         # (B, H, C, D) post-RoPE (raw K under streaming)
+    new_v: torch.Tensor,         # (B, H, C, D)
+    new_pos: torch.Tensor,       # (B, C) int32
+    counter_init: torch.Tensor,  # (B, C) f32
+    token_valid: Optional[torch.Tensor] = None,  # (B, C) bool; False = padding
+) -> None:
+    """Write C tokens into the lowest-index free slots of each (B, H), in
+    place (the JAX package's write_tokens, cache.py:165-248 there). Valid
+    tokens take the lowest free slots in column order whatever their column;
+    padding columns take the remaining ids and write nothing. A written slot
+    gets its row (quantized once, with its scale, in an int8 cache), pos,
+    the initial counter and zero scores. With fewer free slots than C the
+    remaining ids are valid slots in slot order, as the JAX package's
+    free_slot_ids gives them, and are overwritten the same way."""
+    B, H, C, _ = new_k.shape
+    ids = free_slot_ids(cache.pos, C)                                  # (B, H, C)
+    if token_valid is None:
+        write_tokens_at(cache, new_k, new_v, new_pos, counter_init, ids)
+        return
+    tv = token_valid.to(torch.int32)
+    order = torch.where(token_valid, tv.cumsum(1) - 1,
+                        tv.sum(1, keepdim=True) + (1 - tv).cumsum(1) - 1)
+    ids = ids.gather(2, order[:, None, :].expand(B, H, C))
+    dev = new_k.device
+    idx = (torch.arange(B, device=dev)[:, None, None],
+           torch.arange(H, device=dev)[None, :, None], ids.long())
+    live = token_valid[:, None, :]                                     # (B, 1, C)
+
+    def put(buf, new):
+        buf[idx] = torch.where(live if new.dim() == 3 else live[..., None], new, buf[idx])
+
+    if cache.quantized:
+        qk, k_sc = quantize_kv(new_k)
+        qv, v_sc = quantize_kv(new_v)
+        put(cache.k_scale, k_sc)
+        put(cache.v_scale, v_sc)
+    else:
+        qk, qv = new_k.to(cache.k.dtype), new_v.to(cache.v.dtype)
+    put(cache.k, qk)
+    put(cache.v, qv)
+    put(cache.pos, new_pos[:, None, :].expand(B, H, C))
+    put(cache.counter, counter_init[:, None, :].expand(B, H, C))
+    zeros = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
+    put(cache.score, zeros)
+    put(cache.score_sq, zeros)
 
 
 def write_tokens_slice(

@@ -1,17 +1,28 @@
 // Single-token decode attention over the budgeted KV ring buffer, with the
-// current token's K/V joined in flight and the eviction probabilities
-// emitted in the same pass.
+// eviction probabilities emitted in the same pass: two entry points on one
+// kernel body.
 //
-// Replaces the TPU kernel easykv_tpu/ops/pallas/decode_attention.py
-// `fused_decode_attend_inflight` (body `_kernel_inflight`): float or int8
-// KV, optional sliding window, and its `ordered` variant (StreamingLLM
-// decoding over the age-ordered, rotate-at-read cache): there the cached
-// K row at slot s is rotated by R(s*theta), [x1*c - x2*s, x2*c + x1*s],
-// from f32 cos/sin tables (S, D/2) that the caller builds once per run,
-// before its QK product. An int8 row is rotated raw (rotation is linear)
-// and its scale still folds into the logit. The TPU kernel's split-bf16
-// tables feed its matrix unit; here the table rows are read directly (from
-// L2: every block of a launch reads the same table).
+// `decode_attend_inflight` replaces the TPU kernel
+// easykv_tpu/ops/pallas/decode_attention.py `fused_decode_attend_inflight`
+// (body `_kernel_inflight`): the current token's K/V joins the softmax in
+// flight, float or int8 KV, optional sliding window, and two StreamingLLM
+// variants that rotate each cached K row by a row of f32 cos/sin tables
+// (S, D/2), [x1*c - x2*s, x2*c + x1*s], before its QK product:
+//   * `ordered` (the age-ordered, rotate-at-read cache of `decoding`): the
+//     row at slot s by table row s;
+//   * `rank` (the unordered cache of the encoding family): the row at slot
+//     s by table row rank[b, h, s], its age rank (0 <= rank < S).
+// An int8 row is rotated raw (rotation is linear) and its scale still folds
+// into the logit. The TPU kernel builds the rotation from split-bf16 tables
+// on its matrix unit (for `rank`, a two-level one-hot pick, R(128*qh) o
+// R(m)); here the f32 table row is read directly (from L2: every block of a
+// launch reads the same tables), which computes the same rotation.
+//
+// `decode_attend` replaces `fused_decode_attend` (body `_kernel`): the same
+// attention over a cache that already holds the token's row, with no
+// in-flight term and no p_new; float or int8 KV and the sliding window, no
+// rotation (the TPU kernel has none). The in-flight term is a template flag
+// of the one body, compiled out of this entry.
 //
 // What bounds it on an H100: bytes. Each launch reads the K and V rows of
 // one layer's visible slots once (11.7 MB at LLaMa-2-7B width with 712 of
@@ -36,7 +47,8 @@
 //      visible slot s and row r, -inf for a masked slot (pos < 0,
 //      pos > q_pos, outside the window);
 //   3. per r: m = max(-1e30, logits, logit_new); e = exp(l - m); denom =
-//      max(sum e + e_new, 1e-30); p = e / denom; p_new = e_new / denom;
+//      max(sum e + e_new, 1e-30); p = e / denom; p_new = e_new / denom
+//      (without the in-flight term: logit_new = -1e30, e_new = 0);
 //   4. out[r] = sum_s p[r][s] (* v_scale[s]) * v[s] + p_new[r] * vn (fp32
 //      accumulation; the int8 cache is never dequantized into a copy, and
 //      the in-flight vn stays in q's type);
@@ -58,13 +70,14 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 
-// R(s*theta) of one lane's V elements of a cached K row (ordered variant).
+// R(t*theta) of one lane's V elements of a cached K row, t its table row
+// (the slot, or its age rank).
 // A row spans LPR lanes; element d < D/2 pairs with d + D/2, which sits
 // LPR/2 lanes away at the same index j, or in the same lane when a row is
 // one lane. The shuffle runs on every lane (the warp stays
 // converged); only a visible row reads the table.
 template <int V>
-__device__ __forceinline__ void rotate_row(float* kr, int li, int LPR, int D, int s, bool vis,
+__device__ __forceinline__ void rotate_row(float* kr, int li, int LPR, int D, int t, bool vis,
                                            const float* cosv, const float* sinv) {
   const int d2 = D / 2;
   if (LPR >= 2) {
@@ -74,16 +87,16 @@ __device__ __forceinline__ void rotate_row(float* kr, int li, int LPR, int D, in
     for (int j = 0; j < V; ++j) part[j] = __shfl_xor_sync(0xffffffffu, kr[j], half);
     if (!vis) return;
     const bool first = li < half;
-    const float* cr = cosv + (size_t)s * d2 + (li % half) * V;
-    const float* sr = sinv + (size_t)s * d2 + (li % half) * V;
+    const float* cr = cosv + (size_t)t * d2 + (li % half) * V;
+    const float* sr = sinv + (size_t)t * d2 + (li % half) * V;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float a = __fmul_rn(kr[j], cr[j]), b = __fmul_rn(part[j], sr[j]);
       kr[j] = first ? __fsub_rn(a, b) : __fadd_rn(a, b);
     }
   } else if (vis) {
-    const float* cr = cosv + (size_t)s * d2;
-    const float* sr = sinv + (size_t)s * d2;
+    const float* cr = cosv + (size_t)t * d2;
+    const float* sr = sinv + (size_t)t * d2;
 #pragma unroll
     for (int j = 0; j < V / 2; ++j) {
       const float x1 = kr[j], x2 = kr[j + V / 2];
@@ -99,15 +112,17 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // T: the type of q, kn, vn and out; KV: the cache's type (T, or int8 with
-// per-slot scales ksc / vsc).
-template <typename T, typename KV>
+// per-slot scales ksc / vsc). kInflight: the in-flight token (kn, vn,
+// p_new); without it those pointers are null and unread.
+template <typename T, typename KV, bool kInflight>
 __global__ void __launch_bounds__(kThreads)
 decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                               const T* __restrict__ vn, const KV* __restrict__ k,
                               const KV* __restrict__ v, const int* __restrict__ pos,
                               const int* __restrict__ q_pos, const float* __restrict__ ksc,
                               const float* __restrict__ vsc, const float* __restrict__ rcos,
-                              const float* __restrict__ rsin, T* __restrict__ out,
+                              const float* __restrict__ rsin, const int* __restrict__ rank,
+                              T* __restrict__ out,
                               float* __restrict__ probs, float* __restrict__ p_new,
                               int Hkv, int rep, int S, int D, float scale, int window) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
@@ -136,9 +151,11 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 
   for (int r = warp; r < rep; r += kWarps) {
     float acc = 0.f;
-    for (int d = lane; d < D; d += 32) acc += qs[r * D + d] * to_f(kn[(size_t)bh * D + d]);
-    acc = warp_sum(acc);
-    if (lane == 0) lnew[r] = live ? acc * scale : kNegInf;
+    if constexpr (kInflight) {
+      for (int d = lane; d < D; d += 32) acc += qs[r * D + d] * to_f(kn[(size_t)bh * D + d]);
+      acc = warp_sum(acc);
+    }
+    if (lane == 0) lnew[r] = kInflight && live ? acc * scale : kNegInf;
   }
 
   // logits: each warp takes RPW = 32 / LPR rows at a time, kUnroll times
@@ -163,8 +180,11 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       }
       if (rcos != nullptr) {
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          rotate_row<V>(kr[u], li, LPR, D, base + u * rpw + sub, vis[u], rcos, rsin);
+        for (int u = 0; u < kUnroll; ++u) {
+          const int s = base + u * rpw + sub;
+          const int t = rank == nullptr ? s : (vis[u] ? rank[row0 + s] : 0);
+          rotate_row<V>(kr[u], li, LPR, D, t, vis[u], rcos, rsin);
+        }
       }
       for (int r = 0; r < rep; ++r) {
         const float* qr = qs + r * D + li * V;
@@ -199,7 +219,7 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       sum += e;
     }
     sum = block_reduce<false>(sum, red);
-    const float e_new = live ? expf(lnew[r] - m) : 0.f;
+    const float e_new = kInflight && live ? expf(lnew[r] - m) : 0.f;
     const float denom = fmaxf(sum + e_new, 1e-30f);
     for (int s = tid; s < S; s += kThreads) l[s] = l[s] / denom;
     __syncthreads();
@@ -212,7 +232,7 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int r = 0; r < rep; ++r) acc += lg[r * S + s];
     probs[row0 + s] = acc / (float)rep;
   }
-  if (tid == 0) {
+  if (kInflight && tid == 0) {
     float acc = 0.f;
     for (int r = 0; r < rep; ++r) acc += lnew[r];
     p_new[bh] = acc / (float)rep;
@@ -252,7 +272,7 @@ decode_attend_inflight_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     for (int d = tid; d < D; d += kThreads) {
       float o = 0.f;
       for (int j = 0; j < G; ++j) o += part[j * D + d];
-      o += lnew[r] * to_f(vn[(size_t)bh * D + d]);
+      if constexpr (kInflight) o += lnew[r] * to_f(vn[(size_t)bh * D + d]);
       out[((size_t)bh * rep + r) * D + d] = from_f<T>(o);
     }
     __syncthreads();
@@ -271,17 +291,17 @@ bool shape_ok(int D) {
   return D % VecOf<KV>::n == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool kInflight>
 int launch(const void* q, const void* kn, const void* vn, const void* k, const void* v,
            const int* pos, const int* q_pos, const float* ksc, const float* vsc,
-           const float* rcos, const float* rsin, void* out,
+           const float* rcos, const float* rsin, const int* rank, void* out,
            float* probs, float* p_new, int B, int Hkv, int rep, int S, int D, float scale,
            int window, cudaStream_t stream) {
   if (!shape_ok<KV>(D)) return (int)cudaErrorInvalidValue;
   if (std::is_same<KV, int8_t>::value && (ksc == nullptr || vsc == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<KV>(rep, S, D);
-  auto kernel = decode_attend_inflight_kernel<T, KV>;
+  auto kernel = decode_attend_inflight_kernel<T, KV, kInflight>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -289,8 +309,34 @@ int launch(const void* q, const void* kn, const void* vn, const void* k, const v
   }
   kernel<<<B * Hkv, kThreads, smem, stream>>>(
       (const T*)q, (const T*)kn, (const T*)vn, (const KV*)k, (const KV*)v, pos, q_pos, ksc,
-      vsc, rcos, rsin, (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
+      vsc, rcos, rsin, rank, (T*)out, probs, p_new, Hkv, rep, S, D, scale, window);
   return (int)cudaGetLastError();
+}
+
+// One launch of either entry: the cache type picks KV, `dtype` T.
+template <bool kInflight>
+int dispatch(const void* q, const void* kn, const void* vn, const void* k, const void* v,
+             const int* pos, const int* q_pos, const float* ksc, const float* vsc,
+             const float* rcos, const float* rsin, const int* rank, void* out, float* probs,
+             float* p_new, int B, int Hkv, int rep, int S, int D, float scale, int window,
+             int dtype, int kv_int8, cudaStream_t st) {
+  if (dtype == 0 && kv_int8)
+    return launch<float, int8_t, kInflight>(q, kn, vn, k, v, pos, q_pos, ksc, vsc, rcos, rsin,
+                                            rank, out, probs, p_new, B, Hkv, rep, S, D, scale,
+                                            window, st);
+  if (dtype == 0)
+    return launch<float, float, kInflight>(q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, rcos,
+                                           rsin, rank, out, probs, p_new, B, Hkv, rep, S, D,
+                                           scale, window, st);
+  if (dtype == 1 && kv_int8)
+    return launch<__nv_bfloat16, int8_t, kInflight>(q, kn, vn, k, v, pos, q_pos, ksc, vsc,
+                                                    rcos, rsin, rank, out, probs, p_new, B, Hkv,
+                                                    rep, S, D, scale, window, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kInflight>(
+        q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, rcos, rsin, rank, out, probs, p_new, B,
+        Hkv, rep, S, D, scale, window, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -311,35 +357,33 @@ size_t decode_attend_inflight_smem(int rep, int S, int D, int dtype, int kv_int8
 // q, kn, vn and out share `dtype`; k and v too, unless kv_int8 = 1: then
 // they are int8 with per-slot dequant scales k_scale, v_scale (B, Hkv, S)
 // f32 (null otherwise). Every pointer of q..v is 16-byte aligned.
-// rot_cos, rot_sin (S, D/2) f32: the ordered variant rotates the cached K
-// row at slot s by them; null for none. window <= 0: no sliding window.
-// Returns cudaGetLastError().
+// rot_cos, rot_sin (S, D/2) f32: the cached K row at slot s rotates by their
+// row s (ordered), or by their row rank[b, h, s] when rank (B, Hkv, S) int32
+// is given; null for no rotation (rank then null too). window <= 0: no
+// sliding window. Returns cudaGetLastError().
 int decode_attend_inflight(const void* q, const void* kn, const void* vn, const void* k,
                            const void* v, const int* pos, const int* q_pos,
                            const float* k_scale, const float* v_scale, const float* rot_cos,
-                           const float* rot_sin, void* out,
+                           const float* rot_sin, const int* rank, void* out,
                            float* probs, float* p_new, int B, int Hkv, int rep, int S,
                            int D, float scale, int window, int dtype, int kv_int8,
                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if ((rot_cos == nullptr) != (rot_sin == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && kv_int8)
-    return launch<float, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, rot_cos,
-                                 rot_sin, out, probs, p_new, B, Hkv, rep, S, D, scale, window,
-                                 st);
-  if (dtype == 0)
-    return launch<float, float>(q, kn, vn, k, v, pos, q_pos, nullptr, nullptr, rot_cos,
-                                rot_sin, out, probs, p_new, B, Hkv, rep, S, D, scale, window,
-                                st);
-  if (dtype == 1 && kv_int8)
-    return launch<__nv_bfloat16, int8_t>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale,
-                                         rot_cos, rot_sin, out, probs, p_new, B, Hkv, rep, S,
-                                         D, scale, window, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, kn, vn, k, v, pos, q_pos, nullptr,
-                                                nullptr, rot_cos, rot_sin, out, probs, p_new,
-                                                B, Hkv, rep, S, D, scale, window, st);
-  return (int)cudaErrorInvalidValue;
+  if (rank != nullptr && rot_cos == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(q, kn, vn, k, v, pos, q_pos, k_scale, v_scale, rot_cos, rot_sin, rank,
+                        out, probs, p_new, B, Hkv, rep, S, D, scale, window, dtype, kv_int8,
+                        (cudaStream_t)stream);
+}
+
+// The same attention over a cache that already holds the query token's row:
+// no in-flight token, no p_new, no rotation. Arguments as above.
+int decode_attend(const void* q, const void* k, const void* v, const int* pos,
+                  const int* q_pos, const float* k_scale, const float* v_scale, void* out,
+                  float* probs, int B, int Hkv, int rep, int S, int D, float scale, int window,
+                  int dtype, int kv_int8, void* stream) {
+  return dispatch<false>(q, nullptr, nullptr, k, v, pos, q_pos, k_scale, v_scale, nullptr,
+                         nullptr, nullptr, out, probs, nullptr, B, Hkv, rep, S, D, scale, window,
+                         dtype, kv_int8, (cudaStream_t)stream);
 }
 
 }  // extern "C"

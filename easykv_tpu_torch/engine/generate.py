@@ -2,8 +2,9 @@
 decoding / encoding / auto / encoding_decoding / ppl (counterpart of
 easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
 EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
-_strided_encode_layer_major, _ce_from_hidden, _prerotate_cache,
-_compact_one, _decode_loop, _engine_cache,
+_strided_encode, _strided_encode_layer_major, _ce_from_hidden,
+_prerotate_cache, _compact_one, _decode_loop (with its carried ranks,
+_carry_ranks), _engine_cache,
 _run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
 CausalLM, enable_fixed_kv, set_dynamicntk_rope_length, generate).
 
@@ -24,9 +25,12 @@ Budget semantics (reference easykv.py:199-901):
     (easykv.py:670-748).
   * ppl: teacher-forced CE over the tokens fed after r_idx, predicted from
     the evicted cache (easykv.py:759-901).
-  * streaming=True (StreamingLLM, reference llama_patch.py:251-379), in
-    `decoding` only: RoPE by cache-relative position over an age-ordered
-    cache (see _decode_loop); the other kv_modes raise NotImplementedError.
+  * streaming=True (StreamingLLM, reference llama_patch.py:251-379): RoPE
+    by cache-relative position. `decoding` keeps an age-ordered cache (see
+    _decode_loop); the encoding family encodes chunk-major over an
+    unordered cache whose K rotates by its age rank (_strided_encode), and
+    its decode carries the ranks from step to step. Full-budget `ppl` is
+    never streaming, as in the JAX package.
 
 No loop waits for the host per chunk or per token: the strided encode's
 trigger schedule is static (it is computed on the host from the lengths),
@@ -258,17 +262,16 @@ def _prefill_layer_major(st, params, cache, ids, prefix_len, PC, spec,
 # Phase B: strided encoding with per-chunk eviction (reference easykv.py:426-499)
 # ---------------------------------------------------------------------------
 
-def _strided_encode_layer_major(st: EngineStatics, params: LlamaParams, cache: KVCache,
-                                input_ids: torch.Tensor, spec: PolicySpec,
-                                generator: torch.Generator, collect_ppl: bool):
-    """Consume [r_idx, length) in chunks of `stride`, layer-major
-    (llama.strided_encode_layer_major). The chunk schedule is static: every
-    row feeds st.length tokens, so the reference's per-row trigger
-    (kv_len + stride > idx, easykv.py:459) is the same for all rows and is
-    computed here on the host. Returns (last_logits (B, V), loss_sum (B,),
-    kv_len (B,))."""
-    B = input_ids.shape[0]
-    dev = input_ids.device
+def _encode_schedule(st: EngineStatics, B: int, spec: PolicySpec,
+                     generator: torch.Generator, dev: torch.device):
+    """The strided encode's static chunk schedule: every row feeds st.length
+    tokens, so the reference's per-row trigger (kv_len + stride > idx,
+    easykv.py:459) is the same for all rows and is computed here on the
+    host, with no sync per chunk. Returns (ctxs, the StepCtx of every chunk
+    stacked over a leading (n,) axis; trig, the (n,) host triggers; the
+    (n,) valid slots before each chunk; the valid slots after the last).
+    The random policy's rank is drawn once per chunk and row from
+    `generator`."""
     stride, idx = st.stride, st.idx
     n = (st.length - st.r_idx) // stride
     evicting = spec.policy != "full"
@@ -305,12 +308,65 @@ def _strided_encode_layer_major(st: EngineStatics, params: LlamaParams, cache: K
         update_gate=(trig_t | keep).contiguous(),
         rand_rank=rand_rank,
     )
-    tokens = input_ids[:, st.r_idx: st.r_idx + n * stride]
+    return ctxs, trig, kv_before, kv
+
+
+def _strided_encode_layer_major(st: EngineStatics, params: LlamaParams, cache: KVCache,
+                                input_ids: torch.Tensor, spec: PolicySpec,
+                                generator: torch.Generator, collect_ppl: bool):
+    """Consume [r_idx, length) in chunks of `stride`, layer-major
+    (llama.strided_encode_layer_major) on _encode_schedule's static
+    schedule. Returns (last_logits (B, V), loss_sum (B,), kv_len (B,))."""
+    B = input_ids.shape[0]
+    dev = input_ids.device
+    ctxs, trig, kv_before, kv = _encode_schedule(st, B, spec, generator, dev)
+    n = len(trig)
+    evicting = spec.policy != "full"
+    tokens = input_ids[:, st.r_idx: st.r_idx + n * st.stride]
     h = llama.strided_encode_layer_major(params, st.cfg, cache, tokens, ctxs, spec,
                                          kv_before, [t and evicting for t in trig])
     last_logits = llama._logits_tail(h[:, -1:, :], params, st.cfg)[:, 0]
     loss_sum = (_ce_from_hidden(st, params, h, tokens) if collect_ppl
                 else torch.zeros((B,), dtype=torch.float32, device=dev))
+    return last_logits, loss_sum, torch.full((B,), kv, dtype=torch.int32, device=dev)
+
+
+def _strided_encode(st: EngineStatics, params: LlamaParams, cache: KVCache,
+                    input_ids: torch.Tensor, spec: PolicySpec, generator: torch.Generator,
+                    collect_ppl: bool):
+    """Consume [r_idx, length) in chunks of `stride`, chunk-major (the JAX
+    package's _strided_encode, generate.py:385-464 there): each chunk
+    through every layer with llama.forward over the StreamingLLM rank
+    cache (a stride-1 chunk through _decode_forward and K1's rank variant),
+    then, on the chunks the static schedule triggers, one eviction event
+    across all layers (policies.evict_cache with the encode spec). With
+    collect_ppl, the cross entropy of each chunk's tokens from the rows
+    before them in the chunk, and of its first token from the previous
+    chunk's last row. Returns (last_logits (B, V), loss_sum (B,), kv_len
+    (B,))."""
+    B = input_ids.shape[0]
+    dev = input_ids.device
+    stride = st.stride
+    ctxs, trig, _, kv = _encode_schedule(st, B, spec, generator, dev)
+    evicting = spec.policy != "full"
+    stream = llama.stream_tables(cache.pos.shape[-1], st.cfg, dev, "rank")
+    loss_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
+    last_logits = None
+    for c in range(len(trig)):
+        ctx = StepCtx(*(x[c] for x in ctxs))
+        chunk = input_ids[:, st.r_idx + c * stride: st.r_idx + (c + 1) * stride]
+        logits = llama.forward(params, st.cfg, cache, chunk, ctx, spec, stream=stream)
+        if evicting and trig[c]:
+            evict_cache(cache, spec, ctx.next_pos, ctx.prompt_len, ctx.rand_rank,
+                        ctx.evict_gate)
+        if collect_ppl:
+            logp = torch.log_softmax(logits, dim=-1)
+            tgt = chunk.long()
+            loss_sum = loss_sum - logp[:, :-1].gather(-1, tgt[:, 1:, None])[..., 0].sum(-1)
+            if last_logits is not None:
+                prev = torch.log_softmax(last_logits, dim=-1)
+                loss_sum = loss_sum - prev.gather(-1, tgt[:, :1])[:, 0]
+        last_logits = logits[:, -1, :]
     return last_logits, loss_sum, torch.full((B,), kv, dtype=torch.int32, device=dev)
 
 
@@ -374,6 +430,28 @@ def _compact_one(cache: KVCache, pos_mid: torch.Tensor) -> None:
                   cache.v, cache.k_scale, cache.v_scale)
 
 
+def _carry_ranks(ranks: torch.Tensor, pos_pre: torch.Tensor, pos_mid: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """The age ranks (L, B, H, S) of the unordered StreamingLLM cache after
+    one decode step, from the ranks before it and the cache's pos before the
+    forward (pos_pre), after it (pos_mid) and after the step's eviction
+    (pos; pos_mid itself when none ran). The written slot gets the pre-write
+    valid count (every head of a row holds the same count); then, where a
+    slot was evicted, every younger slot's rank drops by one and the
+    victim's becomes 0. Equal to _age_ranks(pos) while every eviction
+    removes at most one slot per head (the JAX package's inc_ranks,
+    generate.py:854-877 there)."""
+    written = (pos_mid >= 0) & (pos_pre < 0)
+    n_valid = (pos_pre[:, :, :1, :] >= 0).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    ranks = torch.where(written, n_valid, ranks)
+    if pos is pos_mid:
+        return ranks
+    evicted = (pos_mid >= 0) & (pos < 0)
+    rank_e = torch.where(evicted, ranks, -1).amax(dim=-1, keepdim=True)     # (L, B, H, 1)
+    ranks = torch.where((ranks > rank_e) & (rank_e >= 0) & ~evicted, ranks - 1, ranks)
+    return torch.where(evicted, 0, ranks)
+
+
 @torch.no_grad()
 def _decode_loop(
     st: EngineStatics,
@@ -395,14 +473,21 @@ def _decode_loop(
     decode-phase k=1 spec folds its eviction into K2; any other spec is
     evicted by policies.evict_cache after the step.
 
-    StreamingLLM `decoding` (st.streaming) keeps the cache age-ordered:
-    rank == slot, kept so by compacting each head at its victim after every
-    eviction. With flags.prerot_enabled (the default) the cache is
-    pre-rotated once after the prefill and each step folds eviction and
-    compaction into K2 + K9; otherwise K1 rotates by slot at read time and
-    each step runs evict_cache (K4) and _compact_one (K8) after the
-    forward. K4, K8 and K9 launch every step: a head with nothing to evict
-    is a no-op inside the kernel, so no host sync decides.
+    StreamingLLM `decoding` (st.streaming, st.mode == "decoding") keeps
+    the cache age-ordered: rank == slot, kept so by compacting each head at
+    its victim after every eviction. With flags.prerot_enabled (the
+    default) the cache is pre-rotated once after the prefill and each step
+    folds eviction and compaction into K2 + K9; otherwise K1 rotates by
+    slot at read time and each step runs evict_cache (K4) and _compact_one
+    (K8) after the forward. K4, K8 and K9 launch every step: a head with
+    nothing to evict is a no-op inside the kernel, so no host sync decides.
+
+    StreamingLLM in the encoding family leaves an unordered cache: its
+    decode rotates each slot by its age rank (K1's rank variant). The ranks
+    are computed once before the loop (_age_ranks) and carried from step
+    to step by _carry_ranks, with no sort per step (the JAX package's
+    inc_ranks, its default); the step's eviction (k=1 or none) runs after
+    the forward, as policies.evict_cache.
 
     With st.collect_stats each step also keeps the sampled token's
     probability under the raw temperature softmax and that softmax's
@@ -413,13 +498,18 @@ def _decode_loop(
     eos = (torch.tensor(st.eos_token_ids, dtype=torch.int32, device=dev)
            if st.eos_token_ids else None)
     k_evict = spec.k if spec is not None else 0
-    prerot = st.streaming and flags.prerot_enabled()
-    stream = (llama.stream_tables(cache.pos.shape[-1], st.cfg, dev, prerot)
-              if st.streaming else None)
+    ordered = st.streaming and st.mode == "decoding"
+    prerot = ordered and flags.prerot_enabled()
+    stream = ranks = None
+    if st.streaming:
+        kind = "prerotated" if prerot else "ordered" if ordered else "rank"
+        stream = llama.stream_tables(cache.pos.shape[-1], st.cfg, dev, kind)
     if prerot:
         _prerotate_cache(cache, st.cfg)
+    if st.streaming and not ordered:
+        ranks = llama.age_ranks_all(cache.pos)
     folded = (llama.decode_evict_folded(spec, st.streaming)
-              or llama.decode_stream_folded(spec, st.streaming, prerot))
+              or llama.decode_stream_folded(spec, st.streaming, ordered, prerot))
 
     out = torch.full((B, M), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -473,13 +563,17 @@ def _decode_loop(
             update_gate=live,
             rand_rank=rand_rank,
         )
+        pos_pre = None if ranks is None else cache.pos.clone()
         logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec,
-                                       stream)
-        if spec is not None and not folded:
-            pos_mid = cache.pos.clone() if st.streaming else None
+                                       stream if ranks is None else stream._replace(ranks=ranks))
+        evicts = spec is not None and not folded
+        pos_mid = cache.pos.clone() if evicts and st.streaming else cache.pos
+        if evicts:
             evict_cache(cache, spec, ctx.next_pos, prompt_len, rand_rank, gate_b)
-            if st.streaming:
+            if ordered:
                 _compact_one(cache, pos_mid)
+        if ranks is not None:
+            ranks = _carry_ranks(ranks, pos_pre, pos_mid, cache.pos)
         finite &= torch.isfinite(logits).all()
         lastlog = torch.where(newly_done[:, None], lastlog, logits[:, -1, :])
         g = g + live.to(torch.int32)
@@ -543,8 +637,12 @@ def _run_decoding(st: EngineStatics, params: LlamaParams, ids_pad: torch.Tensor,
 
 def _encode_phases(st: EngineStatics, params, cache, input_ids, generator, collect_ppl):
     """Prefix prefill of [0, r_idx) (with the keep_attention bootstrap) and
-    the strided encode. Returns (last_logits, loss_sum, kv_len, prefill_s,
-    encode_s)."""
+    the strided encode: chunk-major under streaming, as the JAX package's
+    _strided_encode takes it (generate.py:401 there), layer-major otherwise.
+    The prefix prefill is never streaming: its K is cached post-RoPE at its
+    true position and the streaming phases rotate it again by rank, the
+    reference's double rotation (generate.py:274-283 there). Returns
+    (last_logits, loss_sum, kv_len, prefill_s, encode_s)."""
     dev = input_ids.device
     B = input_ids.shape[0]
     spec = st.encode_spec()
@@ -556,8 +654,9 @@ def _encode_phases(st: EngineStatics, params, cache, input_ids, generator, colle
     loss_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
     kv_len = prefix_len
     if (st.length - st.r_idx) // st.stride > 0:
-        last_logits, loss_sum, kv_len = _strided_encode_layer_major(
-            st, params, cache, input_ids, spec, generator, collect_ppl)
+        encode = _strided_encode if st.streaming else _strided_encode_layer_major
+        last_logits, loss_sum, kv_len = encode(st, params, cache, input_ids, spec, generator,
+                                               collect_ppl)
     return last_logits, loss_sum, kv_len, prefill_s, clock.lap()
 
 
@@ -759,10 +858,6 @@ def generate(
         else:
             mode = "encoding_decoding"
 
-    if gc.streaming and mode in ("encoding", "encoding_decoding", "ppl"):
-        raise NotImplementedError(
-            f"streaming in kv_mode {mode!r} is not ported yet (ROADMAP.md open item 10: "
-            "the chunk-major streaming encode, age ranks and K1's rank variant)")
     base = dict(cfg=model.cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
                 temp_length=gc.temp_length, keep_attention=gc.keep_attention,
                 max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant,
@@ -798,6 +893,8 @@ def generate(
     if mode in ("encoding", "ppl") and _is_full_budget(budget, length):
         if mode == "ppl":
             st = EngineStatics(mode="ppl", length=length, budget=length, **base)
+            # never streaming: the reference runs the whole document through
+            # stock attention (the JAX package's _run_ppl_full)
             loss, prefill_s = _run_ppl_full(st, model.params, ids_t, model.dtype)
             loss0 = float(loss[0])
             model.last_run = RunStats(0, length, prefill_s, 0.0, math.isfinite(loss0))

@@ -1,7 +1,7 @@
 """LLaMa-family decoder over the budgeted KV ring buffer (counterpart of
-easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp,
+easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp, forward,
 prefill_layer_major, strided_encode_layer_major, decode_evict_folded,
-decode_stream_folded, _decode_forward, _logits_tail, _lm_head).
+decode_stream_folded, _decode_forward, _logits_tail, _lm_head, _age_ranks).
 
 Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
@@ -28,7 +28,12 @@ PyTorch (policies.py). StreamingLLM `decoding` (streaming=True) keeps the
 cache age-ordered: over the pre-rotated cache the step runs K2 with
 `compact` and then K9 (the K/V shift with R(-theta)); over the
 rotate-at-read cache K1 runs its `ordered` variant and the engine runs K4
-and K8 after the step. On CPU tensors each wrapper runs its plain version.
+and K8 after the step. StreamingLLM in the encoding family encodes
+chunk-major (`forward`) over an unordered cache whose raw K rotates by its
+age rank at attend time, and its decode steps (and stride-1 encode chunks)
+run K1's `rank` variant. `forward`'s non-streaming C == 1 bootstrap branch
+attends through `fused_decode_attend`. On CPU tensors each wrapper runs its
+plain version.
 """
 from __future__ import annotations
 
@@ -38,19 +43,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cache import KVCache, quantize_kv, write_tokens_at, write_tokens_slice
+from ..cache import (KVCache, kv_dequant, quantize_kv, write_tokens, write_tokens_at,
+                     write_tokens_slice)
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
 from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
 from .. import flags
-from ..ops.cuda.decode_attention import fused_decode_attend_inflight
+from ..ops.cuda.decode_attention import fused_decode_attend, fused_decode_attend_inflight
 from ..ops.cuda.fused_decode import fused_decode_step
 from ..ops.cuda.fused_decode_batch import fused_decode_step_batch, max_rows
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
 from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
 from ..ops.quant import QuantLinear, lm_head_mm, mm
-from ..ops.rope import rope_base_for, rope_cos_sin, rope_inv_freq, rotate
+from ..ops.rope import apply_rope, rope_base_for, rope_cos_sin, rope_inv_freq, rotate
 from ..policies import PolicySpec, evict_layer, update_scores, update_scores_reduced
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln_attn", "ln_mlp")
@@ -348,39 +354,75 @@ def decode_evict_folded(spec: Optional[PolicySpec], streaming: bool = False) -> 
     return not streaming and evict_supported(spec)
 
 
-def decode_stream_folded(spec: Optional[PolicySpec], streaming: bool,
+def decode_stream_folded(spec: Optional[PolicySpec], streaming: bool, ordered: bool,
                          prerotated: bool) -> bool:
-    """StreamingLLM decoding over the pre-rotated cache: K2 also compacts
-    the sidecars at each row's victim and K9 shifts the K/V rows, so the
-    engine runs neither evict_cache nor _compact_one (the JAX package's
-    decode_stream_folded; the port's streaming cache is always the ordered
-    one)."""
-    return streaming and prerotated and evict_supported(spec)
+    """StreamingLLM decoding over the age-ordered, pre-rotated cache: K2
+    also compacts the sidecars at each row's victim and K9 shifts the K/V
+    rows, so the engine runs neither evict_cache nor _compact_one (the JAX
+    package's decode_stream_folded). The unordered cache of the encoding
+    family (not ordered) evicts in two phases: K2 without the fold, then
+    policies.evict_cache."""
+    return streaming and ordered and prerotated and evict_supported(spec)
 
 
 def rotation_tables(S: int, cfg: ModelConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of R(s * theta) for every slot s, f32 (S, D/2): what K1's
-    ordered variant rotates the rotate-at-read cache by. They depend only on
-    S, so the engine builds them once per run."""
+    ordered and rank variants rotate a raw cached K row by (table row s, or
+    row rank[s]). They depend only on S, so the engine builds them once per
+    run."""
     inv_freq = rope_inv_freq(cfg.head_dim, rope_base_for(cfg), device)
     cos, sin = rope_cos_sin(torch.arange(S, dtype=torch.int32, device=device), inv_freq)
     return cos.contiguous(), sin.contiguous()
 
 
+STREAM_KINDS = ("prerotated", "ordered", "rank")
+
+
 class StreamRot(NamedTuple):
-    """The ordered StreamingLLM strategy of a run and the rotation tables
-    its decode step reads, built once per run by stream_tables."""
+    """The StreamingLLM cache of a run and the rotation tables its decode
+    step reads, built once per run by stream_tables. `kind`:
 
-    prerotated: bool     # K stored rotated by its slot (flags.prerot_enabled)
-    cos: torch.Tensor    # prerotated: K9's R(theta), (D/2,); else K1's R(s * theta), (S, D/2)
+      prerotated  the age-ordered cache of `decoding` (rank == slot), K
+                  stored rotated by its slot (flags.prerot_enabled); cos,
+                  sin are K9's R(theta), (D/2,);
+      ordered     the age-ordered cache, raw K; K1 rotates slot s by table
+                  row s of cos, sin (S, D/2);
+      rank        the unordered cache of the encoding family, raw K; K1
+                  rotates slot s by table row ranks[l, b, h, s], its age
+                  rank, of the same tables. `ranks` (L, B, Hkv, S) int32
+                  are the step's ranks (the decode loop carries them);
+                  None: the step computes them with _age_ranks."""
+
+    kind: str
+    cos: torch.Tensor
     sin: torch.Tensor
+    ranks: Optional[torch.Tensor] = None
 
 
-def stream_tables(S: int, cfg: ModelConfig, device, prerotated: bool) -> StreamRot:
-    if prerotated:
+def stream_tables(S: int, cfg: ModelConfig, device, kind: str) -> StreamRot:
+    if kind not in STREAM_KINDS:
+        raise ValueError(f"stream kind {kind!r}, not one of {STREAM_KINDS}")
+    if kind == "prerotated":
         inv_freq = rope_inv_freq(cfg.head_dim, rope_base_for(cfg), device)
-        return StreamRot(True, *shift_rotation(inv_freq))
-    return StreamRot(False, *rotation_tables(S, cfg, device))
+        return StreamRot(kind, *shift_rotation(inv_freq))
+    return StreamRot(kind, *rotation_tables(S, cfg, device))
+
+
+def _age_ranks(pos: torch.Tensor) -> torch.Tensor:
+    """Rank of each valid slot by position (0 = oldest) over the last axis;
+    invalid slots get rank 0 (masked out of attention anyway). The double
+    stable argsort of the JAX package's _age_ranks (llama.py:1218-1228
+    there), exact against it."""
+    key = torch.where(pos >= 0, pos, torch.iinfo(torch.int32).max)
+    ranks = torch.argsort(torch.argsort(key, dim=-1, stable=True), dim=-1, stable=True)
+    return torch.where(pos >= 0, ranks.to(torch.int32), 0)
+
+
+def age_ranks_all(pos: torch.Tensor) -> torch.Tensor:
+    """_age_ranks of a whole cache's pos (L, B, Hkv, S), over all L*B rows
+    at once."""
+    L, B, H, S = pos.shape
+    return _age_ranks(pos.reshape(L * B, H, S)).reshape(L, B, H, S)
 
 
 def mega_tree(params: LlamaParams) -> bool:
@@ -414,21 +456,26 @@ def _decode_forward(
     their scales and K3 their int8 bytes. Updates `cache` in place and
     returns logits (B, 1, V) f32.
 
-    StreamingLLM (`stream`, the age-ordered cache of `decoding`, reference
-    llama_patch.py:251-379): q and the in-flight K rotate by the token's
-    cache-relative position, each layer's pre-write valid count (head 0's;
-    every head of a layer holds the same count), while the mask still
-    compares true positions. With stream.prerotated the cache holds K
-    already rotated by its slot: attention is the plain K1, the stored row
-    is the rotated K, and when decode_stream_folded the step runs K2 with
-    `compact` (victim slots out), K3 at the pre-compact write slot, then K9
-    (shift + R(-theta) of the moved rows, from stream's tables). Otherwise
-    the cache holds the raw K, K1 rotates every slot by its index from
+    StreamingLLM (`stream`, reference llama_patch.py:251-379): q and the
+    in-flight K rotate by the token's cache-relative position, each layer's
+    pre-write valid count (head 0's; every head of a layer holds the same
+    count), while the mask still compares true positions. By stream.kind:
+    `prerotated` (the age-ordered cache of `decoding`, K already rotated by
+    its slot): attention is the plain K1, the stored row is the rotated K,
+    and when decode_stream_folded the step runs K2 with `compact` (victim
+    slots out), K3 at the pre-compact write slot, then K9 (shift +
+    R(-theta) of the moved rows, from stream's tables). `ordered` (the
+    age-ordered cache, raw K): K1 rotates every slot by its index from
     stream's (S, D/2) tables, and the engine evicts (K4) and compacts (K8)
-    after the step.
+    after the step. `rank` (the unordered cache of the encoding family, raw
+    K): K1's rank variant rotates every slot by its age rank, stream.ranks
+    (carried by the decode loop) or, without them, _age_ranks of the cache
+    over all L*B rows at once (a stride-1 encode chunk); the stored row is
+    the raw K and the engine evicts after the step.
 
     Over the fused arithmetic-int4 tree (mega_tree), not streaming or
-    streaming over the pre-rotated cache, with flags.mega_kernel_enabled,
+    streaming over the pre-rotated cache (the JAX package's `ordered and
+    prerotated`), with flags.mega_kernel_enabled,
     the layers are one launch instead (the JAX package's use_mega /
     use_mega_b, llama.py:818-833 there): K14 at B == 1
     (ops/cuda/fused_decode.py: f32 residual, two-plane int8 activations),
@@ -441,7 +488,8 @@ def _decode_forward(
     q_pos = ctx.q_pos                                           # (B, 1)
     q_pos_b = q_pos[:, 0].contiguous()
     streaming = stream is not None
-    prerotated = streaming and stream.prerotated
+    prerotated = streaming and stream.kind == "prerotated"
+    ordered = streaming and stream.kind != "rank"
     h = params.embed[token_ids.clamp(min=0)]
     mega = ((not streaming or prerotated) and flags.mega_kernel_enabled()
             and mega_tree(params))
@@ -467,7 +515,7 @@ def _decode_forward(
         p_new = p_new[..., None]                                # (L, B, Hkv, 1)
     else:
         h, kn, vn, probs, p_new = _decode_layers(params, cfg, cache, h, q_pos, stream)
-    fold_stream = decode_stream_folded(spec, streaming, prerotated)
+    fold_stream = decode_stream_folded(spec, streaming, ordered, prerotated)
     ekw = {}
     if decode_evict_folded(spec, streaming) or fold_stream:
         ekw = dict(espec=spec, evict_gate=ctx.evict_gate, next_pos=ctx.next_pos,
@@ -501,13 +549,16 @@ def _decode_layers(params: LlamaParams, cfg: ModelConfig, cache: KVCache, h: tor
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), h.device)
     q_pos_b = q_pos[:, 0].contiguous()
     streaming = stream is not None
-    prerotated = streaming and stream.prerotated
+    kind = stream.kind if streaming else None
     if streaming:
         n_valid = (cache.pos[:, :, 0, :] >= 0).sum(dim=-1, dtype=torch.int32)  # (L, B)
         cos_all, sin_all = rope_cos_sin(n_valid[:, :, None, None], inv_freq)  # (L, B, 1, 1, D/2)
     else:
         cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)    # shared by all layers
-    k1_rot = (stream.cos, stream.sin) if streaming and not prerotated else None
+    k1_rot = (stream.cos, stream.sin) if kind in ("ordered", "rank") else None
+    ranks = None
+    if kind == "rank":
+        ranks = stream.ranks if stream.ranks is not None else age_ranks_all(cache.pos)
 
     kn_all, vn_all, probs_all, pnew_all = [], [], [], []
     for l, p in enumerate(params.layers):
@@ -520,11 +571,103 @@ def _decode_layers(params: LlamaParams, cfg: ModelConfig, cache: KVCache, h: tor
         scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
         out, probs, p_new = fused_decode_attend_inflight(
             q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
-            sliding_window=cfg.sliding_window, rot=k1_rot)
+            sliding_window=cfg.sliding_window, rot=k1_rot,
+            rank=None if ranks is None else ranks[l])
         h = _attn_block(h, p, cfg, out)
-        kn_all.append(k if streaming and not prerotated else kn_att)
+        kn_all.append(k if k1_rot is not None else kn_att)
         vn_all.append(v)
         probs_all.append(probs[:, :, 0, :])
         pnew_all.append(p_new)
     return (h, torch.stack(kn_all), torch.stack(vn_all), torch.stack(probs_all),
             torch.stack(pnew_all))
+
+
+@torch.no_grad()
+def forward(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    cache: KVCache,
+    token_ids: torch.Tensor,     # (B, C) int32
+    ctx: StepCtx,                # (B, C) / (B,) fields of this chunk
+    spec: Optional[PolicySpec],  # None: plain append, no scores
+    *,
+    bootstrap: bool = False,     # keep_attention prefix accumulation
+    stream: Optional[StreamRot] = None,  # StreamingLLM: the rank cache's tables
+) -> torch.Tensor:
+    """One chunk through all layers, chunk-major (the JAX package's
+    forward, llama.py:257-385 there). Updates `cache` in place and returns
+    logits (B, C, V) f32. Eviction is not done here: the engine runs one
+    eviction event across all layers after the chunk.
+
+    A C == 1 chunk that is not the bootstrap goes to _decode_forward (late
+    write; under streaming with `stream`, K1's rank variant over ranks it
+    computes). Otherwise, per layer:
+
+      * not streaming: q and K rotate by their true positions (q_pos), the
+        chunk is written to the lowest free slots (cache.write_tokens), then
+          - C == 1 bootstrap: fused_decode_attend, then update_scores with
+            the bootstrap's sum and sum of squares;
+          - C > 1, int8 cache: K5 (fused_chunk_attend) and
+            update_scores_reduced from its statistics;
+          - C > 1, float cache: the plain `attend` and update_scores;
+      * streaming (`stream`, kind `rank`; reference llama_patch.py:251-379):
+        the raw K is written, the cache is dequantized, every cached K
+        rotates by its age rank (_age_ranks of the written cache), q by its
+        cache-relative position (the post-write valid count, less the
+        chunk's valid tokens, plus each token's offset among them), then the
+        plain `attend` masked by true positions and update_scores. The JAX
+        package runs this branch through XLA's attend, outside any Pallas
+        kernel."""
+    B, C = token_ids.shape
+    if stream is not None and stream.kind != "rank":
+        raise ValueError(f"forward's streaming cache is the rank one, got {stream.kind!r}")
+    if C == 1 and not bootstrap:
+        return _decode_forward(params, cfg, cache, token_ids, ctx, spec, stream)
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dev = token_ids.device
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), dev)
+    scale = Dh ** -0.5
+    streaming = stream is not None
+    if streaming:
+        tv = ctx.token_valid.to(torch.int32)
+        q_off = tv.cumsum(dim=-1) - tv.sum(dim=-1, keepdim=True) - 1   # (B, C), + n_valid
+    else:
+        cos, sin = rope_cos_sin(ctx.q_pos[:, None, :], inv_freq)    # shared by all layers
+    score = spec is not None and (bootstrap or spec.policy != "full")
+
+    h = params.embed[token_ids.clamp(min=0)]
+    for l, p in enumerate(params.layers):
+        cl = cache.layer(l)
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, C, Hq, Hkv, Dh)
+        if not streaming:
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        write_tokens(cl, k, v, ctx.q_pos, ctx.counter_init, ctx.token_valid)
+        probs = None
+        if streaming:
+            k_raw, v_raw = kv_dequant(cl, h.dtype)
+            k_att = apply_rope(k_raw, _age_ranks(cl.pos), inv_freq)
+            n_valid = (cl.pos[:, 0, :] >= 0).sum(dim=-1, keepdim=True)   # (B, 1)
+            q_att = apply_rope(q, (n_valid + q_off)[:, None, :], inv_freq)
+            out, probs = attend(q_att, k_att, v_raw, cl.pos, ctx.q_pos,
+                                sliding_window=cfg.sliding_window, scale=scale)
+        elif C == 1:
+            out, probs = fused_decode_attend(
+                q.contiguous(), cl.k, cl.v, cl.pos, ctx.q_pos[:, 0].contiguous(),
+                *((cl.k_scale, cl.v_scale) if cl.quantized else ()),
+                sliding_window=cfg.sliding_window)
+        elif cl.quantized:   # K5: the JAX package's `auto` chunk-kernel mode
+            need = spec is not None and (bootstrap or spec.policy in ("h2o_head", "roco", "tova"))
+            out, ssum, ssq, last = fused_chunk_attend(
+                q.contiguous(), cl.k, cl.v, cl.pos, ctx.q_pos, cl.k_scale, cl.v_scale,
+                need_scores=need, sliding_window=cfg.sliding_window)
+            if need:
+                update_scores_reduced(cl, ssum, ssq, last, spec, ctx.update_gate,
+                                      bootstrap=bootstrap)
+        else:
+            out, probs = attend(q, cl.k, cl.v, cl.pos, ctx.q_pos,
+                                sliding_window=cfg.sliding_window, scale=scale)
+        if probs is not None and score:
+            update_scores(cl, probs, spec, ctx.update_gate, bootstrap=bootstrap)
+        h = _attn_block(h, p, cfg, out)
+    return _logits_tail(h, params, cfg)

@@ -65,17 +65,6 @@ def test_generate_eos_stops_and_pads(models):
     assert out == easykv_tpu.generate(jm, ids, gc, kv_mode="decoding")
 
 
-def test_other_modes_not_ported(models):
-    """Streaming outside `decoding` is the part of generate() still to port
-    (ROADMAP item 10); each such call raises before any work."""
-    _, tm = models
-    for mode, budget in (("encoding", 0.5), ("encoding_decoding", 2), ("ppl", 0.5),
-                         ("auto", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md open item 10"):
-            easykv_tpu_torch.generate(tm, [1, 2, 3], {"budget": budget, "streaming": True},
-                                      kv_mode=mode)
-
-
 @pytest.mark.parametrize("variant", [
     dict(num_key_value_heads=4),   # MHA, LLaMa-2-7B's head layout
     dict(sliding_window=12),       # Mistral-style window: K1's mask and the prefill attend

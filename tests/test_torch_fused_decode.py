@@ -226,7 +226,8 @@ def test_decode_lockstep_matches_pallas(trees, case, monkeypatch):
     if streaming:
         cache = jax.jit(lambda c: jgen._prerotate_cache(c, jcfg))(cache)
     tcache, scache, bcache = (_cache_from_jax(cache) for _ in range(3))
-    stream = tllama.stream_tables(tcache.pos.shape[-1], tcfg, "cpu", True) if streaming else None
+    stream = (tllama.stream_tables(tcache.pos.shape[-1], tcfg, "cpu", "prerotated")
+              if streaming else None)
     rot_if = jinv_freq(jcfg.head_dim, jrope_base(jcfg))
     calls = []
     monkeypatch.setattr(tllama, "fused_decode_step",

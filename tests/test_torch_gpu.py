@@ -33,14 +33,15 @@ import torch
 
 from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
-from easykv_tpu_torch.models.llama import init_params
+from easykv_tpu_torch.models.llama import age_ranks_all, init_params
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
     fused_chunk_attend, fused_chunk_attend_plain, fused_chunk_write_attend,
     fused_chunk_write_attend_plain)
 from easykv_tpu_torch import flags
 from easykv_tpu_torch.ops.cuda import sidecar_update
 from easykv_tpu_torch.ops.cuda.decode_attention import (
-    fused_decode_attend_inflight, fused_decode_attend_inflight_plain)
+    fused_decode_attend, fused_decode_attend_inflight, fused_decode_attend_inflight_plain,
+    fused_decode_attend_plain)
 from easykv_tpu_torch.ops.cuda.kv_compact import (fused_compact, fused_compact_plain,
                                                   fused_kv_compact, fused_kv_compact_plain,
                                                   shift_rotation)
@@ -596,6 +597,145 @@ def test_streaming_kernel_path_matches_plain_path(cuda, kv_quant, prerot):
     assert int(outs[0][2][0]) - 50 == 8
     assert outs[0][3] == ((0, 0, 24) if prerot else (24, 24, 0))
     assert outs[1][3] == (0, 0, 0)
+
+
+# --------------------------------------------------------------------------
+# StreamingLLM in the encoding family: K1 `rank`, fused_decode_attend
+# --------------------------------------------------------------------------
+
+def _unordered(cuda, B, H, S, n_valid, seed, dead_row=False):
+    """Positions of the encoding family's unordered cache (n_valid distinct
+    positions at random slots of each head, holes elsewhere) and their age
+    ranks."""
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.full((B * H, S), -1, dtype=torch.int32)
+    for r in range(B * H):
+        pos[r, torch.randperm(S, generator=gen)[:n_valid]] = (
+            torch.randperm(2 * S, generator=gen)[:n_valid].sort().values.to(torch.int32))
+    pos = pos.view(B, H, S)
+    if dead_row:
+        pos[-1] = -1
+    pos = pos.to(cuda)
+    return pos, age_ranks_all(pos[None])[0]
+
+
+RANK_SHAPES = {  # Hq, Hkv, B, S, dead row
+    "mha-7b": (32, 32, 1, 2304, False), "gqa-rep4-dead-row": (32, 8, 2, 2304, True),
+    "small": (8, 8, 2, 256, False)}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("shape", list(RANK_SHAPES))
+def test_k1_rank_kernel_matches_plain(cuda, kind, shape):
+    Hq, Hkv, B, S, dead = RANK_SHAPES[shape]
+    D = 128
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(21)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    k, v, ks, vs = _kv(cuda, 1, B, Hkv, S, D, kind, 22)
+    scales = () if ks is None else (ks[0], vs[0])
+    pos, ranks = _unordered(cuda, B, Hkv, S, S * 7 // 8, 23, dead)
+    q_pos = torch.full((B,), 2 * S, dtype=torch.int32, device=cuda)
+    if dead:
+        q_pos[-1] = -1
+    rot = tuple(x.contiguous() for x in rope_cos_sin(
+        torch.arange(S, dtype=torch.int32, device=cuda), rope_inv_freq(D, 10000.0, cuda)))
+    args = (rnd(B, Hq, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype), rnd(B, Hkv, 1, D).to(dtype),
+            k[0], v[0], pos, q_pos) + scales
+    before = (fused_decode_attend_inflight.launches, fused_decode_attend_inflight.rank_launches)
+    got = fused_decode_attend_inflight(*args, rot=rot, rank=ranks)
+    assert (fused_decode_attend_inflight.launches,
+            fused_decode_attend_inflight.rank_launches) == (before[0] + 1, before[1] + 1)
+    ref = fused_decode_attend_inflight_plain(*args, rot=rot, rank=ranks)
+    assert _out_ok(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-5)
+    if dead:
+        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()
+    by_slot = fused_decode_attend_inflight_plain(*args, rot=rot)
+    assert (by_slot[1] - ref[1]).abs().max() > 1e-4     # ranks are not slots here
+
+
+def test_k1_rank_needs_the_tables(cuda):
+    args = (torch.zeros((1, 8, 1, 128), device=cuda),) * 3 + (
+        torch.zeros((1, 8, 256, 128), device=cuda),) * 2 + (
+        torch.zeros((1, 8, 256), dtype=torch.int32, device=cuda),
+        torch.zeros((1,), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="rot"):
+        fused_decode_attend_inflight(*args, rank=args[5])
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("shape,window", [("mha-7b", None), ("mha-7b", 512),
+                                          ("gqa-rep4-dead-row", None), ("small", 40)])
+def test_decode_attend_kernel_matches_plain(cuda, kind, shape, window):
+    Hq, Hkv, B, S, dead = RANK_SHAPES[shape]
+    D = 128
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(24)
+    k, v, ks, vs = _kv(cuda, 1, B, Hkv, S, D, kind, 25)
+    scales = () if ks is None else (ks[0], vs[0])
+    pos, _ = _unordered(cuda, B, Hkv, S, S * 7 // 8, 26, dead)
+    q_pos = pos.amax(dim=(1, 2)).to(torch.int32)          # the newest row is the query's own
+    args = (torch.randn((B, Hq, 1, D), generator=g, device=cuda).to(dtype), k[0], v[0], pos,
+            q_pos) + scales
+    before = fused_decode_attend.launches
+    got = fused_decode_attend(*args, sliding_window=window)
+    assert fused_decode_attend.launches == before + 1
+    ref = fused_decode_attend_plain(*args, sliding_window=window)
+    assert _out_ok(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5)
+    if dead:
+        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()
+
+
+@pytest.mark.parametrize("stride", [8, 1])
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["f32", "int8"])
+def test_streaming_encode_kernel_path_matches_plain_path(cuda, kv_quant, stride):
+    """generate(streaming=True) in `encoding` and `ppl` on a small model,
+    with the kernels and with every kernel swapped for its plain version:
+    equal tokens and final positions (int8: layer 0's), ppl within 1e-5
+    relative; the kernel path runs K1's rank variant on every decode step
+    (and every stride-1 chunk)."""
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    n, new = 96, 12
+    ids = torch.randint(1, 512, (1, n), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    b = n // 2 + stride
+    idx, r_idx = gen_mod.stride_align(n, b, stride)
+    common = dict(cfg=cfg, policy="roco", length=n, budget=b, idx=idx, r_idx=r_idx,
+                  stride=stride, max_new_tokens=new, recent_window=b // 10,
+                  recent_window_dec=int(b * 0.3), kv_quant=kv_quant, streaming=True)
+    outs = []
+    for plain in (False, True):
+        patches = contextlib.ExitStack()
+        if plain:
+            patches.enter_context(mock.patch.multiple(
+                llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
+                fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+                fused_chunk_attend=fused_chunk_attend_plain))
+        ranked = fused_decode_attend_inflight.rank_launches
+        with patches:
+            st = gen_mod.EngineStatics(mode="encoding", **common)
+            res, _, cache, _ = gen_mod._run_encoding(
+                st, params, ids, 1e-9, 1.0, torch.Generator(device=cuda).manual_seed(0),
+                torch.float32)
+            st = gen_mod.EngineStatics(mode="ppl", **common)
+            loss, _, _ = gen_mod._run_ppl(st, params, ids, torch.Generator(device=cuda)
+                                          .manual_seed(0), torch.float32)
+        outs.append((res.out_ids, cache.pos, float(loss[0]),
+                     fused_decode_attend_inflight.rank_launches - ranked))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1][0], outs[1][1][0])        # layer 0 exact
+    if not kv_quant:
+        assert torch.equal(outs[0][1], outs[1][1])
+    assert outs[0][2] == pytest.approx(outs[1][2], rel=1e-5)
+    steps = new + (2 * (n - r_idx) if stride == 1 else 0)  # encoding's and ppl's chunks
+    assert outs[0][3] == cfg.num_hidden_layers * steps and outs[1][3] == 0
 
 
 # --------------------------------------------------------------------------

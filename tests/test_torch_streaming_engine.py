@@ -128,7 +128,8 @@ def test_streaming_decode_lockstep(models, policy, pre, quant):
                                                jnp.asarray(plen), None, "zero"))(
         jgen._engine_cache(jst, B, P + budget + 1))
     tcache = cache_from_jax(cache)
-    stream = tllama.stream_tables(tcache.pos.shape[-1], tcfg, "cpu", pre)
+    stream = tllama.stream_tables(tcache.pos.shape[-1], tcfg, "cpu",
+                                  "prerotated" if pre else "ordered")
     if pre:
         cache = jax.jit(lambda c: jgen._prerotate_cache(c, jcfg))(cache)
         tgen._prerotate_cache(tcache, tcfg)
@@ -144,7 +145,7 @@ def test_streaming_decode_lockstep(models, policy, pre, quant):
                          ctx.evict_gate)
         return logits, jgen._compact_one(c, pos_mid, rot_inv_freq=rot_if)
 
-    folded = tllama.decode_stream_folded(spec_t, True, pre)
+    folded = tllama.decode_stream_folded(spec_t, True, True, pre)
     assert folded == pre
     toks = rng.integers(1, 120, size=(steps, B)).astype(np.int32)
     for g in range(steps):

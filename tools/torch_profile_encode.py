@@ -15,18 +15,32 @@ durations), the device's idle share while traced, the kernels that take
 most device time, and the PyTorch ops that take most host time (self CPU
 time under the tracer, which inflates it, with calls).
 
-    python3 tools/torch_profile_encode.py
+With --streaming it profiles the StreamingLLM encode instead: the same
+`encoding` run with streaming=True, chunk-major (engine._strided_encode:
+llama.forward per chunk over the unordered cache, one evict_cache per
+triggered chunk), int8 then bf16 KV, per chunk (22) and per chunk-layer,
+with the device time of the per-layer _age_ranks (the double argsort) and
+of the rank rotation of the cached K (apply_rope of the whole cache by its
+ranks) as shares of the device busy time, from torch.profiler ranges
+around the two (record_function, put in place by this script alone); then
+the int8 `encoding_decoding` decode step without and with streaming, in
+turns (the latter with the device time of _carry_ranks).
+
+    python3 tools/torch_profile_encode.py [--streaming]
 """
+import contextlib
+import dataclasses
 import importlib
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -35,22 +49,63 @@ from easykv_tpu_torch.models.llama import init_params  # noqa: E402
 from easykv_tpu_torch.ops.cuda import _build  # noqa: E402
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
 STEPS = 32       # encoding_decoding decode steps, each with an eviction
+RANGES = ("age_ranks", "rank_rotation", "carry_ranks")
+
+
+@contextlib.contextmanager
+def labelled():
+    """The streaming forward's _age_ranks, its rotation of the whole cache
+    by rank (apply_rope of a (B, H, S, D) K by (B, H, S) positions; q's
+    rotation by its (B, 1, C) positions is left out) and the decode loop's
+    _carry_ranks inside profiler ranges, so that their kernels' device time
+    can be read."""
+    ranks, rope, carry = llama_mod._age_ranks, llama_mod.apply_rope, gen_mod._carry_ranks
+
+    def age_ranks(pos):
+        with record_function("age_ranks"):
+            return ranks(pos)
+
+    def apply_rope(x, positions, inv_freq):
+        if positions.dim() == x.dim() - 1 and positions.shape[-1] == x.shape[-2] > 1 \
+                and positions.shape[1] == x.shape[1]:
+            with record_function("rank_rotation"):
+                return rope(x, positions, inv_freq)
+        return rope(x, positions, inv_freq)
+    def carry_ranks(*args):
+        with record_function("carry_ranks"):
+            return carry(*args)
+    with mock.patch.multiple(llama_mod, _age_ranks=age_ranks, apply_rope=apply_rope), \
+            mock.patch.object(gen_mod, "_carry_ranks", carry_ranks):
+        yield
+
+
+def range_ms(prof, name):
+    """(device ms of the kernels launched inside the profiler ranges called
+    `name`, host ms spent in them under the tracer, calls)."""
+    for e in prof.key_averages():
+        if e.key == name:
+            dev = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+            return dev / 1e3, e.cpu_time_total / 1e3, e.count
+    return 0.0, 0.0, 0
 
 
 def summarize(prof, seconds_traced, seconds_untraced, n):
-    """Per-unit (n units: chunk-layers or decode steps) device and host
-    figures of one traced window."""
+    """Per-unit (n units: chunk-layers, chunks or decode steps) device and
+    host figures of one traced window. The device time sums kernels only:
+    the device-side spans of this script's own profiler ranges are left
+    out."""
     kernels, busy_us = {}, 0.0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in RANGES:
             t = e.time_range.elapsed_us()
             busy_us += t
             kernels[e.name] = kernels.get(e.name, 0.0) + t
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:10]
-    return {
+    out = {
         "untraced_s": seconds_untraced,
         "traced_s": seconds_traced,
         "untraced_ms_per_unit": seconds_untraced / n * 1e3,
@@ -60,6 +115,51 @@ def summarize(prof, seconds_traced, seconds_untraced, n):
         "top_host_ops_traced_ms_and_calls_per_unit": {
             k: [t / 1e3 / n, c / n] for k, t, c in host},
     }
+    for name in RANGES:
+        ms, host_ms, calls = range_ms(prof, name)
+        if calls:
+            out[f"{name}_device_ms_per_unit"] = ms / n
+            out[f"{name}_share_of_device_busy"] = ms * 1e3 / busy_us if busy_us else None
+            out[f"{name}_traced_host_ms_and_calls_per_unit"] = [host_ms / n, calls / n]
+    return out
+
+
+def streaming(res, statics, prefixed, encoded, decode, L, n, dev, params, ids):
+    """The StreamingLLM `encoding` encode (engine._strided_encode), int8
+    then bf16 KV, per chunk; then the int8 `encoding_decoding` decode step
+    without and then with streaming (K1 against K1's rank variant and the
+    carried ranks), in turns, in the same process."""
+    for kv_quant in (True, False):
+        st = dataclasses.replace(statics("encoding", kv_quant, 0), streaming=True)
+        S = st.idx + st.stride
+        chunks = (n - st.r_idx) // STRIDE
+
+        def encode(cache):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            t0 = time.perf_counter()
+            gen_mod._strided_encode(st, params, cache, ids, st.encode_spec(), gen, False)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        encode(prefixed(st, S))                                  # warm-up
+        base_s = encode(prefixed(st, S))
+        cache = prefixed(st, S)
+        with labelled(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+            enc_s = encode(cache)
+        kv = "int8" if kv_quant else "bf16"
+        per_chunk = summarize(prof, enc_s, base_s, chunks)
+        per_chunk["device_busy_ms_per_chunk_layer"] = per_chunk["device_busy_ms_per_unit"] / L
+        res[f"StreamingLLM encode, {kv} KV, per chunk ({chunks} chunks x {L} layers)"] = per_chunk
+    for on in (False, True):
+        st = dataclasses.replace(statics("encoding_decoding", True, STEPS), streaming=on)
+        decode(st, *encoded(st))                                 # warm-up
+        base_s = decode(st, *encoded(st))
+        state = encoded(st)
+        with labelled(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+            dec_s = decode(st, *state)
+        res[f"encoding_decoding decode, int8 KV, streaming {on}, per step ({STEPS})"] = \
+            summarize(prof, dec_s, base_s, STEPS)
 
 
 def main():
@@ -101,7 +201,31 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
+    length = torch.full((1,), n, dtype=torch.int32, device=dev)
+
+    def encoded(st):
+        """The int8 encoding_decoding cache after its prefix and encode
+        (chunk-major under streaming), and the encode's last logits."""
+        cache = prefixed(st, st.idx + st.stride)
+        run = gen_mod._strided_encode if st.streaming else gen_mod._strided_encode_layer_major
+        last, _, kv_len = run(st, params, cache, ids, st.encode_spec(),
+                              torch.Generator(device=dev).manual_seed(0), False)
+        torch.cuda.synchronize()
+        return cache, last, kv_len
+
+    def decode(st, cache, last, kv_len):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        gen_mod._decode_loop(st, params, cache, last, length, length, kv_len,
+                             st.encdec_decode_spec(), gen, 1e-9, 1.0, "always")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     res = {"card": smi, "layers": L, "prompt": n, "stride": STRIDE}
+    if "--streaming" in sys.argv[1:]:
+        streaming(res, statics, prefixed, encoded, decode, L, n, dev, params, ids)
+        print(json.dumps(res, indent=1))
+        return
     for kv_quant in (True, False):
         st = statics("encoding", kv_quant, 0)
         S = st.idx + st.stride
@@ -115,27 +239,11 @@ def main():
             f"({units})"] = summarize(prof, enc_s, base_s, units)
 
     st = statics("encoding_decoding", True, STEPS)
-    spec = st.encdec_decode_spec()
-    length = torch.full((1,), n, dtype=torch.int32, device=dev)
-
-    def encoded():
-        cache = prefixed(st, st.idx + st.stride)
-        _, (last, _, kv_len) = encode(st, cache)
-        return cache, last, kv_len
-
-    def decode(cache, last, kv_len):
-        gen = torch.Generator(device=dev).manual_seed(0)
-        t0 = time.perf_counter()
-        gen_mod._decode_loop(st, params, cache, last, length, length, kv_len, spec, gen,
-                             1e-9, 1.0, "always")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    decode(*encoded())                                       # warm-up
-    base_s = decode(*encoded())
-    state = encoded()
+    decode(st, *encoded(st))                                 # warm-up
+    base_s = decode(st, *encoded(st))
+    state = encoded(st)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec_s = decode(*state)
+        dec_s = decode(st, *state)
     res[f"encoding_decoding decode, int8 KV, per step ({STEPS})"] = summarize(
         prof, dec_s, base_s, STEPS)
     print(json.dumps(res, indent=1))
