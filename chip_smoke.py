@@ -17,7 +17,16 @@ Phases, each printing its lines before the last:
      sliding window, f32), K6 chunk write + attend (S=2304, C=96: int8 and
      bf16 caches, contiguous and scattered write slots, statistics on and
      off, GQA with B=2, a sliding window, f32, negative initial counters;
-     cache arrays bit-exact); the ordered StreamingLLM kernels: K4 gated
+     cache arrays bit-exact); K7 chunk step (S=2304, C=96: int8 and bf16
+     caches, roco and h2o_head, gates (on, on), (on, off), (off, on);
+     Mistral-7B widths, GQA rep 4, B=2 with mixed row gates, a 512-slot
+     window; the `ppl` runs' S=2176, bf16 roco; negative initial counters,
+     holes, a partly filled cache):
+     out within K6's limit, the scores within 1e-5 and the written rows
+     exact against its plain version (the agreement share of pos,
+     counter and the next mask printed), and every array bit-identical to
+     K6 followed by the plain update and selection on K6's own statistics;
+     the ordered StreamingLLM kernels: K4 gated
      eviction (five policies, gate on and off by row, B=2), K2 `compact`
      (five policies, with and without the scale rows), K9 K/V shift (bf16
      and int8, rotate on and off, victims at the first, a middle and the
@@ -63,7 +72,11 @@ Phases, each printing its lines before the last:
      at stride 1 (every encode chunk a decode step through K1 rank), and
      llama.forward at C=1 with the keep_attention bootstrap (32
      fused_decode_attend launches, each held to its plain version on its
-     own inputs); then quantized weights, quantized on the card from the
+     own inputs), and the one-call chunk step K7 (flags.use_step_kernel)
+     against its twin without it: int8 `encoding` roco (704 K7, no K6, no
+     plain selection), int8 `ppl` h2o_head and bf16 `ppl` roco with the
+     chunk kernels on (1344 K7 against 1344 K6): equal tokens or ppl and
+     bit-identical final cache arrays; then quantized weights, quantized on the card from the
      same bf16 weights by the port's quantize_params(_int4) and
      fuse_gemv_params, on the 512-token prompt with 384 new tokens: int4
      arithmetic fused, bench.py's headline tree (K14 once a decode step for
@@ -98,7 +111,8 @@ Phases, each printing its lines before the last:
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel (K1's rank variant
-     and fused_decode_attend at S=2304); K10-K13 at each 7B
+     and fused_decode_attend at S=2304; K7 roco at a triggered chunk,
+     int8 and bf16, each call from its untouched state); K10-K13 at each 7B
      product of their phase-3 trees (bf16 activations) with enough weight copies cycled that L2 is
      cold, the library call torch.matmul over a bf16 copy dequantized
      beforehand; K14 for a whole decode step at 7B width (L=32, S=768),
@@ -132,7 +146,8 @@ import torch
 
 import easykv_tpu_torch
 from easykv_tpu_torch import flags
-from easykv_tpu_torch.cache import quantize_kv
+from easykv_tpu_torch import policies as policies_mod
+from easykv_tpu_torch.cache import KVCache, quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.llama import StepCtx, age_ranks_all, init_params, rotation_tables
 from easykv_tpu_torch.ops.cuda import _build
@@ -142,7 +157,8 @@ from easykv_tpu_torch.ops.cuda.kv_compact import (
     fused_kv_compact_plain as k9_plain, shift_rotation)
 from easykv_tpu_torch.ops.rope import rope_inv_freq
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
-    fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
+    chunk_step_evict_plain, fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
+    fused_chunk_step as k7, fused_chunk_step_plain as k7_plain,
     fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend as kda, fused_decode_attend_inflight as k1,
@@ -648,7 +664,119 @@ def phase_k6(dev):
     return main_err
 
 
-KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K8": k8, "K9": k9,
+def enc_step_statics(policy, mode="encoding"):
+    """The encode spec's statics of the `encoding` (or `ppl`) run at budget
+    0.5 (the engine's EngineStatics.encode_spec): feasible_k, sink,
+    recent_window."""
+    b = int(ENC_PROMPT * 0.5) + STRIDE
+    align = gen_mod.stride_align_encdec if mode == "ppl" else gen_mod.stride_align
+    idx, r_idx = align(ENC_PROMPT, b, STRIDE)
+    spec = gen_mod.EngineStatics(cfg=LLAMA2_7B, policy=policy, mode=mode,
+                                 length=ENC_PROMPT, budget=b, idx=idx, r_idx=r_idx,
+                                 stride=STRIDE, recent_window=int(b * 0.1),
+                                 recent_window_dec=int(b * 0.3)).encode_spec()
+    return dict(feasible_k=spec.feasible_k, sink=spec.sink_length,
+                recent_window=spec.recent_window)
+
+
+def k7_case(B, Hq, Hkv, kv, gates, dev, seed, dtype=torch.bfloat16, S=ENC_S):
+    """K7's arguments at a triggered chunk of the `encoding` run (k6_case's
+    scattered slots as a write mask: holes among 2176 valid slots of a
+    partly filled cache, the engine's negative initial counters), with
+    gates (update, evict) per row, next_pos after the chunk and the next
+    contiguous window at 2176: q, k_c, v_c, write_mask, q_pos,
+    counter_init, update_gate, evict_gate, next_pos, next_start, k, v, pos,
+    score, score_sq, counter (+ k_scale, v_scale). S=ENCDEC_S is the `ppl`
+    run's triggered chunk: the holes among a full cache of 2176 slots (its
+    next window lies past S, so only an evicting row is meaningful there)."""
+    a = k6_case(B, Hq, Hkv, dtype, kv == "int8", True, True, dev, seed, S=S)
+    q, k_c, v_c, ids, q_pos, cinit = a[:6]
+    wm = torch.zeros((B, Hkv, S), dtype=torch.int32, device=dev).scatter_(-1, ids.long(), 1)
+    return (q, k_c, v_c, wm, q_pos, cinit, torch.tensor([g[0] for g in gates], device=dev),
+            torch.tensor([g[1] for g in gates], device=dev), (q_pos[:, -1] + 1).contiguous(),
+            torch.full((B,), ENC_IDX + STRIDE, dtype=torch.int32, device=dev)) + a[6:]
+
+
+def k7_via_k6(args, policy, window, statics):
+    """K6 on the card, then the plain score update and selection on K6's
+    own statistics (chunk_step_evict_plain): (out, cache arrays, next
+    mask), on copies of args."""
+    b = [a.clone() for a in args]
+    q, k_c, v_c, wm, q_pos, cinit, ug, eg, npos, nstart = b[:10]
+    S = wm.shape[-1]
+    iota = torch.arange(S, dtype=torch.int32, device=wm.device)
+    ids = torch.where(wm != 0, iota, S + iota).sort(dim=-1).values[..., :q.shape[2]]
+    out, ssum, ssq, _ = k6(q, k_c, v_c, ids.contiguous(), q_pos, cinit, *b[10:],
+                           sliding_window=window)
+    cache = KVCache(*b[10:16], *(b[16:] or (None, None)))
+    nxt = chunk_step_evict_plain(cache, ssum, ssq, ug, eg, npos, nstart, policy=policy,
+                                 C=q.shape[2], **statics)
+    return out, tuple(b[10:]), nxt
+
+
+def phase_k7(dev):
+    """K7 against its plain version at the strided encode's shapes (S=2304,
+    C=96, D=128; bf16 and int8 caches, roco and h2o_head, gates (on, on),
+    (on, off) and (off, on); Mistral-7B widths, GQA rep 4, B=2 with mixed
+    row gates and a 512-slot window; the `ppl` runs' shape, S=2176, bf16
+    roco with the gates on). Bar (a), against
+    fused_chunk_step_plain: out within K6's output limit, score and score_sq
+    within K6's statistics limit (1e-5), the written rows (K, V, scales)
+    exact; the agreement share of pos, counter and the next mask is printed
+    (the plain statistics differ in their last bits, which may move a
+    near-tie). Bar (b), against K6 on the card followed by the plain update
+    and selection on K6's own statistics: out, every cache array and the
+    next mask bit-identical. Returns the max |err| of bar (a) in the
+    (on, on) roco case of each cache dtype (the phase 5 shape)."""
+    cases = [(f"{kv} {policy} MHA B=1 gates ({u}, {e})", 1, 32, 32, kv, policy, [(u, e)], None,
+              "encoding") for kv in ("int8", "bf16") for policy in ("roco", "h2o_head")
+             for u, e in ((True, True), (True, False), (False, True))]
+    cases += [(f"{kv} {policy} Mistral-7B widths GQA rep 4 B=2 mixed gates window 512", 2, 32,
+               8, kv, policy, [(True, False), (False, True)], 512, "encoding")
+              for kv, policy in (("int8", "roco"), ("bf16", "h2o_head"))]
+    cases += [(f"bf16 roco MHA B=1 gates (True, True) at the ppl shape S={ENCDEC_S}", 1, 32, 32,
+               "bf16", "roco", [(True, True)], None, "ppl")]
+    errs = {}
+    for i, (name, B, Hq, Hkv, kv, policy, gates, window, mode) in enumerate(cases):
+        st = enc_step_statics(policy, mode)
+        args = k7_case(B, Hq, Hkv, kv, gates, dev, 300 + i,
+                       S=ENCDEC_S if mode == "ppl" else ENC_S)
+        ka, kb = [a.clone() for a in args], [a.clone() for a in args]
+        got = k7(*ka, policy=policy, sliding_window=window, **st)
+        ref = k7_plain(*kb, policy=policy, sliding_window=window, **st)
+        bar = k7_via_k6(args, policy, window, st)
+        torch.cuda.synchronize()
+        e_out = (got[0].float() - ref[0].float()).abs().max().item()
+        ratio = ((got[0].float() - ref[0].float()).abs() / k1_out_limit(ref[0])).max().item()
+        e_sc = [(got[1][j] - ref[1][j]).abs().max().item() for j in (3, 4)]
+        rows = [j for j, n in enumerate(K6_CACHE[:len(got[1])]) if n in
+                ("k", "v", "k_scale", "v_scale")]
+        written = all(torch.equal(got[1][j], ref[1][j]) for j in rows)
+        share = [(got[1][2] == ref[1][2]).float().mean().item(),
+                 (got[1][5] == ref[1][5]).float().mean().item(),
+                 (got[2] == ref[2]).float().mean().item()]
+        exact = (torch.equal(got[0], bar[0]) and torch.equal(got[2], bar[2])
+                 and all(torch.equal(a, b) for a, b in zip(got[1], bar[1])))
+        eg = args[7][:, None, None]
+        victims = got[2].bool() & eg
+        evicted = bool((got[1][2][victims] == -1).all()) and int(victims.sum()) == int(
+            eg.sum()) * Hkv * STRIDE and bool((got[2].sum(-1) == STRIDE).all())
+        neg = bool((got[1][5][~eg.expand_as(got[2]) & args[3].bool()] < 0).any())
+        print(f"phase 2: K7 {name}: (a) max|err| out {e_out:.3e} (at most {ratio:.2f} of its "
+              f"limit) score {e_sc[0]:.3e} score_sq {e_sc[1]:.3e}, written rows exact {written}, "
+              f"agreement pos {share[0]:.6f} counter {share[1]:.6f} next mask {share[2]:.6f}; "
+              f"(b) bit-identical to K6 + the plain selection {exact}; {STRIDE} victims a "
+              f"gated (row, head) {evicted}; negative counters kept where the gate is off "
+              f"{neg if not bool(eg.all()) else 'n/a'}")
+        check(ratio <= 1 and max(e_sc) <= 1e-5 and written and exact and evicted
+              and (neg or bool(eg.all())) and bool(torch.isfinite(got[0].float()).all()),
+              f"K7 {name} disagrees")
+        if policy == "roco" and gates == [(True, True)] and mode == "encoding":
+            errs[("K7", kv)] = max([e_out] + e_sc)
+    return errs
+
+
+KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K7": k7, "K8": k8, "K9": k9,
            "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15,
            "decode_attend": kda}
 # launches of a kernel's variant, counted by its wrapper beside the total
@@ -875,7 +1003,10 @@ def phase_encoding(dev, cfg, params):
             models[kv], name, prompt, dict(gc, budget=budget, streaming=streaming), mode,
             STRIDE, zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n5, K6=n6,
                                 **{"K1 rank": L * n_dec if streaming else 0}),
-            slots, ratio, ENC_S if mode == "encoding" else ENCDEC_S, cfg)
+            slots, ratio, ENC_S if mode == "encoding" else ENCDEC_S, cfg,
+            keep=name == "int8 encoding roco")
+    runs.update(step_runs(models, prompt, gc, runs, cfg, n_prefix, n_enc, n_encdec,
+                          ratio_enc))
     for name, r in runs.items():
         if " stream " in name:
             base = runs[name.replace(" stream ", " ")]
@@ -902,20 +1033,81 @@ def phase_encoding(dev, cfg, params):
     return runs
 
 
+def step_runs(models, prompt, gc, runs, cfg, n_prefix, n_enc, n_encdec, ratio_enc):
+    """The one-call chunk step K7 (flags.use_step_kernel) at 7B width against
+    its twin without it: int8 `encoding` roco (the twin is phase 3's int8
+    `encoding` run, whose result and final cache `runs` keeps), int8 `ppl`
+    h2o_head, and bf16 `ppl` roco with the chunk kernels on
+    (flags.use_chunk_kernel). Checks each run's exact launch counts (K7
+    once a chunk-layer and no K6, or the reverse), that the encode never
+    calls the plain selection with K7, and that each pair gives equal
+    tokens or ppl and bit-identical final cache arrays; prints the strided
+    encode seconds side by side. Returns the new runs' figures."""
+    L = cfg.num_hidden_layers
+    new = {}
+    step_plan = [
+        ("int8 encoding roco step", "int8", "encoding", "roco", None, True, "int8 encoding roco"),
+        ("int8 ppl h2o_head", "int8", "ppl", "h2o_head", None, False, None),
+        ("int8 ppl h2o_head step", "int8", "ppl", "h2o_head", None, True, "int8 ppl h2o_head"),
+        ("bf16 ppl roco chunk kernels", "bf16", "ppl", "roco", True, False, None),
+        ("bf16 ppl roco step", "bf16", "ppl", "roco", True, True, "bf16 ppl roco chunk kernels"),
+    ]
+    for name, kv, mode, policy, chunk, step, twin in step_plan:
+        enc = mode == "encoding"
+        n_chunks, n_dec = (n_enc, ENC_NEW) if enc else (n_encdec, 0)
+        flags.use_chunk_kernel(chunk)
+        flags.use_step_kernel(step)
+        try:
+            new[name] = encoding_run(
+                models[kv], name, prompt, dict(gc, budget=0.5, kv_policy=policy), mode, STRIDE,
+                zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n_prefix if enc else L,
+                            **{"K7" if step else "K6": n_chunks}),
+                ENC_IDX + n_dec, ratio_enc, ENC_S if enc else ENCDEC_S, cfg, keep=True)
+        finally:
+            flags.use_chunk_kernel(None)
+            flags.use_step_kernel(None)
+        if step:
+            check(new[name]["selections"] == 0, f"{name}: the plain selection ran "
+                  f"{new[name]['selections']} times")
+        if twin is None:
+            continue
+        a, b = new[name], new.get(twin) or runs[twin]
+        same_out = a.pop("out") == b.pop("out")
+        ca, cb = a.pop("cache"), b.pop("cache")
+        same = [n for n in K6_CACHE if getattr(ca, n) is not None
+                and torch.equal(getattr(ca, n), getattr(cb, n))]
+        want_same = [n for n in K6_CACHE if getattr(ca, n) is not None]
+        del ca, cb
+        torch.cuda.empty_cache()
+        print(f"phase 3: {name} against {twin}: {'ppl' if mode == 'ppl' else 'tokens'} equal "
+              f"{same_out}, bit-identical final arrays {same} of {want_same}, strided encode "
+              f"{a['encode_s']:.3f} / {b['encode_s']:.3f} s, plain selections "
+              f"{a['selections']} / {b['selections']}")
+        check(same_out and same == want_same, f"{name} and {twin} disagree")
+    for r in list(runs.values()) + list(new.values()):
+        r.pop("out", None)
+        r.pop("cache", None)
+    return new
+
+
 def encoding_run(model, name, prompt, gc, mode, stride, want, slots, ratio, S, cfg,
-                 n_new=ENC_NEW):
+                 n_new=ENC_NEW, keep=False):
     """One run of the encoding family through generate() (ppl through
     enable_fixed_kv's easykv_ppl), checked: launch counts `want`, `slots`
     valid slots in every (layer, head) of the final cache, the printed
     ratio line, and with streaming the decode's carried ranks equal to
-    _age_ranks of the final cache. Returns its figures."""
+    _age_ranks of the final cache. Returns its figures (with keep, also its
+    result and final cache), among them the calls of the plain selection
+    (policies.select_evictions)."""
     dev = model.device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     printed = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(printed), engine_caches() as made, \
-            recorded("_carry_ranks", last_only=True) as ranks:
+            recorded("_carry_ranks", last_only=True) as ranks, \
+            mock.patch.object(policies_mod, "select_evictions",
+                              wraps=policies_mod.select_evictions) as selections:
         if mode == "ppl":
             out = easykv_tpu_torch.generate(model, prompt, gc, kv_mode="ppl", stride=stride)
         else:
@@ -941,17 +1133,22 @@ def encoding_run(model, name, prompt, gc, mode, stride, want, slots, ratio, S, c
         same = bool(ranks) and torch.equal(ranks[-1], age_ranks_all(pos))
         desc += f", carried ranks equal _age_ranks of the final cache {same}"
         check(same, f"{name}: the carried ranks are not the final cache's age ranks")
+    final = made[-1] if keep else None
     del made, ranks, pos
     print(f"{desc}, valid slots per (layer, head) after the run {held}, "
           f"KV cache {kv_cache_mb(cfg, 1, S, model.kv_quant):.1f} MB (S={S}), peak memory "
-          f"{peak:.2f} GiB, launches {c}; printed: {line}")
+          f"{peak:.2f} GiB, launches {c}, plain selections {selections.call_count}; "
+          f"printed: {line}")
     check(c == want, f"{name}: launch counts {c}, expected {want}")
     check(held == (slots, slots), f"{name}: slots {held}, expected {slots}")
     check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
     if mode == "encoding_decoding":
         check(st.kv_len == ENC_IDX, f"{name}: kv_len {st.kv_len} after decode")
-    return dict(name=name, counts=c, tok_s=tok_s, prefill_s=st.prefill_s,
-                encode_s=st.encode_s, peak_gib=peak)
+    res = dict(name=name, counts=c, tok_s=tok_s, prefill_s=st.prefill_s,
+               encode_s=st.encode_s, peak_gib=peak, selections=selections.call_count)
+    if keep:
+        res.update(out=out, cache=final)
+    return res
 
 
 def forward_bootstrap(dev, cfg, params, kv, prompt):
@@ -1252,18 +1449,25 @@ def phase_plain_vs_kernel_encoding(dev, cfg, params):
                   f"{kv} KV {name} stride {stride}: launch counts")
 
 
-def graph_ms(fn, arg_sets, reps):
+def graph_ms(fn, arg_sets, reps, restore=None):
     """Device time of one call: `reps` calls (cycling through arg_sets, so a
     caller that would find the L2 cache cold finds it cold) captured in one
-    CUDA graph, replayed, timed with CUDA events."""
+    CUDA graph, replayed, timed with CUDA events. A call that changes its
+    inputs in place passes `restore`, which puts them back (untimed) before
+    the capture and before the timed replay, and reps = len(arg_sets): each
+    call of the timed replay then finds the state it was given."""
     for a in arg_sets:
         fn(*a)
+    if restore is not None:
+        restore()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(reps):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
+    if restore is not None:
+        restore()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1533,6 +1737,89 @@ def k6_times(dev):
     return dict(ms=graph_ms(k6, sets, 32), plain_ms=graph_ms(k6_plain, sets, 8),
                 library_ms=graph_ms(library, deq, 64), bytes=k6_bytes, flops=4 * D * need,
                 peak=BF16_FLOPS)
+
+
+def k7_times(dev):
+    """K7 roco at a triggered chunk of the `encoding` run (gates on: write,
+    attention with statistics, score update, bump, selection, invalidation,
+    next mask), int8 and bf16 caches, 32 layers' caches cycled, each call
+    once per timed replay from its untouched state. Bound from bytes: q
+    read and out written, the chunk's K/V rows read and written to their
+    slots, every other valid K and V row (and int8 scale) read once, score
+    / score_sq / counter read and written, pos read and written at the
+    written slots and the victims, the write mask read and the next one
+    written (the statistics are intermediates and are not counted);
+    operations: QK
+    and PV over the (query, slot) pairs seen, at the bf16 tensor-core rate.
+    library_ms: None, no PyTorch call selects the victims (the attention
+    half is K6's SDPA time)."""
+    L, H, D, C = 32, 32, 128, STRIDE
+    st = enc_step_statics("roco")
+    out = {}
+    for kv in ("int8", "bf16"):
+        sets = [list(k7_case(1, H, H, kv, [(True, True)], dev, 330 + l)) for l in range(L)]
+        pristine = [[a.clone() for a in x[10:]] for x in sets]
+
+        def restore():
+            for x, p in zip(sets, pristine):
+                for a, b in zip(x[10:], p):
+                    a.copy_(b)
+        q, k_c, v_c, wm, q_pos = sets[0][:5]
+        pos = torch.where(wm != 0, (4000 + (wm.cumsum(-1) - 1)).to(torch.int32),
+                          sets[0][12])
+        mask = (pos[:, :, None, :] >= 0) & (pos[:, :, None, :] <= q_pos[:, None, :, None])
+        visible = int((pos >= 0).sum()) // H                  # valid slots a head after the write
+        written = int((wm != 0).sum())                        # rows written, all heads
+        need = int(mask.sum())
+        row = 2 * D + 8 if kv == "int8" else 2 * D * 2        # K and V rows (+ scales)
+        k7_bytes = (q.numel() * 2 * 2 + (k_c.numel() + v_c.numel()) * 2   # q, out; chunk rows
+                    + written * row                           # the chunk's rows written
+                    + (H * visible - written) * row           # every other valid row read once
+                    + pos.numel() * 4 * 3 * 2                 # score, score_sq, counter r + w
+                    + pos.numel() * 4 + written * 2 * 4       # pos read; written slots, victims
+                    + pos.numel() * 4 * 2                     # write mask read, next written
+                    + q_pos.numel() * 4 * 2 + 2 + 8)          # q_pos, counter_init, gates, ...
+
+        def kernel(*a):
+            return k7(*a, policy="roco", **st)
+
+        def plain(*a):
+            return k7_plain(*a, policy="roco", **st)
+        out[("K7", kv)] = dict(ms=graph_ms(kernel, sets, L, restore),
+                               plain_ms=graph_ms(plain, sets, L, restore),
+                               library_ms=None, bytes=k7_bytes, flops=4 * D * need,
+                               peak=BF16_FLOPS)
+        print(f"phase 5: K7 {kv} inputs: {visible} of {ENC_S} slots valid a head after the "
+              f"write, {need} (query, slot) pairs over {H} heads, {k7_bytes / 1e6:.2f} MB to move")
+        del sets, pristine
+        torch.cuda.empty_cache()
+    for r in out.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / r.pop("peak") * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def k7_records(k7t, errs, runs, k6_library_ms):
+    """The kernels-line records of K7, with launches from the phase-3 run
+    of the same cache dtype with the step kernel on (once a chunk-layer)."""
+    records = []
+    for (key, kv), t in k7t.items():
+        run = "int8 encoding roco step" if kv == "int8" else "bf16 ppl roco step"
+        launches = runs[run]["counts"]["K7"]
+        label = "fused_chunk_step" + (" (int8 KV)" if kv == "int8" else "")
+        print(f"phase 5: K7 {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+              f"us, library none for the selection (the attention half, K6's SDPA: "
+              f"{k6_library_ms * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}), {launches} launches in the {run} run")
+        records.append({"name": label, "route": "cuda",
+                        "source": "easykv_tpu_torch/csrc/chunk_attention.cu",
+                        "replaces": "easykv_tpu/ops/pallas/chunk_attention.py:1088",
+                        "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -2444,6 +2731,7 @@ def main():
                 print(f"phase 1: ptxas {src}: {line.strip()}")
 
     errs = phase_kernels(dev)
+    errs.update(phase_k7(dev))
     errs.update(phase_rank_kernels(dev))
     errs.update(phase_quant_kernels(dev))
     phase_k14(dev)
@@ -2451,6 +2739,7 @@ def main():
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
     times = phase_times(dev)
+    k7t = k7_times(dev)
     rtimes = rank_times(dev)
     qtimes = quant_times(dev)
     cfg32, tree32 = step_tree(dev, 32, 0)
@@ -2502,6 +2791,7 @@ def main():
                         "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += k7_records(k7t, errs, runs, times[("K6", "int8")]["library_ms"])
     kernels += rank_records(rtimes, errs, runs)
     kernels += quant_records(qtimes, errs, runs)
     kernels += k14_records(ktimes, runs)

@@ -522,25 +522,21 @@ constexpr int kWriteThreads = 256;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// One warp per (bh, c, K or V) row: warp w < rows writes K row w, w >= rows
-// writes V row w - rows. CT is IT (float cache) or int8_t (quantized).
+// One warp writes chunk row r = (bh, c) (K, or V when is_v) into cache slot
+// `at` = bh * S + slot; the K warp also writes the slot's sidecars. CT is IT
+// (float cache) or int8_t (quantized).
 template <typename IT, typename CT>
-__global__ void __launch_bounds__(kWriteThreads)
-chunk_write_kernel(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
-                   const int* __restrict__ ids, const int* __restrict__ q_pos,
-                   const float* __restrict__ cinit, CT* __restrict__ k, CT* __restrict__ v,
-                   int* __restrict__ pos, float* __restrict__ score,
-                   float* __restrict__ score_sq, float* __restrict__ counter,
-                   float* __restrict__ k_scale, float* __restrict__ v_scale, int rows, int Hkv,
-                   int C, int S, int D) {
+__device__ __forceinline__ void put_row(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
+                                        const int* __restrict__ q_pos,
+                                        const float* __restrict__ cinit, CT* __restrict__ k,
+                                        CT* __restrict__ v, int* __restrict__ pos,
+                                        float* __restrict__ score,
+                                        float* __restrict__ score_sq,
+                                        float* __restrict__ counter,
+                                        float* __restrict__ k_scale,
+                                        float* __restrict__ v_scale, bool is_v, int r,
+                                        size_t at, int b, int c, int C, int D, int lane) {
   constexpr bool kQuant = std::is_same<CT, int8_t>::value;
-  const int w = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= 2 * rows) return;
-  const bool is_v = w >= rows;
-  const int r = is_v ? w - rows : w;   // (bh, c) row of the chunk
-  const int bh = r / C, c = r % C, b = bh / Hkv;
-  const size_t at = (size_t)bh * S + ids[r];
   const IT* src = (is_v ? v_c : k_c) + (size_t)r * D;
   CT* dst = (is_v ? v : k) + at * D;
   if constexpr (kQuant) {
@@ -564,6 +560,235 @@ chunk_write_kernel(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
   }
 }
 
+// One warp per (bh, c, K or V) row: warp w < rows writes K row w, w >= rows
+// writes V row w - rows.
+template <typename IT, typename CT>
+__global__ void __launch_bounds__(kWriteThreads)
+chunk_write_kernel(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
+                   const int* __restrict__ ids, const int* __restrict__ q_pos,
+                   const float* __restrict__ cinit, CT* __restrict__ k, CT* __restrict__ v,
+                   int* __restrict__ pos, float* __restrict__ score,
+                   float* __restrict__ score_sq, float* __restrict__ counter,
+                   float* __restrict__ k_scale, float* __restrict__ v_scale, int rows, int Hkv,
+                   int C, int S, int D) {
+  const int w = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  if (w >= 2 * rows) return;
+  const bool is_v = w >= rows;
+  const int r = is_v ? w - rows : w;   // (bh, c) row of the chunk
+  const int bh = r / C, c = r % C;
+  put_row<IT, CT>(k_c, v_c, q_pos, cinit, k, v, pos, score, score_sq, counter, k_scale,
+                  v_scale, is_v, r, (size_t)bh * S + ids[r], bh / Hkv, c, C, D,
+                  threadIdx.x & 31);
+}
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+
+constexpr int kMaskRows = 32;       // chunk rows per mask-write block
+constexpr int kStepThreads = 512;   // threads of a step block
+constexpr float kStdForce = 1e9f;   // policies.STD_FORCE
+constexpr float kStdExclude = 1e30f;  // policies.STD_EXCLUDE
+constexpr int kStdGuard = 10;       // policies.ROCO_STD_GUARD
+
+__device__ __forceinline__ int warp_sum_i(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Exclusive prefix sum of one int per thread over an NT-thread block, in
+// thread order; *total gets the block's sum. buf holds NT / 32 + 1 ints.
+// Starts and ends with the block in step (every thread passes two
+// barriers), so buf is free again on return.
+template <int NT>
+__device__ int block_scan(int x, int* buf, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) buf[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < NT / 32 ? buf[lane] : 0;
+    int winc = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, winc, o);
+      if (lane >= o) winc += y;
+    }
+    __syncwarp();
+    if (lane < NT / 32) buf[lane] = winc - w;
+    if (lane == NT / 32 - 1) buf[NT / 32] = winc;
+  }
+  __syncthreads();
+  const int out = buf[warp] + inc - x;
+  *total = buf[NT / 32];
+  __syncthreads();
+  return out;
+}
+
+// The mask-rank row write: block (bh, y) ranks the write mask of head bh
+// (each thread counts a contiguous run of slots, a block scan gives the
+// ranks) and writes chunk rows [32 y, 32 y + 32), K and V, row r into the
+// slot of rank r; a row with no slot of its rank is dropped.
+template <typename IT, typename CT>
+__global__ void __launch_bounds__(kWriteThreads)
+chunk_mask_write_kernel(const IT* __restrict__ k_c, const IT* __restrict__ v_c,
+                        const int* __restrict__ wmask, const int* __restrict__ q_pos,
+                        const float* __restrict__ cinit, CT* __restrict__ k,
+                        CT* __restrict__ v, int* __restrict__ pos, float* __restrict__ score,
+                        float* __restrict__ score_sq, float* __restrict__ counter,
+                        float* __restrict__ k_scale, float* __restrict__ v_scale, int Hkv,
+                        int C, int S, int D) {
+  __shared__ int slot[kMaskRows];
+  __shared__ int buf[kWriteThreads / 32 + 1];
+  const int bh = blockIdx.x, r0 = blockIdx.y * kMaskRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* wm = wmask + (size_t)bh * S;
+  if (tid < kMaskRows) slot[tid] = -1;
+  const int per = (S + kWriteThreads - 1) / kWriteThreads;
+  const int lo = min(S, tid * per), hi = min(S, lo + per);
+  int n = 0;
+  for (int s = lo; s < hi; ++s) n += wm[s] != 0;
+  int total;
+  int rank = block_scan<kWriteThreads>(n, buf, &total);
+  for (int s = lo; s < hi && rank < r0 + kMaskRows; ++s) {
+    if (wm[s] == 0) continue;
+    if (rank >= r0) slot[rank - r0] = s;
+    ++rank;
+  }
+  __syncthreads();
+  for (int j = warp; j < 2 * kMaskRows; j += kWriteThreads / 32) {
+    const bool is_v = j >= kMaskRows;
+    const int c = r0 + (is_v ? j - kMaskRows : j);
+    const int s = slot[is_v ? j - kMaskRows : j];
+    if (c >= C || s < 0) continue;
+    put_row<IT, CT>(k_c, v_c, q_pos, cinit, k, v, pos, score, score_sq, counter, k_scale,
+                    v_scale, is_v, bh * C + c, (size_t)bh * S + s, bh / Hkv, c, C, D, lane);
+  }
+}
+
+// policies._kth_smallest's order: the f32 bit pattern with the sign bit
+// flipped for positives and every bit for negatives (NaN by its bits)
+__device__ __forceinline__ uint32_t order_key(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
+}
+// a stable ascending torch.sort's order: -0 == +0, every NaN above +inf
+__device__ __forceinline__ uint32_t sort_key(float x) {
+  if (x != x) return 0xffffffffu;
+  return order_key(x == 0.f ? 0.f : x);
+}
+
+// The k-th smallest (1-indexed) of key[0, S) by a 32-step bisection, as
+// policies._kth_smallest: each round counts the keys below the candidate
+// prefix. red holds 2 x NT / 32 ints (rounds alternate halves, so one
+// barrier a round suffices). Every thread returns the same key.
+template <int NT>
+__device__ uint32_t kth_key(const uint32_t* key, int S, int k, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t prefix = 0;
+  for (int i = 0; i < 32; ++i) {
+    const uint32_t cand = prefix | (1u << (31 - i));
+    int n = 0;
+    for (int s = threadIdx.x; s < S; s += NT) n += key[s] < cand;
+    n = warp_sum_i(n);
+    int* half = red + (i & 1) * (NT / 32);
+    if (lane == 0) half[warp] = n;
+    __syncthreads();
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) total += half[w];
+    prefix = total >= k ? prefix : cand;
+  }
+  return prefix;
+}
+
+// The score update, the bump and the selection of one (batch, kv-head)
+// row; shared memory: key[S] (u32), then val[S] (f32).
+template <int NT>
+__global__ void __launch_bounds__(NT)
+chunk_step_kernel(const float* __restrict__ ssum, const float* __restrict__ ssq,
+                  const uint8_t* __restrict__ ugate, const uint8_t* __restrict__ egate,
+                  const int* __restrict__ next_pos, const int* __restrict__ next_start,
+                  int* __restrict__ pos, float* __restrict__ score,
+                  float* __restrict__ score_sq, float* __restrict__ counter,
+                  int* __restrict__ wm_out, int Hkv, int C, int S, int roco, int feasible_k,
+                  int sink, int recent_window) {
+  extern __shared__ __align__(16) uint32_t key[];
+  float* val = reinterpret_cast<float*>(key + S);
+  __shared__ int red[2 * (NT / 32)];
+  __shared__ int buf[NT / 32 + 1];
+  const int bh = blockIdx.x, b = bh / Hkv;
+  const size_t o = (size_t)bh * S;
+  const float gu = ugate[b] ? 1.f : 0.f;
+  const bool evict = egate[b] != 0;
+  const int np = next_pos[b], ns = next_start[b];
+  // update (policies.update_scores_reduced), bump under the gate, keys
+  for (int s = threadIdx.x; s < S; s += NT) {
+    const float sc = __fadd_rn(score[o + s], __fmul_rn(ssum[o + s], gu));
+    score[o + s] = sc;
+    float sq = 0.f;
+    if (roco) {
+      sq = __fadd_rn(score_sq[o + s], __fmul_rn(ssq[o + s], gu));
+      score_sq[o + s] = sq;
+    }
+    if (!evict) {
+      wm_out[o + s] = s >= ns && s < ns + C;
+      continue;
+    }
+    const float cn = __fadd_rn(counter[o + s], (float)C);
+    counter[o + s] = cn;
+    const int p = pos[o + s];
+    if (roco) {
+      const float mean = __fdiv_rn(sc, cn);
+      const float var = __fsub_rn(__fdiv_rn(sq, cn), __fmul_rn(mean, mean));
+      float sd = __fsqrt_rn(var < 0.f ? 0.f : var);   // NaN stays NaN, as torch.clamp
+      if (p >= np - kStdGuard || p < sink) sd = __fadd_rn(kStdForce, __fmul_rn((float)p, 1024.f));
+      if (p < 0) sd = kStdExclude;
+      key[s] = order_key(sd);
+      val[s] = mean;
+    } else {
+      const bool cand = p >= 0 && p >= sink && p < np - recent_window;
+      key[s] = sort_key(cand ? sc : INFINITY);
+    }
+  }
+  if (!evict) return;
+  __syncthreads();
+  if (roco) {   // stage 1: feasible = std <= the feasible_k-th smallest std
+    const float kth = key_value(kth_key<NT>(key, S, feasible_k, red));
+    for (int s = threadIdx.x; s < S; s += NT)
+      key[s] = sort_key(key_value(key[s]) <= kth ? val[s] : INFINITY);
+    __syncthreads();
+  }
+  // the C smallest keys: those below the C-th, then its ties in slot order
+  const uint32_t t = kth_key<NT>(key, S, C, red);
+  const int per = (S + NT - 1) / NT;
+  const int lo = min(S, (int)threadIdx.x * per), hi = min(S, lo + per);
+  int below = 0, ties = 0;
+  for (int s = lo; s < hi; ++s) {
+    below += key[s] < t;
+    ties += key[s] == t;
+  }
+  int n_below;
+  block_scan<NT>(below, buf, &n_below);
+  int n_ties;
+  int tie_rank = block_scan<NT>(ties, buf, &n_ties);
+  const int need = C - n_below;
+  for (int s = lo; s < hi; ++s) {
+    const bool victim = key[s] < t || (key[s] == t && tie_rank++ < need);
+    if (victim) pos[o + s] = -1;
+    wm_out[o + s] = victim;
+  }
+}
+
 template <typename IT, typename CT>
 int launch_write(const void* k_c, const void* v_c, const int* ids, const int* q_pos,
                  const float* cinit, void* k, void* v, int* pos, float* score, float* score_sq,
@@ -580,9 +805,39 @@ int launch_write(const void* k_c, const void* v_c, const int* ids, const int* q_
   return (int)cudaGetLastError();
 }
 
+template <typename IT, typename CT>
+int launch_mask_write(const void* k_c, const void* v_c, const int* wmask, const int* q_pos,
+                      const float* cinit, void* k, void* v, int* pos, float* score,
+                      float* score_sq, float* counter, float* k_scale, float* v_scale, int B,
+                      int Hkv, int C, int S, int D, cudaStream_t stream) {
+  if (std::is_same<CT, int8_t>::value && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  chunk_mask_write_kernel<IT, CT>
+      <<<dim3(B * Hkv, (C + kMaskRows - 1) / kMaskRows), kWriteThreads, 0, stream>>>(
+          (const IT*)k_c, (const IT*)v_c, wmask, q_pos, cinit, (CT*)k, (CT*)v, pos, score,
+          score_sq, counter, k_scale, v_scale, Hkv, C, S, D);
+  return (int)cudaGetLastError();
+}
+
+size_t step_smem(int S) { return (size_t)S * (sizeof(uint32_t) + sizeof(float)); }
+
+// Calls f(QT{}, KT{}) with the queries' (and chunk rows') type QT (q_dtype
+// 0 = float32, 1 = bfloat16) and the cache's type KT (QT, or int8_t when
+// kv_int8).
+template <typename F>
+int by_types(int q_dtype, int kv_int8, F f) {
+  if (q_dtype == 0) return kv_int8 ? f(float{}, int8_t{}) : f(float{}, float{});
+  if (q_dtype == 1)
+    return kv_int8 ? f(__nv_bfloat16{}, int8_t{}) : f(__nv_bfloat16{}, __nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Dynamic shared memory of K7's step launch at S slots, bytes.
+size_t chunk_step_smem(int S) { return step_smem(S); }
 
 // Dynamic shared memory one launch needs at head_dim D (64 or 128), bytes.
 size_t chunk_attend_smem(int D) {
@@ -602,21 +857,11 @@ int chunk_attend(const void* q, const void* k, const void* v, const int* pos, co
                  float* last, float* ml, int B, int Hkv, int rep, int C, int S, int D,
                  float scale, int window, int q_dtype, int kv_int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (q_dtype == 0 && kv_int8)
-    return launch_d<float, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
-                                   last, ml, B, Hkv, rep, C, S, scale, window, st);
-  if (q_dtype == 0)
-    return launch_d<float, float>(D, q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq,
-                                  last, ml, B, Hkv, rep, C, S, scale, window, st);
-  if (q_dtype == 1 && kv_int8)
-    return launch_d<__nv_bfloat16, int8_t>(D, q, k, v, pos, q_pos, k_scale, v_scale, out,
-                                           ssum, ssq, last, ml, B, Hkv, rep, C, S, scale,
-                                           window, st);
-  if (q_dtype == 1)
-    return launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, pos, q_pos, k_scale, v_scale,
-                                                  out, ssum, ssq, last, ml, B, Hkv, rep, C, S,
-                                                  scale, window, st);
-  return (int)cudaErrorInvalidValue;
+  return by_types(q_dtype, kv_int8, [&](auto qt, auto kt) {
+    return launch_d<decltype(qt), decltype(kt)>(D, q, k, v, pos, q_pos, k_scale, v_scale, out,
+                                                ssum, ssq, last, ml, B, Hkv, rep, C, S, scale,
+                                                window, st);
+  });
 }
 
 // K6: write the chunk (k_c, v_c: (B, Hkv, C, D) in q's type) into slots
@@ -633,26 +878,53 @@ int chunk_write_attend(const void* q, const void* k_c, const void* v_c, const in
                        int window, int q_dtype, int kv_int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C < 1 || S < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  int err;
-  if (q_dtype == 0 && kv_int8)
-    err = launch_write<float, int8_t>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score, score_sq,
-                                      counter, k_scale, v_scale, B, Hkv, C, S, D, st);
-  else if (q_dtype == 0)
-    err = launch_write<float, float>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score, score_sq,
-                                     counter, k_scale, v_scale, B, Hkv, C, S, D, st);
-  else if (q_dtype == 1 && kv_int8)
-    err = launch_write<__nv_bfloat16, int8_t>(k_c, v_c, ids, q_pos, cinit, k, v, pos, score,
-                                              score_sq, counter, k_scale, v_scale, B, Hkv, C,
-                                              S, D, st);
-  else if (q_dtype == 1)
-    err = launch_write<__nv_bfloat16, __nv_bfloat16>(k_c, v_c, ids, q_pos, cinit, k, v, pos,
-                                                     score, score_sq, counter, k_scale,
-                                                     v_scale, B, Hkv, C, S, D, st);
-  else
-    return (int)cudaErrorInvalidValue;
+  const int err = by_types(q_dtype, kv_int8, [&](auto it, auto ct) {
+    return launch_write<decltype(it), decltype(ct)>(k_c, v_c, ids, q_pos, cinit, k, v, pos,
+                                                    score, score_sq, counter, k_scale, v_scale,
+                                                    B, Hkv, C, S, D, st);
+  });
   if (err != 0) return err;
   return chunk_attend(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, ml, B, Hkv,
                       rep, C, S, D, scale, window, q_dtype, kv_int8, stream);
+}
+
+// K7: one strided-encode chunk step. wmask (B, Hkv, S) int32, nonzero at
+// this chunk's write slots (row r into the r-th set slot, ascending); then
+// chunk_attend over the updated cache with the statistics into ssum, ssq,
+// last (zero-filled) and ml; then per (batch, kv-head) the score update
+// under ugate (B,) and, under egate (B,), counter += C, the encode-phase
+// selection (roco = 1: roco with feasible_k; 0: h2o_head with sink and
+// recent_window; next_pos (B,) int32) and pos = -1 at the victims.
+// wm_out (B, Hkv, S) int32 gets the next write mask: the victims, or
+// [next_start, next_start + C) where egate is off. Gates are bytes (0/1).
+// Returns the first launch error, or cudaGetLastError().
+int chunk_step(const void* q, const void* k_c, const void* v_c, const int* wmask,
+               const int* q_pos, const float* cinit, const uint8_t* ugate,
+               const uint8_t* egate, const int* next_pos, const int* next_start, void* k,
+               void* v, int* pos, float* score, float* score_sq, float* counter,
+               float* k_scale, float* v_scale, void* out, float* ssum, float* ssq, float* last,
+               float* ml, int* wm_out, int B, int Hkv, int rep, int C, int S, int D,
+               float scale, int window, int q_dtype, int kv_int8, int roco, int feasible_k,
+               int sink, int recent_window, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C < 1 || C > S || D < 1 || ssum == nullptr) return (int)cudaErrorInvalidValue;
+  int err = by_types(q_dtype, kv_int8, [&](auto it, auto ct) {
+    return launch_mask_write<decltype(it), decltype(ct)>(k_c, v_c, wmask, q_pos, cinit, k, v,
+                                                         pos, score, score_sq, counter,
+                                                         k_scale, v_scale, B, Hkv, C, S, D, st);
+  });
+  if (err != 0) return err;
+  err = chunk_attend(q, k, v, pos, q_pos, k_scale, v_scale, out, ssum, ssq, last, ml, B, Hkv,
+                     rep, C, S, D, scale, window, q_dtype, kv_int8, stream);
+  if (err != 0) return err;
+  const size_t smem = step_smem(S);
+  auto step = chunk_step_kernel<kStepThreads>;
+  cudaError_t e = allow_smem(step, smem);
+  if (e != cudaSuccess) return (int)e;
+  step<<<B * Hkv, kStepThreads, smem, st>>>(ssum, ssq, ugate, egate, next_pos, next_start, pos,
+                                            score, score_sq, counter, wm_out, Hkv, C, S, roco,
+                                            feasible_k, sink, recent_window);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

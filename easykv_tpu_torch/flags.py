@@ -20,6 +20,18 @@ StreamingLLM decoding, exactly as in the JAX package:
   * off: the cache stores the raw K and decode attention rotates every
     slot by its index at read time.
 Both give the same greedy tokens up to float rounding and int8 requant.
+
+use_chunk_kernel / chunk_kernel_mode pick the chunk kernels (K5 for the
+prefill and the chunk-major forward, K6 for the strided encode) as
+EASYKV_TPU_CHUNK_KERNEL does in the JAX package (easykv_tpu/flags.py:96-117
+there, without its pallas_enabled() test: the port's kernels are chosen by
+device): 'auto' (the default) takes them for an int8 cache only, 'on' for
+every cache, 'off' for none (the chunk is written, the cache dequantized
+and the plain `attend` run). use_step_kernel / step_kernel_enabled switch
+the strided encode's one-call chunk step K7 (write + attend + score update
++ eviction, ops/cuda/chunk_attention.fused_chunk_step) as
+EASYKV_TPU_STEP_KERNEL does (flags.py:286-295 there): off by default, and
+taken only where the chunk kernels are (models/llama.use_step_kernel).
 """
 from __future__ import annotations
 
@@ -29,6 +41,8 @@ from typing import Optional
 _PREROT_OVERRIDE: Optional[bool] = None
 _MEGA_OVERRIDE: Optional[bool] = None
 _MEGA_BATCH_OVERRIDE: Optional[bool] = None
+_CHUNK_KERNEL_OVERRIDE: Optional[bool] = None
+_STEP_KERNEL_OVERRIDE: Optional[bool] = None
 
 
 def _env_on(name: str) -> bool:
@@ -73,3 +87,34 @@ def mega_batch_enabled() -> bool:
     if _MEGA_BATCH_OVERRIDE is not None:
         return _MEGA_BATCH_OVERRIDE and mega_kernel_enabled()
     return _env_on("EASYKV_TPU_MEGA_BATCH") and mega_kernel_enabled()
+
+
+def use_chunk_kernel(enabled: Optional[bool]) -> None:
+    """Force the chunk kernels on or off; None goes back to the environment
+    variable EASYKV_TPU_CHUNK_KERNEL (default 'auto')."""
+    global _CHUNK_KERNEL_OVERRIDE
+    _CHUNK_KERNEL_OVERRIDE = enabled
+
+
+def chunk_kernel_mode() -> str:
+    """'on' | 'off' | 'auto'. EASYKV_TPU_CHUNK_KERNEL: 0/false/off, auto,
+    anything else on; unset, auto."""
+    if _CHUNK_KERNEL_OVERRIDE is not None:
+        return "on" if _CHUNK_KERNEL_OVERRIDE else "off"
+    env = os.environ.get("EASYKV_TPU_CHUNK_KERNEL")
+    if env is None or env == "auto":
+        return "auto"
+    return "off" if env in ("0", "false", "off") else "on"
+
+
+def use_step_kernel(enabled: Optional[bool]) -> None:
+    """Force the one-call chunk step K7 on or off; None goes back to the
+    environment variable EASYKV_TPU_STEP_KERNEL (default off)."""
+    global _STEP_KERNEL_OVERRIDE
+    _STEP_KERNEL_OVERRIDE = enabled
+
+
+def step_kernel_enabled() -> bool:
+    if _STEP_KERNEL_OVERRIDE is not None:
+        return _STEP_KERNEL_OVERRIDE
+    return os.environ.get("EASYKV_TPU_STEP_KERNEL", "0") not in ("0", "false", "off")

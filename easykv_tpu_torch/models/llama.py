@@ -15,16 +15,18 @@ always runs three CUDA kernels: decode attention per layer (K1), then one
 sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
 all layers; over the fused arithmetic-int4 tree the layers are one launch
 of the one-kernel decode step, K14 at B = 1 and K15 at 1 < B <= 16 (8 for
-GQA) (mega_tree, as the JAX package's default). With an int8 cache the
-prompt prefill's attention is the chunk
-kernel (K5), as the JAX package's default `auto` chunk-kernel mode has it
-(llama.py:150-169 there); a float cache keeps the plain `attend`, which the
-JAX package leaves to XLA. The strided encode of the encoding family
-writes and attends each chunk of an int8 cache through K6 (the JAX
-package's `auto` mode takes `fused_chunk_write_attend` there, llama.py:429-440,
-489-495); a float cache writes with `write_tokens_at` and attends with the
-plain `attend`. The encode-phase score updates and evictions are plain
-PyTorch (policies.py). StreamingLLM `decoding` (streaming=True) keeps the
+GQA) (mega_tree, as the JAX package's default). Where use_chunk_kernel
+holds (the JAX package's _use_chunk_kernel, llama.py:150-169 there: by
+default an int8 cache only, flags.chunk_kernel_mode), the prompt prefill and
+the chunk-major forward attend through the chunk kernel (K5) and the
+strided encode of the encoding family writes and attends each chunk
+through K6 (llama.py:429-440, 489-495 there); elsewhere the chunk is
+written, the cache dequantized and the plain `attend` run, as the JAX
+package leaves it to XLA. The encode-phase score updates and evictions are
+plain PyTorch (policies.py), unless use_step_kernel holds (roco and
+h2o_head, flags.step_kernel_enabled, off by default): then the strided
+encode runs each chunk of a layer as one call of the chunk step K7, which
+also updates the scores, evicts and hands the next chunk its write mask. StreamingLLM `decoding` (streaming=True) keeps the
 cache age-ordered: over the pre-rotated cache the step runs K2 with
 `compact` and then K9 (the K/V shift with R(-theta)); over the
 rotate-at-read cache K1 runs its `ordered` variant and the engine runs K4
@@ -47,7 +49,8 @@ from ..cache import (KVCache, kv_dequant, quantize_kv, write_tokens, write_token
                      write_tokens_slice)
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
-from ..ops.cuda.chunk_attention import fused_chunk_attend, fused_chunk_write_attend
+from ..ops.cuda.chunk_attention import (STEP_POLICIES, fused_chunk_attend, fused_chunk_step,
+                                        fused_chunk_write_attend, wa_fits)
 from .. import flags
 from ..ops.cuda.decode_attention import fused_decode_attend, fused_decode_attend_inflight
 from ..ops.cuda.fused_decode import fused_decode_step
@@ -196,6 +199,34 @@ def _attn_block(h, p, cfg: ModelConfig, out: torch.Tensor):
     return h + _mlp(x2, p)
 
 
+def use_chunk_kernel(kv_dtype: torch.dtype) -> bool:
+    """Whether a chunk of C > 1 queries over a cache of kv_dtype attends
+    through the chunk kernels (K5, K6): the JAX package's _use_chunk_kernel
+    (llama.py:150-169 there) without its mesh branch. 'auto' takes them for
+    an int8 cache only."""
+    mode = flags.chunk_kernel_mode()
+    return mode == "on" or (mode == "auto" and kv_dtype == torch.int8)
+
+
+def use_step_kernel(cfg: ModelConfig, spec: Optional[PolicySpec], kv_dtype: torch.dtype,
+                    S: int, C: int) -> bool:
+    """Whether the strided encode runs each chunk as one K7 call: the JAX
+    package's use_step (llama.py:441-452 there), predicate for predicate."""
+    rep = cfg.num_attention_heads // cfg.num_key_value_heads
+    return (use_chunk_kernel(kv_dtype) and S % 128 == 0 and spec is not None
+            and spec.policy != "full" and spec.k == C
+            and wa_fits(rep * C, C, S, cfg.head_dim, kv_dtype.itemsize)
+            and spec.policy in STEP_POLICIES and flags.step_kernel_enabled())
+
+
+def _plain_attend(cl: KVCache, q, q_pos, cfg: ModelConfig):
+    """The plain `attend` over the cache, dequantized when it is int8 (the
+    JAX package's path without the chunk kernel)."""
+    k, v = kv_dequant(cl, q.dtype)
+    return attend(q, k, v, cl.pos, q_pos, sliding_window=cfg.sliding_window,
+                  scale=cfg.head_dim ** -0.5)
+
+
 @torch.no_grad()
 def prefill_layer_major(
     params: LlamaParams,
@@ -209,20 +240,21 @@ def prefill_layer_major(
     """Layer-major no-eviction prefill: one whole-width QKV/MLP matmul per
     layer; attention and the cache writes go chunk by chunk. Token j lands in
     slot j of the empty cache (write_tokens_slice); padding tokens write
-    pos = -1, so their slots stay invalid. An int8 cache is attended by K5
-    over its own int8 rows and scales, the chunk's tokens included. With a
-    spec, every chunk's attention mass bootstraps the scores (reference
-    h2o_head_score, easykv.py:173-186): K5's statistics for an int8 cache,
-    the plain probabilities for a float one. Fills `cache` in place and
-    returns h (B, A_pad, D) before the final norm."""
+    pos = -1, so their slots stay invalid. Where use_chunk_kernel holds
+    (by default an int8 cache) K5 attends over the cache's own rows (int8
+    with their scales), the chunk's tokens included; elsewhere the plain
+    `attend` over the dequantized cache. With a spec, every chunk's
+    attention mass bootstraps the scores (reference h2o_head_score,
+    easykv.py:173-186): K5's statistics, or the plain probabilities. Fills
+    `cache` in place and returns h (B, A_pad, D) before the final norm."""
     B, T = token_ids.shape
     n, _, C = q_pos.shape
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
-    scale = Dh ** -0.5
     q_pos_flat = q_pos.permute(1, 0, 2).reshape(B, T)
     cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
     boot = torch.ones((B,), dtype=torch.bool, device=token_ids.device)
+    use_ck = use_chunk_kernel(cache.k.dtype)
 
     h = params.embed[token_ids.clamp(min=0)]
     for l, p in enumerate(params.layers):
@@ -235,7 +267,7 @@ def prefill_layer_major(
             sl = slice(c * C, (c + 1) * C)
             write_tokens_slice(cl, k[:, :, sl], v[:, :, sl], q_pos[c],
                                counter_init[c], c * C)
-            if cl.quantized:
+            if use_ck:
                 out, ssum, ssq, last = fused_chunk_attend(
                     q[:, :, sl].contiguous(), cl.k, cl.v, cl.pos, q_pos[c], cl.k_scale,
                     cl.v_scale, need_scores=spec is not None,
@@ -243,8 +275,7 @@ def prefill_layer_major(
                 if spec is not None:
                     update_scores_reduced(cl, ssum, ssq, last, spec, boot, bootstrap=True)
             else:
-                out, probs = attend(q[:, :, sl], cl.k, cl.v, cl.pos, q_pos[c],
-                                    sliding_window=cfg.sliding_window, scale=scale)
+                out, probs = _plain_attend(cl, q[:, :, sl], q_pos[c], cfg)
                 if spec is not None:
                     update_scores(cl, probs, spec, boot, bootstrap=True)
             outs.append(out)
@@ -265,28 +296,48 @@ def strided_encode_layer_major(
 ) -> torch.Tensor:
     """Strided encoding with per-chunk eviction, layer-major (reference
     easykv.py:426-499): per layer, one whole-width QKV/MLP matmul over all T
-    tokens; then chunk by chunk the write and attention (K6 for an int8
-    cache; write_tokens_at and the plain `attend` for a float one), the
-    score update, and the gated eviction on the chunks the host schedule
-    marks (evict_at: no host sync per chunk). Write slots are carried, not
+    tokens; then chunk by chunk the write and attention (K6 where
+    use_chunk_kernel holds, by default an int8 cache; write_tokens_at and
+    the plain `attend` over the dequantized cache elsewhere), the score
+    update, and the gated eviction on the chunks the host schedule marks
+    (evict_at: no host sync per chunk). Write slots are carried, not
     searched: contiguous while the cache fills, the sorted evicted ids of the
-    previous event afterwards. Updates `cache` in place and returns h
-    (B, T, D) before the final norm."""
+    previous event afterwards. Where use_step_kernel holds, each chunk is one
+    K7 call instead, which also updates the scores, evicts under the chunk's
+    evict_gate and returns the next chunk's write mask (the carried slots as
+    a mask); the evict_at schedule then launches nothing more. Updates
+    `cache` in place and returns h (B, T, D) before the final norm."""
     B, T = token_ids.shape
     n = len(write_start)
     C = T // n
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     dev = token_ids.device
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), dev)
-    scale = Dh ** -0.5
     evicting = spec is not None and spec.policy != "full"
     need = spec is not None and spec.policy in ("h2o_head", "roco", "tova")
     q_pos_flat = ctxs.q_pos.permute(1, 0, 2).reshape(B, T)
     cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
     ar = torch.arange(C, dtype=torch.int32, device=dev)
+    use_ck = use_chunk_kernel(cache.k.dtype)
+    S = cache.k.shape[-2]
+    use_step = use_step_kernel(cfg, spec, cache.k.dtype, S, C)
 
     def contiguous_ids(start: int) -> torch.Tensor:
         return (start + ar).expand(B, Hkv, C).contiguous()
+
+    if use_step:
+        # K7 carries the write slots as a mask (the JAX package's use_step,
+        # llama.py:481-488, 525-531 there): the contiguous window first,
+        # then each call's next mask; next_start = write_start[c] + C
+        starts = torch.tensor(list(write_start), dtype=torch.int32, device=dev)
+        next_start = (starts + C)[:, None].expand(n, B).contiguous()     # (n, B)
+        iota = torch.arange(S, dtype=torch.int32, device=dev)
+        first = ((iota >= write_start[0]) & (iota < write_start[0] + C)).to(torch.int32)
+        first = first.expand(B, Hkv, S).contiguous()
+        kw = dict(policy=spec.policy, feasible_k=spec.feasible_k, sink=spec.sink_length,
+                  recent_window=spec.recent_window, sliding_window=cfg.sliding_window)
+    else:
+        first = contiguous_ids(write_start[0])
 
     h = params.embed[token_ids.clamp(min=0)]
     for l, p in enumerate(params.layers):
@@ -294,12 +345,20 @@ def strided_encode_layer_major(
         q, k, v = _proj_qkv(x, p, B, T, Hq, Hkv, Dh)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         cl = cache.layer(l)
-        wids = contiguous_ids(write_start[0])
+        wids = first
         outs = []
         for c in range(n):
             sl = slice(c * C, (c + 1) * C)
             qp, cinit, gate = ctxs.q_pos[c], ctxs.counter_init[c], ctxs.update_gate[c]
-            if cl.quantized:
+            if use_step:
+                out, _, wids = fused_chunk_step(
+                    q[:, :, sl].contiguous(), k[:, :, sl].contiguous(),
+                    v[:, :, sl].contiguous(), wids, qp, cinit, gate, ctxs.evict_gate[c],
+                    ctxs.next_pos[c], next_start[c], cl.k, cl.v, cl.pos, cl.score,
+                    cl.score_sq, cl.counter, cl.k_scale, cl.v_scale, **kw)
+                outs.append(out)
+                continue
+            if use_ck:
                 out, ssum, ssq, last = fused_chunk_write_attend(
                     q[:, :, sl].contiguous(), k[:, :, sl].contiguous(),
                     v[:, :, sl].contiguous(), wids, qp, cinit, cl.k, cl.v, cl.pos, cl.score,
@@ -309,8 +368,7 @@ def strided_encode_layer_major(
                     update_scores_reduced(cl, ssum, ssq, last, spec, gate)
             else:
                 write_tokens_at(cl, k[:, :, sl], v[:, :, sl], qp, cinit, wids)
-                out, probs = attend(q[:, :, sl], cl.k, cl.v, cl.pos, qp,
-                                    sliding_window=cfg.sliding_window, scale=scale)
+                out, probs = _plain_attend(cl, q[:, :, sl], qp, cfg)
                 if evicting:
                     update_scores(cl, probs, spec, gate)
                 del probs
@@ -607,9 +665,11 @@ def forward(
         chunk is written to the lowest free slots (cache.write_tokens), then
           - C == 1 bootstrap: fused_decode_attend, then update_scores with
             the bootstrap's sum and sum of squares;
-          - C > 1, int8 cache: K5 (fused_chunk_attend) and
-            update_scores_reduced from its statistics;
-          - C > 1, float cache: the plain `attend` and update_scores;
+          - C > 1 where use_chunk_kernel holds (by default an int8
+            cache): K5 (fused_chunk_attend) and update_scores_reduced from
+            its statistics;
+          - C > 1 elsewhere: the plain `attend` over the dequantized cache
+            and update_scores;
       * streaming (`stream`, kind `rank`; reference llama_patch.py:251-379):
         the raw K is written, the cache is dequantized, every cached K
         rotates by its age rank (_age_ranks of the written cache), q by its
@@ -656,7 +716,7 @@ def forward(
                 q.contiguous(), cl.k, cl.v, cl.pos, ctx.q_pos[:, 0].contiguous(),
                 *((cl.k_scale, cl.v_scale) if cl.quantized else ()),
                 sliding_window=cfg.sliding_window)
-        elif cl.quantized:   # K5: the JAX package's `auto` chunk-kernel mode
+        elif use_chunk_kernel(cl.k.dtype):
             need = spec is not None and (bootstrap or spec.policy in ("h2o_head", "roco", "tova"))
             out, ssum, ssq, last = fused_chunk_attend(
                 q.contiguous(), cl.k, cl.v, cl.pos, ctx.q_pos, cl.k_scale, cl.v_scale,
@@ -665,8 +725,7 @@ def forward(
                 update_scores_reduced(cl, ssum, ssq, last, spec, ctx.update_gate,
                                       bootstrap=bootstrap)
         else:
-            out, probs = attend(q, cl.k, cl.v, cl.pos, ctx.q_pos,
-                                sliding_window=cfg.sliding_window, scale=scale)
+            out, probs = _plain_attend(cl, q, ctx.q_pos, cfg)
         if probs is not None and score:
             update_scores(cl, probs, spec, ctx.update_gate, bootstrap=bootstrap)
         h = _attn_block(h, p, cfg, out)

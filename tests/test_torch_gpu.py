@@ -18,7 +18,12 @@ LLaMa-2-7B widths (each output within 1e-3 of its largest |value|, one bf16
 ulp more in bf16), launches once a decode step only where the JAX package
 would, and raises when its cooperative grid cannot be co-resident; its
 batched twin K15 likewise, at 1 < B <= 16 (8 for GQA), MHA and GQA, with
-bf16, int8 and f32 caches and a dead row.
+bf16, int8 and f32 caches and a dead row. The chunk step K7 is held to its
+plain version (out to K6's limit, the written rows exact, scores within
+1e-5) and, bit for bit on every array and the next mask, to K6 followed by
+the plain update and selection on K6's own statistics; it raises on what it
+does not take; the strided encode with it gives the K6 path's tokens and
+final cache.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -34,9 +39,10 @@ import torch
 from easykv_tpu_torch.cache import quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.llama import age_ranks_all, init_params
+from easykv_tpu_torch.cache import KVCache
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
-    fused_chunk_attend, fused_chunk_attend_plain, fused_chunk_write_attend,
-    fused_chunk_write_attend_plain)
+    chunk_step_evict_plain, fused_chunk_attend, fused_chunk_attend_plain, fused_chunk_step,
+    fused_chunk_step_plain, fused_chunk_write_attend, fused_chunk_write_attend_plain)
 from easykv_tpu_torch import flags
 from easykv_tpu_torch.ops.cuda import sidecar_update
 from easykv_tpu_torch.ops.cuda.decode_attention import (
@@ -1255,3 +1261,128 @@ def test_k15_launch_gating(cuda, case):
         assert k15_n == n and k11_n == 4 * 2      # K11 in the prefill (M = 64 B) only
     else:
         assert k15_n == 0
+
+
+# --------------------------------------------------------------------------
+# K7: the strided encode's chunk step
+# --------------------------------------------------------------------------
+
+K7_STATICS = dict(feasible_k=200, sink=4, recent_window=40)
+
+
+def k7_args(dev, B, Hq, Hkv, S, n_valid, dtype, quant, seed, gates):
+    """K7's arguments for a triggered chunk (k6_args' scattered slots, as a
+    write mask; negative initial counters): gates (update, evict) per row,
+    next_pos after the chunk, the next contiguous window at n_valid."""
+    a = k6_args(dev, B, Hq, Hkv, S, n_valid, dtype, quant, True, True, seed)
+    q, k_c, v_c, ids, q_pos, cinit = a[:6]
+    wm = torch.zeros((B, Hkv, S), dtype=torch.int32, device=dev).scatter_(-1, ids.long(), 1)
+    ug = torch.tensor([g[0] for g in gates], device=dev)
+    eg = torch.tensor([g[1] for g in gates], device=dev)
+    return (q, k_c, v_c, wm, q_pos, cinit, ug, eg, (q_pos[:, -1] + 1).contiguous(),
+            torch.full((B,), n_valid, dtype=torch.int32, device=dev)) + a[6:]
+
+
+def k7_bar(args, policy, window):
+    """K6 on the card, then the plain update and selection on K6's own
+    statistics: (out, cache arrays, next mask)."""
+    b = [x.clone() for x in args]
+    q, k_c, v_c, wm, q_pos, cinit, ug, eg, npos, nstart = b[:10]
+    S = wm.shape[-1]
+    iota = torch.arange(S, dtype=torch.int32, device=wm.device)
+    ids = torch.where(wm != 0, iota, S + iota).sort(dim=-1).values[..., :q.shape[2]]
+    out, ssum, ssq, _ = fused_chunk_write_attend(q, k_c, v_c, ids.contiguous(), q_pos, cinit,
+                                                 *b[10:], sliding_window=window)
+    cache = KVCache(*b[10:16], *(b[16:] or (None, None)))
+    nxt = chunk_step_evict_plain(cache, ssum, ssq, ug, eg, npos, nstart, policy=policy,
+                                 C=q.shape[2], **K7_STATICS)
+    return out, b[10:], nxt
+
+
+K7_GATES = {"on-on": [(True, True)] * 2, "on-off": [(True, False)] * 2,
+            "off-on": [(False, True)] * 2, "mixed": [(True, False), (False, True)]}
+
+
+@pytest.mark.parametrize("gates", list(K7_GATES))
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("policy", ["roco", "h2o_head"])
+@pytest.mark.parametrize("Hq,Hkv,window", [(8, 8, None), (8, 2, 150)], ids=["mha", "gqa4-window"])
+def test_k7_kernel_matches_plain_and_k6(cuda, policy, kv, gates, Hq, Hkv, window):
+    dtype = torch.float32 if kv == "f32" else torch.bfloat16
+    args = k7_args(cuda, 2, Hq, Hkv, 512, 384, dtype, kv == "int8", 7, K7_GATES[gates])
+    ka, kb = [x.clone() for x in args], [x.clone() for x in args]
+    before = fused_chunk_step.launches
+    out, arrs, nxt = fused_chunk_step(*ka, policy=policy, sliding_window=window, **K7_STATICS)
+    assert fused_chunk_step.launches == before + 1
+    ref = fused_chunk_step_plain(*kb, policy=policy, sliding_window=window, **K7_STATICS)
+    torch.cuda.synchronize()
+    assert _out_ok(out, ref[0])
+    for name, a, b in zip(K6_CACHE, arrs, ref[1]):
+        if name in ("score", "score_sq"):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        elif name in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(a, b), name
+    bar = k7_bar(args, policy, window)
+    assert torch.equal(out, bar[0])
+    for name, a, b in zip(K6_CACHE, arrs, bar[1]):
+        assert torch.equal(a, b), name
+    assert torch.equal(nxt, bar[2])
+    eg = args[7]
+    assert (nxt.sum(-1) == args[0].shape[2]).all()
+    assert (arrs[2][nxt.bool() & eg[:, None, None]] == -1).all()
+
+
+def test_k7_raises_on_what_it_does_not_take(cuda):
+    args = k7_args(cuda, 1, 2, 2, 256, 128, torch.bfloat16, False, 8, [(True, True)])
+    with pytest.raises(ValueError, match="policies"):
+        fused_chunk_step(*args, policy="tova", **K7_STATICS)
+    big = list(k7_args(cuda, 1, 2, 2, 32768, 128, torch.bfloat16, False, 8, [(True, True)]))
+    before = fused_chunk_step.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_chunk_step(*big, policy="roco", **K7_STATICS)
+    bad = list(args)
+    bad[6] = bad[6].to(torch.int32)                          # gates are bool
+    with pytest.raises(ValueError, match="update_gate"):
+        fused_chunk_step(*bad, policy="roco", **K7_STATICS)
+    assert fused_chunk_step.launches == before
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("policy", ["roco", "h2o_head"])
+def test_strided_encode_step_kernel_matches_k6_path(cuda, policy, kv_quant):
+    """generate's `encoding` on a small model with the step kernel on and
+    off (the chunk kernels on for the float cache too): equal tokens, every
+    final cache array equal, K7 once a chunk-layer and no K6."""
+    gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    n, new, stride = 320, 12, 32
+    ids = torch.randint(1, 512, (1, n), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32).to(cuda)
+    b = n // 2 + stride
+    idx, r_idx = gen_mod.stride_align(n, b, stride)
+    st = gen_mod.EngineStatics(cfg=cfg, policy=policy, mode="encoding", length=n, budget=b,
+                               idx=idx, r_idx=r_idx, stride=stride, max_new_tokens=new,
+                               recent_window=b // 10, recent_window_dec=int(b * 0.3),
+                               kv_quant=kv_quant, keep_attention=policy == "h2o_head")
+    outs = []
+    try:
+        flags.use_chunk_kernel(True)
+        for step in (True, False):
+            flags.use_step_kernel(step)
+            k7, k6 = fused_chunk_step.launches, fused_chunk_write_attend.launches
+            res, _, cache, _ = gen_mod._run_encoding(
+                st, params, ids, 1e-9, 1.0, torch.Generator(device=cuda).manual_seed(0),
+                torch.float32)
+            outs.append((res.out_ids, cache, fused_chunk_step.launches - k7,
+                         fused_chunk_write_attend.launches - k6))
+    finally:
+        flags.use_chunk_kernel(None)
+        flags.use_step_kernel(None)
+    chunks = cfg.num_hidden_layers * ((n - r_idx) // stride)
+    assert outs[0][2:] == (chunks, 0) and outs[1][2:] == (0, chunks)
+    assert torch.equal(outs[0][0], outs[1][0])
+    for name in K6_CACHE:
+        a, b_ = getattr(outs[0][1], name), getattr(outs[1][1], name)
+        assert (a is None and b_ is None) or torch.equal(a, b_), name

@@ -26,7 +26,16 @@ around the two (record_function, put in place by this script alone); then
 the int8 `encoding_decoding` decode step without and with streaming, in
 turns (the latter with the device time of _carry_ranks).
 
-    python3 tools/torch_profile_encode.py [--streaming]
+With --step it profiles the layer-major strided encode of the same
+`encoding` run with the chunk kernels on (flags.use_chunk_kernel), int8
+then bf16 KV, with the one-call chunk step K7 off (K6, then the plain score
+update and, on the triggered chunks, the plain eviction) and on (one K7
+call a chunk-layer), in turns, per chunk-layer.
+
+Every window also reports its device operations (kernels, copies and
+fills) per unit: the launches the host pays for.
+
+    python3 tools/torch_profile_encode.py [--streaming | --step]
 """
 import contextlib
 import dataclasses
@@ -45,6 +54,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import ENC_PROMPT, LLAMA2_7B, STRIDE  # noqa: E402
+from easykv_tpu_torch import flags  # noqa: E402
 from easykv_tpu_torch.models.llama import init_params  # noqa: E402
 from easykv_tpu_torch.ops.cuda import _build  # noqa: E402
 
@@ -96,11 +106,12 @@ def summarize(prof, seconds_traced, seconds_untraced, n):
     host figures of one traced window. The device time sums kernels only:
     the device-side spans of this script's own profiler ranges are left
     out."""
-    kernels, busy_us = {}, 0.0
+    kernels, busy_us, ops = {}, 0.0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.name not in RANGES:
             t = e.time_range.elapsed_us()
             busy_us += t
+            ops += 1
             kernels[e.name] = kernels.get(e.name, 0.0) + t
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
@@ -111,6 +122,7 @@ def summarize(prof, seconds_traced, seconds_untraced, n):
         "untraced_ms_per_unit": seconds_untraced / n * 1e3,
         "device_busy_ms_per_unit": busy_us / 1e3 / n,
         "device_idle_share_traced": 1 - (busy_us / 1e6) / seconds_traced,
+        "device_ops_per_unit": ops / n,
         "top_kernels_device_ms_per_unit": {k: v / 1e3 / n for k, v in top},
         "top_host_ops_traced_ms_and_calls_per_unit": {
             k: [t / 1e3 / n, c / n] for k, t, c in host},
@@ -160,6 +172,31 @@ def streaming(res, statics, prefixed, encoded, decode, L, n, dev, params, ids):
             dec_s = decode(st, *state)
         res[f"encoding_decoding decode, int8 KV, streaming {on}, per step ({STEPS})"] = \
             summarize(prof, dec_s, base_s, STEPS)
+
+
+def step(res, statics, prefixed, encode, L, n):
+    """The layer-major strided encode with the chunk kernels on, int8 then
+    bf16 KV, the step kernel off then on, per chunk-layer."""
+    flags.use_chunk_kernel(True)
+    try:
+        for kv_quant in (True, False):
+            st = statics("encoding", kv_quant, 0)
+            S = st.idx + st.stride
+            units = L * ((n - st.r_idx) // STRIDE)
+            for on in (False, True):
+                flags.use_step_kernel(on)
+                encode(st, prefixed(st, S))                  # warm-up
+                base_s, _ = encode(st, prefixed(st, S))
+                cache = prefixed(st, S)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    enc_s, _ = encode(st, cache)
+                res[f"strided encode, {'int8' if kv_quant else 'bf16'} KV, chunk kernels on, "
+                    f"step kernel {'on' if on else 'off'}, per chunk-layer ({units})"] = \
+                    summarize(prof, enc_s, base_s, units)
+    finally:
+        flags.use_chunk_kernel(None)
+        flags.use_step_kernel(None)
 
 
 def main():
@@ -224,6 +261,10 @@ def main():
     res = {"card": smi, "layers": L, "prompt": n, "stride": STRIDE}
     if "--streaming" in sys.argv[1:]:
         streaming(res, statics, prefixed, encoded, decode, L, n, dev, params, ids)
+        print(json.dumps(res, indent=1))
+        return
+    if "--step" in sys.argv[1:]:
+        step(res, statics, prefixed, encode, L, n)
         print(json.dumps(res, indent=1))
         return
     for kv_quant in (True, False):
