@@ -14,7 +14,8 @@ Phases, each printing its lines before the last:
      without and with the int8 scale rows: bit-exact), K3 row write (Dh=128
      and 64, bf16 and int8: exact), K5 chunk attention (C=128: int8 and bf16
      caches, statistics on and off, MHA, GQA with B=2 and padding rows, a
-     sliding window, f32), K6 chunk write + attend (S=2304, C=96: int8 and
+     sliding window, f32; and at the strided encode's S=2304, C=96: int8
+     MHA, bf16 GQA rep 4 at B=2 with padding rows), K6 chunk write + attend (S=2304, C=96: int8 and
      bf16 caches, contiguous and scattered write slots, statistics on and
      off, GQA with B=2, a sliding window, f32, negative initial counters;
      cache arrays bit-exact); K7 chunk step (S=2304, C=96: int8 and bf16
@@ -33,8 +34,10 @@ Phases, each printing its lines before the last:
      last tile, and none) and K8 compaction (bf16 and int8) bit-exact on
      every array; K1 `ordered` (bf16 and int8, MHA, GQA with B=2) within
      K1's limit; the quantized-weight kernels at the 7B products (x bf16 and
-     f32): K10 and K12 at M=1 over the split tree's widths, K11 at M=4, 128,
-     512 over them, K13 at M=1, 4, 256 over the fused tree's and the LM head
+     f32): K10 and K12 at M=1 over the split tree's widths, K11 at M=2, 4,
+     16, 96, 128, 512 over the split and the fused tree's widths (both of
+     its tile configurations and its group split), K13 at M=1, 4, 256 over
+     the fused tree's and the LM head
      (N=32000, with f32 logits), each within 1e-5 of max|ref| (plus
      one bf16 ulp of the value in bf16) of its plain version; K14, the
      one-kernel decode step, at 7B width with L=2 (bf16 activations; bf16
@@ -113,7 +116,8 @@ Phases, each printing its lines before the last:
      each cache dtype the main path gives the kernel (K1's rank variant
      and fused_decode_attend at S=2304; K7 roco at a triggered chunk,
      int8 and bf16, each call from its untouched state); K10-K13 at each 7B
-     product of their phase-3 trees (bf16 activations) with enough weight copies cycled that L2 is
+     product of their phase-3 trees (bf16 activations; K11 at the split
+     and the fused widths, M=4 and 512) with enough weight copies cycled that L2 is
      cold, the library call torch.matmul over a bf16 copy dequantized
      beforehand; K14 for a whole decode step at 7B width (L=32, S=768),
      bf16 and int8 KV, first held to its plain version on the same
@@ -533,9 +537,11 @@ def phase_streaming_kernels(dev):
 
 
 def phase_k5(dev):
-    """K5 against its plain version: out within 1e-5 (f32) or one bf16 ulp
-    of the reference plus 1e-3 (bf16); ssum, ssq, last within 1e-5; padding
-    rows exactly 0. Returns the max |err| of the main path's case."""
+    """K5 against its plain version at the prefill's last chunk (C=128, 512
+    of 768 slots) and at the strided encode's (C=96, 2176 of 2304 slots;
+    MHA, and GQA rep 4 at B=2): out within 1e-5 (f32) or one bf16 ulp of the
+    reference plus 1e-3 (bf16); ssum, ssq, last within 1e-5; padding rows
+    exactly 0. Returns the max |err| of the main path's case."""
     n_last = PROMPT          # the prompt's last chunk: 512 visible slots of 768
     cases = [  # name, B, Hq, Hkv, dtype, quant, scores, pad, window
         ("int8 MHA B=1 (main path)", 1, 32, 32, torch.bfloat16, True, False, False, None),
@@ -547,10 +553,15 @@ def phase_k5(dev):
         ("int8 window 200 scores", 1, 32, 32, torch.bfloat16, True, True, False, 200),
         ("f32 int8 MHA scores", 1, 32, 32, torch.float32, True, True, False, None),
         ("f32 MHA window 200 scores", 1, 32, 32, torch.float32, False, True, False, 200),
+        ("int8 MHA B=1 scores at the encode shape", 1, 32, 32, torch.bfloat16, True, True, False,
+         None, ENC_S, STRIDE, ENC_IDX + STRIDE),
+        ("bf16 Mistral-7B widths GQA rep 4 B=2 padding scores at the encode shape", 2, 32, 8,
+         torch.bfloat16, False, True, True, None, ENC_S, STRIDE, ENC_IDX + STRIDE),
     ]
     main_err = None
-    for i, (name, B, Hq, Hkv, dtype, quant, scores, pad, window) in enumerate(cases):
-        args = k5_case(B, Hq, Hkv, n_last, dtype, quant, pad, dev, 70 + i)
+    for i, (name, B, Hq, Hkv, dtype, quant, scores, pad, window, *shape) in enumerate(cases):
+        S, C, n_valid = shape or (S_MAIN, CHUNK, n_last)
+        args = k5_case(B, Hq, Hkv, n_valid, dtype, quant, pad, dev, 70 + i, S=S, C=C)
         got = k5(*args, need_scores=scores, sliding_window=window)
         ref = k5_plain(*args, need_scores=scores, sliding_window=window)
         torch.cuda.synchronize()
@@ -562,7 +573,7 @@ def phase_k5(dev):
             line += " ssum {:.3e} ssq {:.3e} last {:.3e}".format(*e_st)
         ok = ratio <= 1 and all(x <= 1e-5 for x in e_st)
         if pad:
-            zero = got[0][-1, :, CHUNK - 17:].abs().max().item() == 0
+            zero = got[0][-1, :, C - 17:].abs().max().item() == 0
             line += f"; padding rows exactly 0: {zero}"
             ok = ok and zero
         print(line)
@@ -1832,7 +1843,8 @@ QSHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "wgu": (4096, 22016),
            "wd": (11008, 4096), "wq": (4096, 4096), "wg": (4096, 11008), "head": (4096, 32000)}
 FUSED = ("wqkv", "wo", "wgu", "wd")
 SPLIT_SHAPES = ("wq", "wg", "wd")          # wq = wk = wv = wo, wg = wu
-K11_MS, K13_MS = (4, 128, 512), (1, 4, 256)
+K11_MS, K13_MS = (2, 4, 16, 96, 128, 512), (1, 4, 256)
+K11_SHAPES = SPLIT_SHAPES + ("wqkv", "wgu")  # wq = wo: every width of both trees
 SPLIT_USES = {"wq": 4, "wg": 2, "wd": 1}   # products a layer of the split tree runs per width
 QUANT_RUNS = {  # the phase-3 run whose launches a quantized kernel reports
     "K10": "int4 arith split roco", "K11": "int4 arith split roco B=4",
@@ -1875,12 +1887,13 @@ QPAIRS = {"K10": (k10, k10_plain), "K11": (k11, k11_plain), "K12": (k12, k12_pla
 def phase_quant_kernels(dev):
     """K10-K13 against their plain versions at the 7B shapes of their
     phase-3 trees, x in bf16 and f32: K10 and K12 at M = 1 (split widths),
-    K11 at M = 4, 128, 512 (split widths), K13 at M = 1, 4, 256 (fused
-    widths; the head with a float32 result). Returns the max |err| keyed
-    (kernel, shape, M, x dtype)."""
+    K11 at M = 2, 4, 16 (its small tiles), 96, 128, 512 (its 64-row tiles;
+    its groups split over blocks at 2-128) over the split and the fused
+    widths, K13 at M = 1, 4, 256 (fused widths; the head with a float32
+    result). Returns the max |err| keyed (kernel, shape, M, x dtype)."""
     plan = [("K10", "arith", SPLIT_SHAPES + ("head",), (1,)),
             ("K12", "halves", SPLIT_SHAPES + ("head",), (1,)),
-            ("K11", "arith", SPLIT_SHAPES, K11_MS),
+            ("K11", "arith", K11_SHAPES, K11_MS),
             ("K13", "int8", FUSED + ("head",), K13_MS)]
     errs = {}
     for i, (kernel, fmt, names, ms) in enumerate(plan):
@@ -2104,15 +2117,16 @@ def quant_copies(nbytes, cap=32):
 
 def quant_times(dev):
     """K10-K13 at the 7B shapes, bf16 activations: K10 and K12 at the split
-    tree's three widths (M = 1), K11 at them at M = 4 (B=4 decode) and M =
-    512 (the prompt's prefill), K13 at the fused tree's four products and
+    tree's three widths (M = 1), K11 at them and at the fused tree's wqkv
+    and wgu at M = 4 (B=4 decode) and M = 512 (the prompt's prefill), K13
+    at the fused tree's four products and
     the head (f32 logits), M = 1. Each
     graph cycles enough copies of the weight that L2 is cold. Bound: the
     weight, scale, x and out bytes at 3.35 TB/s, or 2 M K N operations at
     989 TFLOP/s (bf16 x) where that is larger. Library: torch.matmul of x
     with a bf16 copy dequantized beforehand (not timed)."""
     plan = [("K10", "arith", SPLIT_SHAPES, (1,)), ("K12", "halves", SPLIT_SHAPES, (1,)),
-            ("K11", "arith", SPLIT_SHAPES, (4, 512)), ("K13", "int8", FUSED + ("head",), (1,))]
+            ("K11", "arith", K11_SHAPES, (4, 512)), ("K13", "int8", FUSED + ("head",), (1,))]
     out = {}
     for i, (kernel, fmt, names, ms) in enumerate(plan):
         fn, plain = QPAIRS[kernel]
@@ -2165,13 +2179,16 @@ QMETA = {  # name, source, TPU kernel it replaces
 def quant_records(qtimes, errs, runs):
     """Phase 5's lines and `kernels` entries of K10-K13, one per (kernel,
     shape, M); launches are the kernel's total in its phase-3 run (K11 at
-    M = 512: the prefill of the int4 arithmetic roco run). Per decode step:
+    M = 512: the prefill of the int4 arithmetic roco run; at the fused
+    tree's wqkv and wgu, that tree's B=1 roco run, whose prefill runs K11
+    at all four fused widths). Per decode step:
     K10 and K12 over the split tree's seven products a layer, K13 over the
     fused tree's four."""
     records = []
     for (kernel, name, M), t in qtimes.items():
         kname, src, repl = QMETA[kernel]
-        run = "int4 arith split roco" if (kernel, M) == ("K11", 512) else QUANT_RUNS[kernel]
+        run = ("int4 arith fused roco" if kernel == "K11" and name in ("wqkv", "wgu")
+               else "int4 arith split roco" if (kernel, M) == ("K11", 512) else QUANT_RUNS[kernel])
         launches = runs[run]["counts"][kernel]
         K, N = QSHAPES[name]
         label = f"{kname} {name} (M={M}, K={K}, N={N}{', f32 out' if name == 'head' else ''})"

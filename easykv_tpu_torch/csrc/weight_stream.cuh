@@ -7,7 +7,7 @@
 //                 once after the whole contraction (acc_f32 * scale_f32);
 //   kQ4P   (K12): halves-packed int4, R = Kx/2, byte r holds row r in its low
 //                 nibble and row r + R in its high one;
-//   kQ4A   (K10, K11): the arithmetic carrier 16*hi + lo, R = Kx/2, the
+//   kQ4A   (K10): the arithmetic carrier 16*hi + lo, R = Kx/2, the
 //                 nibbles in [-7, 7], hi = (b + 8) >> 4, lo = b - 16*hi.
 //
 // An int4 format has one scale per (group of G rows, column): row r's group
@@ -17,7 +17,7 @@
 //
 // What bounds it on an H100: the weight bytes at small M (every byte is read
 // once per M tile, so at M = 1 the time is R*N bytes over 3.35 TB/s), the
-// fp32 FMAs of the CUDA cores at large M (K11 at M = 512, K13 at M = 256).
+// fp32 FMAs of the CUDA cores at large M (K13 at M = 256).
 //
 // Design. A block is 8 warps; a lane owns VEC consecutive columns and reads
 // them as one 16- (or 8-) byte load per row, so a warp reads a contiguous

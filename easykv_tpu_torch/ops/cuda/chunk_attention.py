@@ -10,7 +10,9 @@ computes it once. The source note says what bounds it and what its design
 does about that.
 
 `fused_chunk_attend` launches the kernel for CUDA tensors and runs
-`fused_chunk_attend_plain` for CPU tensors. The plain version repeats the
+`fused_chunk_attend_plain` for CPU tensors. The attention launch splits the
+slot tiles into `attend_splits` runs whose partials a combine launch adds in
+run order. The plain version repeats the
 TPU kernel's arithmetic in float32: logits = (q . k) * D^-1/2 (* k_scale),
 a masked softmax whose masked entries are exactly 0, out = (p (* v_scale))
 . v cast to q's dtype, and with need_scores the GQA mean of p over the rep
@@ -51,17 +53,38 @@ from ..attention import NEG_INF
 from . import _build
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_REP = 32   # query heads per KV head that one block's 32 query rows hold
+MAX_REP = 32   # query heads per KV head (a 64-row attention tile holds two queries of each)
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "chunk_attend": ([_vp] * 12 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
-    "chunk_attend_smem": ([_int], ctypes.c_size_t),
-    "chunk_write_attend": ([_vp] * 19 + [_int] * 6 + [ctypes.c_float] + [_int] * 3 + [_vp],
+    "chunk_attend": ([_vp] * 13 + [_int] * 7 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
+    "chunk_attend_smem": ([_int] * 3, ctypes.c_size_t),
+    "chunk_write_attend": ([_vp] * 20 + [_int] * 7 + [ctypes.c_float] + [_int] * 3 + [_vp],
                            _int),
-    "chunk_step": ([_vp] * 24 + [_int] * 6 + [ctypes.c_float] + [_int] * 7 + [_vp], _int),
+    "chunk_step": ([_vp] * 25 + [_int] * 7 + [ctypes.c_float] + [_int] * 7 + [_vp], _int),
     "chunk_step_smem": ([_int], ctypes.c_size_t),
 }
+
+# The attention launch's tiles (csrc/chunk_attention.cu): 64 query rows by
+# 64 slots; its slot tiles split into runs until about two blocks per SM of
+# an H100 (132 SMs) are in flight.
+TILE_ROWS = 64
+TILE_SLOTS = 64
+TARGET_BLOCKS = 2 * 132
+
+
+def attend_splits(B: int, Hkv: int, rep: int, C: int, S: int, exact: bool = False) -> int:
+    """The runs the attention launch splits S's 64-slot tiles into: the
+    fewest of equal length that bring the blocks to TARGET_BLOCKS, at most
+    one a tile. `exact` (f32 queries): one run, whose block computes each
+    softmax entry as the plain version does (no run or tile rescaling)."""
+    if exact:
+        return 1
+    tiles = -(-S // TILE_SLOTS)
+    blocks = B * Hkv * -(-rep * C // TILE_ROWS)
+    n = min(tiles, max(1, -(-TARGET_BLOCKS // blocks)))
+    per = -(-tiles // n)
+    return -(-tiles // per)
 
 STEP_POLICIES = ("roco", "h2o_head")
 
@@ -135,15 +158,15 @@ def fused_chunk_attend(
         return fused_chunk_attend_plain(q, k, v, kv_pos, q_pos, k_scale, v_scale,
                                         need_scores=need_scores,
                                         sliding_window=sliding_window)
-    lib, quant, out, stats, ml = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale,
-                                          need_scores)
+    lib, quant, out, stats, ml, part, nsplit = _prepare(q, k, v, kv_pos, q_pos, k_scale,
+                                                        v_scale, need_scores)
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     err = lib.chunk_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
-        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml),
-        B, Hkv, Hq // Hkv, C, S, D, D ** -0.5, _window(sliding_window), _Q_DTYPES[q.dtype],
-        int(quant), _build.stream_of(q))
+        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml), _ptr(part),
+        B, Hkv, Hq // Hkv, C, S, D, nsplit, D ** -0.5, _window(sliding_window),
+        _Q_DTYPES[q.dtype], int(quant), _build.stream_of(q))
     _build.check(err, "chunk_attend")
     fused_chunk_attend.launches += 1
     return (out, *stats)
@@ -171,9 +194,10 @@ def _check(checks, device) -> None:
 
 def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, need_scores):
     """Checks K5's arguments (K6's cache half too) and allocates its
-    results: (library, quantized, out, [ssum, ssq, last] or Nones, and the
+    results: (library, quantized, out, [ssum, ssq, last] or Nones, the
     statistics launch's (B, Hq, C, 2) f32 scratch of each query row's final
-    softmax max and sum, or None)."""
+    softmax max and sum or None, the (nsplit, B Hq C, D + 2) f32 scratch of
+    the attention runs' partials or None, nsplit)."""
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if Hq % Hkv != 0 or not 1 <= Hq // Hkv <= MAX_REP:
@@ -198,16 +222,19 @@ def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, need_scores):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     lib = _build.load("chunk_attention", SIGNATURES)
-    smem = lib.chunk_attend_smem(D)
+    smem = lib.chunk_attend_smem(D, _Q_DTYPES[q.dtype], int(quant))
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory "
                          f"(limit {_build.SMEM_LIMIT})")
     out = torch.empty_like(q)
+    nsplit = attend_splits(B, Hkv, Hq // Hkv, C, S, q.dtype == torch.float32)
+    part = (torch.empty((nsplit, B * Hq * C, D + 2), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     if not need_scores:
-        return lib, quant, out, [None] * 3, None
+        return lib, quant, out, [None] * 3, None, part, nsplit
     stats = list(torch.zeros((3, B, Hkv, S), dtype=torch.float32, device=q.device).unbind(0))
     ml = torch.empty((B, Hq, C, 2), dtype=torch.float32, device=q.device)
-    return lib, quant, out, stats, ml
+    return lib, quant, out, stats, ml, part, nsplit
 
 
 def fused_chunk_write_attend_plain(
@@ -251,8 +278,8 @@ def fused_chunk_write_attend(
         return fused_chunk_write_attend_plain(
             q, k_c, v_c, ids, q_pos, counter_init, k, v, kv_pos, score, score_sq, counter,
             k_scale, v_scale, need_scores=need_scores, sliding_window=sliding_window)
-    lib, quant, out, stats, ml = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale,
-                                          need_scores)
+    lib, quant, out, stats, ml, part, nsplit = _prepare(q, k, v, kv_pos, q_pos, k_scale,
+                                                        v_scale, need_scores)
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     _check([("k_c", k_c, q.dtype, (B, Hkv, C, D)), ("v_c", v_c, q.dtype, (B, Hkv, C, D)),
@@ -265,9 +292,9 @@ def fused_chunk_write_attend(
         q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), ids.data_ptr(), q_pos.data_ptr(),
         counter_init.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
         score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml), B, Hkv, Hq // Hkv, C, S, D,
-        D ** -0.5, _window(sliding_window), _Q_DTYPES[q.dtype], int(quant),
-        _build.stream_of(q))
+        _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml), _ptr(part), B, Hkv,
+        Hq // Hkv, C, S, D, nsplit, D ** -0.5, _window(sliding_window), _Q_DTYPES[q.dtype],
+        int(quant), _build.stream_of(q))
     _build.check(err, "chunk_write_attend")
     fused_chunk_write_attend.launches += 1
     return (out, *stats)
@@ -387,7 +414,8 @@ def fused_chunk_step(
             next_start, k, v, kv_pos, score, score_sq, counter, k_scale, v_scale,
             policy=policy, feasible_k=feasible_k, sink=sink, recent_window=recent_window,
             sliding_window=sliding_window)
-    lib, quant, out, stats, ml = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, True)
+    lib, quant, out, stats, ml, part, nsplit = _prepare(q, k, v, kv_pos, q_pos, k_scale,
+                                                        v_scale, True)
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if C > S:
@@ -412,8 +440,9 @@ def fused_chunk_step(
         counter_init.data_ptr(), update_gate.data_ptr(), evict_gate.data_ptr(),
         next_pos.data_ptr(), next_start.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_pos.data_ptr(), score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(),
-        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml),
-        wm_next.data_ptr(), B, Hkv, Hq // Hkv, C, S, D, D ** -0.5, _window(sliding_window),
+        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), *map(_ptr, stats), _ptr(ml), _ptr(part),
+        wm_next.data_ptr(), B, Hkv, Hq // Hkv, C, S, D, nsplit, D ** -0.5,
+        _window(sliding_window),
         _Q_DTYPES[q.dtype], int(quant), int(policy == "roco"), int(feasible_k), int(sink),
         int(recent_window), _build.stream_of(q))
     _build.check(err, "chunk_step")

@@ -1,12 +1,14 @@
 """w4a16 products over the arithmetic int4 carrier: kernels K10
 (`w4a16_gemv_arith`, M = 1) and K11 (`w4a16_gemm_arith`, 1 < M <= 512).
 
-CUDA kernels: easykv_tpu_torch/csrc/w4_stream.cu (on
-csrc/weight_stream.cuh), which replace the TPU kernels
+CUDA kernels: K10 in easykv_tpu_torch/csrc/w4_stream.cu (on
+csrc/weight_stream.cuh), K11 in easykv_tpu_torch/csrc/w4_gemm.cu (its own
+tensor-core kernel), which replace the TPU kernels
 easykv_tpu/ops/pallas/w4_stream.py `w4a16_gemv_arith` and
 `w4a16_gemm_arith`. K10 is bound by the carrier bytes; K11 by them at
-small M and by the fp32 FMAs at M = 512. The source notes say what the
-design does about that.
+small M and by its multiply-adds at M = 512. The source notes say what the
+designs do about that. K11's tile configuration and the split of its
+groups over blocks come from `gemm_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors: the carrier unpacked (hi = (p + 8) >> 4, lo =
@@ -15,17 +17,54 @@ group sums (`grouped_int4`, the JAX package's grouped einsum). K10 takes the
 bf16 scale pair gs3 = [gs_hi; gs_lo] / 16, K11 the f32 group scales gs;
 gs3 * 16 == gs for the bf16-representable scales quantize_linear_int4 makes.
 Kernel and plain version differ only in the order of the f32 sums (the TPU
-kernel's xl - xh/16 rounding in bf16 is not carried over).
+kernel's xl - xh/16 rounding in bf16 is not carried over; K11 splits an f32
+x into three bf16 limbs whose sum is x exactly).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Tuple
+
 import torch
 
-from . import _wstream
+from . import _build, _wstream
 
 MAX_M = 512
 GROUP = 128
-SIGNATURES = {"w4a16_gemv_arith": _wstream.SIGNATURE, "w4a16_gemm_arith": _wstream.SIGNATURE}
+SIGNATURES = {"w4a16_gemv_arith": _wstream.SIGNATURE}
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+GEMM_SIGNATURES = {"w4a16_gemm_arith": ([_vp] * 6 + [_int] * 6 + [_vp], _int)}
+
+# K11's tiles (csrc/w4_gemm.cu): 128 columns; 16 rows of x (M <= SMALL_M,
+# the weights on the MMA's 16-row side) or 64
+SMS = 132                 # streaming multiprocessors of an H100
+TILE_N = 128
+SMALL_M = 16
+TILE_M = 64
+BLOCKS_PER_SM = {True: 3, False: 2}   # resident blocks a tile's shared memory allows (bf16 x)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(M: int, K: int, N: int) -> Tuple[bool, int, int, Tuple[int, int, int]]:
+    """K11's launch for x (M, K) and a carrier (K/2, N): (small tiles, groups
+    a block walks, blocks the groups split over, grid (column tiles, row
+    tiles, splits)). The groups split only where the tiles are fewer than
+    the blocks the card holds at once, into about as many equal runs as
+    fit beside them; every split holds at least one group."""
+    if not 1 < M <= MAX_M or (K // 2) % GROUP or K % 2:
+        raise ValueError(f"w4a16_gemm_arith takes 1 < M <= {MAX_M} and (K/2) % {GROUP} == 0; "
+                         f"got M={M}, K={K}")
+    gch = K // 2 // GROUP
+    small = M <= SMALL_M
+    cols, rows = -(-N // TILE_N), 1 if small else -(-M // TILE_M)
+    tiles = cols * rows
+    ksplit = min(gch, max(1, BLOCKS_PER_SM[small] * SMS // tiles))
+    gps = -(-gch // ksplit)
+    ksplit = -(-gch // gps)
+    if ksplit > 1 and tiles > _wstream.MAX_TICKETS:
+        raise ValueError(f"{tiles} tiles with split groups (at most {_wstream.MAX_TICKETS})")
+    return small, gps, ksplit, (cols, rows, ksplit)
 
 
 def unpack_int4_arith(p: torch.Tensor):
@@ -107,8 +146,26 @@ def w4a16_gemm_arith(
     if not 1 < M <= MAX_M or G != GROUP or (K // 2) % GROUP:
         raise ValueError(f"w4a16_gemm_arith takes 1 < M <= {MAX_M}, group {GROUP} and "
                          f"(K/2) % {GROUP} == 0; got M={M}, group {G}, K={K}")
-    out = _wstream.launch("w4_stream", "w4a16_gemm_arith", SIGNATURES, x, p, gs,
-                          torch.float32, (gc, N), G)
+    if x.dtype not in _wstream.DTYPES:
+        raise TypeError(f"w4a16_gemm_arith takes float32 or bfloat16 activations, got {x.dtype}")
+    dev = x.device
+    if (p.dtype != torch.int8 or gs.dtype != torch.float32 or p.device != dev
+            or gs.device != dev or not x.is_contiguous() or not p.is_contiguous()
+            or not gs.is_contiguous() or x.data_ptr() % 16 or p.data_ptr() % 16):
+        raise ValueError(f"w4a16_gemm_arith: x, an int8 carrier and f32 scales, contiguous on "
+                         f"{dev}, x and the carrier 16-byte aligned; got x {x.dtype} "
+                         f"{tuple(x.stride())}, carrier {p.dtype}, scales {gs.dtype}")
+    small, gps, ksplit, _ = gemm_plan(M, K, N)
+    stream = _build.stream_of(x)
+    ws = tk = None
+    if ksplit > 1:
+        ws, tk = _wstream.workspace(dev, stream, ksplit * M * N), _wstream.tickets(dev, stream)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    lib = _build.load("w4_gemm", GEMM_SIGNATURES)
+    err = lib.w4a16_gemm_arith(x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
+                               _wstream.ptr(ws), _wstream.ptr(tk), M, K, N, int(small), gps,
+                               ksplit, int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "w4a16_gemm_arith")
     w4a16_gemm_arith.launches += 1
     return out
 

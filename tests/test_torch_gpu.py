@@ -11,8 +11,11 @@ bit-exact on every array they write, K1 `ordered` to K1's limits; the
 streaming decode path with the kernels must give the plain path's tokens
 and final positions. The quantized-weight kernels K10-K13 are held to
 their plain versions at LLaMa-2-7B widths and a ragged N (1e-5 of max|ref|
-in f32, one bf16 ulp more in bf16), raise on what they do not take, and the
-decode path over int8 / int4 trees gives the plain path's tokens. The
+in f32, one bf16 ulp more in bf16; K11 at M from 2 to 512, both of its tile
+configurations and its group split), raise on what they do not take, and
+the decode path over int8 / int4 trees gives the plain path's tokens. K5
+(its split attention runs and its statistics) and K11 (its split groups)
+give the same bits in every run. The
 one-kernel decode step K14 is held to its plain version at small and
 LLaMa-2-7B widths (each output within 1e-3 of its largest |value|, one bf16
 ulp more in bf16), launches once a decode step only where the JAX package
@@ -182,6 +185,27 @@ def test_k5_f32_kernel_matches_plain(cuda, kv):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
+# (B, Hq, Hkv, S, n_valid, C, D): the strided encode's chunk (C=96 of 2176
+# visible slots of 2304), the same with GQA rep 4 at B=2, head_dim 64
+K5_WIDE = {"encode-mha": (1, 8, 8, 2304, 2176, 96, 128),
+           "encode-gqa4-b2": (2, 8, 2, 2304, 2176, 96, 128),
+           "d64": (2, 8, 4, 768, 512, 128, 64)}
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("shape", list(K5_WIDE))
+def test_k5_kernel_matches_plain_at_encode_shapes(cuda, shape, kv):
+    B, Hq, Hkv, S, n_valid, C, D = K5_WIDE[shape]
+    dtype = torch.float32 if kv == "f32" else torch.bfloat16
+    args = _k5_args(cuda, B, Hq, Hkv, S, n_valid, dtype, kv == "int8", True, 9, C=C, D=D)
+    got = fused_chunk_attend(*args)
+    ref = fused_chunk_attend_plain(*args)
+    assert _out_ok(got[0], ref[0])
+    assert (got[0][-1, :, -9:] == 0).all()
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
 def k6_args(dev, B, Hq, Hkv, S, n_valid, dtype, quant, scattered, negative, seed, C=96,
             D=128):
     """K6's arguments for one strided chunk: the cache holds positions
@@ -253,6 +277,44 @@ def test_k6_kernel_matches_plain(cuda, dtype, kv, scattered, scores, Hq, Hkv, wi
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
     else:
         assert got[1:] == (None, None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["int8", "float"])
+@pytest.mark.parametrize("S,n_valid,Hkv,D", [(2304, 2080, 8, 128), (2304, 2080, 2, 128),
+                                             (512, 384, 8, 64)],
+                         ids=["encode-mha", "encode-gqa4", "d64"])
+def test_k6_kernel_matches_plain_at_encode_shapes(cuda, dtype, kv, S, n_valid, Hkv, D):
+    """A triggered strided chunk at the encode's S = 2304 (C = 96 written
+    among 2080 + 96 valid slots), and head_dim 64."""
+    args = k6_args(cuda, 1 if Hkv == 8 else 2, 8, Hkv, S, n_valid, dtype, kv == "int8", True,
+                   True, 16, D=D)
+    got, ref, ca, cb = k6_compare(args, True, None)
+    for name, a, b in zip(K6_CACHE, ca, cb):
+        assert torch.equal(a, b), name
+    assert _out_ok(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_k5_and_k11_give_the_same_bits_every_run(cuda):
+    """Two calls on the same inputs give bit-identical results: K5 with its
+    attention split into runs and its statistics, K11 with its groups split
+    over blocks (M = 4 and 128) and without (M = 512)."""
+    from easykv_tpu_torch.ops.cuda import chunk_attention, w4_stream
+    from easykv_tpu_torch.ops import quant
+    args = _k5_args(cuda, 2, 8, 2, 2304, 2176, torch.bfloat16, True, False, 12, C=96)
+    assert chunk_attention.attend_splits(2, 2, 4, 96, 2304) > 1
+    a, b = fused_chunk_attend(*args), fused_chunk_attend(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _, w = _qweights(cuda, "wo", 13)
+    ql = quant.quantize_linear_int4(w, 128, "arith")
+    for M in (4, 128, 512):
+        assert (w4_stream.gemm_plan(M, 4096, 4096)[2] > 1) == (M < 512)
+        x = _qx(cuda, M, 4096, torch.bfloat16, 14)
+        y0 = w4_stream.w4a16_gemm_arith(x, ql["q4a"], ql["gs"])
+        y1 = w4_stream.w4a16_gemm_arith(x, ql["q4a"], ql["gs"])
+        assert torch.equal(y0, y1), M
 
 
 @pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
@@ -794,7 +856,7 @@ def test_k10_kernel_matches_plain(cuda, name, dtype):
     assert _quant_close(got, ref)
 
 
-@pytest.mark.parametrize("M", [4, 128, 512])
+@pytest.mark.parametrize("M", [2, 4, 16, 96, 128, 511, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "n300"])
 def test_k11_kernel_matches_plain(cuda, name, dtype, M):
@@ -802,9 +864,11 @@ def test_k11_kernel_matches_plain(cuda, name, dtype, M):
     quant, w = _qweights(cuda, name, 3)
     ql = quant.quantize_linear_int4(w, 128, "arith")
     x = _qx(cuda, M, w.shape[0], dtype, 4)
+    before = w4a16_gemm_arith.launches
     got = w4a16_gemm_arith(x, ql["q4a"], ql["gs"])
     ref = w4a16_gemm_arith_plain(x, ql["q4a"], ql["gs"])
     torch.cuda.synchronize()
+    assert w4a16_gemm_arith.launches == before + 1
     assert _quant_close(got, ref)
 
 

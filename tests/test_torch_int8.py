@@ -48,6 +48,7 @@ from easykv_tpu_torch.cache import KVCache, kv_dequant, quantize_kv
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models import llama as tllama
 from easykv_tpu_torch.models.convert import from_jax_params
+from easykv_tpu_torch.ops.cuda import chunk_attention as tca
 from easykv_tpu_torch.ops.cuda.chunk_attention import fused_chunk_attend as tk5
 from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight as tk1
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as tk3
@@ -363,3 +364,24 @@ def test_generate_int8_matches_jax(models, policy, pallas, capsys):
     assert tprint == jprint and len(tprint) == 1
     if policy != "full":
         assert tm.last_run.kv_len - 30 == 8
+
+
+@pytest.mark.parametrize("B,Hkv,rep,C,S", [(1, 32, 1, 128, 768), (1, 32, 1, 96, 2304),
+                                          (2, 8, 4, 96, 2304), (1, 32, 1, 96, 2176),
+                                          (2, 8, 1, 128, 256), (1, 4, 2, 17, 100),
+                                          (1, 1, 32, 1, 64), (3, 2, 3, 200, 4096)])
+def test_k5_attention_runs_cover_every_tile(B, Hkv, rep, C, S):
+    """The attention launch's runs (csrc/chunk_attention.cu: run z walks slot
+    tiles [z per, (z + 1) per), per = ceil(tiles / runs)) walk every 64-slot
+    tile exactly once, none empty, at most one a tile; at the main path's
+    shapes at least 132 blocks run (one per SM of an H100)."""
+    runs = tca.attend_splits(B, Hkv, rep, C, S)
+    tiles = -(-S // tca.TILE_SLOTS)
+    per = -(-tiles // runs)
+    walked = [t for z in range(runs) for t in range(z * per, min(tiles, (z + 1) * per))]
+    assert 1 <= runs <= tiles and sorted(walked) == list(range(tiles))
+    assert all(z * per < tiles for z in range(runs))
+    blocks = B * Hkv * -(-rep * C // tca.TILE_ROWS) * runs
+    if (C, S) in ((128, 768), (96, 2304)):
+        assert blocks >= 132
+    assert tca.attend_splits(B, Hkv, rep, C, S, exact=True) == 1   # f32: one run

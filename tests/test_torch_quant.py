@@ -32,7 +32,7 @@ from easykv_tpu.ops.pallas.w4_stream import (arith_scale_pair as j_pair,
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.convert import from_jax_params
 from easykv_tpu_torch.ops import quant as tq
-from easykv_tpu_torch.ops.cuda import _wstream
+from easykv_tpu_torch.ops.cuda import _wstream, w4_stream
 from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
 from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv_plain
 from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
@@ -320,6 +320,39 @@ def test_kernel_plan_covers_every_row(int4):
     if int4:
         with pytest.raises(ValueError, match="group of 86"):
             _wstream.plan(1, 688, 512, 86, True)
+
+
+def _covered_once(n, starts, width):
+    """Each of n indices lies in exactly one [start, start + width) ∩ [0, n)."""
+    hits = np.zeros(n, np.int64)
+    for s in starts:
+        hits[s:min(n, s + width)] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("M", [2, 4, 16, 17, 96, 128, 511, 512])
+def test_k11_plan_covers_every_tile(M):
+    """K11's plan (csrc/w4_gemm.cu's tiles) at the 7B products and a ragged
+    N: every row, column and scale group of each half is walked by exactly
+    one block, no split is empty, a split launch has its tickets, and at M
+    = 4 and 512 at least 132 blocks run (one per SM of an H100)."""
+    for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 11008),
+                 (4096, 300)):
+        small, gps, ksplit, (cols, rows, splits) = w4_stream.gemm_plan(M, K, N)
+        gch = K // 2 // w4_stream.GROUP
+        bm = w4_stream.SMALL_M if small else w4_stream.TILE_M
+        assert small == (M <= w4_stream.SMALL_M) and splits == ksplit
+        assert _covered_once(M, [r * bm for r in range(rows)], bm) and rows * bm < M + bm
+        assert _covered_once(N, [c * w4_stream.TILE_N for c in range(cols)], w4_stream.TILE_N)
+        assert _covered_once(gch, [z * gps for z in range(ksplit)], gps)
+        assert (ksplit - 1) * gps < gch <= ksplit * gps
+        assert ksplit == 1 or cols * rows <= _wstream.MAX_TICKETS
+        if M in (4, 512) and N >= 4096:
+            assert cols * rows * ksplit >= w4_stream.SMS
+    with pytest.raises(ValueError, match="1 < M <= 512"):
+        w4_stream.gemm_plan(513, 4096, 4096)
+    with pytest.raises(ValueError, match="% 128"):
+        w4_stream.gemm_plan(4, 4096 + 128, 4096)
 
 
 # ---------------------------------------------------------------------------
