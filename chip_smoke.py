@@ -34,7 +34,8 @@ Phases, each printing its lines before the last:
      last tile, and none) and K8 compaction (bf16 and int8) bit-exact on
      every array; K1 `ordered` (bf16 and int8, MHA, GQA with B=2) within
      K1's limit; the quantized-weight kernels at the 7B products (x bf16 and
-     f32): K10 and K12 at M=1 over the split tree's widths, K11 at M=2, 4,
+     f32): K10 at M=1 and K12 at M=1..8 (launched twice, bit-identical)
+     over the split tree's widths and the head, K11 at M=2, 4,
      16, 96, 128, 512 over the split and the fused tree's widths (both of
      its tile configurations and its group split), K13 at M=1, 4, 256 over
      the fused tree's and the LM head
@@ -45,7 +46,8 @@ Phases, each printing its lines before the last:
      scattered dead slots), each output within 1e-3 of its largest |value|
      (plus one bf16 ulp of the value for h, kn, vn) of its plain version
      (held again at L=32 in phase 5, see there); K15, the batched step, at
-     LLaMa-2-7B width (B=4 and 16) and Mistral-7B's widths (GQA, B=8, a
+     LLaMa-2-7B width (B=4 and 16; B=2, 3, 5, 9 at RoPE at q_pos) and
+     Mistral-7B's widths (GQA, B=8, a
      512-slot window), L=2, bf16 and int8 KV, RoPE at q_pos and rope_pos,
      holes and a dead row: each output within the larger of that limit and
      twice the plain version's reorder spread (k15_spread), and its bf16
@@ -1843,7 +1845,7 @@ QSHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "wgu": (4096, 22016),
            "wd": (11008, 4096), "wq": (4096, 4096), "wg": (4096, 11008), "head": (4096, 32000)}
 FUSED = ("wqkv", "wo", "wgu", "wd")
 SPLIT_SHAPES = ("wq", "wg", "wd")          # wq = wk = wv = wo, wg = wu
-K11_MS, K13_MS = (2, 4, 16, 96, 128, 512), (1, 4, 256)
+K11_MS, K12_MS, K13_MS = (2, 4, 16, 96, 128, 512), tuple(range(1, 9)), (1, 4, 256)
 K11_SHAPES = SPLIT_SHAPES + ("wqkv", "wgu")  # wq = wo: every width of both trees
 SPLIT_USES = {"wq": 4, "wg": 2, "wd": 1}   # products a layer of the split tree runs per width
 QUANT_RUNS = {  # the phase-3 run whose launches a quantized kernel reports
@@ -1886,13 +1888,14 @@ QPAIRS = {"K10": (k10, k10_plain), "K11": (k11, k11_plain), "K12": (k12, k12_pla
 
 def phase_quant_kernels(dev):
     """K10-K13 against their plain versions at the 7B shapes of their
-    phase-3 trees, x in bf16 and f32: K10 and K12 at M = 1 (split widths),
+    phase-3 trees, x in bf16 and f32: K10 at M = 1 and K12 at M = 1..8
+    (split widths; K12 twice, bit-identical),
     K11 at M = 2, 4, 16 (its small tiles), 96, 128, 512 (its 64-row tiles;
     its groups split over blocks at 2-128) over the split and the fused
     widths, K13 at M = 1, 4, 256 (fused widths; the head with a float32
     result). Returns the max |err| keyed (kernel, shape, M, x dtype)."""
     plan = [("K10", "arith", SPLIT_SHAPES + ("head",), (1,)),
-            ("K12", "halves", SPLIT_SHAPES + ("head",), (1,)),
+            ("K12", "halves", SPLIT_SHAPES + ("head",), K12_MS),
             ("K11", "arith", K11_SHAPES, K11_MS),
             ("K13", "int8", FUSED + ("head",), K13_MS)]
     errs = {}
@@ -1914,6 +1917,9 @@ def phase_quant_kernels(dev):
                     check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1
                           and bool(torch.isfinite(got).all()),
                           f"{kernel} {name} M={M} {dtype}: {ratio:.3f} of its limit")
+                    if kernel == "K12":   # no shared state: the same bits in every run
+                        check(torch.equal(got, fn(x, *args)),
+                              f"K12 {name} M={M} {dtype}: two launches differ")
                     errs[(kernel, name, M, dtype)] = err.max().item()
                     line.append(f"M={M} max|err| {err.max().item():.3e} "
                                 f"({ratio:.2f} of its limit)")
@@ -2403,6 +2409,7 @@ K15_RUNS = {(B_WIDE, "int8"): "int4 arith fused roco B=4",
             (B_WIDE, "bf16"): "int4 arith fused roco B=4 bf16 KV",
             (B_MAX, "int8"): "int4 arith fused roco B=16",
             (B_MAX, "bf16"): "int4 arith fused roco B=16 bf16 KV"}
+K15_MORE_B = (2, 3, 5, 9)     # phase 2's other batch sizes of K15
 # Mistral-7B's published widths (GQA: 32 query heads, 8 KV heads, F 14336), with
 # a sliding window of 512 slots, shorter than the 712 the main path's cache
 # holds visible (Mistral's own window, 4096, would hide none of them)
@@ -2429,16 +2436,17 @@ def phase_k15(dev):
     activations, the main path's holes plus a fifth of the other slots dead,
     row 1 dead (q_pos -1): LLaMa-2-7B (MHA) at B=4 and 16 and Mistral-7B's
     widths (GQA) at B=8 with a 512-slot sliding window, bf16 and int8 KV,
-    RoPE at q_pos and at rope_pos. Every output within the larger of
+    RoPE at q_pos and at rope_pos; LLaMa-2-7B at B=2, 3, 5 and 9 too (odd B
+    pads the feed), RoPE at q_pos. Every output within the larger of
     k14_limit and twice the plain version's reorder spread (k15_spread); the
     dead row's probabilities all 0; the feed rounded as the plain version
     rounds it (k15_feed_check)."""
-    for base, Bs in ((LLAMA2_7B, (B_WIDE, B_MAX)), (MISTRAL_7B, (8,))):
+    for base, Bs in ((LLAMA2_7B, (B_WIDE, B_MAX) + K15_MORE_B), (MISTRAL_7B, (8,))):
         cfg, tree = step_tree(dev, 2, 7, base)
         model = "LLaMa-2-7B" if base is LLAMA2_7B else "Mistral-7B widths, window 512"
         for B in Bs:
             for kv in ("bf16", "int8"):
-                for rope in (False, True):
+                for rope in (False, True) if B not in K15_MORE_B else (False,):
                     args, rope_pos = step_case(dev, cfg, B, kv, rope, 900 + B + 2 * rope,
                                               holes=True, dead_row=True)
                     what = (f"{model}, B={B}, {kv} KV, L=2, RoPE at "

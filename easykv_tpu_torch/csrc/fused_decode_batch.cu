@@ -39,11 +39,22 @@
 //     8-column one (8 rows of the batch; B padded with zero rows to 8 or 16,
 //     one or two MMAs). p and u are small integers, exact in bf16; an f32
 //     feed is split into three bf16 limbs (x = l1 + l2 + l3 exactly), three
-//     MMAs for one. A lane loads 4 columns of 4 carrier rows with 4-byte
-//     loads; the rows it holds are the MMA's k slots 2q, 2q + 1, 2q + 8,
-//     2q + 9 (the feed is read in the same order: a dot's sum is the same
-//     in any order of its terms). A byte becomes bf16 through the f32
-//     exponent (0x4B000000 | (p ^ 0x80), minus 2^23 + 128, the top half);
+//     MMAs for one. A lane holds 4 columns of 4 carrier rows; the rows are
+//     the MMA's k slots 2q, 2q + 1, 2q + 8, 2q + 9 (the feed is read in the
+//     same order: a dot's sum is the same in any order of its terms). A
+//     byte becomes bf16 through the f32 exponent (0x4B000000 | (p ^ 0x80),
+//     minus 2^23 + 128, the top half);
+//   * the carrier streams through a ring of kRing = 3 stages per warp in
+//     shared memory (104 KB a block beside the <= 96 KB feed): a stage is
+//     64 rows of the warp's 32-column tile, copied by 16-byte cp.async into
+//     a bank-swizzled layout, with the group's scale pair for the tile
+//     beside the group's last stage; each stage consumed issues the one two
+//     ahead, so ~64 KB an SM stay in flight, and the lanes read their
+//     fragment words from shared memory. The products' sums are those of
+//     direct loads, bit for bit. (Issuing a product's first stages before
+//     the grid-wide barrier that precedes it was measured slower, and is
+//     not done.) A diagnostic build (-DK15_NO_MMA) leaves the products'
+//     arithmetic out, to time the stream alone;
 //   * a warp's item is a run of R scale groups of one 32-column tile (two
 //     MMA tiles): per group the f32 sums A.p + B.u and C.u, then
 //     hi (first - second) + lo second into the item's f32 result, which
@@ -59,9 +70,16 @@
 //     element a thread: the result is the same in every run, with no
 //     atomics; it also adds each block's sum of squares of each row, which
 //     the next RMSNorm adds over the blocks in a fixed order;
-//   * attention: B Hkv (row, KV head) pairs, C chunks of slots each (C =
-//     blocks / pairs, 1..8: 1 at 7B with B >= 3 on 132 SMs), one block a
-//     chunk;
+//   * attention: B Hkv (row, KV head) pairs, C chunks of slots each, one
+//     warp group a chunk (attend_group: fused_step.cuh's chunk for a group
+//     of nt threads on a named barrier; at nt = 512, the whole block, it
+//     sums as K14 does, bit for bit). While the pairs fit the grid, a group
+//     is the whole block and C = blocks / pairs, 1..8. Where the pairs
+//     outnumber the blocks (7B with B >= 5 on 132 SMs), a block's warps
+//     split into groups of 128 threads (fewer, larger groups where four
+//     chunks' shared memory would not fit), each attending a chunk of its
+//     own, so that a block has up to four chunks' loads in flight instead
+//     of waiting on one chunk's phases at a time;
 //   * h, the attention output, SwiGLU, the attention chunks, the sums of
 //     squares and the partials live in a per-stream f32 workspace, read
 //     through L2 (__ldcg) since other blocks write them during the launch.
@@ -82,9 +100,13 @@ using namespace fused_step;
 
 constexpr int kMaxB = 16;                 // rows of one launch
 constexpr int kTN = 32;                   // columns of a warp's tile: two MMA tiles
-constexpr int kKS = 4;                    // 16-row k-steps a lane loads before it multiplies
 constexpr size_t kActBytes = 96 * 1024;   // shared memory of a block's feed
 constexpr size_t kSmallBytes = 2048;      // rs (kMaxB) and red (kWarps kMaxB) floats before it
+constexpr int kStageRows = 64;            // carrier rows of a ring stage: four k-steps
+constexpr int kStageBytes = kStageRows * kTN;
+constexpr int kSlotBytes = kStageBytes + 128;   // a stage and its group's scale pair
+constexpr int kRing = 3;                  // stages of a warp's ring
+constexpr size_t kRingBytes = (size_t)kWarps * kRing * kSlotBytes;
 
 // A debug build's record of the step's f32 intermediates
 // (tools/torch_k15_ulps.py builds this source with -DSTEP_DUMP): stage s of
@@ -281,22 +303,176 @@ __device__ __forceinline__ void mma_step(const uint32_t (&w)[4], const T* f, int
   }
 }
 
+// ---------------------------------------------------------------------------
+// the carrier ring: each warp streams its items' carrier tiles, and each
+// group's scale pair, through kRing stages of its own in shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes to shared memory: the first n (16 or 0) from src, zeros after.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// The oldest stage in flight has landed (kRing - 2 younger ones may not).
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 2) : "memory");
+}
+
+// Byte offset in a stage of 16-byte chunk h (columns 16 h .. 16 h + 15) of
+// carrier row r: rows in 128-byte lines of four, the chunk slots of a line
+// XOR-swizzled by the line, so that the 4-byte fragment reads of a warp
+// (rows 4q + i of a k-step, columns 4g .. 4g + 3) hit 32 distinct banks.
+__device__ __forceinline__ int chunk_off(int r, int h) {
+  const int line = r >> 2;
+  return line * 128 + (((((r & 3) << 1) | h) ^ ((line & 3) << 1)) << 4);
+}
+
+// A product as one block's warps walk it (product_phase's loops): the
+// plan's runs, the blocks of a run and this block's rank among them.
+struct Walker {
+  Product W;
+  int G, Gp, steps, spg, nt, nr, R, nb, rank, nbr;   // spg: ring stages a group
+  bool spread, async;                                // async: 16-byte copies (N % 16 == 0)
+};
+
+template <typename T>
+__device__ Walker walker_of(const Product& W, int B) {
+  Walker P;
+  P.W = W;
+  P.G = W.kh / W.gch;
+  P.Gp = gpad(P.G);
+  P.steps = P.Gp / 16;
+  P.spg = (P.steps + 3) / 4;
+  P.nt = tiles_of(W.N);
+  P.nb = gridDim.x;
+  const Plan pl = plan_of<T>(W.kh, W.N, W.gch, B, P.nb);
+  P.nr = pl.nr;
+  P.R = pl.R;
+  P.spread = P.nb >= pl.nr;
+  const int r = P.spread ? (int)blockIdx.x % P.nr : (int)blockIdx.x;
+  P.rank = P.spread ? (int)blockIdx.x / P.nr : 0;
+  P.nbr = P.spread ? (P.nb - r + P.nr - 1) / P.nr : 1;
+  P.async = (W.N & 15) == 0;
+  return P;
+}
+
+// A place in a warp's walk over its stages: run r, tile t, group jj of the
+// run, stage u of the group; ok while there is one.
+struct Pos {
+  int r, t, jj, u;
+  bool ok;
+};
+
+__device__ __forceinline__ Pos walk_begin(const Walker& P) {
+  Pos p;
+  p.r = P.spread ? (int)blockIdx.x % P.nr : (int)blockIdx.x;
+  p.t = P.rank * kWarps + (int)(threadIdx.x >> 5);
+  p.jj = p.u = 0;
+  p.ok = p.r < P.nr && p.t < P.nt;
+  return p;
+}
+
+__device__ __forceinline__ void walk_next(const Walker& P, Pos& p) {
+  if (++p.u < P.spg) return;
+  p.u = 0;
+  if (++p.jj < min(P.R, P.W.gch - p.r * P.R)) return;
+  p.jj = 0;
+  p.t += P.nbr * kWarps;
+  if (p.t < P.nt) return;
+  p.t = P.rank * kWarps + (int)(threadIdx.x >> 5);
+  p.r += P.nb;
+  p.ok = !P.spread && p.r < P.nr;
+}
+
+// Stage p of the walk into a ring slot: the 64 carrier rows of the tile's
+// 32 columns (zeros past the group's G rows and past N) and, with the
+// group's last stage, the tile's scale pair (the hi row's 32 bf16, then the
+// lo row's). Lane l copies 16-byte chunk l % 2 of rows l / 2 + 16 i. By
+// cp.async where N is a multiple of 16, else by the lanes' own loads (a
+// ragged width).
+__device__ __forceinline__ void copy_stage(const Walker& P, const Pos& p, unsigned char* slot) {
+  const int lane = threadIdx.x & 31, N = P.W.N;
+  const int j = p.r * P.R + p.jj, col0 = p.t * kTN;
+  const int r = lane >> 1, h = lane & 1, col = col0 + 16 * h, row = p.u * kStageRows + r;
+  const int8_t* src = P.W.p + ((size_t)j * P.G + row) * N + col;
+  unsigned char* dst = slot + chunk_off(r, h);   // chunk_off(r + 16 i, h) = + 512 i
+  if (P.async) {
+    const bool cin = col < N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in = cin && row + 16 * i < P.G;
+      cp_async16(dst + 512 * i, in ? src + (size_t)16 * i * N : P.W.p, in ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+      if (row + 16 * i < P.G)
+        for (int b = 0; b < 16 && col + b < N; ++b)
+          wd[b >> 2] |= (uint32_t)(uint8_t)src[(size_t)16 * i * N + b] << (8 * (b & 3));
+      *reinterpret_cast<uint4*>(dst + 512 * i) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  }
+  if (p.u == P.spg - 1 && lane < 8) {
+    const int lo = lane >> 2, sc = col0 + 8 * (lane & 3);
+    const __nv_bfloat16* ss = P.W.gs3 + (size_t)(lo ? P.W.gch + j : j) * N;
+    unsigned char* sd = slot + kStageBytes + 64 * lo + 16 * (lane & 3);
+    if (P.async) {
+      cp_async16(sd, ss + (sc < N ? sc : 0), sc < N ? 16 : 0);
+    } else {
+      __nv_bfloat16 v[8];
+      for (int e = 0; e < 8; ++e) v[e] = sc + e < N ? ss[sc + e] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(sd) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// A warp's ring: kRing slots of kSlotBytes, filled and consumed in turn.
+struct Ring {
+  unsigned char* base;
+  int fill, use;   // the next slot to fill, the next to consume
+};
+
+__device__ __forceinline__ int next_slot(int s) { return s + 1 == kRing ? 0 : s + 1; }
+
+// Issues the walk's next stage, if any, and commits one cp.async group
+// (empty past the walk's end), so that kRing - 1 groups are in flight
+// while a stage is consumed.
+__device__ __forceinline__ void ring_issue(const Walker& P, Pos& p, Ring& rg) {
+  if (p.ok) {
+    copy_stage(P, p, rg.base + rg.fill * kSlotBytes);
+    rg.fill = next_slot(rg.fill);
+    walk_next(P, p);
+  }
+  cp_commit();
+}
+
 // One item of a product, by one warp: groups j0 .. j0 + nj - 1 of the
 // 32-column tile, against the feed of those groups (act: vector v, batch
 // row b, the run's carrier row k at act[(v Bp + b) stride + k]); the
 // result goes to out[b][n] (B rows of N). Lane (g, q) holds columns
-// 4g .. 4g + 3 of the tile and rows 4q .. 4q + 3 of each k-step; its
-// accumulator element k of tile t and batch block nb is column 4g + 2t +
-// (k >> 1), row 8 nb + 2q + (k & 1). Not inlined: the loop keeps its own
-// registers.
+// 4g .. 4g + 3 of the tile and rows 4q .. 4q + 3 of each k-step, read from
+// the ring stage in four 4-byte words; its accumulator element k of tile t
+// and batch block nb is column 4g + 2t + (k >> 1), row 8 nb + 2q + (k & 1).
+// Each stage consumed issues the one kRing - 1 ahead (iw). Not inlined: the
+// loop keeps its own registers.
 template <typename T, int kNb>
-__device__ __noinline__ void run_item(const Product& W, int j0, int nj, int tile, const T* act,
-                                      int stride, int B, float* out) {
+__device__ __noinline__ void run_item(const Walker& P, Pos& iw, Ring& rg, int j0, int nj,
+                                      int tile, const T* act, int stride, int B, float* out) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int G = W.kh / W.gch, Gp = gpad(G), steps = Gp / 16, Bp = 8 * kNb;
+  const int Bp = 8 * kNb, N = P.W.N;
   const int c0 = tile * kTN + 4 * g;
-  const int valid = W.N - c0 < 4 ? W.N - c0 : 4;
-  const bool vec_ok = valid == 4 && (W.N & 3) == 0;
+  const int valid = N - c0 < 4 ? N - c0 : 4;
+  const bool vec_ok = valid == 4 && (N & 3) == 0;
+  int off[4];   // the lane's fragment words in a stage's first k-step (+ 512 a k-step)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) off[i] = chunk_off(4 * q + i, g >> 2) + 4 * (g & 3);
   float fin[2][kNb][4];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
@@ -305,7 +481,6 @@ __device__ __noinline__ void run_item(const Product& W, int j0, int nj, int tile
 #pragma unroll
       for (int k = 0; k < 4; ++k) fin[t][nb][k] = 0.f;
   for (int jj = 0; jj < nj; ++jj) {
-    const int j = j0 + jj;
     float acc[2][kNb][4], acc_c[2][kNb][4];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
@@ -313,63 +488,52 @@ __device__ __noinline__ void run_item(const Product& W, int j0, int nj, int tile
       for (int nb = 0; nb < kNb; ++nb)
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[t][nb][k] = acc_c[t][nb][k] = 0.f;
-    const int8_t* pj = W.p + (size_t)j * G * W.N + c0;
-    const T* fj = act + (size_t)jj * Gp + 4 * q;
-    for (int s0 = 0; s0 < steps; s0 += kKS) {
-      uint32_t w[kKS][4];
-      if (vec_ok && (s0 + kKS) * 16 <= G) {   // all loads issued before any is used
+    const T* fj = act + (size_t)jj * P.Gp + 4 * q;
+    for (int u = 0; u < P.spg; ++u) {
+      cp_wait_ring();
+      __syncwarp();   // every lane's copies of this stage landed; every lane left the last one
+      ring_issue(P, iw, rg);   // into the slot of the stage before this one
+      const unsigned char* slot = rg.base + rg.use * kSlotBytes;
 #pragma unroll
-        for (int ks = 0; ks < kKS; ++ks)
+      for (int ks = 0; ks < 4; ++ks) {
+        const int s = 4 * u + ks;
+#ifdef K15_NO_MMA   // a diagnostic build: the carrier stream without the products' arithmetic
+        if (s >= 0) continue;
+#endif
+        if (s < P.steps) {
+          uint32_t w[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            w[ks][i] = __ldg(reinterpret_cast<const unsigned int*>(
-                pj + (size_t)((s0 + ks) * 16 + 4 * q + i) * W.N));
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < kKS; ++ks)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = (s0 + ks) * 16 + 4 * q + i;
-            w[ks][i] = valid > 0 && row < G ? load_seg(pj + (size_t)row * W.N, vec_ok, valid) : 0u;
-          }
-      }
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks)
-        if (s0 + ks < steps) mma_step<T, kNb>(w[ks], fj + (s0 + ks) * 16, stride, Bp, acc, acc_c);
-    }
-    // the group's scale pair for the lane's 4 columns
-    float hi[4], lo[4];
-    const __nv_bfloat16* sh = W.gs3 + (size_t)j * W.N + c0;
-    const __nv_bfloat16* sl = W.gs3 + (size_t)(W.gch + j) * W.N + c0;
-    if (vec_ok) {
-      const uint2 vh = __ldg(reinterpret_cast<const uint2*>(sh));
-      const uint2 vl = __ldg(reinterpret_cast<const uint2*>(sl));
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&vh);
-      const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&vl);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float2 a = __bfloat1622float2(h2[i]), b = __bfloat1622float2(l2[i]);
-        hi[2 * i] = a.x;
-        hi[2 * i + 1] = a.y;
-        lo[2 * i] = b.x;
-        lo[2 * i + 1] = b.y;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        hi[c] = c < valid ? __bfloat162float(sh[c]) : 0.f;
-        lo[c] = c < valid ? __bfloat162float(sl[c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int nb = 0; nb < kNb; ++nb)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int c = 2 * t + (k >> 1);
-          fin[t][nb][k] += hi[c] * (acc[t][nb][k] - acc_c[t][nb][k]) + lo[c] * acc_c[t][nb][k];
+            w[i] = *reinterpret_cast<const uint32_t*>(slot + off[i] + 512 * ks);
+          mma_step<T, kNb>(w, fj + s * 16, stride, Bp, acc, acc_c);
         }
+      }
+      if (u == P.spg - 1) {   // the group's scale pair for the lane's 4 columns
+        const uint2 vh = *reinterpret_cast<const uint2*>(slot + kStageBytes + 8 * g);
+        const uint2 vl = *reinterpret_cast<const uint2*>(slot + kStageBytes + 64 + 8 * g);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&vh);
+        const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&vl);
+        float hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 a = __bfloat1622float2(h2[i]), b = __bfloat1622float2(l2[i]);
+          hi[2 * i] = a.x;
+          hi[2 * i + 1] = a.y;
+          lo[2 * i] = b.x;
+          lo[2 * i + 1] = b.y;
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int nb = 0; nb < kNb; ++nb)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int c = 2 * t + (k >> 1);
+              fin[t][nb][k] += hi[c] * (acc[t][nb][k] - acc_c[t][nb][k]) + lo[c] * acc_c[t][nb][k];
+            }
+      }
+      rg.use = next_slot(rg.use);
+    }
   }
   if (valid <= 0) return;
 #pragma unroll
@@ -379,7 +543,7 @@ __device__ __noinline__ void run_item(const Product& W, int j0, int nj, int tile
       const int b = 8 * nb + 2 * q + e;
       if (b >= B) continue;
       const float y[4] = {fin[0][nb][e], fin[0][nb][2 + e], fin[1][nb][e], fin[1][nb][2 + e]};
-      float* o = out + (size_t)b * W.N + c0;
+      float* o = out + (size_t)b * N + c0;
       if (vec_ok) {
         *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
       } else {
@@ -391,27 +555,27 @@ __device__ __noinline__ void run_item(const Product& W, int j0, int nj, int tile
 // A product phase: part[r][b][n] (runs of B rows of N) for every run r of
 // the plan. A block fills the feed of its run's groups for all rows from
 // src(b, e) (element e of row b of the product's input; rows past B are
-// zeros), then its warps take the run's column tiles in turn.
+// zeros), then its warps take the run's column tiles in turn, each
+// streaming its carrier through its ring (the walk's first kRing - 1
+// stages are issued before the feed is built).
 template <typename T, class Src>
-__device__ void product_phase(const Product& W, int B, float* part, T* act, Src src) {
+__device__ __noinline__ void product_phase(const Walker& P, int B, float* part, T* act,
+                                           Ring& rg, Src src) {
   const int warp = threadIdx.x >> 5;
-  const int G = W.kh / W.gch, Gp = gpad(G), Bp = pad_rows(B), nt = tiles_of(W.N);
-  const int nb = gridDim.x;
-  const Plan pl = plan_of<T>(W.kh, W.N, W.gch, B, nb);
-  const int rows = pl.R * Gp, stride = act_stride<T>(rows);
-  const bool spread = nb >= pl.nr;
-  for (int r = spread ? (int)blockIdx.x % pl.nr : (int)blockIdx.x; r < pl.nr;
-       r += spread ? pl.nr : nb) {
-    const int rank = spread ? (int)blockIdx.x / pl.nr : 0;
-    const int nbr = spread ? (nb - r + pl.nr - 1) / pl.nr : 1;   // the run's blocks
-    if (rank * kWarps >= nt) break;
-    const int j0 = r * pl.R, nj = min(pl.R, W.gch - j0);
+  const int G = P.G, Gp = P.Gp, Bp = pad_rows(B), kh = P.W.kh;
+  const int rows = P.R * Gp, stride = act_stride<T>(rows);
+  Pos iw = walk_begin(P);
+  for (int i = 0; i < kRing - 1; ++i) ring_issue(P, iw, rg);
+  for (int r = P.spread ? (int)blockIdx.x % P.nr : (int)blockIdx.x; r < P.nr;
+       r += P.spread ? P.nr : P.nb) {
+    if (P.rank * kWarps >= P.nt) break;
+    const int j0 = r * P.R, nj = min(P.R, P.W.gch - j0);
     for (int i = threadIdx.x; i < Bp * rows; i += kThreads) {
       const int b = i / rows, k = i % rows, jj = k / Gp, gi = k % Gp;
       float xa = 0.f, xb = 0.f, xc = 0.f;
       if (b < B && jj < nj && gi < G) {
         const int e = (j0 + jj) * G + gi;
-        const float xl = src(b, e), xh = src(b, W.kh + e);
+        const float xl = src(b, e), xh = src(b, kh + e);
         xa = xh;
         xb = xl - xh * 0.0625f;
         xc = xl;
@@ -422,13 +586,13 @@ __device__ void product_phase(const Product& W, int B, float* part, T* act, Src 
       f[(size_t)2 * Bp * stride] = to_feed<T>(xc);
     }
     __syncthreads();
-    float* out = part + (size_t)r * B * W.N;
-    for (int t = rank * kWarps + warp; t < nt; t += nbr * kWarps) {
-      if (Bp == 8) run_item<T, 1>(W, j0, nj, t, act, stride, B, out);
-      else run_item<T, 2>(W, j0, nj, t, act, stride, B, out);
+    float* out = part + (size_t)r * B * P.W.N;
+    for (int t = P.rank * kWarps + warp; t < P.nt; t += P.nbr * kWarps) {
+      if (Bp == 8) run_item<T, 1>(P, iw, rg, j0, nj, t, act, stride, B, out);
+      else run_item<T, 2>(P, iw, rg, j0, nj, t, act, stride, B, out);
     }
     __syncthreads();
-    if (spread) break;
+    if (P.spread) break;
   }
 }
 
@@ -498,6 +662,257 @@ __device__ void rms_rows(float* rs, const float* ssq, int nb, const T* h0, int B
 }
 
 // ---------------------------------------------------------------------------
+// attention: groups of warps, each with a chunk of its own
+// ---------------------------------------------------------------------------
+
+// A block's warps split into `groups` groups of nt = kThreads / groups
+// threads; each group attends one chunk at a time, so a block keeps that
+// many chunks' K / V loads in flight (a chunk's phases, each waiting on the
+// one before, would otherwise leave the block waiting on one chunk's
+// latency). Named barrier 1 + gid joins a group.
+__device__ __forceinline__ void group_sync(int gid, int nt) {
+  asm volatile("bar.sync %0, %1;" ::"r"(gid + 1), "r"(nt) : "memory");
+}
+
+template <bool kMax>
+__device__ __forceinline__ float group_reduce(float x, float* red, int gid, int nt) {
+  const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x % nt) >> 5;
+  x = kMax ? warp_max(x) : warp_sum(x);
+  if (lane == 0) red[warp] = x;
+  group_sync(gid, nt);
+  x = lane < nt / 32 ? red[lane] : (kMax ? kNegInf : 0.f);
+  x = kMax ? warp_max(x) : warp_sum(x);
+  group_sync(gid, nt);
+  return x;
+}
+
+// Floats of one group's chunk (nt threads; at most S slots).
+template <typename KV>
+__host__ __device__ inline size_t group_floats(int rep, int S, int Dh, int nt) {
+  const int G = nt / (Dh / VecOf<KV>::n);
+  return (size_t)rep * Dh + (size_t)rep * S + rep + nt / 32 + (size_t)G * Dh + 3 * Dh +
+         (size_t)(rep + 2) * Dh;
+}
+
+// Groups a block's attention splits into: 4, or fewer where four chunks'
+// shared memory would not fit.
+template <typename KV>
+__host__ __device__ inline int att_groups(int rep, int S, int Dh) {
+  for (int g = 4; g > 1; g /= 2)
+    if (g * group_floats<KV>(rep, S, Dh, kThreads / g) * sizeof(float) <= 200 * 1024) return g;
+  return 1;
+}
+
+// fused_step.cuh's attend_chunk for a group of nt threads (gid; the same
+// arithmetic in the same order, so nt = kThreads gives its bits): one chunk
+// of one (row b, KV head) pair: q, K and V of the row's QKV output, RoPE,
+// the chunk's logits, its max, exp and sum, its unnormalised PV; chunk 0
+// also emits the rotated K row and the V row.
+template <typename T, typename KV, class Q>
+__device__ __noinline__ void attend_group(const AttnArgs& a, int l, int b, int head, int c, int C,
+                                          Q qkv, const AttnWs& w, float* smem, int gid, int nt) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int V = VecOf<KV>::n;
+  const int Dh = a.Dh, S = a.S, Hkv = a.Hkv, Hq = a.Hq, rep = Hq / Hkv, d2 = Dh / 2;
+  const int LPR = Dh / V, G = nt / LPR, nw = nt / 32;
+  const int tid = (int)(threadIdx.x % nt), lane = tid & 31, warp = tid >> 5;
+  const int clen = (S + C - 1) / C, s0 = c * clen;
+  const int n = S - s0 < clen ? (S - s0 > 0 ? S - s0 : 0) : clen;   // the chunk's slots
+  float* qs = smem;               // rep * Dh, rotated
+  float* lg = qs + rep * Dh;      // rep * clen: logits, then exp
+  float* lnew = lg + rep * clen;  // rep
+  float* red = lnew + rep;        // nw
+  float* pv = red + nw;           // G * Dh: PV partial sums
+  float* cs = pv + G * Dh;        // Dh / 2
+  float* sn = cs + d2;            // Dh / 2
+  float* knr = sn + d2;           // Dh: the new K row, rotated
+  float* vnr = knr + Dh;          // Dh
+  float* raw = vnr + Dh;          // (rep + 2) * Dh: the head's q rows, K, V before RoPE
+
+  const int bh = b * Hkv + head;
+  const size_t row0 = ((size_t)l * a.B * Hkv + bh) * S;
+  const KV* kb = static_cast<const KV*>(a.k) + row0 * Dh;
+  const KV* vb = static_cast<const KV*>(a.v) + row0 * Dh;
+  const int* pb = a.pos + row0;
+  const int qp = a.q_pos[b];
+  const bool live = qp >= 0;
+  const int rp = a.rope_pos != nullptr ? a.rope_pos[b] : qp;
+  for (int i = tid; i < d2; i += nt) {
+    const float ang = (float)max(rp, 0) * a.inv_freq[i];
+    cs[i] = cosf(ang);
+    sn[i] = sinf(ang);
+  }
+  const int nq = Hq * Dh;
+  for (int i = tid; i < (rep + 2) * Dh; i += nt) {
+    const int m = i < rep * Dh ? head * rep * Dh + i
+                  : i < (rep + 1) * Dh ? nq + head * Dh + i - rep * Dh
+                                       : nq + (Hkv + head) * Dh + i - (rep + 1) * Dh;
+    raw[i] = qkv(m);
+  }
+  group_sync(gid, nt);
+  for (int i = tid; i < (rep + 1) * Dh; i += nt) {   // q rows, then K
+    const int r = i / Dh, d = i % Dh;
+    const float x1 = raw[r * Dh + d % d2], x2 = raw[r * Dh + d2 + d % d2];
+    const float y = d < d2 ? x1 * cs[d] - x2 * sn[d] : x2 * cs[d - d2] + x1 * sn[d - d2];
+    if (r < rep) qs[i] = y; else knr[d] = y;
+  }
+  for (int d = tid; d < Dh; d += nt) vnr[d] = raw[(rep + 1) * Dh + d];
+  group_sync(gid, nt);
+
+  for (int r = warp; r < rep; r += nw) {
+    float acc = 0.f;
+    for (int d = lane; d < Dh; d += 32) acc += qs[r * Dh + d] * knr[d];
+    acc = warp_sum(acc);
+    if (lane == 0) lnew[r] = live ? acc * a.scale : kNegInf;
+  }
+
+  {
+    const int rpw = 32 / LPR;
+    const int sub = lane / LPR, li = lane % LPR;
+    const int step = nw * rpw * kUnroll;
+    for (int base = warp * rpw * kUnroll; base < n; base += step) {
+      float kr[kUnroll][V];
+      bool vis[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int s = s0 + base + u * rpw + sub;
+        const int p = base + u * rpw + sub < n ? pb[s] : -1;
+        vis[u] = p >= 0 && p <= qp && (a.window <= 0 || p > qp - a.window);
+        if (vis[u]) {
+          load16(kb + (size_t)s * Dh + li * V, kr[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) kr[u][j] = 0.f;
+        }
+      }
+      for (int r = 0; r < rep; ++r) {
+        const float* qr = qs + r * Dh + li * V;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc += qr[j] * kr[u][j];
+          for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+          const int i = base + u * rpw + sub;
+          if (li == 0 && i < n) {
+            float x = acc * a.scale;
+            if (kQuant) x *= a.ksc[row0 + s0 + i];
+            lg[r * clen + i] = vis[u] ? x : -INFINITY;
+          }
+        }
+      }
+    }
+  }
+  group_sync(gid, nt);
+
+  // per query row: the chunk's max m, e = exp(logit - m) (0 where masked), sum e
+  float* stats = w.stats + ((size_t)(bh * C + c) * rep) * 2;
+  for (int r = 0; r < rep; ++r) {
+    float* lr = lg + r * clen;
+    float m = kNegInf;
+    for (int i = tid; i < n; i += nt) m = fmaxf(m, lr[i]);
+    m = group_reduce<true>(m, red, gid, nt);
+    float sum = 0.f;
+    float* pe = w.pe + ((size_t)b * Hq + head * rep + r) * S + s0;
+    for (int i = tid; i < n; i += nt) {
+      const float e = lr[i] == -INFINITY ? 0.f : expf(lr[i] - m);
+      lr[i] = e;
+      pe[i] = e;
+      sum += e;
+    }
+    sum = group_reduce<false>(sum, red, gid, nt);
+    if (tid == 0) {
+      stats[2 * r] = m;
+      stats[2 * r + 1] = sum;
+    }
+  }
+  if (c == 0) {
+    T* kn = static_cast<T*>(a.kn) + ((size_t)l * a.B * Hkv + bh) * Dh;
+    T* vn = static_cast<T*>(a.vn) + ((size_t)l * a.B * Hkv + bh) * Dh;
+    for (int d = tid; d < Dh; d += nt) {
+      kn[d] = from_f<T>(knr[d]);
+      vn[d] = from_f<T>(vnr[d]);
+      w.vn[(size_t)bh * Dh + d] = vnr[d];
+    }
+    for (int r = tid; r < rep; r += nt) w.lnew[b * Hq + head * rep + r] = lnew[r];
+  }
+  group_sync(gid, nt);
+
+  // ov[r] = sum over the chunk of (e * v_scale) V, f32
+  const int li = tid % LPR, g = tid / LPR;
+  for (int r = 0; r < rep; ++r) {
+    const float* pr = lg + r * clen;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int base = g; base < n; base += G * kUnroll) {
+      float vr[kUnroll][V];
+      float wt[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = base + u * G;
+        wt[u] = i < n ? pr[i] : 0.f;
+        if (wt[u] != 0.f) {
+          if (kQuant) wt[u] *= a.vsc[row0 + s0 + i];
+          load16(vb + (size_t)(s0 + i) * Dh + li * V, vr[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) vr[u][j] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] += wt[u] * vr[u][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) pv[g * Dh + li * V + j] = acc[j];
+    group_sync(gid, nt);
+    float* ov = w.ov + ((size_t)(bh * C + c) * rep + r) * Dh;
+    for (int d = tid; d < Dh; d += nt) {
+      float o = 0.f;
+      for (int j = 0; j < G; ++j) o += pv[j * Dh + d];
+      ov[d] = o;
+    }
+    group_sync(gid, nt);
+  }
+}
+
+// Chunks of each (row, KV head) pair and warp groups a block's attention
+// runs with: one group a block while the pairs fit the grid, else as many
+// as att_groups allows; the chunks, as many as the groups hold (1..8).
+template <typename KV>
+__device__ __forceinline__ void att_plan(const AttnArgs& at, int* ng, int* C) {
+  const int pairs = at.B * at.Hkv;
+  *ng = pairs > (int)gridDim.x ? att_groups<KV>(at.Hq / at.Hkv, at.S, at.Dh) : 1;
+  *C = max(1, min(kMaxChunks, (int)gridDim.x * *ng / pairs));
+}
+
+// The attention phase of layer l: every chunk of every pair, one warp
+// group a chunk; q, K and V from the QKV product's nr_q run partials (nq
+// columns a row).
+template <typename T, typename KV>
+__device__ __noinline__ void attention_phase(const AttnArgs& at, int l, const AttnWs& aw,
+                                             const float* qkv_part, int nr_q, int Nq,
+                                             float* att_smem) {
+  int ng, C;
+  att_plan<KV>(at, &ng, &C);
+  const int B = at.B, Hkv = at.Hkv, nt = kThreads / ng, gid = (int)threadIdx.x / nt;
+  float* smem = att_smem + gid * group_floats<KV>(at.Hq / Hkv, at.S, at.Dh, nt);
+  for (int it = (int)blockIdx.x * ng + gid; it < B * Hkv * C; it += (int)gridDim.x * ng) {
+    const int pair = it / C, b = pair / Hkv;
+    const auto qkv = [=](int m) {
+      float s = 0.f;
+      for (int r = 0; r < nr_q; ++r) s += __ldcg(qkv_part + ((size_t)r * B + b) * Nq + m);
+      DUMP(l, 1, B, b, m, s);
+      return s;
+    };
+    attend_group<T, KV>(at, l, b, pair % Hkv, it % C, C, qkv, aw, smem, gid, nt);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the step
 // ---------------------------------------------------------------------------
 
@@ -528,6 +943,23 @@ __host__ __device__ inline size_t workspace_floats(int B, int D, int F, int Hq, 
   return o_part + part * B;
 }
 
+// Byte offset of the warps' carrier rings in a block's shared memory:
+// after rs, red and the feed of the longest run of any product, 128-byte
+// aligned. An attention chunk's floats start at 0 (they are not live
+// while a product runs).
+template <typename T>
+__host__ __device__ inline size_t ring_offset(int B, int D, int F, int Hq, int Dh, int gq, int go,
+                                              int gg, int gd) {
+  const int kh[4] = {D / 2, Hq * Dh / 2, D / 2, F / 2}, gch[4] = {gq, go, gg, gd};
+  size_t act = 0;
+  for (int i = 0; i < 4; ++i) {
+    const int G = kh[i] / gch[i];
+    const size_t b = act_bytes<T>(max_run<T>(G, gch[i], pad_rows(B)) * gpad(G), pad_rows(B));
+    act = b > act ? b : act;
+  }
+  return (kSmallBytes + act + 127) / 128 * 128;
+}
+
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -543,13 +975,34 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
   Workspace ws;
   AttnWs aw;
   workspace_floats(B, D, F, Hq, Hkv, Dh, at.S, a.gq, a.go, a.gg, a.gd, &ws, &aw, a.ws);
-  const int C = chunks_of(B * Hkv);
+
   const int nr_q = plan_of<T>(D / 2, Nq, a.gq, B, nb).nr;
   const int nr_o = plan_of<T>(nq / 2, D, a.go, B, nb).nr;
   const int nr_g = plan_of<T>(D / 2, 2 * F, a.gg, B, nb).nr;
   const int nr_d = plan_of<T>(F / 2, D, a.gd, B, nb).nr;
   const T* h0 = static_cast<const T*>(a.h0);
   T* h_out = static_cast<T*>(a.h_out);
+  // the warp's carrier ring
+  Ring rg{smem_raw + ring_offset<T>(B, D, F, Hq, Dh, a.gq, a.go, a.gg, a.gd) +
+              (size_t)(threadIdx.x >> 5) * kRing * kSlotBytes,
+          0, 0};
+  // product i (0..3: wqkv, wo, wgu, wd) of layer l as this block walks it:
+  // the plans once a launch, the layer's pointers from its table row
+  __shared__ Walker walks[4];
+  if (threadIdx.x < 4) {
+    const int i = threadIdx.x;
+    const int kh[4] = {D / 2, nq / 2, D / 2, F / 2}, n[4] = {Nq, D, 2 * F, D},
+              gch[4] = {a.gq, a.go, a.gg, a.gd};
+    walks[i] = walker_of<T>(layer_product(a.table, i, kh[i], n[i], gch[i]), B);
+  }
+  __syncthreads();
+  auto walker = [&](int l, int i) {
+    const long long* t = a.table + (size_t)l * kPtrs;
+    Walker P = walks[i];
+    P.W.p = reinterpret_cast<const int8_t*>(t[2 * i]);
+    P.W.gs3 = reinterpret_cast<const __nv_bfloat16*>(t[2 * i + 1]);
+    return P;
+  };
 
   STAMP_BEGIN();
   for (int l = 0; l < L; ++l) {
@@ -561,7 +1014,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
 
     // QKV product of RMSNorm(h)
     rms_rows(rs, ws.ssq, nb, first ? h0 : nullptr, B, D, a.eps);
-    product_phase<T>(layer_product(t, 0, D / 2, Nq, a.gq), B, ws.part, act, [=](int b, int e) {
+    product_phase<T>(walker(l, 0), B, ws.part, act, rg, [=](int b, int e) {
       const size_t o = (size_t)b * D + e;
       const float x = (first ? to_f(h0[o]) : __ldcg(hp + o)) * rs[b] * to_f(ln_attn[e]);
       DUMP(l, 0, B, b, e, x);
@@ -570,34 +1023,27 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
     grid.sync();
     STAMP();
 
-    // attention: C chunks of each (row, KV head) pair's slots, one block a chunk
-    const float* qkv_part = ws.part;
-    for (int it = blockIdx.x; it < B * Hkv * C; it += nb) {
-      const int pair = it / C, b = pair / Hkv;
-      attend_chunk<T, KV>(at, l, b, pair % Hkv, it % C, C, [=](int m) {
-        float s = 0.f;
-        for (int r = 0; r < nr_q; ++r) s += __ldcg(qkv_part + ((size_t)r * B + b) * Nq + m);
-        DUMP(l, 1, B, b, m, s);
-        return s;
-      }, aw, att_smem);
-      __syncthreads();
-    }
+    // attention: C chunks of each (row, KV head) pair's slots
+    attention_phase<T, KV>(at, l, aw, ws.part, nr_q, Nq, att_smem);
     grid.sync();
     STAMP();
 
     // the chunks combined: the attention output, probs and p_new
-    combine_attention(at, aw, ws.attn, l, C);
+    {
+      int ng, C;
+      att_plan<KV>(at, &ng, &C);
+      combine_attention(at, aw, ws.attn, l, C);
+    }
     grid.sync();
     STAMP();
 
     // O product of the attention output; then h += its sum
     const float* attn = ws.attn;
-    product_phase<T>(layer_product(t, 1, nq / 2, D, a.go), B, ws.part, act,
-                     [=](int b, int e) {
-                       const float x = __ldcg(attn + (size_t)b * nq + e);
-                       DUMP(l, 2, B, b, e, x);
-                       return x;
-                     });
+    product_phase<T>(walker(l, 1), B, ws.part, act, rg, [=](int b, int e) {
+      const float x = __ldcg(attn + (size_t)b * nq + e);
+      DUMP(l, 2, B, b, e, x);
+      return x;
+    });
     grid.sync();
     STAMP();
     float* hw = ws.h;
@@ -613,7 +1059,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
 
     // gate|up product of RMSNorm(h); then SwiGLU of its sums
     rms_rows(rs, ws.ssq, nb, (const T*)nullptr, B, D, a.eps);
-    product_phase<T>(layer_product(t, 2, D / 2, 2 * F, a.gg), B, ws.part, act, [=](int b, int e) {
+    product_phase<T>(walker(l, 2), B, ws.part, act, rg, [=](int b, int e) {
       const float x = __ldcg(hp + (size_t)b * D + e) * rs[b] * to_f(ln_mlp[e]);
       DUMP(l, 4, B, b, e, x);
       return x;
@@ -634,7 +1080,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
 
     // down product of SwiGLU; then h += its sum (and h out after the last
     // layer)
-    product_phase<T>(layer_product(t, 3, F / 2, D, a.gd), B, ws.part, act,
+    product_phase<T>(walker(l, 3), B, ws.part, act, rg,
                      [=](int b, int e) { return __ldcg(sw + (size_t)b * F + e); });
     grid.sync();
     STAMP();
@@ -652,22 +1098,16 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_batch_kernel(Args a)
   STAMP_END();
 }
 
-// Dynamic shared memory of one block: the larger of a product phase's
-// (rs, red and the feed of the longest run of any product) and an
-// attention chunk's.
+// Dynamic shared memory of one block: the larger of the rings' end and the
+// attention groups' floats (as many groups as att_groups allows; one group
+// of the whole block takes no more).
 template <typename T, typename KV>
 size_t smem_bytes(int B, int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go, int gg,
                   int gd) {
-  const int kh[4] = {D / 2, Hq * Dh / 2, D / 2, F / 2}, gch[4] = {gq, go, gg, gd};
-  size_t act = 0;
-  for (int i = 0; i < 4; ++i) {
-    const int G = kh[i] / gch[i];
-    const size_t b = act_bytes<T>(max_run<T>(G, gch[i], pad_rows(B)) * gpad(G), pad_rows(B));
-    act = b > act ? b : act;
-  }
-  const size_t prod = kSmallBytes + act;
-  const size_t att = sizeof(float) * attn_floats<KV>(Hq / Hkv, S, Dh);
-  return prod > att ? prod : att;
+  const size_t end = ring_offset<T>(B, D, F, Hq, Dh, gq, go, gg, gd) + kRingBytes;
+  const int ng = att_groups<KV>(Hq / Hkv, S, Dh);
+  const size_t att = sizeof(float) * ng * group_floats<KV>(Hq / Hkv, S, Dh, kThreads / ng);
+  return end > att ? end : att;
 }
 
 template <typename T, typename KV>

@@ -1,19 +1,16 @@
 // Weight-streaming product y (M, N) = x (M, Kx) @ dequant(W), shared by the
-// quantized-weight kernels K10-K13 (quant_matmul.cu, w4_matmul.cu,
-// w4_stream.cu). W is an int8 array of R rows by N columns in one of three
-// formats:
+// quantized-weight kernels K10 and K13 (w4_stream.cu, quant_matmul.cu). W
+// is an int8 array of R rows by N columns in one of two formats:
 //
 //   kInt8  (K13): one value per byte, R = Kx, a per-column f32 scale applied
 //                 once after the whole contraction (acc_f32 * scale_f32);
-//   kQ4P   (K12): halves-packed int4, R = Kx/2, byte r holds row r in its low
-//                 nibble and row r + R in its high one;
 //   kQ4A   (K10): the arithmetic carrier 16*hi + lo, R = Kx/2, the
 //                 nibbles in [-7, 7], hi = (b + 8) >> 4, lo = b - 16*hi.
 //
-// An int4 format has one scale per (group of G rows, column): row r's group
+// The int4 format has one scale per (group of G rows, column): row r's group
 // is r / G for the low half and R/G + r / G for the high half (R is a whole
-// number of groups), read as f32 gs (gc, N), or as the bf16 pair gs3 =
-// [gs_hi; gs_lo] / 16 (K10), whose values times 16 are gs exactly.
+// number of groups), read as the bf16 pair gs3 = [gs_hi; gs_lo] / 16, whose
+// values times 16 are gs exactly.
 //
 // What bounds it on an H100: the weight bytes at small M (every byte is read
 // once per M tile, so at M = 1 the time is R*N bytes over 3.35 TB/s), the
@@ -41,8 +38,8 @@
 
 namespace wstream {
 
-enum { kInt8 = 0, kQ4P = 1, kQ4A = 2 };
-enum { kScaleCol = 0, kScaleGroupF32 = 1, kScalePairBf16 = 2 };
+enum { kInt8 = 0, kQ4A = 2 };
+enum { kScaleCol = 0, kScalePairBf16 = 2 };
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -162,14 +159,7 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
             for (int m = 0; m < MT; ++m) acc_lo[m][j] = fmaf(xl[m], v, acc_lo[m][j]);
           } else {
-            int lo, hi;
-            if constexpr (FMT == kQ4P) {
-              lo = static_cast<int>(static_cast<uint32_t>(b) << 28) >> 28;
-              hi = b >> 4;
-            } else {
-              hi = (b + 8) >> 4;
-              lo = b - 16 * hi;
-            }
+            const int hi = (b + 8) >> 4, lo = b - 16 * hi;
             const float fl = i2f(lo), fh = i2f(hi);
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
@@ -192,16 +182,9 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       for (int j = 0; j < VEC; ++j) {
         float s_lo = 0.f, s_hi = 0.f;
         if (j < valid) {
-          const int c = c0 + j;
-          if constexpr (SCALE == kScalePairBf16) {
-            const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scale);
-            s_lo = __bfloat162float(s[(size_t)(gch + g) * N + c]) * 16.f;
-            s_hi = __bfloat162float(s[(size_t)g * N + c]) * 16.f;
-          } else {
-            const float* s = static_cast<const float*>(scale);
-            s_lo = s[(size_t)g * N + c];
-            s_hi = s[(size_t)(gch + g) * N + c];
-          }
+          const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scale);
+          s_lo = __bfloat162float(s[(size_t)(gch + g) * N + c0 + j]) * 16.f;
+          s_hi = __bfloat162float(s[(size_t)g * N + c0 + j]) * 16.f;
         }
 #pragma unroll
         for (int m = 0; m < MT; ++m)

@@ -1,10 +1,11 @@
-"""Launch of the weight-streaming kernels K10, K12 and K13
+"""Launch of the weight-streaming kernels K10 and K13
 (csrc/weight_stream.cuh), shared by their wrappers: the plan (how many rows
 a warp takes, how many row blocks a block walks, and over how many blocks
 the rows split, so that the grid holds about two blocks per SM), the
 workspace of the split rows' partial sums and the tickets that pick the
 block adding them (one of each per stream; K11, csrc/w4_gemm.cu, uses them
-too), and the call.
+too), and the call. K12 (csrc/w4_matmul.cu) has its own plan and shares
+only `group_ok`.
 
 Every C entry over weight_stream.cuh has one signature: (x, w, scale, out,
 ws, tickets, M, K, N, G, rc, passes, ksplit, x_bf16, out_f32, stream)."""

@@ -116,10 +116,13 @@ def _rot(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, product):
+def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, product,
+               rms=None):
     """The layers of one decode step at B rows, in plain PyTorch, with
     `product(x (B, K) f32, w) -> (B, N) f32` for each quantized product:
-    K14's and K15's plain versions are this loop with their feeds. The
+    K14's and K15's plain versions are this loop with their feeds. `rms(x,
+    w, eps)` replaces the RMSNorm (a check that needs the kernel's order of
+    its sums). The
     residual and every intermediate stay f32; h is rounded to h0's dtype
     once, at the end. Returns (h (B, D), kn (L, B, Hkv, 1, Dh) rotated, vn,
     probs (L, B, Hkv, 1, S) f32 averaged over each KV head's query heads,
@@ -130,6 +133,7 @@ def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, pr
     eps, scale, window = cfg.rms_norm_eps, Dh ** -0.5, cfg.sliding_window
     quant = k_scale is not None
     dev, dt = h0.device, h0.dtype
+    rms = rms or _rms
     inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), dev)
     rp = q_pos if rope_pos is None else rope_pos
     ang = rp.clamp(min=0).to(torch.float32)[:, None, None, None] * inv_freq   # (B, 1, 1, Dh/2)
@@ -143,7 +147,7 @@ def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, pr
     probs_o = torch.empty((L, B, Hkv, 1, S), dtype=torch.float32, device=dev)
     pnew_o = torch.empty((L, B, Hkv), dtype=torch.float32, device=dev)
     for l, p in enumerate(layers):
-        qkv = product(_rms(h, p.ln_attn, eps), p.wqkv)
+        qkv = product(rms(h, p.ln_attn, eps), p.wqkv)
         q_rot = _rot(qkv[:, :nq].reshape(B, Hkv, rep, Dh), cos, sin)
         kn_rot = _rot(qkv[:, nq:nq + Hkv * Dh].reshape(B, Hkv, 1, Dh), cos, sin)
         vn = qkv[:, nq + Hkv * Dh:].reshape(B, Hkv, 1, Dh)
@@ -170,7 +174,7 @@ def step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale, rope_pos, pr
         vn_o[l] = vn.to(dt)
 
         h = h + product(out.reshape(B, nq), p.wo)
-        gu = product(_rms(h, p.ln_mlp, eps), p.wgu)
+        gu = product(rms(h, p.ln_mlp, eps), p.wgu)
         g, up = gu[:, :F_], gu[:, F_:]
         h = h + product(g * torch.sigmoid(g) * up, p.wd)
     return h.to(dt), kn_o, vn_o, probs_o, pnew_o

@@ -7,7 +7,8 @@ CUDA kernel: easykv_tpu_torch/csrc/fused_decode_batch.cu, one cooperative
 launch a step, which replaces the TPU kernel
 easykv_tpu/ops/pallas/fused_decode_batch.py `fused_decode_step_batch`. It is
 bound by the weight and K/V bytes; the source note says what its design
-does about that (tensor-core products).
+does about that (tensor-core products, each warp's carrier tiles streamed
+through a cp.async ring in shared memory).
 
 It computes the TPU kernel's function, which is not the per-layer scan's:
 the residual and every intermediate stay f32 across the layers (h is

@@ -156,17 +156,43 @@ def k15_spread(layers, cfg, args, rope_pos=None, draws=4):
     return spread
 
 
+def lanes_rs(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """1 / sqrt(mean(x^2) + eps) of each row of x (B, D) f32, (B, 1), with
+    the sum of squares added as K15's first norm adds it (rms_rows over
+    h0): lane l of a warp adds the squares of elements l, l + 32, ... in
+    order, the 32 lane sums add as a butterfly (xor 16, 8, 4, 2, 1), all in
+    f32. The order is the same at every batch size; torch's mean over a row
+    is not (its reduction's split depends on the tensor's shape)."""
+    B, D = x.shape
+    sq = torch.nn.functional.pad(x * x, (0, -D % 32)).reshape(B, -1, 32)
+    s = sq[:, 0]
+    for i in range(1, sq.shape[1]):
+        s = s + sq[:, i]
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ o]
+    return 1.0 / torch.sqrt(s[:, :1] / D + eps)
+
+
+def rms_lanes(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of x (B, D) f32 by w in K15's order of its sums (lanes_rs)."""
+    return x * lanes_rs(x, eps) * w.to(torch.float32)
+
+
 def k15_feed_share(layers, cfg, args, rope_pos=None, feed=None):
     """(share of layer 0's kn elements, of its vn elements) that K15 (or,
     with `feed`, the plain version with its feed rounded to that dtype)
-    gives bit-equal to the plain version: layer 0's K and V rows come
-    from one product of the feed, so a kernel that rounds the feed as the
-    plain version does matches nearly all of them."""
-    ref = fused_decode_step_batch_plain(layers, cfg, *args, rope_pos=rope_pos)
+    gives bit-equal to the plain version with K15's order of the first
+    norm's sums (rms_lanes): layer 0's K and V rows come from one product
+    of the normed h0, so a kernel that rounds the feed as the plain version
+    does matches nearly all of them."""
+    k, v, pos, h0, q_pos, *scales = args
+    scales = scales or (None, None)
+    ref = step_plain(layers, cfg, k, v, pos, h0, q_pos, *scales, rope_pos,
+                     lambda x, w: k15_fd._product(x, w, h0.dtype), rms_lanes)
     if feed is None:
         got = fused_decode_step_batch(layers, cfg, *args, rope_pos=rope_pos)
     else:
-        k, v, pos, h0, q_pos, *scales = args
-        got = step_plain(layers, cfg, k, v, pos, h0, q_pos, *(scales or (None, None)), rope_pos,
-                         lambda x, w: k15_fd._product(x, w, feed))
+        got = step_plain(layers, cfg, k, v, pos, h0, q_pos, *scales, rope_pos,
+                         lambda x, w: k15_fd._product(x, w, feed), rms_lanes)
     return tuple((got[i][0] == ref[i][0]).float().mean().item() for i in (1, 2))

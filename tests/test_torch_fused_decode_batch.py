@@ -22,6 +22,9 @@ its f32 sums: the JAX package holds its kernel to its scan within 1e-4
 - a two-step decode lockstep of `_decode_forward` against the JAX one under
   flags.use_pallas(True) (its K15 in interpret mode) at B = 3 with an int8
   cache: logits within 1e-4, pos and counters equal;
+- step_bars.rms_lanes (the card tests' feed-check norm, in K15's order of
+  its sums): the same bits per row at any B, within f32 rounding of the
+  JAX package's rmsnorm;
 - gating: K15 launches once a decode step at 1 < B <= 16 (MHA) or 8 (GQA)
   (counted by a stand-in around the plain version), and never at B = 1,
   past those B, for the split tree or with either mega flag off.
@@ -291,3 +294,21 @@ def test_k15_gating(trees, case):
         for fn in switch.values():
             fn(None)
     assert n == (3 if launches else 0)
+
+
+@pytest.mark.parametrize("D", [4096, 200])
+def test_rms_lanes_sums_in_one_order_at_every_batch_size(D):
+    """step_bars.rms_lanes, the RMSNorm in K15's order of the first norm's
+    sums (the reference of the card tests' feed check): each row's result
+    is the same bits at B = 9 as alone, lies within f32 rounding of the JAX
+    package's rmsnorm on the same f32 inputs, and D need not be a multiple
+    of 32 (200: the last lanes add fewer squares)."""
+    from easykv_tpu_torch.ops.cuda.step_bars import rms_lanes
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((9, D)).astype(np.float32) * 3
+    w = rng.standard_normal(D).astype(np.float32)
+    got = rms_lanes(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
+    assert all(torch.equal(got[b], rms_lanes(torch.from_numpy(x[b:b + 1]), torch.from_numpy(w),
+                                             1e-5)[0]) for b in range(9))
+    ref = np.asarray(jllama.rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-6, atol=2e-6)

@@ -14,8 +14,10 @@ their plain versions at LLaMa-2-7B widths and a ragged N (1e-5 of max|ref|
 in f32, one bf16 ulp more in bf16; K11 at M from 2 to 512, both of its tile
 configurations and its group split), raise on what they do not take, and
 the decode path over int8 / int4 trees gives the plain path's tokens. K5
-(its split attention runs and its statistics) and K11 (its split groups)
-give the same bits in every run. The
+(its split attention runs and its statistics), K11 (its split groups) and
+K12 (its cluster partials, also on two streams at once) give the same bits
+in every run; K12 is held at M = 1..8, groups of 64 and 128, ragged widths
+and x at 2- and 16-byte offsets. The
 one-kernel decode step K14 is held to its plain version at small and
 LLaMa-2-7B widths (each output within 1e-3 of its largest |value|, one bf16
 ulp more in bf16), launches once a decode step only where the JAX package
@@ -886,6 +888,73 @@ def test_k12_kernel_matches_plain(cuda, name, dtype, M):
     assert _quant_close(got, ref)
 
 
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("name", ["wo", "wg", "wd", "head"])
+def test_k12_kernel_matches_plain_at_every_row_count(cuda, name, group, M):
+    """K12 at every LLaMa-2-7B product width mm sends it (wq = wk = wv = wo,
+    wg = wu, wd, the head), M = 1..8, groups of 64 and 128, x in bf16 and
+    f32: within the quantized kernels' limit, one launch a call."""
+    from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv, w4a16_gemv_plain
+    quant, w = _qweights(cuda, name, 30 + group)
+    ql = quant.quantize_linear_int4(w, group, "halves")
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _qx(cuda, M, w.shape[0], dtype, 31 + M)
+        before = w4a16_gemv.launches
+        got = w4a16_gemv(x, ql["q4p"], ql["gs"])
+        ref = w4a16_gemv_plain(x, ql["q4p"], ql["gs"])
+        torch.cuda.synchronize()
+        assert w4a16_gemv.launches == before + 1
+        assert got.dtype == dtype and _quant_close(got, ref)
+
+
+@pytest.mark.parametrize("N", [40, 264, 4112])
+@pytest.mark.parametrize("x_offset", [0, 2, 16], ids=["x-aligned", "x+2B", "x+16B"])
+def test_k12_ragged_widths_and_offsets(cuda, N, x_offset):
+    """K12 at widths that are not a multiple of 16 (40, 264: the masked
+    copies) or of its 256-column slab (4112: a partial slab by bulk copy),
+    with x at a 2-byte offset (the masked copies) and at a 16-byte offset
+    (bulk copies), M = 1, 3, 8, bf16 x."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv, w4a16_gemv_plain
+    g = torch.Generator(device=cuda).manual_seed(N)
+    ql = quant.quantize_linear_int4(torch.randn((2048, N), generator=g, device=cuda) * 0.02,
+                                    128, "halves")
+    for M in (1, 3, 8):
+        base = torch.randn((M * 2048 + 8,), generator=g, device=cuda).to(torch.bfloat16)
+        x = base[x_offset // 2:x_offset // 2 + M * 2048].view(M, 2048)
+        assert (x.data_ptr() - base.data_ptr()) == x_offset
+        got = w4a16_gemv(x, ql["q4p"], ql["gs"])
+        ref = w4a16_gemv_plain(x, ql["q4p"], ql["gs"])
+        torch.cuda.synchronize()
+        assert _quant_close(got, ref)
+
+
+def test_k12_gives_the_same_bits_every_run(cuda):
+    """K12's cluster partials add in rank order and nothing is shared between
+    launches: two launches give the same bits, and so do launches in flight
+    on two streams at once (wd: clusters of 6; wg: of 5)."""
+    from easykv_tpu_torch.ops.cuda.w4_matmul import plan, w4a16_gemv, w4a16_gemv_plain
+    for name, cluster in (("wd", 6), ("wg", 5)):
+        quant, w = _qweights(cuda, name, 40)
+        ql = quant.quantize_linear_int4(w, 128, "halves")
+        assert plan(1, w.shape[0] // 2, w.shape[1], 128).cluster == cluster
+        xs = [_qx(cuda, M, w.shape[0], torch.bfloat16, 41 + M) for M in (1, 4)]
+        first = [w4a16_gemv(x, ql["q4p"], ql["gs"]) for x in xs]
+        assert all(torch.equal(a, w4a16_gemv(x, ql["q4p"], ql["gs"])) for a, x in zip(first, xs))
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(32):
+            for i, (st, x) in enumerate(zip(streams, xs)):
+                with torch.cuda.stream(st):
+                    outs.append((i, w4a16_gemv(x, ql["q4p"], ql["gs"])))
+        torch.cuda.synchronize()
+        assert all(torch.equal(y, first[i]) for i, y in outs)
+        assert all(_quant_close(a, w4a16_gemv_plain(x, ql["q4p"], ql["gs"]))
+                   for a, x in zip(first, xs))
+
+
 @pytest.mark.parametrize("out_f32", [False, True], ids=["x-dtype", "f32-out"])
 @pytest.mark.parametrize("M", [1, 4, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1200,17 +1269,23 @@ K15_SHAPES = {  # D, F, Hq, Hkv, L, S, group, B, sliding window
     "small-mha-B5": (256, 512, 4, 4, 2, 256, 64, 5, None),
     "small-gqa-B8-window": (256, 512, 4, 2, 2, 256, 64, 8, 100),
     "small-mha-B16": (256, 512, 4, 4, 2, 256, 64, 16, None),
+    "7b-B2": (4096, 11008, 32, 32, 2, 768, 128, 2, None),
+    "7b-B3": (4096, 11008, 32, 32, 2, 768, 128, 3, None),
     "7b-B4": (4096, 11008, 32, 32, 2, 768, 128, 4, None),
+    "7b-B5": (4096, 11008, 32, 32, 2, 768, 128, 5, None),
+    "7b-B9": (4096, 11008, 32, 32, 2, 768, 128, 9, None),
     "7b-B16": (4096, 11008, 32, 32, 2, 768, 128, 16, None),
     "mistral-B8-window": (4096, 14336, 32, 8, 2, 768, 128, 8, 512),
 }
+# wqkv 216, wo and wd 72 columns: not multiples of 16 (9 heads of 8, groups of 12)
+K15_RAGGED = {"small-ragged-B5": (72, 192, 9, 9, 2, 256, 12, 5, None)}
 
 
 def _k15_args(cuda, shape, kv, rope, seed):
     """K15's arguments: 7/8 of the slots visible with a fifth of them dead,
     row 1 dead (q_pos -1), the other rows at scattered positions."""
     dtype = torch.float32 if kv == "f32" else torch.bfloat16
-    D, F, Hq, Hkv, L, S, group, B, window = K15_SHAPES[shape]
+    D, F, Hq, Hkv, L, S, group, B, window = {**K15_SHAPES, **K15_RAGGED}[shape]
     cfg, tree = _fused_tree(D, F, Hq, Hkv, L, group, window, dtype)
     Dh = D // Hq
     g = torch.Generator(device=cuda).manual_seed(seed)
@@ -1234,6 +1309,22 @@ def _k15_args(cuda, shape, kv, rope, seed):
 @pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("shape", list(K15_SHAPES))
 def test_k15_kernel_matches_plain(cuda, shape, kv, rope):
+    _k15_matches_plain(cuda, shape, kv, rope)
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["q_pos", "rope_pos"])
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+def test_k15_ragged_widths_match_plain(cuda, kv, rope):
+    """K15 where three of the four products have a width that is not a
+    multiple of 16 (K15_RAGGED), so their carrier and scale rows are not
+    16-byte aligned and the ring's stages take the lanes' own loads, held
+    as test_k15_kernel_matches_plain holds the other shapes. A head of 8
+    is half a 16-byte load of an int8 cache row, which the attention does
+    not take: bf16 and f32 caches."""
+    _k15_matches_plain(cuda, "small-ragged-B5", kv, rope)
+
+
+def _k15_matches_plain(cuda, shape, kv, rope):
     """Every output within the larger of _k14_close's limit and twice the
     plain K15's reorder spread (step_bars.k15_spread: the bf16 feed makes
     the function move by more than 1e-3 of its largest value when only the
@@ -1241,7 +1332,8 @@ def test_k15_kernel_matches_plain(cuda, shape, kv, rope):
     activations nothing rounds and the spread is f32 rounding); row 1 is
     dead (no probability anywhere); with bf16 activations the feed is
     rounded as the plain version rounds it (step_bars.k15_feed_share:
-    layer 0's K and V rows bit-equal, which an f32 feed misses); the same
+    layer 0's K and V rows bit-equal to the plain version's with K15's
+    order of the first norm's sums, which an f32 feed misses); the same
     bits in every run (partials added in a fixed order)."""
     from easykv_tpu_torch.ops.cuda.step_bars import k15_feed_share, k15_spread, step_shares
     from easykv_tpu_torch.ops.cuda.fused_decode_batch import (fused_decode_step_batch,

@@ -32,7 +32,7 @@ from easykv_tpu.ops.pallas.w4_stream import (arith_scale_pair as j_pair,
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.convert import from_jax_params
 from easykv_tpu_torch.ops import quant as tq
-from easykv_tpu_torch.ops.cuda import _wstream, w4_stream
+from easykv_tpu_torch.ops.cuda import _wstream, w4_matmul, w4_stream
 from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
 from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv_plain
 from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
@@ -353,6 +353,44 @@ def test_k11_plan_covers_every_tile(M):
         w4_stream.gemm_plan(513, 4096, 4096)
     with pytest.raises(ValueError, match="% 128"):
         w4_stream.gemm_plan(4, 4096 + 128, 4096)
+
+
+# (Kh, N) of K12's products: LLaMa-2-7B's split tree (wq = wk = wv = wo, wg,
+# wd) and head, Mistral-7B's (wk = wv at 8 KV heads, wg, wd), ragged widths
+K12_SHAPES = ((2048, 4096), (2048, 11008), (5504, 4096), (2048, 32000), (2048, 1024),
+              (2048, 14336), (7168, 4096), (2048, 300), (512, 264), (256, 40), (3072, 4096))
+
+
+@pytest.mark.parametrize("M", range(1, 9))
+def test_k12_plan_covers_every_row_and_column(M):
+    """K12's plan (csrc/w4_matmul.cu's slabs, stage rows and clusters) at
+    the 7B and Mistral-7B products and ragged widths, groups of 64 and 128
+    (and 24) packed rows: every (packed row, column) is taken by exactly
+    one block, each block of a cluster takes at least one stage, a stage
+    lies in one group, the cluster has at most 8 blocks, the ring's budget
+    (the kernel fits 3 to 8 stages of at most 64 rows into it) leaves the
+    block's partial (8 x TN f32) and 2 KB of alignment and barriers within
+    half of 232,448 bytes, so that two blocks fit an SM, and the rows split
+    only while the grid stays within two blocks an SM of 132 SMs."""
+    assert w4_matmul.RING_BYTES + 8 * w4_matmul.TN * 4 + 2048 <= 232448 // 2
+    for Kh, N in K12_SHAPES:
+        for G in (64, 128, 24):
+            if Kh % G:
+                continue
+            p = w4_matmul.plan(M, Kh, N, G)
+            assert p.mt >= M and p.mt in (1, 2, 4, 8)
+            assert p.rs % 8 == 0 and G % p.rs == 0 and p.rs <= 64
+            assert 1 <= p.cluster <= 8
+            assert _covered_once(N, [s * w4_matmul.TN for s in range(p.slabs)], w4_matmul.TN)
+            spans = [w4_matmul.block_rows(p, r, Kh) for r in range(p.cluster)]
+            hits = np.zeros(Kh, np.int64)
+            for r0, r1 in spans:
+                assert r1 > r0 and r0 % p.rs == 0
+                hits[r0:r1] += 1
+            assert (hits == 1).all()
+            assert p.cluster == 1 or p.slabs * p.cluster <= 2 * w4_matmul.SMS
+    with pytest.raises(ValueError, match="group of 86"):
+        w4_matmul.plan(1, 688, 512, 86)
 
 
 # ---------------------------------------------------------------------------
