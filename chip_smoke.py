@@ -37,8 +37,9 @@ Phases, each printing its lines before the last:
      f32): K10 at M=1 and K12 at M=1..8 (launched twice, bit-identical)
      over the split tree's widths and the head, K11 at M=2, 4,
      16, 96, 128, 512 over the split and the fused tree's widths (both of
-     its tile configurations and its group split), K13 at M=1, 4, 256 over
-     the fused tree's and the LM head
+     its tile configurations and its group split), K13 at M=1 (its own
+     kernel, launched twice, bit-identical), 4, 256 over the fused tree's
+     and the LM head
      (N=32000, with f32 logits), each within 1e-5 of max|ref| (plus
      one bf16 ulp of the value in bf16) of its plain version; K14, the
      one-kernel decode step, at 7B width with L=2 (bf16 activations; bf16
@@ -1917,9 +1918,9 @@ def phase_quant_kernels(dev):
                     check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1
                           and bool(torch.isfinite(got).all()),
                           f"{kernel} {name} M={M} {dtype}: {ratio:.3f} of its limit")
-                    if kernel == "K12":   # no shared state: the same bits in every run
-                        check(torch.equal(got, fn(x, *args)),
-                              f"K12 {name} M={M} {dtype}: two launches differ")
+                    if kernel == "K12" or (kernel, M) == ("K13", 1):   # no shared state:
+                        check(torch.equal(got, fn(x, *args, **kw)),   # the same bits every run
+                              f"{kernel} {name} M={M} {dtype}: two launches differ")
                     errs[(kernel, name, M, dtype)] = err.max().item()
                     line.append(f"M={M} max|err| {err.max().item():.3e} "
                                 f"({ratio:.2f} of its limit)")
@@ -2177,7 +2178,7 @@ QMETA = {  # name, source, TPU kernel it replaces
             "easykv_tpu/ops/pallas/w4_stream.py:182"),
     "K12": ("w4a16_gemv", "easykv_tpu_torch/csrc/w4_matmul.cu",
             "easykv_tpu/ops/pallas/w4_matmul.py:62"),
-    "K13": ("quant_matmul", "easykv_tpu_torch/csrc/quant_matmul.cu",
+    "K13": ("quant_matmul", "easykv_tpu_torch/csrc/quant_gemv.cu",   # M = 1, its own kernel
             "easykv_tpu/ops/pallas/quant_matmul.py:41"),
 }
 

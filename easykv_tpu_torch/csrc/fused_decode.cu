@@ -28,44 +28,58 @@
 // scale pair once (3.34 GB at LLaMa-2-7B width) and each layer's visible
 // K/V rows once, ~1 ms at 3.35 TB/s; the integer dots are ~3 operations a
 // weight byte. The design:
-//   * one persistent cooperative grid (as many blocks as are co-resident),
-//     its phases separated by grid-wide barriers (cooperative_groups), 9 a
-//     layer: QKV product | attention | the chunks combined | O product | h
-//     += O | gate|up product | gate|up sums | down product | h += down; one
-//     launch a step;
-//   * a product's work item is one scale group of one 128-column tile, done
-//     by one warp: a lane reads 4 columns of a row as one 4-byte load (a
-//     warp reads a 128-byte row segment), 16 rows at a time, transposes
-//     them in registers (byte_perm) and feeds
-//     __dp4a; the group's scaled sum goes to a partial per (group, column).
-//     Items go round the blocks first, so every SM streams even at N =
-//     4096 (512 items). The next phase adds each column's partials (8
-//     threads a column, in a fixed order): the result is the same in every
-//     run, with no atomics;
-//   * each block that holds an item rebuilds the product's input (RMSNorm
-//     of h, the attention output, or SwiGLU of gate|up) and its int8 planes in shared
-//     memory, so the prep costs no barrier;
-//   * attention (fused_step.cuh, shared with K15) splits each KV head's
-//     slots into C chunks (C = blocks / KV heads, at most 8: 4 at 7B on 132
-//     SMs), one block a chunk, the K1 design within it (rows of visible
-//     slots read once with 16-byte loads, f32 logits in shared memory): each chunk writes
-//     its max, its exp(logit - max) and their sum, and its unnormalised PV;
-//     the next phase combines the chunks (out = sum_c e^(m_c - M) PV_c /
-//     denom + p_new vn) and rescales the probabilities to the row's max. The
-//     chunk's q, K and V are summed from the QKV partials. The chunk and
-//     item functions are not inlined, so their registers do not crowd each
-//     other;
-//   * h, the attention output, gate|up, the attention chunks and the
-//     partials live in a per-stream
-//     f32 workspace, read through L2 (__ldcg) since other blocks write them
-//     during the launch.
+//   * one persistent cooperative grid (as many blocks as are co-resident:
+//     one an SM), its phases separated by grid-wide barriers, 8 a layer:
+//     QKV product | attention | O product | h += O | gate|up product |
+//     gate|up sums | down product | h += down; one launch a step;
+//   * a product's work item is one scale group (G carrier rows) of one
+//     128-column tile, done by one warp. Block b takes group b mod gch (the
+//     blocks of one group take its tiles in turn, one a warp), so a block
+//     builds one group's input planes in shared memory (from RMSNorm of h,
+//     the combined attention, or SwiGLU), and the items of a phase go out
+//     at once;
+//   * the carrier stream: each of the block's first 12 warps owns a slot of
+//     shared memory (~17 KB) with an mbarrier, and its lane 0 brings an
+//     item into it as one box of the carrier's tensor map (no swizzle: 128
+//     contiguous bytes a row, no L2 promotion, which would fetch 256; its
+//     L2 lines first to go, so that the stream does not push out the
+//     partials and attention state read back) and two bulk copies of its
+//     scale rows, counted in bytes on the barrier: the whole phase's
+//     carrier bytes are in flight at once (~200 KB an SM), where one warp's
+//     direct loads kept 2 KB. The weights do not depend on the activations,
+//     so as a warp finishes the gate|up product it already asks for its
+//     first item of the down product, and as it finishes the down product
+//     its first of the next layer's QKV product, which arrive across the
+//     barrier and the reduce phase between them. (Not across the
+//     attention, whose chunk shares the slots' memory and whose K / V reads
+//     items asked for ahead slowed more than they saved; not from the O
+//     product, whose end they held back by more than gate|up gained.) The
+//     tensor maps (one per carrier, 4 L) are made once per layer table and
+//     read from global memory;
+//   * the dots of an item: a lane reads 4 columns of a carrier row as one
+//     4-byte load from the slot, 16 rows at a time, transposes them in
+//     registers (byte_perm) and feeds __dp4a against the group's planes;
+//     the group's scaled sum goes to a partial per (group, column). The
+//     next phase adds each column's partials (8 threads a column, in a fixed
+//     order): the same sums in every run, with no atomics;
+//   * attention (fused_step.cuh's attend_group, the block as one group)
+//     splits each KV head's slots into C chunks (C = blocks / KV heads, at
+//     most 8: 4 at 7B on 132 SMs), one block a chunk, with q, K and V summed
+//     from the QKV partials; the chunks combine in the O product's input:
+//     each block rebuilds its group's input elements from the chunk
+//     statistics (a row table of every query head's max, denominator and
+//     chunk weights), and the blocks share out probs and p_new.
+// Diagnostic builds: -DK14_NO_DOTS (the items streamed, no dots),
+// -DK14_EMPTY_PHASES (nothing but the barriers and the phase clock).
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "fused_step.cuh"
+#include "tma_ring.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,14 +87,22 @@ namespace {
 
 using namespace decode_common;
 using namespace fused_step;
+using namespace tma_ring;
 
-constexpr int kCols = 4;              // columns of a lane in a product tile
-constexpr int kTN = 32 * kCols;       // columns of a tile
-constexpr int kQuads = 4;             // 4-row quads a lane loads before it multiplies
+constexpr int kCols = 4;                  // columns of a lane in an item
+constexpr int kTN = 32 * kCols;           // columns of a tile: 128 carrier bytes a row
+constexpr int kQuads = 4;                 // 4-row quads a lane loads before it multiplies
 constexpr float kR127 = (float)(1.0 / 127.0);
+constexpr int kProducts = 4;
+constexpr int kScaleBytes = 2 * kTN * 2;  // an item's two bf16 scale rows
+constexpr int kMaxSlots = 12;             // warps with a slot: the most whose slots fit
+constexpr int kMaxBoxRows = 256;          // rows of a tensor-map box
+constexpr int kSplit = 8;                 // threads a column in the reduce phases
+constexpr size_t kSmemLimit = 232448;
 
 struct Args {
   const long long* table;   // (L, kPtrs): wqkv, wo, wgu, wd as (q4a, gs3); ln_attn, ln_mlp
+  const CUtensorMap* maps;  // (L, 4): each carrier's tensor map (where tma_mask has its bit)
   const void* k;            // (L, Hkv, S, Dh) T or int8
   const void* v;
   const int* pos;           // (L, Hkv, S)
@@ -96,16 +118,194 @@ struct Args {
   float* probs;             // (L, Hkv, S)
   float* p_new;             // (L, Hkv)
   float* ws;                // f32 workspace (struct Workspace)
-  int L, D, F, Hq, Hkv, Dh, S, gq, go, gg, gd, window;
+  int L, D, F, Hq, Hkv, Dh, S, gq, go, gg, gd, window, tma_mask;
   float eps, scale;
 };
 
 // ---------------------------------------------------------------------------
-// products: input rows -> two int8 planes per group -> integer dots
+// the products and their items
 // ---------------------------------------------------------------------------
 
 __host__ __device__ inline int group_pad(int G) { return (G + 4 * kQuads - 1) / (4 * kQuads) * (4 * kQuads); }
 __host__ __device__ inline int tiles_of(int N) { return (N + kTN - 1) / kTN; }
+
+// Product p (0..3: wqkv, wo, wgu, wd): its carrier (kh, N) in gch groups of
+// G rows, its N columns in `tiles` tiles.
+struct Prod {
+  int kh, N, gch, G, Gp, tiles;
+};
+
+__host__ __device__ inline Prod prod_of(int p, int D, int F, int Hq, int Hkv, int Dh, int gq,
+                                        int go, int gg, int gd) {
+  Prod P;
+  P.kh = p == 1 ? Hq * Dh / 2 : p == 3 ? F / 2 : D / 2;
+  P.N = p == 0 ? (Hq + 2 * Hkv) * Dh : p == 2 ? 2 * F : D;
+  P.gch = p == 0 ? gq : p == 1 ? go : p == 2 ? gg : gd;
+  P.G = P.kh / P.gch;
+  P.Gp = group_pad(P.G);
+  P.tiles = tiles_of(P.N);
+  return P;
+}
+
+__host__ __device__ inline Prod prod_of(const Args& a, int p) {
+  return prod_of(p, a.D, a.F, a.Hq, a.Hkv, a.Dh, a.gq, a.go, a.gg, a.gd);
+}
+
+// Whether product p's items can come by the tensor map and bulk copies:
+// carrier rows a multiple of 16 bytes apart, scale rows of whole 16-byte
+// pieces, a group within one box.
+__host__ __device__ inline bool tma_ok(const Prod& P) {
+  return P.N % 16 == 0 && P.G <= kMaxBoxRows;
+}
+
+// The block's share of a product: its first group j (block b mod gch, or b
+// where the groups outnumber the blocks), its rank among the blocks of the
+// group and their count nb; warp w of the block takes tiles rank + nb w,
+// rank + nb (w + slots), ...
+struct Deal {
+  int j, rank, nb, jstep;
+  bool spread;
+};
+
+__device__ __forceinline__ Deal deal_of(const Prod& P) {
+  Deal d;
+  d.spread = (int)gridDim.x >= P.gch;
+  d.j = d.spread ? (int)blockIdx.x % P.gch : (int)blockIdx.x;
+  d.rank = d.spread ? (int)blockIdx.x / P.gch : 0;
+  d.nb = d.spread ? ((int)gridDim.x - d.j + P.gch - 1) / P.gch : 1;
+  d.jstep = d.spread ? P.gch : (int)gridDim.x;
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// shared memory and workspace
+// ---------------------------------------------------------------------------
+
+// From a 128-byte aligned base: `slots` slots of `slot` bytes (two scale
+// rows, then Gp carrier rows of kTN bytes), which the attention's chunk
+// shares; their mbarriers; then the prep: xs (2 G f32), red (kWarps f32),
+// sr (4 f32), the row table (Hq x (3 + kMaxChunks) f32), the planes (6 Gp
+// int8) of the largest group.
+struct Layout {
+  size_t slot, bars, xs, red, sr, rows, planes, total;
+  int slots;
+};
+
+template <typename KV>
+__host__ __device__ inline Layout layout_of(int D, int F, int Hq, int Hkv, int Dh, int S, int gq,
+                                            int go, int gg, int gd) {
+  int gp = 0, gmax = 0;
+  for (int p = 0; p < kProducts; ++p) {
+    const Prod P = prod_of(p, D, F, Hq, Hkv, Dh, gq, go, gg, gd);
+    gp = P.Gp > gp ? P.Gp : gp;
+    gmax = P.G > gmax ? P.G : gmax;
+  }
+  Layout y;
+  y.slot = align_to((size_t)kScaleBytes + (size_t)gp * kTN, 128);
+  const size_t prep = sizeof(float) * (2 * (size_t)gmax + kWarps + 4 + (size_t)Hq * (3 + kMaxChunks)) +
+                      6 * (size_t)gp;
+  const size_t att = sizeof(float) * group_floats<KV>(Hq / Hkv, S, Dh, kThreads);
+  const size_t fixed = 128 + align_to(prep, 16) + sizeof(uint64_t) * kMaxSlots;
+  const size_t fit = fixed < kSmemLimit ? (kSmemLimit - fixed) / y.slot : 0;
+  y.slots = (int)(fit > kMaxSlots ? kMaxSlots : fit < 1 ? 1 : fit);
+  const size_t region = align_to((size_t)y.slots * y.slot > att ? (size_t)y.slots * y.slot : att,
+                                 128);
+  y.bars = region;
+  y.xs = align_to(y.bars + sizeof(uint64_t) * y.slots, 16);
+  y.red = y.xs + sizeof(float) * 2 * (size_t)gmax;
+  y.sr = y.red + sizeof(float) * kWarps;
+  y.rows = y.sr + sizeof(float) * 4;
+  y.planes = y.rows + sizeof(float) * (size_t)Hq * (3 + kMaxChunks);
+  y.total = 128 + y.planes + 6 * (size_t)gp;
+  return y;
+}
+
+// The f32 workspace: h (D), the blocks' sums of squares of h (kMaxBlocks),
+// SwiGLU (F), the attention chunks (AttnWs, for up to kMaxChunks a head),
+// then the group partials of the widest product; each part 16-byte aligned.
+struct Workspace {
+  float *h, *ssq, *sw, *part;
+};
+
+__host__ __device__ inline size_t workspace_floats(int D, int F, int Hq, int Hkv, int Dh, int S,
+                                                   int gq, int go, int gg, int gd, Workspace* w,
+                                                   AttnWs* aw, float* base) {
+  size_t part = 0;
+  for (int p = 0; p < kProducts; ++p) {
+    const Prod P = prod_of(p, D, F, Hq, Hkv, Dh, gq, go, gg, gd);
+    part = (size_t)P.gch * P.N > part ? (size_t)P.gch * P.N : part;
+  }
+  const size_t o_h = 0, o_ss = o_h + round4(D), o_sw = o_ss + kMaxBlocks,
+               o_aw = o_sw + round4(F),
+               o_part = o_aw + attn_ws_floats(1, Hq, Hkv, Dh, S, nullptr, nullptr);
+  if (w != nullptr) {
+    *w = Workspace{base + o_h, base + o_ss, base + o_sw, base + o_part};
+    attn_ws_floats(1, Hq, Hkv, Dh, S, base + o_aw, aw);
+  }
+  return o_part + part;
+}
+
+// ---------------------------------------------------------------------------
+// the carrier stream: a slot a warp
+// ---------------------------------------------------------------------------
+
+// A warp's slot: its bytes, its barrier, the parity of its next wait,
+// whether an item was asked for ahead (the warp's first of the next
+// product), and the last layer whose tensor maps its lane 0 acquired.
+struct Slot {
+  unsigned char* st;
+  uint64_t* bar;
+  uint32_t parity;
+  bool ahead;
+  int fenced;
+};
+
+// Item (group j, tile t) of product p of layer l into the warp's slot:
+// lane 0 asks the copy engine for the carrier box and the two scale rows,
+// or (where no tensor map takes the product) the warp copies them itself;
+// the bytes arrive on the slot's barrier.
+__device__ void issue_item(const Args& a, const Prod& P, int l, int p, int j, int t, Slot& sl) {
+  const int lane = threadIdx.x & 31;
+  const long long* tb = a.table + (size_t)l * kPtrs;
+  const int8_t* w = reinterpret_cast<const int8_t*>(tb[2 * p]);
+  const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(tb[2 * p + 1]);
+  const int col = t * kTN, valid = min(kTN, P.N - col);
+  const __nv_bfloat16* hi = gs + (size_t)j * P.N + col;
+  const __nv_bfloat16* lo = gs + (size_t)(P.gch + j) * P.N + col;
+  if ((a.tma_mask >> p) & 1) {
+    if (lane == 0) {
+      const CUtensorMap* maps = a.maps + (size_t)l * kProducts;
+      if (sl.fenced != l) {
+        for (int q = 0; q < kProducts; ++q) map_acquire(maps + q);
+        sl.fenced = l;
+      }
+      // the slot's earlier generic writes (the attention's chunk) ordered
+      // before the copy engine's
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bar_arrive_tx(sl.bar, (uint32_t)(P.G * kTN + 4 * valid));
+      bulk_copy(sl.st, hi, (uint32_t)(2 * valid), sl.bar);
+      bulk_copy(sl.st + 2 * kTN, lo, (uint32_t)(2 * valid), sl.bar);
+      box_copy_once(sl.st + kScaleBytes, maps + p, col, j * P.G, sl.bar);
+    }
+    return;
+  }
+  // the warp's own loads: rows of the group, zeros past `valid`
+  const int8_t* src = w + (size_t)j * P.G * P.N + col;
+  for (int e = lane; e < P.G * (kTN / 4); e += 32) {
+    const int r = e / (kTN / 4), cb = e % (kTN / 4) * 4;
+    uint32_t word = 0;
+    for (int b = 0; b < 4; ++b)
+      if (cb + b < valid) word |= (uint32_t)(uint8_t)src[(size_t)r * P.N + cb + b] << (8 * b);
+    *reinterpret_cast<uint32_t*>(sl.st + kScaleBytes + r * kTN + cb) = word;
+  }
+  __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(sl.st);
+  for (int c2 = lane; c2 < valid; c2 += 32) {
+    sc[c2] = hi[c2];
+    sc[kTN + c2] = lo[c2];
+  }
+  __syncwarp();
+  if (lane == 0) bar_arrive(sl.bar);
+}
 
 __device__ __forceinline__ void two_planes(float x, float sr, int8_t& p1, int8_t& p2) {
   const float q = x / sr;
@@ -115,49 +315,47 @@ __device__ __forceinline__ void two_planes(float x, float sr, int8_t& p1, int8_t
   p2 = (int8_t)(int)r2;
 }
 
-// xs (2 kh) f32 in shared memory -> planes (6, gch * Gp) int8: A1, A2, B1,
-// B2, C1, C2, group j at j * Gp, zeros past its G rows; sr (3, gch).
-__device__ void build_planes(const float* xs, int kh, int gch, int8_t* planes, float* sr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int G = kh / gch, Gp = group_pad(G), khp = gch * Gp;
-  for (int j = warp; j < gch; j += kWarps) {
-    const float* xl = xs + j * G;
-    const float* xh = xs + kh + j * G;
-    float ma = 0.f, mb = 0.f, mc = 0.f;
-    for (int i = lane; i < G; i += 32) {
-      const float b = xl[i] - xh[i] * 0.0625f;
-      ma = fmaxf(ma, fabsf(xh[i]));
-      mb = fmaxf(mb, fabsf(b));
-      mc = fmaxf(mc, fabsf(xl[i]));
-    }
-    const float sa = fmaxf(warp_max(ma), 1e-30f) * kR127;
-    const float sb = fmaxf(warp_max(mb), 1e-30f) * kR127;
-    const float sc = fmaxf(warp_max(mc), 1e-30f) * kR127;
-    for (int i = lane; i < Gp; i += 32) {
-      int8_t a1 = 0, a2 = 0, b1 = 0, b2 = 0, c1 = 0, c2 = 0;
-      if (i < G) {
-        two_planes(xh[i], sa, a1, a2);
-        two_planes(xl[i] - xh[i] * 0.0625f, sb, b1, b2);
-        two_planes(xl[i], sc, c1, c2);
-      }
-      const int o = j * Gp + i;
-      planes[o] = a1;
-      planes[khp + o] = a2;
-      planes[2 * khp + o] = b1;
-      planes[3 * khp + o] = b2;
-      planes[4 * khp + o] = c1;
-      planes[5 * khp + o] = c2;
-    }
-    if (lane == 0) {
-      sr[j] = sa;
-      sr[gch + j] = sb;
-      sr[2 * gch + j] = sc;
-    }
+// Group j's planes by one warp, from xs = [x_lo (G) | x_hi (G)] f32: plane i
+// (A1, A2, B1, B2, C1, C2) at planes + i gch Gp + j Gp, zeros past G; its
+// sr at sr[j], sr[gch + j], sr[2 gch + j].
+__device__ void build_group(const float* xs, int G, int Gp, int j, int gch, int8_t* planes,
+                            float* sr) {
+  const int lane = threadIdx.x & 31, khp = gch * Gp;
+  const float* xl = xs;
+  const float* xh = xs + G;
+  float ma = 0.f, mb = 0.f, mc = 0.f;
+  for (int i = lane; i < G; i += 32) {
+    const float b = xl[i] - xh[i] * 0.0625f;
+    ma = fmaxf(ma, fabsf(xh[i]));
+    mb = fmaxf(mb, fabsf(b));
+    mc = fmaxf(mc, fabsf(xl[i]));
   }
-  __syncthreads();
+  const float sa = fmaxf(warp_max(ma), 1e-30f) * kR127;
+  const float sb = fmaxf(warp_max(mb), 1e-30f) * kR127;
+  const float sc = fmaxf(warp_max(mc), 1e-30f) * kR127;
+  for (int i = lane; i < Gp; i += 32) {
+    int8_t a1 = 0, a2 = 0, b1 = 0, b2 = 0, c1 = 0, c2 = 0;
+    if (i < G) {
+      two_planes(xh[i], sa, a1, a2);
+      two_planes(xl[i] - xh[i] * 0.0625f, sb, b1, b2);
+      two_planes(xl[i], sc, c1, c2);
+    }
+    const int o = j * Gp + i;
+    planes[o] = a1;
+    planes[khp + o] = a2;
+    planes[2 * khp + o] = b1;
+    planes[3 * khp + o] = b2;
+    planes[4 * khp + o] = c1;
+    planes[5 * khp + o] = c2;
+  }
+  if (lane == 0) {
+    sr[j] = sa;
+    sr[gch + j] = sb;
+    sr[2 * gch + j] = sc;
+  }
 }
 
-// Rows r .. r+3 of the lane's 4 columns -> 4 words, one per column, rows in
+// Rows r .. r + 3 of the lane's 4 columns -> 4 words, one per column, rows in
 // byte order.
 __device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
   const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
@@ -166,18 +364,6 @@ __device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
   col[1] = __byte_perm(t0, t1, 0x7632);
   col[2] = __byte_perm(t2, t3, 0x5410);
   col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// Rows r .. r + 4 kQuads of a group (zeros past its G rows).
-__device__ __forceinline__ void load_rows(uint32_t (&w)[kQuads][4], const int8_t* pj, int r,
-                                          int G, int N, bool vec_ok, int valid) {
-#pragma unroll
-  for (int q = 0; q < kQuads; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r + 4 * q + i;
-      w[q][i] = row < G ? load_seg(pj + (size_t)row * N, vec_ok, valid) : 0u;
-    }
 }
 
 // The six integer dots of rows r .. r + 4 kQuads with the planes at plr
@@ -205,83 +391,100 @@ __device__ __forceinline__ void dot_rows(int (&acc)[6][kCols], const uint32_t (&
   }
 }
 
-// One item of a product, by one warp: group j of the column tile, the
-// lane's 4 columns, against the group's planes (plane i at pl + i * khp)
-// and scales sa, sb, sc; the group's scaled sum goes to part[j][n]. Not
-// inlined: the loop keeps its own registers.
-__device__ __noinline__ void group_item(const Product& W, int j, int tile, const int8_t* pl,
-                                        int khp, float sa, float sb, float sc, float* part) {
-  const int lane = threadIdx.x & 31;
-  const int G = W.kh / W.gch, Gp = group_pad(G);
-  const int c0 = tile * kTN + lane * kCols;
-  const int valid = min(kCols, W.N - c0);
-  if (valid <= 0) return;
-  const bool vec_ok = valid == kCols && (W.N % 4) == 0;
+// One item by one warp, from its slot `st`: the group's scaled sums of the
+// lane's 4 columns (the first `valid` of the tile) to out[c] (the partials'
+// row of the group, at the tile's first column). Not inlined: the loop
+// keeps its own registers.
+__device__ __noinline__ void stage_item(const unsigned char* st, int Gp, int valid,
+                                        const int8_t* pl, int khp, float sa, float sb, float sc,
+                                        float* out) {
+  const int lane = threadIdx.x & 31, c0 = lane * kCols;
+  if (c0 >= valid) return;
   int acc[6][kCols];
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0;
-  const int8_t* pj = W.p + (size_t)j * G * W.N + c0;
+  const unsigned char* wp = st + kScaleBytes + c0;
   for (int r = 0; r < Gp; r += 4 * kQuads) {
     uint32_t w[kQuads][4];
-    if (vec_ok && r + 4 * kQuads <= G) {   // all loads issued before any is used
 #pragma unroll
-      for (int q = 0; q < kQuads; ++q)
+    for (int q = 0; q < kQuads; ++q)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[q][i] = __ldg(reinterpret_cast<const unsigned int*>(pj + (size_t)(r + 4 * q + i) * W.N));
-    } else {
-      load_rows(w, pj, r, G, W.N, vec_ok, valid);
-    }
+      for (int i = 0; i < 4; ++i)
+        w[q][i] = *reinterpret_cast<const uint32_t*>(wp + (size_t)(r + 4 * q + i) * kTN);
     dot_rows(acc, w, pl + r, khp);
   }
+  const __nv_bfloat16* ghi = reinterpret_cast<const __nv_bfloat16*>(st) + c0;
+  const __nv_bfloat16* glo = ghi + kTN;
   float y[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     y[c] = 0.f;
-    if (c >= valid) continue;
+    if (c0 + c >= valid) continue;
     const float af = ((float)acc[0][c] + (float)acc[1][c] * kR127) * sa;
     const float bf = ((float)acc[2][c] + (float)acc[3][c] * kR127) * sb;
     const float cf = ((float)acc[4][c] + (float)acc[5][c] * kR127) * sc;
-    const float ghi = __bfloat162float(W.gs3[(size_t)j * W.N + c0 + c]);
-    const float glo = __bfloat162float(W.gs3[(size_t)(W.gch + j) * W.N + c0 + c]);
-    y[c] = (af + bf - cf) * ghi + cf * glo;
+    y[c] = (af + bf - cf) * __bfloat162float(ghi[c]) + cf * __bfloat162float(glo[c]);
   }
-  float* out = part + (size_t)j * W.N + c0;
-  if (vec_ok) {
-    *reinterpret_cast<float4*>(out) = make_float4(y[0], y[1], y[2], y[3]);
+  if (c0 + kCols <= valid) {
+    *reinterpret_cast<float4*>(out + c0) = make_float4(y[0], y[1], y[2], y[3]);
   } else {
-    for (int c = 0; c < valid; ++c) out[c] = y[c];
+    for (int c = 0; c < valid - c0; ++c) out[c0 + c] = y[c];
   }
 }
 
-// A product phase: part[j][n] for every group j and column n. The blocks
-// are dealt out over the groups (block b takes group b mod gch; the blocks
-// of one group take its column tiles in turn, one tile a warp), so that a
-// block needs one group's input: it fills xs = [x_lo | x_hi] of the group
-// from src(e) (element e of the product's input row), builds the group's
-// planes, then its warps take their tiles. With fewer blocks than groups a
-// block takes groups b, b + blocks, ... one after the other.
-template <class Src>
-__device__ void product_phase(const Product& W, float* part, float* xs, int8_t* planes,
-                              float* sr, Src src) {
+
+// The warp's first item of product p of layer l into its slot, ahead of
+// the product's phase (the phase then takes it without asking again).
+__device__ void issue_first(const Args& a, const Prod* Ps, int l, int p, Slot& sl, int slots) {
   const int warp = threadIdx.x >> 5;
-  const int G = W.kh / W.gch, Gp = group_pad(G), tiles = tiles_of(W.N);
-  const bool spread = (int)gridDim.x >= W.gch;
-  for (int j = spread ? (int)blockIdx.x % W.gch : (int)blockIdx.x; j < W.gch;
-       j += spread ? W.gch : (int)gridDim.x) {
-    const int rank = spread ? (int)blockIdx.x / W.gch : 0;
-    const int nb = spread ? ((int)gridDim.x - j + W.gch - 1) / W.gch : 1;   // the group's blocks
-    for (int i = threadIdx.x; i < 2 * G; i += kThreads)
-      xs[i] = src(i < G ? j * G + i : W.kh + j * G + i - G);
-    __syncthreads();
-    build_planes(xs, G, 1, planes, sr);
-    for (int t = rank + nb * warp; t < tiles; t += nb * kWarps)
-      group_item(W, j, t, planes, Gp, sr[0], sr[1], sr[2], part);
-    __syncthreads();
-    if (spread) break;
+  const Deal d = deal_of(Ps[p]);
+  const int t = d.rank + d.nb * warp;
+  if (warp < slots && d.j < Ps[p].gch && t < Ps[p].tiles) {
+    issue_item(a, Ps[p], l, p, d.j, t, sl);
+    sl.ahead = true;
   }
+}
+
+// A product phase of layer l: part[j][n] for every group j and column n.
+// The block builds its group's planes from src(e) (element e of the
+// product's input row), then each slot warp takes its items: the item's
+// bytes (asked for ahead, or now), its dots, its partials. With fewer
+// blocks than groups a block takes groups b, b + blocks, ... one after the
+// other. Then, where `next` >= 0, each slot warp asks for its first item of
+// product `next` of layer nl.
+template <class Src>
+__device__ void product_phase(const Args& a, const Prod* Ps, int l, int p, int nl, int next,
+                              float* part, float* xs, int8_t* planes, float* sr, Src src,
+                              Slot& sl, int slots) {
+  const Prod& P = Ps[p];
+  const int warp = threadIdx.x >> 5, G = P.G;
+  const Deal d = deal_of(P);
+  for (int j = d.j; j < P.gch; j += d.jstep) {
+    for (int i = threadIdx.x; i < 2 * G; i += kThreads)
+      xs[i] = src(i < G ? j * G + i : P.kh + j * G + i - G);
+    __syncthreads();
+    if (warp == 0) build_group(xs, G, P.Gp, 0, 1, planes, sr);
+    __syncthreads();
+    if (warp < slots) {
+      for (int t = d.rank + d.nb * warp; t < P.tiles; t += d.nb * slots) {
+        if (!sl.ahead) issue_item(a, P, l, p, j, t, sl);
+        sl.ahead = false;
+        bar_wait(sl.bar, sl.parity);
+        sl.parity ^= 1;
+#ifndef K14_NO_DOTS
+        const int col = t * kTN;
+        stage_item(sl.st, P.Gp, min(kTN, P.N - col), planes, P.Gp, sr[0], sr[1], sr[2],
+                   part + (size_t)j * P.N + col);
+#endif
+        __syncwarp();   // the slot read: free for the next item
+      }
+    }
+    __syncthreads();
+    if (d.spread) break;
+  }
+  if (next >= 0) issue_first(a, Ps, nl, next, sl, slots);
 }
 
 // y[n] of a product: its groups' partials added in group order.
@@ -299,8 +502,6 @@ __device__ __forceinline__ float group_sum(const float* part, int gch, int N, in
 // same in every run). fn(i, y, y2) runs on the first of the 8 and returns
 // what it adds to its block's sum of squares, which every thread of the
 // block gets back.
-constexpr int kSplit = 8;
-
 template <class Fn>
 __device__ float reduce_columns(const float* part, int gch, int N, int n, int pair, float* red,
                                 Fn fn) {
@@ -350,71 +551,103 @@ __device__ float rms_scale(const float* ssq, int nb, const T* h0, int D, float e
   return 1.f / sqrtf(s / (float)D + eps);
 }
 
+// The combined attention: each query row's max M over the chunks and the
+// in-flight logit, its denominator, the in-flight token's exp, and each
+// chunk's exp(m_c - M), (Hq, 3 + kMaxChunks) in `rows`.
+__device__ void row_table(const AttnArgs& at, const AttnWs& aw, int C, float* rows) {
+  const int Hq = at.Hq, rep = Hq / at.Hkv;
+  const bool live = at.q_pos[0] >= 0;
+  for (int hr = threadIdx.x; hr < Hq; hr += kThreads) {
+    float M, denom, en;
+    row_stats(aw, 0, hr, Hq, rep, C, live, &M, &denom, &en);
+    float* r = rows + hr * (3 + kMaxChunks);
+    r[0] = M;
+    r[1] = denom;
+    r[2] = en;
+    const int head = hr / rep, rr = hr % rep;
+    for (int c = 0; c < C; ++c)
+      r[3 + c] = expf(__ldcg(aw.stats + 2 * ((size_t)(head * C + c) * rep + rr)) - M);
+  }
+}
+
+// Element i of the attention output: sum_c exp(m_c - M) ov_c / denom +
+// (e_new / denom) vn.
+__device__ __forceinline__ float attn_out(const AttnArgs& at, const AttnWs& aw, const float* rows,
+                                          int C, int i) {
+  const int Dh = at.Dh, rep = at.Hq / at.Hkv, hr = i / Dh, d = i % Dh, head = hr / rep,
+            r = hr % rep;
+  const float* rs = rows + hr * (3 + kMaxChunks);
+  float o = 0.f;
+  for (int c = 0; c < C; ++c)
+    o += __ldcg(aw.ov + ((size_t)(head * C + c) * rep + r) * Dh + d) * rs[3 + c];
+  return o / rs[1] + (rs[2] / rs[1]) * __ldcg(aw.vn + (size_t)head * Dh + d);
+}
+
+// probs (L, Hkv, S) of layer l, each slot's exp rescaled to its row's max
+// and denominator and averaged over the rep query rows, and p_new (L, Hkv):
+// shared out over the grid.
+__device__ void probs_out(const AttnArgs& a, const AttnWs& w, const float* rows, int l, int C) {
+  const int S = a.S, Hkv = a.Hkv, rep = a.Hq / Hkv, clen = (S + C - 1) / C;
+  const int n = Hkv * S + Hkv;
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += gridDim.x * kThreads) {
+    float acc = 0.f;
+    if (e < Hkv * S) {
+      const int head = e / S, s = e % S, c = s / clen;
+      for (int r = 0; r < rep; ++r) {
+        const float* rs = rows + (head * rep + r) * (3 + kMaxChunks);
+        acc += __ldcg(w.pe + (size_t)(head * rep + r) * S + s) * rs[3 + c] / rs[1];
+      }
+      a.probs[((size_t)l * Hkv + head) * S + s] = acc / (float)rep;
+    } else {
+      const int head = e - Hkv * S;
+      for (int r = 0; r < rep; ++r) {
+        const float* rs = rows + (head * rep + r) * (3 + kMaxChunks);
+        acc += rs[2] / rs[1];
+      }
+      a.p_new[(size_t)l * Hkv + head] = acc / (float)rep;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the step
 // ---------------------------------------------------------------------------
 
-// Bytes of the product prep: xs (2 G f32), red (kWarps f32), sr (3 f32,
-// padded to 4), planes (6 Gp int8), for the largest group of the four
-// products.
-__host__ __device__ inline int group_max(const Args& a) {
-  const int g[4] = {a.D / 2 / a.gq, a.Hq * a.Dh / 2 / a.go, a.D / 2 / a.gg, a.F / 2 / a.gd};
-  int m = g[0];
-  for (int i = 1; i < 4; ++i) m = g[i] > m ? g[i] : m;
-  return m;
-}
-
-__host__ __device__ inline size_t prep_bytes(const Args& a) {
-  const int G = group_max(a);
-  return sizeof(float) * (2 * (size_t)G + kWarps + 4) + 6 * (size_t)group_pad(G);
-}
-
-// The f32 workspace: h (D), the blocks' sums of squares of h (kMaxBlocks),
-// the attention output (Hq Dh), SwiGLU (F), the attention chunks (AttnWs, for
-// up to kMaxChunks a head), then the group partials of the widest
-// product; each part 16-byte aligned.
-struct Workspace {
-  float *h, *ssq, *attn, *sw, *part;
-};
-
-__host__ __device__ inline size_t workspace_floats(int D, int F, int Hq, int Hkv, int Dh, int S,
-                                                   int gq, int go, int gg, int gd, Workspace* w,
-                                                   AttnWs* aw, float* base) {
-  const size_t Nq = (size_t)(Hq + 2 * Hkv) * Dh;
-  size_t part = (size_t)gq * Nq;
-  part = (size_t)go * D > part ? (size_t)go * D : part;
-  part = (size_t)gg * 2 * F > part ? (size_t)gg * 2 * F : part;
-  part = (size_t)gd * D > part ? (size_t)gd * D : part;
-  const size_t o_h = 0, o_ss = o_h + round4(D), o_at = o_ss + kMaxBlocks,
-               o_sw = o_at + round4((size_t)Hq * Dh), o_aw = o_sw + round4(F),
-               o_part = o_aw + attn_ws_floats(1, Hq, Hkv, Dh, S, nullptr, nullptr);
-  if (w != nullptr) {
-    *w = Workspace{base + o_h, base + o_ss, base + o_at, base + o_sw, base + o_part};
-    attn_ws_floats(1, Hq, Hkv, Dh, S, base + o_aw, aw);
-  }
-  return o_part + part;
-}
-
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const Layout lay = layout_of<KV>(a.D, a.F, a.Hq, a.Hkv, a.Dh, a.S, a.gq, a.go, a.gg, a.gd);
   cg::grid_group grid = cg::this_grid();
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  float* red = xs + 2 * group_max(a);
-  float* sr = red + kWarps;
-  int8_t* planes = reinterpret_cast<int8_t*>(sr + 4);
-  float* att_smem = reinterpret_cast<float*>(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  float* xs = reinterpret_cast<float*>(sm + lay.xs);
+  float* red = reinterpret_cast<float*>(sm + lay.red);
+  float* sr = reinterpret_cast<float*>(sm + lay.sr);
+  float* rows = reinterpret_cast<float*>(sm + lay.rows);
+  int8_t* planes = reinterpret_cast<int8_t*>(sm + lay.planes);
+  float* att_smem = reinterpret_cast<float*>(sm);   // the slots' memory, between products
+  const int slots = lay.slots, warp = threadIdx.x >> 5;
 
-  const int D = a.D, F = a.F, Dh = a.Dh, Hq = a.Hq, Hkv = a.Hkv, L = a.L;
-  const int Nq = (Hq + 2 * Hkv) * Dh;
+  Prod P[kProducts];
+#pragma unroll
+  for (int p = 0; p < kProducts; ++p) P[p] = prod_of(a, p);
+  const int D = a.D, F = a.F, Hq = a.Hq, Hkv = a.Hkv, L = a.L, Nq = P[0].N;
   Workspace ws;
   AttnWs aw;
-  workspace_floats(D, F, Hq, Hkv, Dh, a.S, a.gq, a.go, a.gg, a.gd, &ws, &aw, a.ws);
+  workspace_floats(D, F, Hq, Hkv, a.Dh, a.S, a.gq, a.go, a.gg, a.gd, &ws, &aw, a.ws);
   const AttnArgs at{a.k, a.v, a.pos, a.ksc, a.vsc, a.q_pos, a.rope_pos, a.inv_freq, a.kn,
-                    a.vn, a.probs, a.p_new, 1, Hq, Hkv, Dh, a.S, a.window, a.scale};
+                    a.vn, a.probs, a.p_new, 1, Hq, Hkv, a.Dh, a.S, a.window, a.scale};
   const int C = chunks_of(Hkv);
   const T* h0 = static_cast<const T*>(a.h0);
   T* h_out = static_cast<T*>(a.h_out);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots; ++i) bar_init(bars + i, 1);   // one arrival, with the bytes
+    bar_fence_init();
+  }
+  __syncthreads();
+  Slot sl{sm + (size_t)(warp < slots ? warp : 0) * lay.slot, bars + (warp < slots ? warp : 0),
+          0u, false, -1};
 
   STAMP_BEGIN();
   for (int l = 0; l < L; ++l) {
@@ -423,63 +656,78 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
     const T* ln_mlp = reinterpret_cast<const T*>(t[9]);
     const bool first = l == 0, last = l == L - 1;
 
-    // QKV product of RMSNorm(h)
+#ifndef K14_EMPTY_PHASES
+    // QKV product of RMSNorm(h) (nothing asked for ahead: the attention's
+    // chunk takes the slots' memory next)
     float r = rms_scale(ws.ssq, gridDim.x, first ? h0 : nullptr, D, a.eps, red);
-    product_phase(layer_product(t, 0, D / 2, Nq, a.gq), ws.part, xs, planes, sr, [&](int e) {
+    product_phase(a, P, l, 0, l, -1, ws.part, xs, planes, sr, [&](int e) {
       return (first ? to_f(h0[e]) : __ldcg(ws.h + e)) * r * to_f(ln_attn[e]);
-    });
+    }, sl, slots);
+#endif
     grid.sync();
     STAMP();
 
+#ifndef K14_EMPTY_PHASES
     // attention: C chunks of each KV head's slots, one block a chunk
     const float* qkv_part = ws.part;
     const int gq = a.gq;
-    for (int it = blockIdx.x; it < Hkv * C; it += gridDim.x) {
-      attend_chunk<T, KV>(at, l, 0, it / C, it % C, C,
-                          [=](int m) { return group_sum(qkv_part, gq, Nq, m); }, aw, att_smem);
-      __syncthreads();
-    }
+    for (int it = blockIdx.x; it < Hkv * C; it += gridDim.x)
+      attend_group<T, KV>(at, l, 0, it / C, it % C, C,
+                          [=](int m) { return group_sum(qkv_part, gq, Nq, m); }, aw, att_smem, 0,
+                          kThreads);
+#endif
     grid.sync();
     STAMP();
 
-    // the chunks combined: the attention output, probs and p_new
-    combine_attention(at, aw, ws.attn, l, C);
+#ifndef K14_EMPTY_PHASES
+    // probs and p_new; the O product of the combined attention
+    row_table(at, aw, C, rows);
+    __syncthreads();
+    probs_out(at, aw, rows, l, C);
+    product_phase(a, P, l, 1, l, -1, ws.part, xs, planes, sr,
+                  [&](int e) { return attn_out(at, aw, rows, C, e); }, sl, slots);
+#endif
     grid.sync();
     STAMP();
-
-    // O product of the attention output; then h += its sum
-    product_phase(layer_product(t, 1, Hq * Dh / 2, D, a.go), ws.part, xs, planes, sr,
-                  [&](int e) { return __ldcg(ws.attn + e); });
-    grid.sync();
-    STAMP();
+#ifndef K14_EMPTY_PHASES
+    // h += the O product's sums
     float ss = reduce_columns(ws.part, a.go, D, D, 0, red, [&](int n, float y, float) {
       const float h = (first ? to_f(h0[n]) : __ldcg(ws.h + n)) + y;
       ws.h[n] = h;
       return h * h;
     });
     if (threadIdx.x == 0) ws.ssq[blockIdx.x] = ss;
+#endif
     grid.sync();
     STAMP();
 
-    // gate|up product of RMSNorm(h); then SwiGLU of its sums
+#ifndef K14_EMPTY_PHASES
+    // gate|up product of RMSNorm(h) (down's first items asked for ahead)
     r = rms_scale(ws.ssq, gridDim.x, (const T*)nullptr, D, a.eps, red);
-    product_phase(layer_product(t, 2, D / 2, 2 * F, a.gg), ws.part, xs, planes, sr,
-                  [&](int e) { return __ldcg(ws.h + e) * r * to_f(ln_mlp[e]); });
+    product_phase(a, P, l, 2, l, 3, ws.part, xs, planes, sr,
+                  [&](int e) { return __ldcg(ws.h + e) * r * to_f(ln_mlp[e]); }, sl, slots);
+#endif
     grid.sync();
     STAMP();
+#ifndef K14_EMPTY_PHASES
+    // SwiGLU of the gate|up sums
     reduce_columns(ws.part, a.gg, 2 * F, F, F, red, [&](int i, float g, float up) {
       ws.sw[i] = g * (1.f / (1.f + expf(-g))) * up;
       return 0.f;
     });
+#endif
     grid.sync();
     STAMP();
 
-    // down product of SwiGLU; then h += its sum (and h out after the last
-    // layer)
-    product_phase(layer_product(t, 3, F / 2, D, a.gd), ws.part, xs, planes, sr,
-                  [&](int e) { return __ldcg(ws.sw + e); });
+#ifndef K14_EMPTY_PHASES
+    // down product of SwiGLU (the next layer's QKV items asked for ahead)
+    product_phase(a, P, l, 3, l + 1, last ? -1 : 0, ws.part, xs, planes, sr,
+                  [&](int e) { return __ldcg(ws.sw + e); }, sl, slots);
+#endif
     grid.sync();
     STAMP();
+#ifndef K14_EMPTY_PHASES
+    // h += the down product's sums (and h out after the last layer)
     ss = reduce_columns(ws.part, a.gd, D, D, 0, red, [&](int n, float y, float) {
       const float h = __ldcg(ws.h + n) + y;
       ws.h[n] = h;
@@ -487,24 +735,56 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(Args a) {
       return h * h;
     });
     if (threadIdx.x == 0) ws.ssq[blockIdx.x] = ss;
+#endif
     if (!last) grid.sync();
     STAMP();
   }
   STAMP_END();
 }
 
-template <typename T, typename KV>
-size_t smem_bytes(const Args& a) {
-  const size_t prep = prep_bytes(a);
-  const size_t att = sizeof(float) * attn_floats<KV>(a.Hq / a.Hkv, a.S, a.Dh);
-  return prep > att ? prep : att;
+template <typename KV>
+Layout layout_for(const Args& a) {
+  return layout_of<KV>(a.D, a.F, a.Hq, a.Hkv, a.Dh, a.S, a.gq, a.go, a.gg, a.gd);
 }
 
-// Launches the step; grid <= 0: as many blocks as are co-resident.
 template <typename T, typename KV>
-int launch(Args a, int grid, cudaStream_t stream) {
+int launch(const Args& a, int grid, cudaStream_t stream) {
   if (!head_dim_ok<KV>(a.Dh)) return (int)cudaErrorInvalidValue;
-  return cooperative_launch(fused_decode_kernel<T, KV>, a, smem_bytes<T, KV>(a), grid, stream);
+  const Layout lay = layout_for<KV>(a);
+  if (lay.total > kSmemLimit) return (int)cudaErrorInvalidValue;
+  return cooperative_launch(fused_decode_kernel<T, KV>, a, lay.total, grid, stream);
+}
+
+// Blocks of one SM times the SMs (at most kMaxBlocks), or a negative error.
+template <typename T, typename KV>
+int grid_of(const Args& a) {
+  const size_t smem = layout_for<KV>(a).total;
+  if (!head_dim_ok<KV>(a.Dh) || smem > kSmemLimit) return -(int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(fused_decode_kernel<T, KV>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decode_kernel<T, KV>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  return per_sm * sms < kMaxBlocks ? per_sm * sms : kMaxBlocks;
+}
+
+Args dims(int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go, int gg, int gd) {
+  Args a{};
+  a.D = D; a.F = F; a.Hq = Hq; a.Hkv = Hkv; a.Dh = Dh; a.S = S;
+  a.gq = gq; a.go = go; a.gg = gg; a.gd = gd;
+  return a;
+}
+
+bool dims_ok(int D, int F, int Hq, int Hkv, int Dh, int gq, int go, int gg, int gd) {
+  return Hkv >= 1 && Hq % Hkv == 0 && D % 4 == 0 && F % 4 == 0 && (Hq * Dh) % 4 == 0 &&
+         gq >= 1 && go >= 1 && gg >= 1 && gd >= 1 && (D / 2) % gq == 0 &&
+         (Hq * Dh / 2) % go == 0 && (D / 2) % gg == 0 && (F / 2) % gd == 0;
 }
 
 }  // namespace
@@ -517,43 +797,90 @@ size_t fused_decode_step_ws(int D, int F, int Hq, int Hkv, int Dh, int S, int gq
   return workspace_floats(D, F, Hq, Hkv, Dh, S, gq, go, gg, gd, nullptr, nullptr, nullptr);
 }
 
-// Dynamic shared memory of one block, in bytes; 0 for a head dim the
-// attention phase does not take (a row of 1..32 sixteen-byte loads, a power
-// of two). dtype: 0 = float32, 1 = bfloat16; kv_int8: 1 for an int8 cache.
+// Dynamic shared memory of one block, in bytes; 0 for widths the step does
+// not take or a head dim the attention phase does not take (a row of 1..32
+// sixteen-byte loads, a power of two). dtype: 0 = float32, 1 = bfloat16;
+// kv_int8: 1 for an int8 cache.
 size_t fused_decode_step_smem(int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go,
                               int gg, int gd, int dtype, int kv_int8) {
-  Args a{};
-  a.D = D; a.F = F; a.Hq = Hq; a.Hkv = Hkv; a.Dh = Dh; a.S = S;
-  a.gq = gq; a.go = go; a.gg = gg; a.gd = gd;
-  if (kv_int8) return head_dim_ok<int8_t>(Dh) ? smem_bytes<float, int8_t>(a) : 0;
-  if (dtype == 0) return head_dim_ok<float>(Dh) ? smem_bytes<float, float>(a) : 0;
-  return head_dim_ok<__nv_bfloat16>(Dh) ? smem_bytes<__nv_bfloat16, __nv_bfloat16>(a) : 0;
+  if (!dims_ok(D, F, Hq, Hkv, Dh, gq, go, gg, gd)) return 0;
+  const Args a = dims(D, F, Hq, Hkv, Dh, S, gq, go, gg, gd);
+  if (kv_int8) return head_dim_ok<int8_t>(Dh) ? layout_for<int8_t>(a).total : 0;
+  if (dtype == 0) return head_dim_ok<float>(Dh) ? layout_for<float>(a).total : 0;
+  return head_dim_ok<__nv_bfloat16>(Dh) ? layout_for<__nv_bfloat16>(a).total : 0;
+}
+
+// The warps with a carrier slot at these widths (as fused_decode_step_smem).
+int fused_decode_step_slots(int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go, int gg,
+                            int gd, int dtype, int kv_int8) {
+  const Args a = dims(D, F, Hq, Hkv, Dh, S, gq, go, gg, gd);
+  if (kv_int8) return layout_for<int8_t>(a).slots;
+  return dtype == 0 ? layout_for<float>(a).slots : layout_for<__nv_bfloat16>(a).slots;
+}
+
+// The blocks the launch runs when the caller leaves the grid to it: as many
+// as are co-resident; a negative CUDA error where none fits.
+int fused_decode_step_grid(int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go, int gg,
+                           int gd, int dtype, int kv_int8) {
+  if (!dims_ok(D, F, Hq, Hkv, Dh, gq, go, gg, gd)) return -(int)cudaErrorInvalidValue;
+  const Args a = dims(D, F, Hq, Hkv, Dh, S, gq, go, gg, gd);
+  if (dtype == 0 && kv_int8) return grid_of<float, int8_t>(a);
+  if (dtype == 0) return grid_of<float, float>(a);
+  if (kv_int8) return grid_of<__nv_bfloat16, int8_t>(a);
+  return grid_of<__nv_bfloat16, __nv_bfloat16>(a);
+}
+
+// The tensor maps of a layer table's carriers: table (L, 10) host copy of
+// the device pointers (wqkv, wo, wgu, wd as carrier and scale pair, ...),
+// out (L, 4) CUtensorMap in host memory (64-byte aligned; a product whose
+// items cannot come by the copy engine keeps zeros). Returns the mask of
+// the products whose maps were made (bit p: product p), or a negative
+// CUDA error.
+int fused_decode_maps(const long long* table, int L, int D, int F, int Hq, int Hkv, int Dh,
+                      int gq, int go, int gg, int gd, void* out) {
+  if (L < 1 || !dims_ok(D, F, Hq, Hkv, Dh, gq, go, gg, gd)) return -(int)cudaErrorInvalidValue;
+  CUtensorMap* maps = static_cast<CUtensorMap*>(out);
+  int mask = 0;
+  for (int p = 0; p < kProducts; ++p) {
+    const Prod P = prod_of(p, D, F, Hq, Hkv, Dh, gq, go, gg, gd);
+    if (!tma_ok(P)) continue;
+    for (int l = 0; l < L; ++l) {
+      const void* w = reinterpret_cast<const void*>(table[(size_t)l * kPtrs + 2 * p]);
+      const int err = byte_map(w, P.kh, P.N, P.G, kTN, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                               maps + (size_t)l * kProducts + p);
+      if (err != 0) return -err;
+    }
+    mask |= 1 << p;
+  }
+  return mask;
 }
 
 // One decode step of all L layers. table: (L, 10) device pointers per layer
 // (wqkv, wo, wgu, wd as carrier and bf16 scale pair; ln_attn, ln_mlp in the
-// compute dtype). k, v (L, Hkv, S, Dh) in the compute dtype, or int8 with
-// k_scale, v_scale (L, Hkv, S) f32 (null otherwise); pos (L, Hkv, S); h0
-// (D,); q_pos (1,); rope_pos (1,) or null; inv_freq (Dh/2,) f32; scale
-// the logits' Dh^-0.5; window <= 0: no sliding window. Outputs:
-// h_out (D,), kn, vn (L, Hkv, Dh) in the compute dtype, probs (L, Hkv, S)
-// and p_new (L, Hkv) f32. ws: fused_decode_step_ws floats, 16-byte aligned.
-// Every cache and weight pointer is 16-byte aligned. Returns the launch's
-// error, or cudaGetLastError().
-int fused_decode_step(const long long* table, const void* k, const void* v, const int* pos,
-                      const float* k_scale, const float* v_scale, const void* h0,
-                      const int* q_pos, const int* rope_pos, const float* inv_freq,
-                      void* h_out, void* kn, void* vn, float* probs, float* p_new, float* ws,
-                      int L, int D, int F, int Hq, int Hkv, int Dh, int S, int gq, int go,
-                      int gg, int gd, int window, float eps, float scale, int dtype,
-                      int kv_int8, int grid, void* stream) {
-  if (L < 1 || Hkv < 1 || Hq % Hkv != 0 || D % 4 || F % 4 || (Hq * Dh) % 4 || gq < 1 ||
-      go < 1 || gg < 1 || gd < 1 || (D / 2) % gq || (Hq * Dh / 2) % go || (D / 2) % gg ||
-      (F / 2) % gd || (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
+// compute dtype); maps: (L, 4) tensor maps (fused_decode_maps; products
+// outside tma_mask take the warps' own loads). k, v (L, Hkv, S, Dh) in the
+// compute dtype, or int8 with k_scale, v_scale (L, Hkv, S) f32 (null
+// otherwise); pos (L, Hkv, S); h0 (D,); q_pos (1,); rope_pos (1,) or null;
+// inv_freq (Dh/2,) f32; scale the logits' Dh^-0.5; window <= 0: no sliding
+// window. Outputs: h_out (D,), kn, vn (L, Hkv, Dh) in the compute dtype,
+// probs (L, Hkv, S) and p_new (L, Hkv) f32. ws: fused_decode_step_ws
+// floats, 16-byte aligned. Every cache and weight pointer is 16-byte
+// aligned. grid: the blocks (fused_decode_step_grid, or the caller's).
+// Returns the launch's error, or cudaGetLastError().
+int fused_decode_step(const long long* table, const void* maps, const void* k, const void* v,
+                      const int* pos, const float* k_scale, const float* v_scale, const void* h0,
+                      const int* q_pos, const int* rope_pos, const float* inv_freq, void* h_out,
+                      void* kn, void* vn, float* probs, float* p_new, float* ws, int L, int D,
+                      int F, int Hq, int Hkv, int Dh, int S, int gq, int go, int gg, int gd,
+                      int window, int tma_mask, float eps, float scale, int dtype, int kv_int8,
+                      int grid, void* stream) {
+  if (L < 1 || grid < 1 || !dims_ok(D, F, Hq, Hkv, Dh, gq, go, gg, gd) ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  Args a{reinterpret_cast<const long long*>(table), k, v, pos, k_scale, v_scale, h0, q_pos,
-         rope_pos, inv_freq, h_out, kn, vn, probs, p_new, ws,
-         L, D, F, Hq, Hkv, Dh, S, gq, go, gg, gd, window, eps, scale};
+  if (grid > kMaxBlocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Args a{reinterpret_cast<const long long*>(table), static_cast<const CUtensorMap*>(maps), k, v,
+         pos, k_scale, v_scale, h0, q_pos, rope_pos, inv_freq, h_out, kn, vn, probs, p_new, ws,
+         L, D, F, Hq, Hkv, Dh, S, gq, go, gg, gd, window, tma_mask, eps, scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && kv_int8) return launch<float, int8_t>(a, grid, st);
   if (dtype == 0) return launch<float, float>(a, grid, st);

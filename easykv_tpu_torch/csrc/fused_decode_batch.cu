@@ -665,35 +665,6 @@ __device__ void rms_rows(float* rs, const float* ssq, int nb, const T* h0, int B
 // attention: groups of warps, each with a chunk of its own
 // ---------------------------------------------------------------------------
 
-// A block's warps split into `groups` groups of nt = kThreads / groups
-// threads; each group attends one chunk at a time, so a block keeps that
-// many chunks' K / V loads in flight (a chunk's phases, each waiting on the
-// one before, would otherwise leave the block waiting on one chunk's
-// latency). Named barrier 1 + gid joins a group.
-__device__ __forceinline__ void group_sync(int gid, int nt) {
-  asm volatile("bar.sync %0, %1;" ::"r"(gid + 1), "r"(nt) : "memory");
-}
-
-template <bool kMax>
-__device__ __forceinline__ float group_reduce(float x, float* red, int gid, int nt) {
-  const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x % nt) >> 5;
-  x = kMax ? warp_max(x) : warp_sum(x);
-  if (lane == 0) red[warp] = x;
-  group_sync(gid, nt);
-  x = lane < nt / 32 ? red[lane] : (kMax ? kNegInf : 0.f);
-  x = kMax ? warp_max(x) : warp_sum(x);
-  group_sync(gid, nt);
-  return x;
-}
-
-// Floats of one group's chunk (nt threads; at most S slots).
-template <typename KV>
-__host__ __device__ inline size_t group_floats(int rep, int S, int Dh, int nt) {
-  const int G = nt / (Dh / VecOf<KV>::n);
-  return (size_t)rep * Dh + (size_t)rep * S + rep + nt / 32 + (size_t)G * Dh + 3 * Dh +
-         (size_t)(rep + 2) * Dh;
-}
-
 // Groups a block's attention splits into: 4, or fewer where four chunks'
 // shared memory would not fit.
 template <typename KV>
@@ -701,182 +672,6 @@ __host__ __device__ inline int att_groups(int rep, int S, int Dh) {
   for (int g = 4; g > 1; g /= 2)
     if (g * group_floats<KV>(rep, S, Dh, kThreads / g) * sizeof(float) <= 200 * 1024) return g;
   return 1;
-}
-
-// fused_step.cuh's attend_chunk for a group of nt threads (gid; the same
-// arithmetic in the same order, so nt = kThreads gives its bits): one chunk
-// of one (row b, KV head) pair: q, K and V of the row's QKV output, RoPE,
-// the chunk's logits, its max, exp and sum, its unnormalised PV; chunk 0
-// also emits the rotated K row and the V row.
-template <typename T, typename KV, class Q>
-__device__ __noinline__ void attend_group(const AttnArgs& a, int l, int b, int head, int c, int C,
-                                          Q qkv, const AttnWs& w, float* smem, int gid, int nt) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  constexpr int V = VecOf<KV>::n;
-  const int Dh = a.Dh, S = a.S, Hkv = a.Hkv, Hq = a.Hq, rep = Hq / Hkv, d2 = Dh / 2;
-  const int LPR = Dh / V, G = nt / LPR, nw = nt / 32;
-  const int tid = (int)(threadIdx.x % nt), lane = tid & 31, warp = tid >> 5;
-  const int clen = (S + C - 1) / C, s0 = c * clen;
-  const int n = S - s0 < clen ? (S - s0 > 0 ? S - s0 : 0) : clen;   // the chunk's slots
-  float* qs = smem;               // rep * Dh, rotated
-  float* lg = qs + rep * Dh;      // rep * clen: logits, then exp
-  float* lnew = lg + rep * clen;  // rep
-  float* red = lnew + rep;        // nw
-  float* pv = red + nw;           // G * Dh: PV partial sums
-  float* cs = pv + G * Dh;        // Dh / 2
-  float* sn = cs + d2;            // Dh / 2
-  float* knr = sn + d2;           // Dh: the new K row, rotated
-  float* vnr = knr + Dh;          // Dh
-  float* raw = vnr + Dh;          // (rep + 2) * Dh: the head's q rows, K, V before RoPE
-
-  const int bh = b * Hkv + head;
-  const size_t row0 = ((size_t)l * a.B * Hkv + bh) * S;
-  const KV* kb = static_cast<const KV*>(a.k) + row0 * Dh;
-  const KV* vb = static_cast<const KV*>(a.v) + row0 * Dh;
-  const int* pb = a.pos + row0;
-  const int qp = a.q_pos[b];
-  const bool live = qp >= 0;
-  const int rp = a.rope_pos != nullptr ? a.rope_pos[b] : qp;
-  for (int i = tid; i < d2; i += nt) {
-    const float ang = (float)max(rp, 0) * a.inv_freq[i];
-    cs[i] = cosf(ang);
-    sn[i] = sinf(ang);
-  }
-  const int nq = Hq * Dh;
-  for (int i = tid; i < (rep + 2) * Dh; i += nt) {
-    const int m = i < rep * Dh ? head * rep * Dh + i
-                  : i < (rep + 1) * Dh ? nq + head * Dh + i - rep * Dh
-                                       : nq + (Hkv + head) * Dh + i - (rep + 1) * Dh;
-    raw[i] = qkv(m);
-  }
-  group_sync(gid, nt);
-  for (int i = tid; i < (rep + 1) * Dh; i += nt) {   // q rows, then K
-    const int r = i / Dh, d = i % Dh;
-    const float x1 = raw[r * Dh + d % d2], x2 = raw[r * Dh + d2 + d % d2];
-    const float y = d < d2 ? x1 * cs[d] - x2 * sn[d] : x2 * cs[d - d2] + x1 * sn[d - d2];
-    if (r < rep) qs[i] = y; else knr[d] = y;
-  }
-  for (int d = tid; d < Dh; d += nt) vnr[d] = raw[(rep + 1) * Dh + d];
-  group_sync(gid, nt);
-
-  for (int r = warp; r < rep; r += nw) {
-    float acc = 0.f;
-    for (int d = lane; d < Dh; d += 32) acc += qs[r * Dh + d] * knr[d];
-    acc = warp_sum(acc);
-    if (lane == 0) lnew[r] = live ? acc * a.scale : kNegInf;
-  }
-
-  {
-    const int rpw = 32 / LPR;
-    const int sub = lane / LPR, li = lane % LPR;
-    const int step = nw * rpw * kUnroll;
-    for (int base = warp * rpw * kUnroll; base < n; base += step) {
-      float kr[kUnroll][V];
-      bool vis[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + base + u * rpw + sub;
-        const int p = base + u * rpw + sub < n ? pb[s] : -1;
-        vis[u] = p >= 0 && p <= qp && (a.window <= 0 || p > qp - a.window);
-        if (vis[u]) {
-          load16(kb + (size_t)s * Dh + li * V, kr[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) kr[u][j] = 0.f;
-        }
-      }
-      for (int r = 0; r < rep; ++r) {
-        const float* qr = qs + r * Dh + li * V;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float acc = 0.f;
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc += qr[j] * kr[u][j];
-          for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-          const int i = base + u * rpw + sub;
-          if (li == 0 && i < n) {
-            float x = acc * a.scale;
-            if (kQuant) x *= a.ksc[row0 + s0 + i];
-            lg[r * clen + i] = vis[u] ? x : -INFINITY;
-          }
-        }
-      }
-    }
-  }
-  group_sync(gid, nt);
-
-  // per query row: the chunk's max m, e = exp(logit - m) (0 where masked), sum e
-  float* stats = w.stats + ((size_t)(bh * C + c) * rep) * 2;
-  for (int r = 0; r < rep; ++r) {
-    float* lr = lg + r * clen;
-    float m = kNegInf;
-    for (int i = tid; i < n; i += nt) m = fmaxf(m, lr[i]);
-    m = group_reduce<true>(m, red, gid, nt);
-    float sum = 0.f;
-    float* pe = w.pe + ((size_t)b * Hq + head * rep + r) * S + s0;
-    for (int i = tid; i < n; i += nt) {
-      const float e = lr[i] == -INFINITY ? 0.f : expf(lr[i] - m);
-      lr[i] = e;
-      pe[i] = e;
-      sum += e;
-    }
-    sum = group_reduce<false>(sum, red, gid, nt);
-    if (tid == 0) {
-      stats[2 * r] = m;
-      stats[2 * r + 1] = sum;
-    }
-  }
-  if (c == 0) {
-    T* kn = static_cast<T*>(a.kn) + ((size_t)l * a.B * Hkv + bh) * Dh;
-    T* vn = static_cast<T*>(a.vn) + ((size_t)l * a.B * Hkv + bh) * Dh;
-    for (int d = tid; d < Dh; d += nt) {
-      kn[d] = from_f<T>(knr[d]);
-      vn[d] = from_f<T>(vnr[d]);
-      w.vn[(size_t)bh * Dh + d] = vnr[d];
-    }
-    for (int r = tid; r < rep; r += nt) w.lnew[b * Hq + head * rep + r] = lnew[r];
-  }
-  group_sync(gid, nt);
-
-  // ov[r] = sum over the chunk of (e * v_scale) V, f32
-  const int li = tid % LPR, g = tid / LPR;
-  for (int r = 0; r < rep; ++r) {
-    const float* pr = lg + r * clen;
-    float acc[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int base = g; base < n; base += G * kUnroll) {
-      float vr[kUnroll][V];
-      float wt[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = base + u * G;
-        wt[u] = i < n ? pr[i] : 0.f;
-        if (wt[u] != 0.f) {
-          if (kQuant) wt[u] *= a.vsc[row0 + s0 + i];
-          load16(vb + (size_t)(s0 + i) * Dh + li * V, vr[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) vr[u][j] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] += wt[u] * vr[u][j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) pv[g * Dh + li * V + j] = acc[j];
-    group_sync(gid, nt);
-    float* ov = w.ov + ((size_t)(bh * C + c) * rep + r) * Dh;
-    for (int d = tid; d < Dh; d += nt) {
-      float o = 0.f;
-      for (int j = 0; j < G; ++j) o += pv[j * Dh + d];
-      ov[d] = o;
-    }
-    group_sync(gid, nt);
-  }
 }
 
 // Chunks of each (row, KV head) pair and warp groups a block's attention

@@ -1,18 +1,19 @@
 // Device helpers of the one-kernel decode steps, K14 (fused_decode.cu, B = 1)
-// and K15 (fused_decode_batch.cu, B rows): the layer table's products and
-// carrier row loads, the attention of one layer for every (row, KV head)
-// pair, split into chunks of its slots and combined, the phase clock, and
-// the cooperative launch of a step.
+// and K15 (fused_decode_batch.cu, B rows): the layer table's products, the
+// attention of one layer for every (row, KV head) pair, split into chunks of
+// its slots and combined, the phase clock, and the cooperative launch of a
+// step.
 //
 // Attention: each (row b, KV head) pair's slots split into C chunks, one
-// block a chunk (the K1 design within a chunk, decode_common.cuh: rows of
-// visible slots read once with 16-byte loads, f32 logits in shared memory).
-// Each chunk writes its max, its exp(logit - max) and their sum, and its
-// unnormalised PV; a combine phase after a grid-wide barrier adds the
-// chunks (out = sum_c e^(m_c - M) PV_c / denom + p_new vn) and rescales the
-// probabilities to the row's max. The chunk's q, K and V come from the QKV
-// product through a functor (element m of row b's QKV output), since the
-// two kernels keep their product partials in different layouts.
+// block (or warp group) a chunk (the K1 design within a chunk,
+// decode_common.cuh: rows of visible slots read once with 16-byte loads, f32
+// logits in shared memory). Each chunk writes its max, its exp(logit - max)
+// and their sum, and its unnormalised PV; after a grid-wide barrier the
+// chunks combine (out = sum_c e^(m_c - M) PV_c / denom + p_new vn) and the
+// probabilities rescale to the row's max: K15 in a phase of its own, K14 in
+// its O product's input. The chunk's q, K and V come from the QKV product
+// through a functor (element m of row b's QKV output), since the two
+// kernels keep their product outputs in different layouts.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -27,10 +28,10 @@
 
 // Phase clock (tools/torch_k14_phases.py builds a step's source with
 // -DSTEP_STAMPS): block 0 reads the card's nanosecond clock once before the
-// layers (after a barrier) and once after each phase's barrier, 9 a layer,
-// 1 + 9 L reads in all; the source's `..._stamps` entry copies them out
-// (copy_stamps). Without the flag STAMP_BEGIN, STAMP and STAMP_END compile
-// to nothing.
+// layers (after a barrier) and once after each phase's barrier (K15 9 a
+// layer, K14 8), 1 + 9 L (1 + 8 L) reads in all; the source's `..._stamps`
+// entry copies them out (copy_stamps). Without the flag STAMP_BEGIN, STAMP
+// and STAMP_END compile to nothing.
 #ifdef STEP_STAMPS
 constexpr int kMaxStamps = 8192;
 __device__ unsigned long long g_stamps[kMaxStamps];
@@ -99,15 +100,6 @@ __device__ __forceinline__ Product layer_product(const long long* t, int i, int 
                  reinterpret_cast<const __nv_bfloat16*>(t[2 * i + 1]), kh, N, gch};
 }
 
-// One 4-byte row segment of a carrier (a lane's 4 columns), or byte loads
-// at the ragged edge (zeros past `valid`).
-__device__ __forceinline__ uint32_t load_seg(const int8_t* p, bool vec_ok, int valid) {
-  if (vec_ok) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  uint32_t word = 0;
-  for (int b = 0; b < valid; ++b) word |= (uint32_t)(uint8_t)p[b] << (8 * b);
-  return word;
-}
-
 // One layer's attention inputs and outputs; B rows (K14: B = 1).
 struct AttnArgs {
   const void* k;            // (L, B, Hkv, S, Dh) T or int8
@@ -155,39 +147,63 @@ __device__ __forceinline__ int chunks_of(int pairs) {
   return c < 1 ? 1 : (c > kMaxChunks ? kMaxChunks : c);
 }
 
-// Shared memory of one chunk, in floats.
-template <typename KV>
-__host__ __device__ inline size_t attn_floats(int rep, int S, int Dh) {
-  const int G = kThreads / (Dh / VecOf<KV>::n);
-  return (size_t)rep * Dh + (size_t)rep * S + rep + kWarps + (size_t)G * Dh + 3 * Dh +
-         (size_t)(rep + 2) * Dh;
-}
-
 template <typename KV>
 inline bool head_dim_ok(int Dh) {
   const int lpr = Dh / VecOf<KV>::n;
   return Dh % VecOf<KV>::n == 0 && Dh % 2 == 0 && lpr >= 1 && lpr <= 32 && (lpr & (lpr - 1)) == 0;
 }
 
-// One chunk of one (row b, KV head) pair: q, K and V of the row's QKV output
-// (qkv(m), m in [0, (Hq + 2 Hkv) Dh)), RoPE, the chunk's logits, its max,
-// exp and sum, and its unnormalised PV; chunk 0 also emits the rotated K
-// row and the V row.
+// A block's warps may split into groups of nt threads (K15 where the pairs
+// outnumber the blocks); each group attends one chunk at a time, so a block
+// keeps that many chunks' K / V loads in flight (a chunk's phases, each
+// waiting on the one before, would otherwise leave the block waiting on one
+// chunk's latency). Named barrier 1 + gid joins a group; the phases of a
+// block with a producer warp beside its kThreads (K14) use these named
+// barriers only.
+__device__ __forceinline__ void group_sync(int gid, int nt) {
+  asm volatile("bar.sync %0, %1;" ::"r"(gid + 1), "r"(nt) : "memory");
+}
+
+template <bool kMax>
+__device__ __forceinline__ float group_reduce(float x, float* red, int gid, int nt) {
+  const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x % nt) >> 5;
+  x = kMax ? warp_max(x) : warp_sum(x);
+  if (lane == 0) red[warp] = x;
+  group_sync(gid, nt);
+  x = lane < nt / 32 ? red[lane] : (kMax ? kNegInf : 0.f);
+  x = kMax ? warp_max(x) : warp_sum(x);
+  group_sync(gid, nt);
+  return x;
+}
+
+// Floats of one group's chunk (nt threads; at most S slots).
+template <typename KV>
+__host__ __device__ inline size_t group_floats(int rep, int S, int Dh, int nt) {
+  const int G = nt / (Dh / VecOf<KV>::n);
+  return (size_t)rep * Dh + (size_t)rep * S + rep + nt / 32 + (size_t)G * Dh + 3 * Dh +
+         (size_t)(rep + 2) * Dh;
+}
+
+// One chunk of one (row b, KV head) pair, by a group of nt threads (gid;
+// K14 runs it with its 512 consumer threads as one group): q, K and V of
+// the row's QKV output (qkv(m), m in [0, (Hq + 2 Hkv) Dh)), RoPE, the
+// chunk's logits, its max, exp and sum, its unnormalised PV; chunk 0 also
+// emits the rotated K row and the V row.
 template <typename T, typename KV, class Q>
-__device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int head, int c,
-                                          int C, Q qkv, const AttnWs& w, float* smem) {
+__device__ __noinline__ void attend_group(const AttnArgs& a, int l, int b, int head, int c, int C,
+                                          Q qkv, const AttnWs& w, float* smem, int gid, int nt) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int V = VecOf<KV>::n;
   const int Dh = a.Dh, S = a.S, Hkv = a.Hkv, Hq = a.Hq, rep = Hq / Hkv, d2 = Dh / 2;
-  const int LPR = Dh / V, G = kThreads / LPR;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int LPR = Dh / V, G = nt / LPR, nw = nt / 32;
+  const int tid = (int)(threadIdx.x % nt), lane = tid & 31, warp = tid >> 5;
   const int clen = (S + C - 1) / C, s0 = c * clen;
   const int n = S - s0 < clen ? (S - s0 > 0 ? S - s0 : 0) : clen;   // the chunk's slots
   float* qs = smem;               // rep * Dh, rotated
   float* lg = qs + rep * Dh;      // rep * clen: logits, then exp
   float* lnew = lg + rep * clen;  // rep
-  float* red = lnew + rep;        // kWarps
-  float* pv = red + kWarps;       // G * Dh: PV partial sums
+  float* red = lnew + rep;        // nw
+  float* pv = red + nw;           // G * Dh: PV partial sums
   float* cs = pv + G * Dh;        // Dh / 2
   float* sn = cs + d2;            // Dh / 2
   float* knr = sn + d2;           // Dh: the new K row, rotated
@@ -202,29 +218,29 @@ __device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int h
   const int qp = a.q_pos[b];
   const bool live = qp >= 0;
   const int rp = a.rope_pos != nullptr ? a.rope_pos[b] : qp;
-  for (int i = tid; i < d2; i += kThreads) {
+  for (int i = tid; i < d2; i += nt) {
     const float ang = (float)max(rp, 0) * a.inv_freq[i];
     cs[i] = cosf(ang);
     sn[i] = sinf(ang);
   }
   const int nq = Hq * Dh;
-  for (int i = tid; i < (rep + 2) * Dh; i += kThreads) {
+  for (int i = tid; i < (rep + 2) * Dh; i += nt) {
     const int m = i < rep * Dh ? head * rep * Dh + i
                   : i < (rep + 1) * Dh ? nq + head * Dh + i - rep * Dh
                                        : nq + (Hkv + head) * Dh + i - (rep + 1) * Dh;
     raw[i] = qkv(m);
   }
-  __syncthreads();
-  for (int i = tid; i < (rep + 1) * Dh; i += kThreads) {   // q rows, then K
+  group_sync(gid, nt);
+  for (int i = tid; i < (rep + 1) * Dh; i += nt) {   // q rows, then K
     const int r = i / Dh, d = i % Dh;
     const float x1 = raw[r * Dh + d % d2], x2 = raw[r * Dh + d2 + d % d2];
     const float y = d < d2 ? x1 * cs[d] - x2 * sn[d] : x2 * cs[d - d2] + x1 * sn[d - d2];
     if (r < rep) qs[i] = y; else knr[d] = y;
   }
-  for (int d = tid; d < Dh; d += kThreads) vnr[d] = raw[(rep + 1) * Dh + d];
-  __syncthreads();
+  for (int d = tid; d < Dh; d += nt) vnr[d] = raw[(rep + 1) * Dh + d];
+  group_sync(gid, nt);
 
-  for (int r = warp; r < rep; r += kWarps) {
+  for (int r = warp; r < rep; r += nw) {
     float acc = 0.f;
     for (int d = lane; d < Dh; d += 32) acc += qs[r * Dh + d] * knr[d];
     acc = warp_sum(acc);
@@ -234,7 +250,7 @@ __device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int h
   {
     const int rpw = 32 / LPR;
     const int sub = lane / LPR, li = lane % LPR;
-    const int step = kWarps * rpw * kUnroll;
+    const int step = nw * rpw * kUnroll;
     for (int base = warp * rpw * kUnroll; base < n; base += step) {
       float kr[kUnroll][V];
       bool vis[kUnroll];
@@ -268,24 +284,24 @@ __device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int h
       }
     }
   }
-  __syncthreads();
+  group_sync(gid, nt);
 
   // per query row: the chunk's max m, e = exp(logit - m) (0 where masked), sum e
   float* stats = w.stats + ((size_t)(bh * C + c) * rep) * 2;
   for (int r = 0; r < rep; ++r) {
     float* lr = lg + r * clen;
     float m = kNegInf;
-    for (int i = tid; i < n; i += kThreads) m = fmaxf(m, lr[i]);
-    m = block_reduce<true>(m, red);
+    for (int i = tid; i < n; i += nt) m = fmaxf(m, lr[i]);
+    m = group_reduce<true>(m, red, gid, nt);
     float sum = 0.f;
     float* pe = w.pe + ((size_t)b * Hq + head * rep + r) * S + s0;
-    for (int i = tid; i < n; i += kThreads) {
+    for (int i = tid; i < n; i += nt) {
       const float e = lr[i] == -INFINITY ? 0.f : expf(lr[i] - m);
       lr[i] = e;
       pe[i] = e;
       sum += e;
     }
-    sum = block_reduce<false>(sum, red);
+    sum = group_reduce<false>(sum, red, gid, nt);
     if (tid == 0) {
       stats[2 * r] = m;
       stats[2 * r + 1] = sum;
@@ -294,14 +310,14 @@ __device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int h
   if (c == 0) {
     T* kn = static_cast<T*>(a.kn) + ((size_t)l * a.B * Hkv + bh) * Dh;
     T* vn = static_cast<T*>(a.vn) + ((size_t)l * a.B * Hkv + bh) * Dh;
-    for (int d = tid; d < Dh; d += kThreads) {
+    for (int d = tid; d < Dh; d += nt) {
       kn[d] = from_f<T>(knr[d]);
       vn[d] = from_f<T>(vnr[d]);
       w.vn[(size_t)bh * Dh + d] = vnr[d];
     }
-    for (int r = tid; r < rep; r += kThreads) w.lnew[b * Hq + head * rep + r] = lnew[r];
+    for (int r = tid; r < rep; r += nt) w.lnew[b * Hq + head * rep + r] = lnew[r];
   }
-  __syncthreads();
+  group_sync(gid, nt);
 
   // ov[r] = sum over the chunk of (e * v_scale) V, f32
   const int li = tid % LPR, g = tid / LPR;
@@ -333,14 +349,14 @@ __device__ __noinline__ void attend_chunk(const AttnArgs& a, int l, int b, int h
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) pv[g * Dh + li * V + j] = acc[j];
-    __syncthreads();
+    group_sync(gid, nt);
     float* ov = w.ov + ((size_t)(bh * C + c) * rep + r) * Dh;
-    for (int d = tid; d < Dh; d += kThreads) {
+    for (int d = tid; d < Dh; d += nt) {
       float o = 0.f;
       for (int j = 0; j < G; ++j) o += pv[j * Dh + d];
       ov[d] = o;
     }
-    __syncthreads();
+    group_sync(gid, nt);
   }
 }
 

@@ -28,7 +28,7 @@ BUILD = PKG / "_build"
 
 SOURCES = ("decode_attention", "sidecar_update", "row_write", "chunk_attention",
            "kv_compact", "quant_matmul", "w4_matmul", "w4_stream", "w4_gemm",
-           "fused_decode", "fused_decode_batch")
+           "fused_decode", "fused_decode_batch", "quant_gemv")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -108,18 +108,20 @@ def load(name: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
         return lib
 
 
-def load_debug(name: str, define: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
-    """A debug build of one source: compiled anew with -D`define` (the
-    source's own instrumentation, such as STEP_STAMPS or STEP_DUMP) into
-    BUILD/lib<name>_<define>.so and loaded with `signatures` declared. The
+def load_debug(name: str, define, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    """A debug build of one source: compiled anew with -D for `define` (one
+    name, or several: the source's own instrumentation, such as STEP_STAMPS
+    or STEP_DUMP, and its diagnostic switches) into
+    BUILD/lib<name>_<defines>.so and loaded with `signatures` declared. The
     wrappers go on loading the normal build unless the caller puts this
     one in _libs[name]."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    lib = BUILD / f"lib{name}_{define.lower()}.so"
-    out = subprocess.run([nvcc_path(), *_flags(name), f"-D{define}", "-o", str(lib),
-                          str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    defines = (define,) if isinstance(define, str) else tuple(define)
+    lib = BUILD / f"lib{name}_{'_'.join(d.lower() for d in defines)}.so"
+    out = subprocess.run([nvcc_path(), *_flags(name), *(f"-D{d}" for d in defines), "-o",
+                          str(lib), str(CSRC / f"{name}.cu")], capture_output=True, text=True)
     if out.returncode:
-        raise RuntimeError(f"CUDA build of {name}.cu with -D{define} failed:\n"
+        raise RuntimeError(f"CUDA build of {name}.cu with -D{' -D'.join(defines)} failed:\n"
                            f"{out.stdout}{out.stderr}")
     dll = ctypes.CDLL(str(lib))
     for fn, (argtypes, restype) in signatures.items():

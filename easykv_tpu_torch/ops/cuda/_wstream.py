@@ -1,5 +1,6 @@
-"""Launch of the weight-streaming kernels K10 and K13
-(csrc/weight_stream.cuh), shared by their wrappers: the plan (how many rows
+"""Launch of the weight-streaming kernels K10 and K13 at 1 < M <= 256
+(csrc/weight_stream.cuh; K13 at M = 1 has its own kernel and shares only
+`check_args`), shared by their wrappers: the plan (how many rows
 a warp takes, how many row blocks a block walks, and over how many blocks
 the rows split, so that the grid holds about two blocks per SM), the
 workspace of the split rows' partial sums and the tickets that pick the
@@ -105,6 +106,28 @@ def launch(source: str, entry: str, signatures, x: torch.Tensor, w: torch.Tensor
     """Checks what the C side cannot (types, shapes, devices, layout),
     plans, and launches `entry` of `source` on x's current stream:
     out (M, N) = x (M, K) @ dequant(w, scale), in x's dtype or f32."""
+    check_args(entry, x, w, scale, scale_dtype, scale_shape)
+    M, K = x.shape
+    R, N = w.shape
+    tiles, rc, passes, ksplit = plan(M, R, N, G, G > 0)
+    stream = _build.stream_of(x)
+    dev = x.device
+    ws = tk = None
+    if ksplit > 1:
+        ws, tk = workspace(dev, stream, ksplit * M * N), tickets(dev, stream)
+    out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=dev)
+    fn = getattr(_build.load(source, signatures), entry)
+    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), ptr(ws), ptr(tk),
+             M, K, N, G, rc, passes, ksplit, int(x.dtype == torch.bfloat16), int(out_f32),
+             stream)
+    _build.check(err, entry)
+    return out
+
+
+def check_args(entry: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+               scale_dtype: torch.dtype, scale_shape) -> None:
+    """What the C side of a weight product cannot check: types, shapes,
+    devices, layout (w 16-byte aligned)."""
     if x.dtype not in DTYPES:
         raise TypeError(f"{entry} takes float32 or bfloat16 activations, got {x.dtype}")
     if (x.dim() != 2 or w.dtype != torch.int8 or w.dim() != 2
@@ -117,20 +140,6 @@ def launch(source: str, entry: str, signatures, x: torch.Tensor, w: torch.Tensor
             or not w.is_contiguous() or not scale.is_contiguous() or w.data_ptr() % 16):
         raise ValueError(f"{entry}: x, w and scale must be contiguous and on {dev}, w "
                          "16-byte aligned")
-    M, K = x.shape
-    R, N = w.shape
-    tiles, rc, passes, ksplit = plan(M, R, N, G, G > 0)
-    stream = _build.stream_of(x)
-    ws = tk = None
-    if ksplit > 1:
-        ws, tk = workspace(dev, stream, ksplit * M * N), tickets(dev, stream)
-    out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=dev)
-    fn = getattr(_build.load(source, signatures), entry)
-    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), ptr(ws), ptr(tk),
-             M, K, N, G, rc, passes, ksplit, int(x.dtype == torch.bfloat16), int(out_f32),
-             stream)
-    _build.check(err, entry)
-    return out
 
 
 def ptr(t: Optional[torch.Tensor]):

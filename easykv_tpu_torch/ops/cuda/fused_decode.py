@@ -27,16 +27,20 @@ kernel reads each layer's weights through a device table of per-layer
 pointers, built once per layer list and kept while every tensor it points
 at is still the one the layers name (the tensors are held with it; moving
 the weights elsewhere, or putting a new layer, weight or norm storage in
-place of one, builds a new table). The plain layer loop (step_plain), the
-argument checks (check_step_args) and the layer table are shared with the
-batched step K15 (ops/cuda/fused_decode_batch.py).
+place of one, builds a new table), and each carrier through a tensor map
+made from that table once (`_tensor_maps`). `items` mirrors how the
+kernel deals each product's items (a scale group of 128 columns) to
+its blocks and warps, `slot_layout` its shared memory.
+The plain layer loop (step_plain), the argument checks (check_step_args)
+and the layer table are shared with the batched step K15
+(ops/cuda/fused_decode_batch.py).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import weakref
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,10 +55,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _int, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "fused_decode_step": ([_vp] * 16 + [_int] * 12 + [_f, _f] + [_int] * 3 + [_vp], _int),
+    "fused_decode_step": ([_vp] * 17 + [_int] * 13 + [_f, _f] + [_int] * 3 + [_vp], _int),
     "fused_decode_step_smem": ([_int] * 12, ctypes.c_size_t),
+    "fused_decode_step_slots": ([_int] * 12, _int),
+    "fused_decode_step_grid": ([_int] * 12, _int),
     "fused_decode_step_ws": ([_int] * 10, ctypes.c_size_t),
+    "fused_decode_maps": ([_vp] + [_int] * 10 + [_vp], _int),
 }
+# csrc/fused_decode.cu's item geometry (the kernel's layout_of and prod_of)
+TILE = 128            # columns of an item (kTN)
+THREADS = 512         # threads of a block (fused_step.cuh kThreads)
+MAX_SLOTS = 12        # warps with a carrier slot (kMaxSlots)
+MAX_CHUNKS = 8        # attention chunks of a KV head (fused_step.cuh kMaxChunks)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +205,9 @@ def fused_decode_step_plain(layers, cfg, k, v, pos, h0, q_pos, k_scale=None, v_s
 # ---------------------------------------------------------------------------
 
 _tables: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_maps: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _GRID = 0   # blocks of the cooperative launch; 0: as many as are co-resident
+MAP_BYTES = 128   # a CUtensorMap
 
 
 def _layer_key(layers) -> Tuple[int, ...]:
@@ -254,9 +268,94 @@ def _layer_table(layers, carriers, dt: torch.dtype, dev: torch.device):
     return table, groups
 
 
+def _tensor_maps(layers, table: torch.Tensor, dims, lib) -> Tuple[torch.Tensor, int]:
+    """(the (L, 4) tensor maps of the layers' carriers on the table's device,
+    the mask of the products that have them), made by the C side from the
+    table's pointers once per layer table and kept beside it."""
+    hit = _maps.get(layers)
+    if hit is not None and hit[0] is table:
+        return hit[1], hit[2]
+    host = table.cpu()
+    buf = torch.zeros(host.shape[0] * 4 * MAP_BYTES, dtype=torch.uint8)
+    mask = lib.fused_decode_maps(host.data_ptr(), host.shape[0], *dims, buf.data_ptr())
+    if mask < 0:
+        _build.check(-mask, "fused_decode_maps")
+    maps = buf.to(table.device)
+    _maps[layers] = (table, maps, mask)
+    return maps, mask
+
+
 @functools.lru_cache(maxsize=None)
 def _inv_freq(Dh: int, base: float, dev: torch.device) -> torch.Tensor:
     return rope_inv_freq(Dh, base, dev)
+
+
+class Product(NamedTuple):
+    """One product of a layer as K14 streams it: its carrier (kh, N) in gch
+    groups of G rows, its N columns in `tiles` tiles of TILE columns; an
+    item is one group of one tile."""
+    kh: int
+    N: int
+    gch: int
+    G: int
+    tiles: int
+
+
+def products(D: int, F_: int, Hq: int, Hkv: int, Dh: int, groups) -> Tuple[Product, ...]:
+    """wqkv, wo, wgu, wd as csrc/fused_decode.cu's prod_of."""
+    out = []
+    for kh, N, gch in ((D // 2, (Hq + 2 * Hkv) * Dh, groups[0]), (Hq * Dh // 2, D, groups[1]),
+                       (D // 2, 2 * F_, groups[2]), (F_ // 2, D, groups[3])):
+        out.append(Product(kh, N, gch, kh // gch, -(-N // TILE)))
+    return tuple(out)
+
+
+def items(P: Product, blocks: int, slots: int):
+    """The items (group, tile) each (block, warp) of a grid of `blocks` takes
+    of product P, in order, as csrc/fused_decode.cu deals them (deal_of):
+    block b takes group b mod gch (or b, b + blocks, ... where the groups
+    outnumber the blocks), the blocks of a group its tiles in turn, warp w
+    of them (w < slots) tiles rank + nb w, rank + nb (w + slots), ...
+    Returns {(block, warp): [(j, t), ...]}."""
+    out = {}
+    spread = blocks >= P.gch
+    for b in range(blocks):
+        j0 = b % P.gch if spread else b
+        rank = b // P.gch if spread else 0
+        step = P.gch if spread else blocks
+        for w in range(slots):
+            taken = []
+            for j in range(j0, P.gch, step):
+                nb = (blocks - j + P.gch - 1) // P.gch if spread else 1
+                taken += [(j, t) for t in range(rank + nb * w, P.tiles, nb * slots)]
+                if spread:
+                    break
+            out[(b, w)] = taken
+    return out
+
+
+def _group_floats(rep: int, S: int, Dh: int, kv_bytes: int) -> int:
+    G = THREADS // (Dh // (16 // kv_bytes))
+    return rep * Dh + rep * S + rep + THREADS // 32 + G * Dh + 3 * Dh + (rep + 2) * Dh
+
+
+def slot_layout(prods: Sequence[Product], Hq: int, Hkv: int, Dh: int, S: int,
+                kv_bytes: int) -> Tuple[int, int, int]:
+    """(slot bytes, warps with a slot, shared memory bytes of a block) as
+    csrc/fused_decode.cu's layout_of: the slots (two bf16 scale rows and
+    an item's carrier rows, padded to 16, of TILE bytes), which the
+    attention's chunk shares, their barriers, and the input prep (staged
+    input rows, planes, the row table)."""
+    up = lambda n, a: -(-n // a) * a  # noqa: E731
+    gp = max(up(P.G, 16) for P in prods)
+    gmax = max(P.G for P in prods)
+    slot = up(4 * TILE + gp * TILE, 128)
+    prep = 4 * (2 * gmax + THREADS // 32 + 4 + Hq * (3 + MAX_CHUNKS)) + 6 * gp
+    att = 4 * _group_floats(Hq // Hkv, S, Dh, kv_bytes)
+    fixed = 128 + up(prep, 16) + 8 * MAX_SLOTS
+    slots = min(MAX_SLOTS, max(1, (_build.SMEM_LIMIT - fixed) // slot))
+    region = up(max(slots * slot, att), 128)
+    return slot, slots, 128 + up(region + 8 * slots, 16) + prep
 
 
 def check_step_args(key, max_rows, layers, cfg, k, v, pos, h0, q_pos, k_scale, v_scale,
@@ -323,12 +422,17 @@ def fused_decode_step(
     table, groups, quant = check_step_args("K14", 1, layers, cfg, k, v, pos, h0, q_pos,
                                            k_scale, v_scale, rope_pos)
     lib = _build.load("fused_decode", SIGNATURES)
-    smem = lib.fused_decode_step_smem(D, F_, Hq, Hkv, Dh, S, *groups, _DTYPES[dt], int(quant))
+    dims = (D, F_, Hq, Hkv, Dh, S, *groups, _DTYPES[dt], int(quant))
+    smem = lib.fused_decode_step_smem(*dims)
     if smem == 0:
         raise ValueError(f"head_dim {Dh}: a cache row must be 1, 2, 4, 8, 16 or 32 16-byte loads")
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"K14 needs {smem} bytes of shared memory a block "
                          f"(limit {_build.SMEM_LIMIT})")
+    maps, mask = _tensor_maps(layers, table, (D, F_, Hq, Hkv, Dh, *groups), lib)
+    blocks = _GRID or lib.fused_decode_step_grid(*dims)
+    if blocks < 1:
+        _build.check(-blocks, "fused_decode_step")
     stream = _build.stream_of(h0)
     ws = _wstream.workspace(dev, stream, lib.fused_decode_step_ws(D, F_, Hq, Hkv, Dh, S, *groups))
     h = torch.empty((1, D), dtype=dt, device=dev)
@@ -339,12 +443,12 @@ def fused_decode_step(
     window = 0 if cfg.sliding_window is None else int(cfg.sliding_window)
     ptr = _wstream.ptr
     err = lib.fused_decode_step(
-        table.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), ptr(k_scale),
-        ptr(v_scale), h0.data_ptr(), q_pos.data_ptr(), ptr(rope_pos),
+        table.data_ptr(), maps.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        ptr(k_scale), ptr(v_scale), h0.data_ptr(), q_pos.data_ptr(), ptr(rope_pos),
         _inv_freq(Dh, rope_base_for(cfg), dev).data_ptr(), h.data_ptr(), kn.data_ptr(),
-        vn.data_ptr(), probs.data_ptr(), p_new.data_ptr(), ws.data_ptr(), L, D, F_, Hq, Hkv,
-        Dh, S, *groups, window, cfg.rms_norm_eps, Dh ** -0.5, _DTYPES[dt], int(quant),
-        _GRID, stream)
+        vn.data_ptr(), probs.data_ptr(), p_new.data_ptr(), ws.data_ptr(), L, D, F_, Hq, Hkv, Dh,
+        S, *groups, window, mask, cfg.rms_norm_eps, Dh ** -0.5, _DTYPES[dt], int(quant), blocks,
+        stream)
     _build.check(err, "fused_decode_step")
     fused_decode_step.launches += 1
     return h, kn, vn, probs, p_new

@@ -409,3 +409,59 @@ def test_confidence_line_matches_jax(trees, mode, capsys):
     np.testing.assert_allclose([float(x) for x in tnum.groups()],
                                [float(x) for x in jnum.groups()], rtol=0, atol=1e-4)
     assert float(tnum.group(1)) < 1.0          # a spread distribution, not one-hot
+
+
+# (D, F, Hq, Hkv, Dh, groups) of K14's widths: LLaMa-2-7B (groups of 128
+# packed rows, wd in 43), Mistral-7B (GQA), the card tests' small and ragged
+# widths (groups of 64 and 12 rows)
+K14_WIDTHS = {"7b": (4096, 11008, 32, 32, 128, (16, 16, 16, 43)),
+              "mistral": (4096, 14336, 32, 8, 128, (16, 16, 16, 56)),
+              "small": (256, 512, 4, 2, 64, (2, 2, 2, 4)),
+              "ragged": (72, 192, 9, 9, 8, (3, 3, 3, 8))}
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 64, 132, 200])
+@pytest.mark.parametrize("width", list(K14_WIDTHS))
+def test_k14_items_cover_every_unit_once(width, blocks):
+    """K14's dealing of each product's items (csrc/fused_decode.cu
+    deal_of, mirrored by fused_decode.items): over the blocks and their
+    slot warps, every (scale group, 128 columns) of every product is taken
+    exactly once, so every (group, column) of the carrier is; a block
+    needs one group's input where the blocks outnumber the groups; and the
+    item a warp asks for ahead of a product (its first) is the one it
+    takes first."""
+    D, F_, Hq, Hkv, Dh, groups = K14_WIDTHS[width]
+    for P in k14_mod.products(D, F_, Hq, Hkv, Dh, groups):
+        for slots in (1, 12):
+            taken = k14_mod.items(P, blocks, slots)
+            hits = np.zeros((P.gch, P.tiles), np.int64)
+            for (b, w), its in taken.items():
+                for j, t in its:
+                    hits[j, t] += 1
+                if blocks >= P.gch:
+                    assert len({j for j, _ in its}) <= 1
+                if its:   # the ahead item: group b mod gch (or b), tile rank + nb w
+                    spread = blocks >= P.gch
+                    j0 = b % P.gch if spread else b
+                    nb = (blocks - j0 + P.gch - 1) // P.gch if spread else 1
+                    assert its[0] == (j0, (b // P.gch if spread else 0) + nb * w)
+            assert (hits == 1).all()
+            cols = np.zeros(P.N, np.int64)
+            for t in range(P.tiles):
+                cols[t * k14_mod.TILE:(t + 1) * k14_mod.TILE] += 1
+            assert (cols == 1).all() and P.G * P.gch == P.kh
+
+
+@pytest.mark.parametrize("width,kv_bytes", [(w, b) for w in K14_WIDTHS for b in (1, 2, 4)
+                                             if K14_WIDTHS[w][4] % (16 // b) == 0])
+def test_k14_slots_and_prep_fit_shared_memory(width, kv_bytes):
+    """The carrier slots (which the attention's chunk shares), their
+    barriers and the input prep fit a block's 232,448 bytes of shared
+    memory at the main path's cache (S = 768) and at the card tests' (S =
+    256), with 12 slot warps at every width here."""
+    D, F_, Hq, Hkv, Dh, groups = K14_WIDTHS[width]
+    prods = k14_mod.products(D, F_, Hq, Hkv, Dh, groups)
+    for S in (256, 768):
+        slot, slots, total = k14_mod.slot_layout(prods, Hq, Hkv, Dh, S, kv_bytes)
+        assert total <= 232448 and slots == k14_mod.MAX_SLOTS
+        assert slot % 128 == 0 and slot >= 4 * k14_mod.TILE + max(P.G for P in prods) * 128

@@ -970,6 +970,98 @@ def test_k13_kernel_matches_plain(cuda, name, dtype, M, out_f32):
     assert _quant_close(got, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "head"])
+def test_k13_m1_kernel_matches_plain_at_every_width(cuda, name, dtype):
+    """K13's M = 1 kernel (csrc/quant_gemv.cu) at the fused tree's four
+    products and the LM head, x in f32 and bf16, out in x's dtype and in
+    f32, within quant_limit's bar of its plain version; one launch each."""
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    quant, w = _qweights(cuda, name, 70)
+    ql = quant.quantize_linear(w)
+    x = _qx(cuda, 1, w.shape[0], dtype, 71)
+    for out_f32 in (False, True):
+        before = quant_matmul.launches
+        got = quant_matmul(x, ql["q"], ql["s"], out_f32=out_f32)
+        ref = quant_matmul_plain(x, ql["q"], ql["s"], out_f32=out_f32)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == before + 1
+        assert _quant_close(got, ref) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("N", [40, 264, 4112])
+@pytest.mark.parametrize("x_offset", [0, 2, 16], ids=["x-aligned", "x+2B", "x+16B"])
+def test_k13_m1_ragged_widths_and_offsets(cuda, N, x_offset):
+    """K13 at M = 1 at widths that are not a multiple of 16 (40, 264: the
+    producer's own loads) or of its 256-column slab (4112: a partial slab by
+    the tensor map), x at a 2- and a 16-byte offset (an f32 x at 4 bytes for
+    2), bf16 and f32 x."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    g = torch.Generator(device=cuda).manual_seed(N)
+    ql = quant.quantize_linear(torch.randn((2048, N), generator=g, device=cuda) * 0.02)
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.tensor([], dtype=dtype).element_size()
+        off = -(-x_offset // size)
+        base = torch.randn((2048 + 16,), generator=g, device=cuda).to(dtype)
+        x = base[off:off + 2048].view(1, 2048)
+        assert (x.data_ptr() - base.data_ptr()) == off * size
+        got = quant_matmul(x, ql["q"], ql["s"])
+        ref = quant_matmul_plain(x, ql["q"], ql["s"])
+        torch.cuda.synchronize()
+        assert _quant_close(got, ref)
+
+
+def test_k13_m1_gives_the_same_bits_every_run(cuda):
+    """K13's M = 1 cluster partials add in rank order and it keeps no state
+    between launches (no workspace, no ticket): two launches give the same
+    bits, and so do launches in flight on two streams at once."""
+    from easykv_tpu_torch.ops.cuda.quant_matmul import (gemv_plan, quant_matmul,
+                                                        quant_matmul_plain)
+    for name in ("wo", "wd"):
+        quant, w = _qweights(cuda, name, 72)
+        ql = quant.quantize_linear(w)
+        assert gemv_plan(*w.shape).cluster > 1
+        xs = [_qx(cuda, 1, w.shape[0], torch.bfloat16, 73 + i) for i in range(2)]
+        first = [quant_matmul(x, ql["q"], ql["s"]) for x in xs]
+        assert all(torch.equal(a, quant_matmul(x, ql["q"], ql["s"])) for a, x in zip(first, xs))
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(32):
+            for i, (st, x) in enumerate(zip(streams, xs)):
+                with torch.cuda.stream(st):
+                    outs.append((i, quant_matmul(x, ql["q"], ql["s"])))
+        torch.cuda.synchronize()
+        assert all(torch.equal(y, first[i]) for i, y in outs)
+        assert all(_quant_close(a, quant_matmul_plain(x, ql["q"], ql["s"]))
+                   for a, x in zip(first, xs))
+
+
+def test_k13_and_k14_layouts_match_their_python_mirrors(cuda):
+    """The shared memory the C side of K13 (M = 1) and K14 lays out is the
+    one their Python mirrors compute (quant_matmul.gemv_smem,
+    fused_decode.slot_layout), which the CPU tests hold to the card's
+    232,448 bytes."""
+    from easykv_tpu_torch.ops.cuda import _build, fused_decode, quant_matmul
+    lib13 = _build.load("quant_gemv", quant_matmul.GEMV_SIGNATURES)
+    for K, N in W7B.values():
+        p = quant_matmul.gemv_plan(K, N)
+        assert lib13.quant_gemv_smem(K, p.rs, p.stages, p.cluster) == quant_matmul.gemv_smem(K, p)
+    lib14 = _build.load("fused_decode", fused_decode.SIGNATURES)
+    for D, F, Hq, Hkv, L, S, group in {**K14_SHAPES, **K14_RAGGED}.values():
+        Dh = D // Hq
+        groups = (D // 2 // group, Hq * Dh // 2 // group, D // 2 // group, F // 2 // group)
+        prods = fused_decode.products(D, F, Hq, Hkv, Dh, groups)
+        for dtype, kv_int8, kv_bytes in ((1, 0, 2), (0, 0, 4), (1, 1, 1)):
+            if Dh % (16 // kv_bytes):
+                continue
+            slot, slots, total = fused_decode.slot_layout(prods, Hq, Hkv, Dh, S, kv_bytes)
+            args = (D, F, Hq, Hkv, Dh, S, *groups, dtype, kv_int8)
+            assert lib14.fused_decode_step_smem(*args) == total
+            assert lib14.fused_decode_step_slots(*args) == slots
+
+
 def test_quant_kernels_raise_on_what_they_do_not_take(cuda):
     """A CUDA tensor of a type, shape or layout a kernel does not take
     raises, and nothing runs: neither the kernel nor its plain version."""
@@ -1124,6 +1216,8 @@ K14_SHAPES = {  # D, F, Hq, Hkv, L, S, group
     "small": (256, 512, 4, 2, 2, 256, 64),
     "7b": (4096, 11008, 32, 32, 2, 768, 128),
 }
+# wqkv 216, wo and wd 72 columns: not multiples of 16 (9 heads of 8, groups of 12)
+K14_RAGGED = {"small-ragged": (72, 192, 9, 9, 2, 256, 12)}
 
 
 def _k14_close(got, ref):
@@ -1153,7 +1247,7 @@ def _fused_tree(D, F, Hq, Hkv, L, group, window, dtype):
 
 def _k14_args(cuda, shape, kv, rope, seed):
     dtype = torch.float32 if kv == "f32" else torch.bfloat16
-    D, F, Hq, Hkv, L, S, group = K14_SHAPES[shape]
+    D, F, Hq, Hkv, L, S, group = {**K14_SHAPES, **K14_RAGGED}[shape]
     cfg, tree = _fused_tree(D, F, Hq, Hkv, L, group, None, dtype)
     Dh = D // Hq
     g = torch.Generator(device=cuda).manual_seed(seed)
@@ -1186,6 +1280,34 @@ def test_k14_kernel_matches_plain(cuda, shape, kv, rope):
         assert _k14_close(a, b)
     again = fused_decode_step(tree.layers, cfg, *args, rope_pos=rope_pos)
     assert all(torch.equal(a, b) for a, b in zip(got, again))      # the same in every run
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["q_pos", "rope_pos"])
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+def test_k14_ragged_widths_match_plain(cuda, kv, rope):
+    """K14 where three of the four products have a width that is not a
+    multiple of 16 (K14_RAGGED), so no tensor map takes their carriers and
+    the warps copy their items themselves, held as
+    test_k14_kernel_matches_plain holds the other shapes (a head of 8 is
+    half a 16-byte load of an int8 cache row: bf16 and f32 caches)."""
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step, fused_decode_step_plain
+    cfg, tree, args, rope_pos = _k14_args(cuda, "small-ragged", kv, rope, 8)
+    got = fused_decode_step(tree.layers, cfg, *args, rope_pos=rope_pos)
+    ref = fused_decode_step_plain(tree.layers, cfg, *args, rope_pos=rope_pos)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _k14_close(a, b)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_k14_gives_the_same_bits_every_run(cuda, kv):
+    """K14 adds its partials in a fixed order and keeps no state between
+    launches: three launches on one input at 7B width give the same bits."""
+    from easykv_tpu_torch.ops.cuda.fused_decode import fused_decode_step
+    cfg, tree, args, _ = _k14_args(cuda, "7b", kv, False, 9)
+    outs = [fused_decode_step(tree.layers, cfg, *args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
 
 
 def test_k14_dead_row(cuda):

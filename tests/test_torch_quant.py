@@ -32,7 +32,7 @@ from easykv_tpu.ops.pallas.w4_stream import (arith_scale_pair as j_pair,
 from easykv_tpu_torch.config import ModelConfig
 from easykv_tpu_torch.models.convert import from_jax_params
 from easykv_tpu_torch.ops import quant as tq
-from easykv_tpu_torch.ops.cuda import _wstream, w4_matmul, w4_stream
+from easykv_tpu_torch.ops.cuda import _wstream, quant_matmul, w4_matmul, w4_stream
 from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
 from easykv_tpu_torch.ops.cuda.w4_matmul import w4a16_gemv_plain
 from easykv_tpu_torch.ops.cuda.w4_stream import (w4a16_gemm_arith_plain,
@@ -353,6 +353,37 @@ def test_k11_plan_covers_every_tile(M):
         w4_stream.gemm_plan(513, 4096, 4096)
     with pytest.raises(ValueError, match="% 128"):
         w4_stream.gemm_plan(4, 4096 + 128, 4096)
+
+
+# (K, N) of K13's products at M = 1: LLaMa-2-7B's fused tree (wqkv, wo, wgu,
+# wd) and head, Mistral-7B's wd, ragged widths and depths
+K13_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
+              (14336, 4096), (4096, 300), (4096, 4112), (1000, 264), (40, 40), (16, 8))
+
+
+@pytest.mark.parametrize("K,N", K13_SHAPES)
+def test_k13_gemv_plan_covers_every_row_and_column(K, N):
+    """K13's M = 1 plan (csrc/quant_gemv.cu's slabs, stages and clusters):
+    every (row, column) is taken by exactly one block, each block of a
+    cluster takes at least one stage, a stage is a multiple of the 16 rows a
+    consumer pass takes, the cluster is the largest power of two up to 8
+    (and up to the stages) that keeps a clustered grid within two blocks an
+    SM of 132 SMs, and a block's shared memory (ring, partials, x rows)
+    fits two to an SM."""
+    p = quant_matmul.gemv_plan(K, N)
+    assert p.rs % quant_matmul.ROW_LANES == 0 and p.rs <= 256 and 2 <= p.stages <= 16
+    assert p.cluster in (1, 2, 4, 8)
+    assert _covered_once(N, [s * quant_matmul.TN for s in range(p.slabs)], quant_matmul.TN)
+    hits = np.zeros(K, np.int64)
+    for r in range(p.cluster):
+        s0, s1 = quant_matmul.block_stages(p, r, K)
+        assert s1 > s0
+        hits[s0 * p.rs:min(K, s1 * p.rs)] += 1
+    assert (hits == 1).all()
+    stages = -(-K // p.rs)
+    assert p.cluster == 1 or p.slabs * p.cluster <= 2 * quant_matmul.SMS
+    assert 2 * p.cluster > min(8, stages) or p.slabs * 2 * p.cluster > 2 * quant_matmul.SMS
+    assert 2 * quant_matmul.gemv_smem(K, p) <= 232448
 
 
 # (Kh, N) of K12's products: LLaMa-2-7B's split tree (wq = wk = wv = wo, wg,
