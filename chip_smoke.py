@@ -57,6 +57,12 @@ Phases, each printing its lines before the last:
      (S=2304, 2144 valid slots a head scattered over the cache, their age
      ranks; bf16, int8 and f32; MHA B=1, GQA rep 4 B=2 with a dead row;
      fused_decode_attend also with a 512-slot window) within K1's limits;
+     and every K1 variant and fused_decode_attend, their slots split over a
+     thread-block cluster, at the split's edges (runs that see no slot, a
+     dead row, S=777, B=16 with one block a head, GQA rep 4 with a 512-slot
+     window over the decode cache's positions and over the encoding
+     family's; bf16 and int8 KV, f32 at S=777 and with the windows) within
+     K1's limits of the plain version and of an f64 value (k1_exact);
   3. the main path end to end at full LLaMa-2-7B width (L=32, D=4096,
      32 heads, F=11008, V=32000; bf16 weights drawn on the card from a seed):
      a 512-token prompt, then 384 new tokens with roco at budget 200, then
@@ -117,7 +123,9 @@ Phases, each printing its lines before the last:
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel (K1's rank variant
-     and fused_decode_attend at S=2304; K7 roco at a triggered chunk,
+     and fused_decode_attend at S=2304, each K1 entry beside
+     scaled_dot_product_attention over the same cache, the attention half
+     alone, as its library yardstick; K7 roco at a triggered chunk,
      int8 and bf16, each call from its untouched state); K10-K13 at each 7B
      product of their phase-3 trees (bf16 activations; K11 at the split
      and the fused widths, M=4 and 512) with enough weight copies cycled that L2 is
@@ -167,6 +175,7 @@ from easykv_tpu_torch.ops.cuda.chunk_attention import (
     chunk_step_evict_plain, fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
     fused_chunk_step as k7, fused_chunk_step_plain as k7_plain,
     fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
+from easykv_tpu_torch.ops.cuda import decode_attention as da_mod
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend as kda, fused_decode_attend_inflight as k1,
     fused_decode_attend_inflight_plain as k1_plain, fused_decode_attend_plain as kda_plain)
@@ -407,7 +416,142 @@ def phase_kernels(dev):
     errs[("K5", "int8")] = phase_k5(dev)
     errs[("K6", "int8")] = phase_k6(dev)
     errs.update(phase_streaming_kernels(dev))
+    phase_k1_edges(dev)
     return errs
+
+
+# K1's split edges in phase 2: (B, Hq, Hkv, S, window, positions, cluster
+# of the plan); positions: the encoding family's scattered ones (q_pos 4224),
+# 300 of them in the first slots and the rest free, or the decode cache's
+# (q_pos 895)
+K1_EDGES = {
+    "masked runs": (1, 32, 32, S_MAIN, None, "first 300", 4),   # blocks 2, 3 see no slot
+    "dead row": (2, 32, 32, S_MAIN, None, "scattered", 2),
+    "S=777": (1, 32, 32, 777, None, "scattered", 4),             # 25 tiles, the last of 9 rows
+    "B=16": (16, 32, 32, S_MAIN, None, "scattered", 1),          # one block a (batch, kv head)
+    "GQA rep 4 window 512": (2, 32, 8, S_MAIN, 512, "decode", 8),
+    "GQA rep 4 window 512 scattered": (2, 32, 8, S_MAIN, 512, "scattered", 8),  # ~80 slots seen
+}
+
+
+def k1_exact(args, window=None, rot=None, rank=None, inflight=True):
+    """out of K1 (inflight) or of fused_decode_attend on K1's arguments (q,
+    kn, vn, k, v, pos, q_pos[, k_scale, v_scale]) in f64, p unrounded
+    through PV as the kernels (and the TPU kernel) keep it; K1's plain
+    version rounds p to a bf16 cache's dtype first. The second witness of
+    phase 2's K1 edges."""
+    f = lambda t: t.to(torch.float64)  # noqa: E731
+    q, kn, vn, k, v, pos, qp = args[:7]
+    B, Hq, _, D = q.shape
+    Hkv = k.shape[1]
+    kf, vf = f(k), f(v)
+    if rot is not None:
+        cos, sin = f(rot[0]), f(rot[1])
+        if rank is not None:
+            cos, sin = cos[rank.long()], sin[rank.long()]
+        h = D // 2
+        kf = torch.cat([kf[..., :h] * cos - kf[..., h:] * sin,
+                        kf[..., h:] * cos + kf[..., :h] * sin], dim=-1)
+    if len(args) > 7:                                   # int8: the rows' scales
+        kf, vf = kf * f(args[7])[..., None], vf * f(args[8])[..., None]
+    qg = f(q).reshape(B, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bhrd,bhsd->bhrs", qg, kf) * D ** -0.5
+    qpb = qp[:, None, None]
+    mask = (pos >= 0) & (pos <= qpb)
+    if window is not None:
+        mask &= pos > qpb - window
+    mask = mask[:, :, None, :]
+    m = torch.where(mask, logits, -1e30).amax(dim=-1, keepdim=True)
+    if inflight:
+        live = (qp >= 0)[:, None, None, None]
+        l_new = torch.where(live, torch.einsum("bhrd,bhsd->bhrs", qg, f(kn)) * D ** -0.5, -1e30)
+        m = torch.maximum(m, l_new)
+    e = torch.where(mask, torch.exp(logits - m), 0.0)
+    num, den = torch.einsum("bhrs,bhsd->bhrd", e, vf), e.sum(dim=-1, keepdim=True)
+    if inflight:
+        e_new = torch.where(live, torch.exp(l_new - m), 0.0)
+        num, den = num + e_new * f(vn), den + e_new
+    return (num / den.clamp(min=1e-300)).reshape(B, Hq, 1, D)
+
+
+def k1_out_share(out, ref):
+    """The largest |out - ref| as a share of K1's out limit around ref."""
+    return ((out.double() - ref.double()).abs() / k1_out_limit(ref.to(out.dtype))).max().item()
+
+
+def k1_edge_results(case, kind, dev):
+    """Every K1 variant (plain, ordered, rank) and fused_decode_attend at
+    one of K1_EDGES, bf16, int8 or f32 KV: a list of (entry, the kernel's
+    outputs, the plain version's, k1_exact's out)."""
+    i = list(K1_EDGES).index(case)
+    B, Hq, Hkv, S, window, where, _ = K1_EDGES[case]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    qp = [PROMPT + NEW - 1] * B if where == "decode" else [ENC_PROMPT + ENC_NEW] * B
+    args = k1_case(B, Hq, Hkv, S, 128, dtype, qp, dev, 500 + i, kind == "int8")
+    pos = args[5]                                       # k1_case's decode cache positions
+    if where == "first 300":
+        pos = torch.full((B, Hkv, S), -1, dtype=torch.int32, device=dev)
+        pos[..., :300] = torch.randperm(300, generator=torch.Generator().manual_seed(i)
+                                        ).to(device=dev, dtype=torch.int32)
+    elif where == "scattered":
+        pos = scrambled_positions(B, Hkv, S, S * 7 // 8, dev, 510 + i, case == "dead row")
+    q_pos = args[6].clone()
+    if case == "dead row":
+        q_pos[-1] = -1
+    args = args[:5] + (pos, q_pos) + args[7:]
+    rot, ranks = rotation_tables(S, LLAMA2_7B, dev), age_ranks_all(pos[None])[0]
+    da_args = (args[0],) + args[3:]
+    kw = dict(sliding_window=window)
+    res = [(key, k1(*args, **kw, **opt), k1_plain(*args, **kw, **opt),
+            k1_exact(args, window, **opt))
+           for key, opt in (("K1", {}), ("K1 ordered", dict(rot=rot)),
+                            ("K1 rank", dict(rot=rot, rank=ranks)))]
+    return res + [("decode_attend", kda(*da_args, **kw), kda_plain(*da_args, **kw),
+                   k1_exact(args, window, inflight=False))]
+
+
+def phase_k1_edges(dev):
+    """K1 (plain, ordered, rank) and fused_decode_attend, their slots split
+    over a thread-block cluster (ops/cuda/decode_attention.split_plan), at
+    the split's edges (K1_EDGES): runs that see no slot, a dead row, S not a
+    multiple of the 32-row tiles or the cluster, B = 16 (one block a head),
+    GQA rep 4 with a 512-slot window over the decode cache's positions and
+    over the encoding family's; bf16 and int8 KV (f32 too at S=777 and with
+    the windows). probs and p_new within 1e-5 of the plain version; out
+    within K1's limit (k1_out_limit) of k1_exact's f64 value, and of the
+    plain version's out unless that itself lies outside the limit of the
+    f64 value (with a bf16 cache the plain version rounds p to bf16; over a
+    window that leaves few slots this moves out by more than one bf16 ulp);
+    a dead row all zero, the probabilities of unseen slots exactly 0. Each
+    line gives, per entry, the share of the limit against the plain
+    version, against the f64 value, and the plain version's own against
+    the f64 value, and the largest probability error."""
+    for case, (B, Hq, Hkv, S, window, _, cluster) in K1_EDGES.items():
+        for kind in ("bf16", "int8") + (("f32",) if S == 777 or window else ()):
+            res = k1_edge_results(case, kind, dev)
+            torch.cuda.synchronize()
+            worst = []
+            for key, got, ref, exact in res:
+                e = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+                to_plain, to_exact = k1_out_share(got[0], ref[0]), k1_out_share(got[0], exact)
+                plain_off = k1_out_share(ref[0], exact)
+                check(to_exact <= 1 and (to_plain <= 1 or plain_off > 1) and max(e[1:]) <= 1e-5,
+                      f"{key} {case} {kind} disagrees: out {to_plain:.2f} of its limit against "
+                      f"the plain version, {to_exact:.2f} against f64 (the plain version "
+                      f"{plain_off:.2f}), probs {e[1:]}")
+                if case == "dead row":
+                    check(got[0][1].abs().max().item() == 0 and got[1][1].abs().max().item() == 0,
+                          f"{key} {case} {kind}: the dead row is not all zero")
+                if case == "masked runs":
+                    check(got[1][..., 300:].abs().max().item() == 0,
+                          f"{key} {case} {kind}: unseen slots have probability")
+                worst.append(f"{key} {to_plain:.2f} / {to_exact:.2f} (plain {plain_off:.2f}) / "
+                             f"{max(e[1:]):.1e}")
+            plan = da_mod.split_plan(B, Hkv, Hq // Hkv, S, 128, kind, 0)
+            check(plan.cluster == cluster, f"K1 {case}: cluster {plan.cluster}, not {cluster}")
+            print(f"phase 2: K1 split edge {case}, {kind} KV (cluster {plan.cluster}, {plan.nk} "
+                  f"tiles a ring): out's share of its limit against the plain version / f64 "
+                  f"(the plain version's against f64) / probs max|err|: " + ", ".join(worst))
 
 
 def kv_rows(L, B, H, S, D, kind, dev, seed):
@@ -1491,35 +1635,141 @@ def graph_ms(fn, arg_sets, reps, restore=None):
     return start.elapsed_time(end) / reps
 
 
+def k1_library_ms(sets, quant, reps=320):
+    """K1's yardstick: scaled_dot_product_attention of q over the same
+    cache's K and V with the same visibility mask, the attention half alone
+    (no probabilities, no in-flight token, no rotation); an int8 cache as a
+    bf16 copy dequantized beforehand (not timed). sets: K1's argument
+    tuples (q, kn, vn, k, v, pos, q_pos[, k_scale, v_scale])."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = []
+    for a in sets:
+        q, k, v, pos, qp = a[0], a[3], a[4], a[5], a[6]
+        if quant:
+            k = (k.float() * a[7][..., None]).to(torch.bfloat16)
+            v = (v.float() * a[8][..., None]).to(torch.bfloat16)
+        mask = ((pos >= 0) & (pos <= qp[:, None, None]))[:, :, None, :]
+        lib_sets.append((q, k, v, mask))
+    ms = graph_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m), lib_sets, reps)
+    del lib_sets
+    return ms
+
+
+K1_TIMED = ("K1", "K1 ordered", "K1 rank", "decode_attend")
+
+
+def k1_time_cases(dev, keys=K1_TIMED, B=1):
+    """Phase 5's K1 inputs, one layer a launch and 32 layers' K / V cycled
+    (32 / B at B > 1, at least 2) so that L2 is cold. Yields, per key and
+    cache dtype (bf16, then int8), (key, kv, sets, run, lib, nbytes, flops,
+    visible): run(fn) launches K1's fn (k1, k1_plain) or, for
+    decode_attend, kda / kda_plain on a set; lib holds K1's arguments (q,
+    kn, vn, k, v, pos, q_pos[, k_scale, v_scale]) of each set, for
+    k1_library_ms. K1: phase 3's decode cache at S=768 (712 slots visible);
+    K1 ordered (int8 only): the same shapes over the rotate-at-read cache,
+    with the rotation tables; K1 rank and decode_attend: the encoding
+    family's cache at S=2304 (2144 valid slots scattered, their age ranks).
+    nbytes, the bound's bytes: the visible K and V rows (and int8 scales)
+    read once, pos read, probs written, q, kn, vn and out, p_new, q_pos;
+    ordered and rank also the (S, D/2) f32 cos and sin tables once, rank
+    the (B, H, S) int32 ranks; flops 4 a visible slot and dim (10 with a
+    rotation). visible: slots a layer that q sees."""
+    L, H, D = max(2, 32 // B), 32, 128
+
+    def case(key, kv, sets, run, lib):
+        pos, qp, S = lib[0][5], lib[0][6], lib[0][5].shape[-1]
+        visible = sum(int(((a[5] >= 0) & (a[5] <= qp[:, None, None])).sum()) for a in lib) / L
+        row = D + 4 if kv == "int8" else D * 2
+        nbytes = visible * row * 2 + B * H * S * 4 * 2 + B * 4   # K, V; pos, probs; q_pos
+        nbytes += B * H * D * 2 * (2 if key == "decode_attend" else 4)
+        nbytes += 0 if key == "decode_attend" else B * H * 4     # p_new
+        rot = key in ("K1 ordered", "K1 rank")
+        nbytes += (S * D // 2 * 4 * 2 if rot else 0) + (B * H * S * 4 if key == "K1 rank" else 0)
+        return key, kv, sets, run, lib, nbytes, (10 if rot else 4) * visible * D, visible
+
+    def cache(gk, kv, S, bf16=True):
+        kc, vc = (torch.randn((L, B, H, S, D), generator=gk, device=dev) for _ in range(2))
+        if kv == "bf16" or bf16:
+            kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+        if kv == "bf16":
+            return kc, vc, [()] * L
+        (kc, ksc), (vc, vsc) = quantize_kv(kc), quantize_kv(vc)
+        return kc, vc, [(ksc[l], vsc[l]) for l in range(L)]
+
+    def qkv(gk):
+        return tuple(torch.randn((B, H, 1, D), generator=gk, device=dev).to(torch.bfloat16)
+                     for _ in range(3))
+    plain_run = lambda fn: fn  # noqa: E731
+    if "K1" in keys:
+        gk = torch.Generator(device=dev).manual_seed(40)
+        pos = slot_positions(L, B, H, S_MAIN, PROMPT + BUDGET, torch.Generator().manual_seed(40),
+                             dev)
+        q, kn, vn = qkv(gk)
+        qp = torch.full((B,), PROMPT + NEW - 1, dtype=torch.int32, device=dev)
+        for kv in ("bf16", "int8"):
+            kc, vc, sc = cache(gk, kv, S_MAIN)
+            sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, *sc[l]) for l in range(L)]
+            yield case("K1", kv, sets, plain_run, sets)
+            del kc, vc, sc, sets
+    if "K1 ordered" in keys:
+        pos = slot_positions(L, B, H, S_MAIN, PROMPT + BUDGET, torch.Generator().manual_seed(190),
+                             dev)
+        gk = torch.Generator(device=dev).manual_seed(194)
+        q, kn, vn = qkv(gk)
+        qp = torch.full((B,), PROMPT + NEW - 1, dtype=torch.int32, device=dev)
+        kc, vc, sc = cache(gk, "int8", S_MAIN, bf16=False)
+        rot = rotation_tables(S_MAIN, LLAMA2_7B, dev)
+        sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, *sc[l]) for l in range(L)]
+        yield case("K1 ordered", "int8", sets, lambda fn, rot=rot: lambda *a: fn(*a, rot=rot),
+                   sets)
+        del kc, vc, sc, sets
+    if "K1 rank" in keys or "decode_attend" in keys:
+        gk = torch.Generator(device=dev).manual_seed(210)
+        q, kn, vn = qkv(gk)
+        qp = torch.full((B,), ENC_PROMPT + ENC_NEW, dtype=torch.int32, device=dev)
+        pos = torch.stack([scrambled_positions(B, H, ENC_S, RANK_VALID, dev, 211 + l)
+                           for l in range(L)])
+        ranks = age_ranks_all(pos)
+        rot = rotation_tables(ENC_S, LLAMA2_7B, dev)
+        for kv in ("bf16", "int8"):
+            kc, vc, sc = cache(gk, kv, ENC_S)
+            lib = [(q, kn, vn, kc[l], vc[l], pos[l], qp, *sc[l]) for l in range(L)]
+            if "K1 rank" in keys:
+                sets = [a[:7] + (ranks[l],) + a[7:] for l, a in enumerate(lib)]
+                yield case("K1 rank", kv, sets,
+                           lambda fn, rot=rot: lambda *a: fn(*a[:7], *a[8:], rot=rot, rank=a[7]),
+                           lib)
+                del sets
+            if "decode_attend" in keys:
+                yield case("decode_attend", kv, lib,
+                           lambda fn: lambda *a: fn(a[0], *a[3:]), lib)
+            del kc, vc, sc, lib
+            torch.cuda.empty_cache()
+
+
+def k1_timings(dev, keys):
+    """Phase 5's K1 rows (k1_time_cases) keyed by (key, cache dtype): the
+    kernel's time, its plain version's, k1_library_ms, and its bound's
+    bytes and operations."""
+    out = {}
+    for key, kv, sets, run, lib, nbytes, flops, visible in k1_time_cases(dev, keys):
+        fn, plain = (kda, kda_plain) if key == "decode_attend" else (k1, k1_plain)
+        out[(key, kv)] = dict(ms=graph_ms(run(fn), sets, 320),
+                              plain_ms=graph_ms(run(plain), sets,
+                                                 32 if key in ("K1 rank", "decode_attend") else 64),
+                              library_ms=k1_library_ms(lib, kv == "int8"), bytes=nbytes,
+                              flops=flops, peak=F32_FLOPS, visible=visible)
+    return out
+
+
 def phase_times(dev):
     """Times keyed by (kernel, cache dtype), each with its plain version's,
-    its library yardstick's (or None) and its bound from this run's inputs."""
+    its library yardstick's (or None) and its bound from this run's inputs.
+    K1's yardstick: k1_library_ms."""
     L, H, S, D = 32, 32, S_MAIN, 128
     n_valid = PROMPT + BUDGET
     out = {}
-    # K1: one layer per launch, 32 layers' K/V (403 MB bf16) cycled: cold L2
-    gk = torch.Generator(device=dev).manual_seed(40)
-    pos = slot_positions(L, 1, H, S, n_valid, torch.Generator().manual_seed(40), dev)
-    q, kn, vn = (torch.randn(shape, generator=gk, device=dev).to(torch.bfloat16)
-                 for shape in ((1, H, 1, D), (1, H, 1, D), (1, H, 1, D)))
-    qp = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
-    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
-    for kv in ("bf16", "int8"):
-        kc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
-        vc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
-        if kv == "int8":
-            (kc, ksc), (vc, vsc) = quantize_kv(kc), quantize_kv(vc)
-            sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, ksc[l], vsc[l]) for l in range(L)]
-            row_bytes = D + 4                            # int8 row and its scale
-        else:
-            sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp) for l in range(L)]
-            row_bytes = D * 2
-        k1_bytes = (visible * row_bytes * 2 + H * S * 4 * 2  # K,V rows read; pos, probs
-                    + H * D * 2 * 4 + H * 4 + 4)            # q, kn, vn, out; p_new; q_pos
-        out[("K1", kv)] = dict(ms=graph_ms(k1, sets, 320), plain_ms=graph_ms(k1_plain, sets, 64),
-                               library_ms=None, bytes=k1_bytes, flops=4 * visible * D,
-                               peak=F32_FLOPS)
-        del kc, vc, sets
+    out.update(k1_timings(dev, ("K1",)))   # 32 layers' K/V (403 MB bf16) cycled
     # K2: roco with the eviction gate on (the budgeted steady state); four
     # copies of the sidecars (113 MB) cycled; with an int8 cache also the
     # scale rows, of which only the written slot's two scales move
@@ -1585,8 +1835,9 @@ def streaming_times(dev):
     above each victim once, K8
     also the four sidecars there and pos_mid / pos in full to find the
     victims; K2 compact moves what K2 moves; K1 ordered what K1 moves plus
-    the (S, D/2) cos and sin tables once. No PyTorch call computes any of
-    them: library_ms is None."""
+    the (S, D/2) cos and sin tables once (k1_time_cases). No PyTorch call
+    computes the others: their library_ms is None; K1 ordered's is
+    k1_library_ms."""
     L, H, S, D = STREAM_SHAPE
     slots = L * H * S
     out = {}
@@ -1661,25 +1912,7 @@ def streaming_times(dev):
                 plain_ms=graph_ms(run_k8(k8_plain), [()], 8) - t_restore, library_ms=None,
                 bytes=2 * rows * (row_bytes + 16) + 2 * slots * 4, flops=0, peak=F32_FLOPS)
         del kvr
-    # K1 ordered: K1's int8 timing with the rotation tables
-    gk = torch.Generator(device=dev).manual_seed(194)
-    q, kn, vn = (torch.randn((1, H, 1, D), generator=gk, device=dev).to(torch.bfloat16)
-                 for _ in range(3))
-    qp = torch.tensor([PROMPT + NEW - 1], dtype=torch.int32, device=dev)
-    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
-    (kc, ksc), (vc, vsc) = (quantize_kv(torch.randn((L, 1, H, S, D), generator=gk, device=dev))
-                            for _ in range(2))
-    rot = rotation_tables(S, LLAMA2_7B, dev)
-    sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, ksc[l], vsc[l]) for l in range(L)]
-
-    def run_k1(fn):
-        return lambda *a: fn(*a, rot=rot)
-    k1_bytes = (visible * (D + 4) * 2 + H * S * 4 * 2 + H * D * 2 * 4 + H * 4 + 4
-                + S * D // 2 * 4 * 2)                     # ... and the cos, sin tables
-    out[("K1 ordered", "int8")] = dict(ms=graph_ms(run_k1(k1), sets, 320),
-                                       plain_ms=graph_ms(run_k1(k1_plain), sets, 64),
-                                       library_ms=None, bytes=k1_bytes,
-                                       flops=4 * visible * D + 6 * visible * D, peak=F32_FLOPS)
+    out.update(k1_timings(dev, ("K1 ordered",)))
     return out
 
 
@@ -1918,7 +2151,7 @@ def phase_quant_kernels(dev):
                     check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1
                           and bool(torch.isfinite(got).all()),
                           f"{kernel} {name} M={M} {dtype}: {ratio:.3f} of its limit")
-                    if kernel == "K12" or (kernel, M) == ("K13", 1):   # no shared state:
+                    if kernel in ("K10", "K12") or (kernel, M) == ("K13", 1):   # no shared state:
                         check(torch.equal(got, fn(x, *args, **kw)),   # the same bits every run
                               f"{kernel} {name} M={M} {dtype}: two launches differ")
                     errs[(kernel, name, M, dtype)] = err.max().item()
@@ -2172,9 +2405,9 @@ def quant_times(dev):
 
 
 QMETA = {  # name, source, TPU kernel it replaces
-    "K10": ("w4a16_gemv_arith", "easykv_tpu_torch/csrc/w4_stream.cu",
+    "K10": ("w4a16_gemv_arith", "easykv_tpu_torch/csrc/quant_gemv.cu",   # K13's M = 1 stream
             "easykv_tpu/ops/pallas/w4_stream.py:258"),
-    "K11": ("w4a16_gemm_arith", "easykv_tpu_torch/csrc/w4_stream.cu",
+    "K11": ("w4a16_gemm_arith", "easykv_tpu_torch/csrc/w4_gemm.cu",
             "easykv_tpu/ops/pallas/w4_stream.py:182"),
     "K12": ("w4a16_gemv", "easykv_tpu_torch/csrc/w4_matmul.cu",
             "easykv_tpu/ops/pallas/w4_matmul.py:62"),
@@ -2664,44 +2897,11 @@ def rank_times(dev):
     Bounds (bytes at 3.35 TB/s): the visible K and V rows (and int8
     scales) read once, pos read, probs written, q (kn, vn), out (p_new);
     K1 rank also the (B, H, S) int32 ranks and the (S, D/2) cos and sin
-    tables once. library_ms: None, no PyTorch call emits the probabilities
-    (scaled_dot_product_attention does not)."""
-    L, H, S, D = 32, 32, ENC_S, 128
-    out = {}
-    gk = torch.Generator(device=dev).manual_seed(210)
-    q, kn, vn = (torch.randn((1, H, 1, D), generator=gk, device=dev).to(torch.bfloat16)
-                 for _ in range(3))
-    qp = torch.tensor([ENC_PROMPT + ENC_NEW], dtype=torch.int32, device=dev)
-    pos = torch.stack([scrambled_positions(1, H, S, RANK_VALID, dev, 211 + l)
-                       for l in range(L)])
-    ranks = age_ranks_all(pos)
-    rot = rotation_tables(S, LLAMA2_7B, dev)
-    visible = int(((pos >= 0) & (pos <= qp)).sum()) / L
-    for kv in ("bf16", "int8"):
-        kc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
-        vc = torch.randn((L, 1, H, S, D), generator=gk, device=dev).to(torch.bfloat16)
-        scales = [()] * L
-        row_bytes = D * 2
-        if kv == "int8":
-            (kc, ksc), (vc, vsc) = quantize_kv(kc), quantize_kv(vc)
-            scales = [(ksc[l], vsc[l]) for l in range(L)]
-            row_bytes = D + 4
-        common = visible * row_bytes * 2 + H * S * 4 * 2 + H * D * 2 * 2 + 4  # K, V; pos, probs; q, out
-        k1_sets = [(q, kn, vn, kc[l], vc[l], pos[l], qp, ranks[l], *scales[l]) for l in range(L)]
-        da_sets = [(q, kc[l], vc[l], pos[l], qp, *scales[l]) for l in range(L)]
-
-        def run_k1(fn):
-            return lambda *a: fn(*a[:7], *a[8:], rot=rot, rank=a[7])
-        out[("K1 rank", kv)] = dict(
-            ms=graph_ms(run_k1(k1), k1_sets, 320), plain_ms=graph_ms(run_k1(k1_plain), k1_sets, 32),
-            library_ms=None,
-            bytes=common + H * D * 2 * 2 + H * 4 + H * S * 4 + S * D // 2 * 4 * 2,
-            flops=4 * visible * D + 6 * visible * D, peak=F32_FLOPS)
-        out[("decode_attend", kv)] = dict(
-            ms=graph_ms(kda, da_sets, 320), plain_ms=graph_ms(kda_plain, da_sets, 32),
-            library_ms=None, bytes=common, flops=4 * visible * D, peak=F32_FLOPS)
-        del kc, vc, k1_sets, da_sets, scales
-        torch.cuda.empty_cache()
+    tables once. library_ms: k1_library_ms, the attention half alone (no
+    PyTorch call emits the probabilities)."""
+    L, H, S = 32, 32, ENC_S
+    out = k1_timings(dev, ("K1 rank", "decode_attend"))
+    visible = out[("K1 rank", "bf16")]["visible"]
     print(f"phase 5: K1 rank / fused_decode_attend inputs: {visible / H:.0f} of {S} slots "
           f"visible per head, {H} heads, {L} layers' K/V cycled")
     for r in out.values():
@@ -2727,8 +2927,9 @@ def rank_records(rtimes, errs, runs):
         launches = runs[run]["counts"][key]
         label = kname + (" (int8 KV)" if kv == "int8" else "")
         print(f"phase 5: {key} {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
-              f"us, library none, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), "
-              f"{launches / n:g} launches/{unit} in the {run} run")
+              f"us, library {t['library_ms'] * 1e3:.2f} us (SDPA, attention half), bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {launches / n:g} "
+              f"launches/{unit} in the {run} run")
         records.append({"name": label, "route": "cuda",
                         "source": "easykv_tpu_torch/csrc/decode_attention.cu", "replaces": repl,
                         "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],

@@ -1,5 +1,6 @@
-// The pieces of an asynchronous weight ring on Hopper, shared by K13 at
-// M = 1 (quant_gemv.cu) and K14 (fused_decode.cu): mbarriers in shared
+// The pieces of an asynchronous ring on Hopper, shared by K10 and K13 at
+// M = 1 (quant_gemv.cu) and K14 (fused_decode.cu); K1 (decode_attention.cu)
+// takes its mbarriers: mbarriers in shared
 // memory, copies by the Tensor Memory Accelerator (a 2-D box of a tensor
 // map, or a bulk copy of contiguous bytes) that count their bytes against a
 // barrier, and the host side that encodes a tensor map of a byte matrix

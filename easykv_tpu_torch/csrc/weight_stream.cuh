@@ -1,45 +1,31 @@
-// Weight-streaming product y (M, N) = x (M, Kx) @ dequant(W), shared by the
-// quantized-weight kernels K10 and K13 (w4_stream.cu, quant_matmul.cu). W
-// is an int8 array of R rows by N columns in one of two formats:
-//
-//   kInt8  (K13): one value per byte, R = Kx, a per-column f32 scale applied
-//                 once after the whole contraction (acc_f32 * scale_f32);
-//   kQ4A   (K10): the arithmetic carrier 16*hi + lo, R = Kx/2, the
-//                 nibbles in [-7, 7], hi = (b + 8) >> 4, lo = b - 16*hi.
-//
-// The int4 format has one scale per (group of G rows, column): row r's group
-// is r / G for the low half and R/G + r / G for the high half (R is a whole
-// number of groups), read as the bf16 pair gs3 = [gs_hi; gs_lo] / 16, whose
-// values times 16 are gs exactly.
+// Weight-streaming product y (M, N) = (x (M, K) @ q (K, N) int8) * s (N,)
+// of kernel K13 at 1 < M <= 256 (quant_matmul.cu; M = 1 has its own stream,
+// quant_gemv.cu): accumulated in f32 over the whole K, the per-column f32
+// scale applied once after the whole contraction (acc_f32 * scale_f32).
 //
 // What bounds it on an H100: the weight bytes at small M (every byte is read
-// once per M tile, so at M = 1 the time is R*N bytes over 3.35 TB/s), the
-// fp32 FMAs of the CUDA cores at large M (K13 at M = 256).
+// once per M tile), the fp32 FMAs of the CUDA cores at large M (M = 256).
 //
 // Design. A block is 8 warps; a lane owns VEC consecutive columns and reads
-// them as one 16- (or 8-) byte load per row, so a warp reads a contiguous
-// 32*VEC-byte row segment. Each warp takes a chunk of RC rows inside one
-// scale group, accumulates lo and hi products in f32 per column and row of
-// its M tile, and scales the chunk's sums by their group scales in
-// registers. A block covers 8*RC rows per pass (x staged for them in shared
-// memory as f32) and `passes` passes; the 8 warps' partials then add in
-// shared memory in warp order. To fill 132 SMs at N = 4096, the rows are
-// also split over gridDim.y blocks: each writes its partial to a workspace,
-// and the last block of a column tile to finish (an atomic ticket decides
-// which; it resets the ticket) adds the partials in split order, so the sum
-// is the same in every run. No atomics touch the sums. The tickets belong to
-// the launching stream (ops/cuda/_wstream.py keeps one zeroed row of them a
-// stream): launches in flight on two streams never share one, and launches
-// on one stream run one after the other.
+// them as one 16-byte load per row, so a warp reads a contiguous 32*VEC-byte
+// row segment. Each warp takes a chunk of RC rows and accumulates its
+// products in f32 per column and row of its M tile. A block covers 8*RC
+// rows per pass (x staged for them in shared memory as f32) and `passes`
+// passes; the 8 warps' partials then add in shared memory in warp order. To
+// fill 132 SMs at N = 4096, the rows are also split over gridDim.y blocks:
+// each writes its partial to a workspace, and the last block of a column
+// tile to finish (an atomic ticket decides which; it resets the ticket)
+// adds the partials in split order, so the sum is the same in every run. No
+// atomics touch the sums. The tickets belong to the launching stream
+// (ops/cuda/_wstream.py keeps one zeroed row of them a stream): launches in
+// flight on two streams never share one, and launches on one stream run one
+// after the other.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wstream {
-
-enum { kInt8 = 0, kQ4A = 2 };
-enum { kScaleCol = 0, kScalePairBf16 = 2 };
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -65,14 +51,10 @@ __device__ __forceinline__ int sbyte(uint32_t word, int j) {
 template <int VEC>
 __device__ __forceinline__ void load_row(const int8_t* p, bool vec_ok, int valid,
                                          uint32_t (&wd)[VEC / 4]) {
+  static_assert(VEC == 16, "a lane reads one 16-byte segment a row");
   if (vec_ok) {
-    if constexpr (VEC == 16) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      wd[0] = v.x; wd[1] = v.y; wd[2] = v.z; wd[3] = v.w;
-    } else {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-      wd[0] = v.x; wd[1] = v.y;
-    }
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    wd[0] = v.x; wd[1] = v.y; wd[2] = v.z; wd[3] = v.w;
   } else {
 #pragma unroll
     for (int i = 0; i < VEC / 4; ++i) {
@@ -85,26 +67,23 @@ __device__ __forceinline__ void load_row(const int8_t* p, bool vec_ok, int valid
   }
 }
 
-template <int MT, int VEC, int FMT, int SCALE, typename XT, typename OT>
+template <int MT, int VEC, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads)
 stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-              const void* __restrict__ scale, OT* __restrict__ out, float* __restrict__ ws,
-              unsigned* __restrict__ tickets, int M, int R, int N, int G, int RC, int passes) {
-  constexpr int NX = FMT == kInt8 ? 1 : 2;  // x halves a weight row multiplies
+              const float* __restrict__ scale, OT* __restrict__ out, float* __restrict__ ws,
+              unsigned* __restrict__ tickets, int M, int R, int N, int RC, int passes) {
   constexpr int TN = 32 * VEC;
   extern __shared__ float smem[];
   __shared__ bool last_block;
   const int BR = kWarps * RC;
-  float* xs = smem;                     // (MT, NX, BR) this pass's x, f32
-  float* red = smem + MT * NX * BR;     // (kWarps, TN) partials of one M row
-  const int Kx = NX * R;
+  float* xs = smem;                     // (MT, BR) this pass's x, f32
+  float* red = smem + MT * BR;          // (kWarps, TN) partials of one M row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * TN, m0 = blockIdx.z * MT;
   const int c0 = n0 + lane * VEC;
   const int valid = N - c0 < VEC ? N - c0 : VEC;
   const bool vec_ok = valid == VEC && (N % VEC) == 0;
   const int nb = (R + BR - 1) / BR;     // row blocks of BR rows
-  const int gch = FMT == kInt8 ? 0 : R / G;
 
   float tot[MT][VEC];
 #pragma unroll
@@ -115,22 +94,19 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   for (int pb = blockIdx.y * passes; pb < (blockIdx.y + 1) * passes && pb < nb; ++pb) {
     const int r_blk = pb * BR;
     __syncthreads();                    // the previous pass is done with xs
-    for (int i = threadIdx.x; i < MT * NX * BR; i += kThreads) {
-      const int m = i / (NX * BR), half = (i / BR) % NX, r = r_blk + i % BR;
-      xs[i] = (m0 + m < M && r < R) ? to_f32(x[(size_t)(m0 + m) * Kx + half * R + r]) : 0.f;
+    for (int i = threadIdx.x; i < MT * BR; i += kThreads) {
+      const int m = i / BR, r = r_blk + i % BR;
+      xs[i] = (m0 + m < M && r < R) ? to_f32(x[(size_t)(m0 + m) * R + r]) : 0.f;
     }
     __syncthreads();
     const int rw0 = r_blk + warp * RC;
     if (rw0 >= R || valid <= 0) continue;
     const int rend = rw0 + RC < R ? rw0 + RC : R;
-    float acc_lo[MT][VEC], acc_hi[MT][FMT == kInt8 ? 1 : VEC];
+    float acc[MT][VEC];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        acc_lo[m][j] = 0.f;
-        if constexpr (FMT != kInt8) acc_hi[m][j] = 0.f;
-      }
+      for (int j = 0; j < VEC; ++j) acc[m][j] = 0.f;
     for (int r = rw0; r < rend; r += 8) {
       uint32_t wd[8][VEC / 4];
 #pragma unroll
@@ -145,52 +121,22 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int li = r + u - r_blk;   // < BR: rows past rend read zero weights
-        float xl[MT], xh[MT];
+        float xl[MT];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          xl[m] = xs[m * NX * BR + li];
-          xh[m] = NX == 2 ? xs[m * NX * BR + BR + li] : 0.f;
-        }
+        for (int m = 0; m < MT; ++m) xl[m] = xs[m * BR + li];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const int b = sbyte(wd[u][j >> 2], j & 3);
-          if constexpr (FMT == kInt8) {
-            const float v = i2f(b);
+          const float v = i2f(sbyte(wd[u][j >> 2], j & 3));
 #pragma unroll
-            for (int m = 0; m < MT; ++m) acc_lo[m][j] = fmaf(xl[m], v, acc_lo[m][j]);
-          } else {
-            const int hi = (b + 8) >> 4, lo = b - 16 * hi;
-            const float fl = i2f(lo), fh = i2f(hi);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              acc_lo[m][j] = fmaf(xl[m], fl, acc_lo[m][j]);
-              acc_hi[m][j] = fmaf(xh[m], fh, acc_hi[m][j]);
-            }
-          }
+          for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xl[m], v, acc[m][j]);
         }
       }
     }
-    // the chunk's group scales (rw0 .. rend lie in one group)
-    if constexpr (FMT == kInt8) {
+    // the chunk's sums
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) tot[m][j] += acc_lo[m][j];
-    } else {
-      const int g = rw0 / G;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        float s_lo = 0.f, s_hi = 0.f;
-        if (j < valid) {
-          const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(scale);
-          s_lo = __bfloat162float(s[(size_t)(gch + g) * N + c0 + j]) * 16.f;
-          s_hi = __bfloat162float(s[(size_t)g * N + c0 + j]) * 16.f;
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-          tot[m][j] += acc_lo[m][j] * s_lo + acc_hi[m][j] * s_hi;
-      }
-    }
+      for (int j = 0; j < VEC; ++j) tot[m][j] += acc[m][j];
   }
 
   // the 8 warps' partials, added in warp order, then out (or the workspace)
@@ -208,12 +154,10 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       for (int wi = 0; wi < kWarps; ++wi) s += red[wi * TN + c];
       const int n = n0 + c;
       if (n < N && mm < M) {
-        if (split) {
+        if (split)
           ws[((size_t)blockIdx.y * M + mm) * N + n] = s;
-        } else {
-          if constexpr (SCALE == kScaleCol) s *= static_cast<const float*>(scale)[n];
-          store(out + (size_t)mm * N + n, s);
-        }
+        else
+          store(out + (size_t)mm * N + n, s * scale[n]);
       }
     }
   }
@@ -243,67 +187,58 @@ stream_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       for (int u = 0; u < 8; ++u) s += v[u];
     }
     for (; y < ky; ++y) s += __ldcg(col + (size_t)y * stride);
-    if constexpr (SCALE == kScaleCol) s *= static_cast<const float*>(scale)[n];
-    store(out + (size_t)mm * N + n, s);
+    store(out + (size_t)mm * N + n, s * scale[n]);
   }
   if (threadIdx.x == 0) tickets[tile] = 0u;
 }
 
-template <int MT, int VEC, int FMT, int SCALE, typename XT, typename OT>
-int launch_one(const void* x, const int8_t* w, const void* scale, void* out, float* ws,
-               unsigned* tickets, int M, int R, int N, int G, int RC, int passes, int ksplit,
+template <int MT, typename XT, typename OT>
+int launch_one(const void* x, const int8_t* w, const float* scale, void* out, float* ws,
+               unsigned* tickets, int M, int R, int N, int RC, int passes, int ksplit,
                cudaStream_t stream) {
-  constexpr int NX = FMT == kInt8 ? 1 : 2;
+  constexpr int VEC = 16;
   constexpr int TN = 32 * VEC;
-  const size_t smem = sizeof(float) * ((size_t)MT * NX * kWarps * RC + (size_t)kWarps * TN);
+  const size_t smem = sizeof(float) * ((size_t)MT * kWarps * RC + (size_t)kWarps * TN);
   const dim3 grid((N + TN - 1) / TN, ksplit, (M + MT - 1) / MT);
-  stream_kernel<MT, VEC, FMT, SCALE, XT, OT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const XT*>(x), w, scale, static_cast<OT*>(out), ws, tickets, M, R, N, G, RC,
+  stream_kernel<MT, VEC, XT, OT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const XT*>(x), w, scale, static_cast<OT*>(out), ws, tickets, M, R, N, RC,
       passes);
   return (int)cudaGetLastError();
 }
 
 // The tile shape the wrapper plans with: MT rows of x per block (1 at
-// M = 1, else 4) and VEC columns per lane (16; 8 for an int4 format at
-// MT = 4, which keeps two accumulator sets in registers).
-template <int FMT, int MT>
-constexpr int vec_for() { return (FMT == kInt8 || MT == 1) ? 16 : 8; }
-
-template <int FMT, int SCALE, int MT>
-int launch_mt(const void* x, const int8_t* w, const void* scale, void* out, float* ws,
-              unsigned* tickets, int M, int R, int N, int G, int RC, int passes, int ksplit,
+// M = 1, else 4) and 16 columns per lane.
+template <int MT>
+int launch_mt(const void* x, const int8_t* w, const float* scale, void* out, float* ws,
+              unsigned* tickets, int M, int R, int N, int RC, int passes, int ksplit,
               int x_bf16, int out_f32, cudaStream_t stream) {
-  constexpr int VEC = vec_for<FMT, MT>();
   if (!x_bf16)
-    return launch_one<MT, VEC, FMT, SCALE, float, float>(x, w, scale, out, ws, tickets, M, R, N,
-                                                         G, RC, passes, ksplit, stream);
+    return launch_one<MT, float, float>(x, w, scale, out, ws, tickets, M, R, N, RC, passes,
+                                        ksplit, stream);
   if (out_f32)
-    return launch_one<MT, VEC, FMT, SCALE, __nv_bfloat16, float>(x, w, scale, out, ws, tickets,
-                                                                 M, R, N, G, RC, passes, ksplit,
-                                                                 stream);
-  return launch_one<MT, VEC, FMT, SCALE, __nv_bfloat16, __nv_bfloat16>(
-      x, w, scale, out, ws, tickets, M, R, N, G, RC, passes, ksplit, stream);
+    return launch_one<MT, __nv_bfloat16, float>(x, w, scale, out, ws, tickets, M, R, N, RC,
+                                                passes, ksplit, stream);
+  return launch_one<MT, __nv_bfloat16, __nv_bfloat16>(x, w, scale, out, ws, tickets, M, R, N,
+                                                      RC, passes, ksplit, stream);
 }
 
-// Checks the plan and launches. RC: rows per warp chunk, a multiple of 8
-// (and a divisor of G for int4); passes: row blocks of 8*RC rows per block;
-// ksplit: blocks along the rows (ws (ksplit, M, N) f32 and one zeroed
-// ticket per column tile of the grid when ksplit > 1).
-template <int FMT, int SCALE>
-int launch(const void* x, const int8_t* w, const void* scale, void* out, float* ws,
-           unsigned* tickets, int M, int R, int N, int G, int RC, int passes, int ksplit,
-           int x_bf16, int out_f32, cudaStream_t stream) {
+// Checks the plan and launches. RC: rows per warp chunk, a multiple of 8;
+// passes: row blocks of 8*RC rows per block; ksplit: blocks along the rows
+// (ws (ksplit, M, N) f32 and one zeroed ticket per column tile of the grid
+// when ksplit > 1).
+inline int launch(const void* x, const int8_t* w, const float* scale, void* out, float* ws,
+                  unsigned* tickets, int M, int R, int N, int RC, int passes, int ksplit,
+                  int x_bf16, int out_f32, cudaStream_t stream) {
   if (M < 1 || R < 1 || N < 1 || RC < 8 || RC % 8 != 0 || passes < 1 || ksplit < 1 ||
       ksplit > 65535 || (ksplit > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (FMT != kInt8 && (G < 1 || G % RC != 0 || R % G != 0)) return (int)cudaErrorInvalidValue;
   const int nb = (R + kWarps * RC - 1) / (kWarps * RC);
   if ((long long)ksplit * passes < nb) return (int)cudaErrorInvalidValue;
   if (M == 1)
-    return launch_mt<FMT, SCALE, 1>(x, w, scale, out, ws, tickets, M, R, N, G, RC, passes,
-                                    ksplit, x_bf16, out_f32, stream);
-  return launch_mt<FMT, SCALE, 4>(x, w, scale, out, ws, tickets, M, R, N, G, RC, passes, ksplit,
-                                  x_bf16, out_f32, stream);
+    return launch_mt<1>(x, w, scale, out, ws, tickets, M, R, N, RC, passes, ksplit, x_bf16,
+                        out_f32, stream);
+  return launch_mt<4>(x, w, scale, out, ws, tickets, M, R, N, RC, passes, ksplit, x_bf16,
+                      out_f32, stream);
 }
 
 }  // namespace wstream

@@ -27,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
 SOURCES = ("decode_attention", "sidecar_update", "row_write", "chunk_attention",
-           "kv_compact", "quant_matmul", "w4_matmul", "w4_stream", "w4_gemm",
+           "kv_compact", "quant_matmul", "w4_matmul", "w4_gemm",
            "fused_decode", "fused_decode_batch", "quant_gemv")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,15 +1,15 @@
-"""Launch of the weight-streaming kernels K10 and K13 at 1 < M <= 256
-(csrc/weight_stream.cuh; K13 at M = 1 has its own kernel and shares only
-`check_args`), shared by their wrappers: the plan (how many rows
-a warp takes, how many row blocks a block walks, and over how many blocks
+"""Launch of the weight-streaming kernel K13 at 1 < M <= 256
+(csrc/weight_stream.cuh; K13 and K10 at M = 1 have their own stream,
+csrc/quant_gemv.cu, and share only `check_args`): the plan (how many rows a
+warp takes, how many row blocks a block walks, and over how many blocks
 the rows split, so that the grid holds about two blocks per SM), the
 workspace of the split rows' partial sums and the tickets that pick the
 block adding them (one of each per stream; K11, csrc/w4_gemm.cu, uses them
-too), and the call. K12 (csrc/w4_matmul.cu) has its own plan and shares
-only `group_ok`.
+too, and K14 / K15 the workspace), and the call. The int4 kernels K10 and
+K12 share `group_ok`.
 
-Every C entry over weight_stream.cuh has one signature: (x, w, scale, out,
-ws, tickets, M, K, N, G, rc, passes, ksplit, x_bf16, out_f32, stream)."""
+The C entry over weight_stream.cuh has the signature (x, w, scale, out,
+ws, tickets, M, K, N, rc, passes, ksplit, x_bf16, out_f32, stream)."""
 from __future__ import annotations
 
 import ctypes
@@ -23,12 +23,12 @@ from . import _build
 TARGET_BLOCKS = 264       # two blocks per SM of an H100 (132 SMs)
 FILL = 0.9                # a plan within 10% of the target fills the card
 WARPS = 8
-ROW_CHUNKS = (64, 32, 16, 8)   # rows per warp chunk; an int4 chunk lies in one group
+ROW_CHUNKS = (64, 32, 16, 8)   # rows per warp chunk
 MAX_TICKETS = 4096        # column tiles of one launch whose rows split
 MAX_STREAMS = 64          # streams a device keeps ticket rows for
 DTYPES = (torch.float32, torch.bfloat16)
 _vp, _int = ctypes.c_void_p, ctypes.c_int
-SIGNATURE = ([_vp] * 6 + [_int] * 9 + [_vp], _int)
+SIGNATURE = ([_vp] * 6 + [_int] * 8 + [_vp], _int)
 
 _pools: Dict[torch.device, torch.Tensor] = {}
 _rows: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -36,25 +36,20 @@ _workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def group_ok(G: int) -> bool:
-    """Whether the int4 kernels take groups of G rows: a warp's row chunk
-    must lie in one group."""
+    """Whether the int4 kernels K10 and K12 take groups of G rows: a
+    multiple of 8."""
     return G % ROW_CHUNKS[-1] == 0
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M: int, R: int, N: int, G: int, int4: bool) -> Tuple[int, int, int, int]:
+def plan(M: int, K: int, N: int) -> Tuple[int, int, int, int]:
     """(column tiles, rows per warp chunk, passes, row splits) for a weight
-    of R rows by N columns (int4: groups of G rows) and M rows of x. The
-    tile is weight_stream.cuh's (launch_mt, vec_for): mt rows of x per
-    block, vec columns per lane."""
+    of K rows by N columns and M rows of x. The tile is weight_stream.cuh's
+    (launch_mt): mt rows of x per block, 16 columns per lane."""
     mt = 1 if M == 1 else 4
-    vec = 16 if (not int4 or mt == 1) else 8
-    tiles = -(-N // (32 * vec)) * -(-M // mt)
-    if int4 and not group_ok(G):
-        raise ValueError(f"group of {G} rows: the kernel takes groups of a multiple of "
-                         f"{ROW_CHUNKS[-1]} rows")
-    for rc in (rc for rc in ROW_CHUNKS if not int4 or G % rc == 0):
-        nb = -(-R // (WARPS * rc))
+    tiles = -(-N // (32 * 16)) * -(-M // mt)
+    for rc in ROW_CHUNKS:
+        nb = -(-K // (WARPS * rc))
         if tiles * nb >= FILL * TARGET_BLOCKS:   # the largest chunks that fill the card
             break
     passes = max(1, tiles * nb // TARGET_BLOCKS)
@@ -101,15 +96,15 @@ def workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
 
 
 def launch(source: str, entry: str, signatures, x: torch.Tensor, w: torch.Tensor,
-           scale: torch.Tensor, scale_dtype: torch.dtype, scale_shape, G: int = 0,
+           scale: torch.Tensor, scale_dtype: torch.dtype, scale_shape,
            out_f32: bool = False) -> torch.Tensor:
     """Checks what the C side cannot (types, shapes, devices, layout),
     plans, and launches `entry` of `source` on x's current stream:
     out (M, N) = x (M, K) @ dequant(w, scale), in x's dtype or f32."""
     check_args(entry, x, w, scale, scale_dtype, scale_shape)
     M, K = x.shape
-    R, N = w.shape
-    tiles, rc, passes, ksplit = plan(M, R, N, G, G > 0)
+    N = w.shape[1]
+    tiles, rc, passes, ksplit = plan(M, K, N)
     stream = _build.stream_of(x)
     dev = x.device
     ws = tk = None
@@ -118,8 +113,7 @@ def launch(source: str, entry: str, signatures, x: torch.Tensor, w: torch.Tensor
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=dev)
     fn = getattr(_build.load(source, signatures), entry)
     err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), ptr(ws), ptr(tk),
-             M, K, N, G, rc, passes, ksplit, int(x.dtype == torch.bfloat16), int(out_f32),
-             stream)
+             M, K, N, rc, passes, ksplit, int(x.dtype == torch.bfloat16), int(out_f32), stream)
     _build.check(err, entry)
     return out
 

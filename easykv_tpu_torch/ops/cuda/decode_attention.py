@@ -5,7 +5,10 @@ CUDA kernels: easykv_tpu_torch/csrc/decode_attention.cu, entries
 `decode_attend_inflight` and `decode_attend` on one kernel body, which
 replace the TPU kernels easykv_tpu/ops/pallas/decode_attention.py
 `fused_decode_attend_inflight` and `fused_decode_attend`. Both are bound by
-the bytes of K and V; the source note says what the design does about that.
+the bytes of K and V; the source note says what the design does about that:
+S splits over a thread-block cluster whose run of cache tiles `split_plan`
+sizes, and every warp copies the run's K / V tiles into shared memory by
+16-byte cp.async, counted on each tile's mbarrier.
 
 `fused_decode_attend_inflight` launches the kernel for CUDA tensors and runs
 the plain version, ops.attention.attend_inflight, for CPU tensors. The
@@ -26,7 +29,8 @@ p in fp32 through the PV product, as the TPU kernel does.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,16 +44,105 @@ fused_decode_attend_plain = decode_attend
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "decode_attend_inflight": ([_vp] * 15 + [_int] * 5 + [ctypes.c_float] + [_int] * 3 + [_vp],
+    "decode_attend_inflight": ([_vp] * 15 + [_int] * 5 + [ctypes.c_float] + [_int] * 6 + [_vp],
                                _int),
-    "decode_attend": ([_vp] * 9 + [_int] * 5 + [ctypes.c_float] + [_int] * 3 + [_vp], _int),
-    "decode_attend_inflight_smem": ([_int] * 5, ctypes.c_size_t),
+    "decode_attend": ([_vp] * 9 + [_int] * 5 + [ctypes.c_float] + [_int] * 6 + [_vp], _int),
+    "decode_attend_inflight_smem": ([_int] * 9, ctypes.c_size_t),
 }
 
+# The kernel's geometry (csrc/decode_attention.cu): 8 warps a block, cache
+# tiles of 32 rows, clusters of at most 8 blocks, at most 4 rep rows a PV
+# thread. A plan aims at about one block an SM of an H100 (132 SMs) and
+# keeps a block's shared memory within half an SM's, so that two blocks fit
+# an SM and every cluster of the grid is resident at once (clusters of 4
+# blocks one an SM did not all fit the card's GPCs: the grid ran in two
+# waves).
+THREADS = 256
+WARPS = 8
+TILE = 32
+MAX_CLUSTER = 8
+MAX_PASSES = 4
+SMS = 132
+SM_SMEM = 233472          # shared memory of an SM; a block reserves 1 KB of it
+TWO_A_SM = SM_SMEM // 2 - 1024
+KV_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+ROT = {None: 0, "ordered": 1, "rank": 2}
 
-def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, extra):
+
+class SplitPlan(NamedTuple):
+    cluster: int   # blocks a (batch, kv head) splits its slots over
+    nk: int        # K ring slots (tiles) a block
+    nv: int        # V ring slots
+    smem: int      # shared memory of a block, bytes
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def split_smem(rep: int, S: int, D: int, kv: str, rot: int, c: int, nk: int, nv: int) -> int:
+    """Shared memory of one block (csrc/decode_attention.cu geometry): the
+    K ring (or the PV partials, whichever is larger), the V ring, q, the
+    logits, the run's pos (int8 scales, ranks), the softmax and PV
+    scratch, the slots' mbarriers, 128 bytes of alignment."""
+    ekv = KV_BYTES[kv]
+    lpr = D // (16 // ekv)
+    rpt = min(rep, THREADS // lpr)
+    groups = THREADS // (lpr * rpt)
+    nmax = -(-(-(-S // TILE)) // c) * TILE
+    kslot = _align(TILE * D * ekv + (TILE * D * 4 if rot else 0), 128)
+    vslot = _align(TILE * D * ekv, 128)
+    meta = nmax * 4 * (1 + (2 if ekv == 1 else 0) + (1 if rot == 2 else 0))
+    o = _align(max(nk * kslot, groups * rep * D * 4), 128) + nv * vslot
+    o += rep * D * 4 + rep * nmax * 4 + meta + (6 + WARPS) * rep * 4 + rep * D * 4
+    return 128 + _align(o, 8) + (nk + nv) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, Hkv: int, rep: int, S: int, D: int, kv: str, rot: int = 0) -> SplitPlan:
+    """K1's launch for B x Hkv (batch, kv head) pairs of rep query rows over
+    S slots of D (kv: "f32", "bf16" or "int8"; rot: 0, or 1 / 2 for the
+    ordered / rank tables): the largest power-of-two cluster up to 8 (and
+    up to the 32-row tiles) that keeps the grid within one block an SM,
+    then as many ring slots as fit half an SM's shared memory (every tile
+    of the run where it fits: the copies of the whole run in flight at
+    once), or a whole block's where not even one fits there. Raises
+    ValueError for what the kernel does not take."""
+    V = 16 // KV_BYTES[kv]
+    lpr = D // V
+    if D % V or not 1 <= lpr <= 32 or lpr & (lpr - 1):
+        raise ValueError(f"head_dim {D}: a row must be 1, 2, 4, 8, 16 or 32 16-byte loads")
+    if rot and D % 8:
+        raise ValueError(f"head_dim {D}: the rotated variants take D % 8 == 0")
+    if -(-rep // min(rep, THREADS // lpr)) > MAX_PASSES:
+        raise ValueError(f"rep={rep}: at most {MAX_PASSES * (THREADS // lpr)} query heads a "
+                         f"KV head at head_dim {D} with a {kv} cache")
+    nt = -(-S // TILE)
+    c = 1
+    while 2 * c <= min(MAX_CLUSTER, nt) and B * Hkv * 2 * c <= SMS:
+        c *= 2
+    for budget in (TWO_A_SM, _build.SMEM_LIMIT):
+        n = -(-nt // c)
+        while n >= 1 and split_smem(rep, S, D, kv, rot, c, n, n) > budget:
+            n -= 1
+        if n >= 1:
+            return SplitPlan(c, n, n, split_smem(rep, S, D, kv, rot, c, n, n))
+    need = split_smem(rep, S, D, kv, rot, c, 1, 1)
+    raise ValueError(f"rep*S={rep * S} logits need {need} bytes of shared memory "
+                     f"(limit {_build.SMEM_LIMIT})")
+
+
+def block_rows(plan: SplitPlan, rank: int, S: int) -> Tuple[int, int]:
+    """Slots [s0, s1) that block `rank` of a (batch, kv head)'s cluster
+    takes: the kernel's tiles [rank * nt / c, (rank + 1) * nt / c)."""
+    nt = -(-S // TILE)
+    t0, t1 = rank * nt // plan.cluster, (rank + 1) * nt // plan.cluster
+    return t0 * TILE, min(S, t1 * TILE)
+
+
+def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, extra, rot=None, rank=None):
     """Checks the arguments both entries share, plus `extra` (name, tensor,
-    dtype, shape); returns (library, quantized)."""
+    dtype, shape); returns (library, quantized, plan)."""
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if T != 1 or Hq % Hkv != 0:
@@ -74,15 +167,12 @@ def _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, extra):
         raise ValueError("decode attention takes contiguous tensors on one device")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k and v must be 16-byte aligned")
-    rep = Hq // Hkv
-    lib = _build.load("decode_attention", SIGNATURES)
-    smem = lib.decode_attend_inflight_smem(rep, S, D, _DTYPES[q.dtype], int(quant))
-    if smem == 0:
-        raise ValueError(f"head_dim {D}: a row must be 1, 2, 4, 8, 16 or 32 16-byte loads")
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"rep*S={rep * S} logits need {smem} bytes of shared memory "
-                         f"(limit {_build.SMEM_LIMIT})")
-    return lib, quant
+    if rot is not None and (rot[0].data_ptr() % 16 or rot[1].data_ptr() % 16):
+        raise ValueError("the rot tables must be 16-byte aligned")
+    kv = "int8" if quant else ("bf16" if q.dtype == torch.bfloat16 else "f32")
+    kind = None if rot is None else ("ordered" if rank is None else "rank")
+    plan = split_plan(B, Hkv, Hq // Hkv, S, D, kv, ROT[kind])
+    return _build.load("decode_attention", SIGNATURES), quant, plan
 
 
 def fused_decode_attend_inflight(
@@ -120,7 +210,7 @@ def fused_decode_attend_inflight(
                   ("rot sin", rot[1], torch.float32, (S, D // 2))]
     if rank is not None:
         extra += [("rank", rank, torch.int32, (B, Hkv, S))]
-    lib, quant = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, extra)
+    lib, quant, plan = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, extra, rot, rank)
     out = torch.empty_like(q)
     probs = torch.empty((B, Hkv, 1, S), dtype=torch.float32, device=q.device)
     p_new = torch.empty((B, Hkv, 1), dtype=torch.float32, device=q.device)
@@ -130,7 +220,7 @@ def fused_decode_attend_inflight(
         v_scale.data_ptr() if quant else None, None if rot is None else rot[0].data_ptr(),
         None if rot is None else rot[1].data_ptr(), None if rank is None else rank.data_ptr(),
         out.data_ptr(), probs.data_ptr(), p_new.data_ptr(), B, Hkv, Hq // Hkv, S, D, D ** -0.5,
-        _window(sliding_window), _DTYPES[q.dtype], int(quant), _build.stream_of(q))
+        _window(sliding_window), _DTYPES[q.dtype], int(quant), *plan[:3], _build.stream_of(q))
     _build.check(err, "decode_attend_inflight")
     fused_decode_attend_inflight.launches += 1
     if rank is not None:
@@ -163,14 +253,14 @@ def fused_decode_attend(
                              sliding_window=sliding_window)
     B, Hq, _, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    lib, quant = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, [])
+    lib, quant, plan = _prepare(q, k, v, kv_pos, q_pos, k_scale, v_scale, [])
     out = torch.empty_like(q)
     probs = torch.empty((B, Hkv, 1, S), dtype=torch.float32, device=q.device)
     err = lib.decode_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         out.data_ptr(), probs.data_ptr(), B, Hkv, Hq // Hkv, S, D, D ** -0.5,
-        _window(sliding_window), _DTYPES[q.dtype], int(quant), _build.stream_of(q))
+        _window(sliding_window), _DTYPES[q.dtype], int(quant), *plan[:3], _build.stream_of(q))
     _build.check(err, "decode_attend")
     fused_decode_attend.launches += 1
     return out, probs

@@ -1,4 +1,5 @@
-"""w8a16 product (kernel K13).
+"""w8a16 product (kernel K13), and the M = 1 weight stream it shares with
+K10.
 
 CUDA kernels, which replace the TPU kernel
 easykv_tpu/ops/pallas/quant_matmul.py `quant_matmul`: at M = 1 (the decode
@@ -8,7 +9,9 @@ cluster whose partials add through distributed shared memory (no workspace,
 no ticket); at 1 < M <= 256 easykv_tpu_torch/csrc/quant_matmul.cu (on
 csrc/weight_stream.cuh). Both are bound by the int8 weight bytes at decode
 widths; the source notes say what the designs do about that. `gemv_plan`
-picks the M = 1 launch.
+picks the M = 1 launch of either format of quant_gemv.cu: K13's int8
+weight, or (with a group G) K10's arithmetic int4 carrier
+(ops/cuda/w4_stream.py w4a16_gemv_arith).
 
 `quant_matmul` launches a kernel for CUDA tensors and runs
 `quant_matmul_plain` for CPU tensors. All accumulate the whole contraction
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,7 +35,9 @@ MAX_M = 256
 SIGNATURES = {"quant_matmul": _wstream.SIGNATURE}
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 GEMV_SIGNATURES = {"quant_gemv": ([_vp] * 4 + [_int] * 8 + [_vp], _int),
-                   "quant_gemv_smem": ([_int] * 4, ctypes.c_size_t)}
+                   "quant_gemv_smem": ([_int] * 4, ctypes.c_size_t),
+                   "w4a16_gemv_arith": ([_vp] * 4 + [_int] * 8 + [_vp], _int),
+                   "w4a16_gemv_arith_smem": ([_int] * 5, ctypes.c_size_t)}
 
 SMS = 132                 # streaming multiprocessors of an H100
 TN = 256                  # columns of a block's slab (csrc/quant_gemv.cu kTN)
@@ -57,31 +63,58 @@ class GemvPlan(NamedTuple):
     slabs: int     # column slabs of TN columns
 
 
+def stage_rows(G: int) -> int:
+    """Carrier rows a K10 stage takes for groups of G rows: the most whole
+    groups within STAGE_ROWS, the stage a multiple of ROW_LANES (G = 128:
+    one group a stage); else STAGE_ROWS, whole stages of a group where G is
+    a multiple of it, groups straddling stages otherwise (odd multiples of 8
+    above 64 rows, which no 7B tree has)."""
+    lcm = ROW_LANES * G // math.gcd(ROW_LANES, G)
+    return STAGE_ROWS // lcm * lcm if lcm <= STAGE_ROWS else STAGE_ROWS
+
+
+def stage_groups(rs: int, G: int) -> int:
+    """Scale groups a stage's slot holds (csrc/quant_gemv.cu stage_groups)."""
+    if rs % G == 0:
+        return rs // G
+    if G % rs == 0:
+        return 1
+    return (rs + G - 2) // G + 1
+
+
 @functools.lru_cache(maxsize=None)
-def gemv_plan(K: int, N: int) -> GemvPlan:
-    """K13's launch at M = 1 for a weight (K, N): slabs of TN columns whose
-    stages split over `cluster` blocks (see MAX_CLUSTER)."""
+def gemv_plan(R: int, N: int, G: int = 0) -> GemvPlan:
+    """The M = 1 launch for a weight of R rows by N columns: K13's int8
+    weight (G = 0, R = K), or K10's arithmetic carrier (R = K / 2 rows in
+    groups of G, stages of stage_rows(G)): slabs of TN columns
+    whose stages split over `cluster` blocks (see MAX_CLUSTER). K10 takes
+    groups of a multiple of 8 rows (ValueError otherwise)."""
+    if G % 8:
+        raise ValueError(f"group of {G} rows: the kernel takes groups of a multiple of 8 rows")
+    rs = stage_rows(G) if G else STAGE_ROWS
     slabs = -(-N // TN)
-    ns = -(-K // STAGE_ROWS)
+    ns = -(-R // rs)
     cluster = 1
     while 2 * cluster <= min(MAX_CLUSTER, ns) and slabs * 2 * cluster <= WAVE:
         cluster *= 2
-    return GemvPlan(STAGE_ROWS, STAGES, cluster, slabs)
+    return GemvPlan(rs, STAGES, cluster, slabs)
 
 
-def gemv_smem(K: int, p: GemvPlan) -> int:
+def gemv_smem(R: int, p: GemvPlan, G: int = 0) -> int:
     """Shared memory of one block of the M = 1 kernel (csrc/quant_gemv.cu
-    geometry): the ring, the warps' and the block's partials, x for the
-    block's rows (f32), the 2 stages mbarriers, 128 bytes of alignment."""
-    xrows = -(-(-(-K // p.rs)) // p.cluster) * p.rs
-    body = p.stages * p.rs * TN + WARPS * TN * 4 + TN * 4 + xrows * 4
+    geometry): the ring (K10: each stage with its groups' scale rows), the
+    warps' and the block's partials, x for the block's rows (f32; K10 two a
+    row), the 2 stages mbarriers, 128 bytes of alignment."""
+    xrows = -(-(-(-R // p.rs)) // p.cluster) * p.rs
+    stage = p.rs * TN + (4 * TN * stage_groups(p.rs, G) if G else 0)
+    body = p.stages * stage + WARPS * TN * 4 + TN * 4 + xrows * 4 * (2 if G else 1)
     return 128 + -(-body // 8) * 8 + 2 * p.stages * 8
 
 
-def block_stages(p: GemvPlan, rank: int, K: int):
+def block_stages(p: GemvPlan, rank: int, R: int):
     """Stages [s0, s1) that block `rank` of a slab's cluster takes (the
     kernel's s_begin and its end; stage s is rows s * p.rs .. + p.rs)."""
-    ns = -(-K // p.rs)
+    ns = -(-R // p.rs)
     return rank * ns // p.cluster, (rank + 1) * ns // p.cluster
 
 

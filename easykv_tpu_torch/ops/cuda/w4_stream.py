@@ -1,14 +1,15 @@
 """w4a16 products over the arithmetic int4 carrier: kernels K10
 (`w4a16_gemv_arith`, M = 1) and K11 (`w4a16_gemm_arith`, 1 < M <= 512).
 
-CUDA kernels: K10 in easykv_tpu_torch/csrc/w4_stream.cu (on
-csrc/weight_stream.cuh), K11 in easykv_tpu_torch/csrc/w4_gemm.cu (its own
-tensor-core kernel), which replace the TPU kernels
-easykv_tpu/ops/pallas/w4_stream.py `w4a16_gemv_arith` and
-`w4a16_gemm_arith`. K10 is bound by the carrier bytes; K11 by them at
-small M and by its multiply-adds at M = 512. The source notes say what the
-designs do about that. K11's tile configuration and the split of its
-groups over blocks come from `gemm_plan`.
+CUDA kernels: K10 in easykv_tpu_torch/csrc/quant_gemv.cu (the M = 1
+tensor-map stream it shares with K13, in its carrier format; its plan is
+ops/cuda/quant_matmul.py `gemv_plan` with the group), K11 in
+easykv_tpu_torch/csrc/w4_gemm.cu (its own tensor-core kernel), which
+replace the TPU kernels easykv_tpu/ops/pallas/w4_stream.py
+`w4a16_gemv_arith` and `w4a16_gemm_arith`. K10 is bound by the carrier
+bytes; K11 by them at small M and by its multiply-adds at M = 512. The
+source notes say what the designs do about that. K11's tile configuration
+and the split of its groups over blocks come from `gemm_plan`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors: the carrier unpacked (hi = (p + 8) >> 4, lo =
@@ -18,7 +19,8 @@ bf16 scale pair gs3 = [gs_hi; gs_lo] / 16, K11 the f32 group scales gs;
 gs3 * 16 == gs for the bf16-representable scales quantize_linear_int4 makes.
 Kernel and plain version differ only in the order of the f32 sums (the TPU
 kernel's xl - xh/16 rounding in bf16 is not carried over; K11 splits an f32
-x into three bf16 limbs whose sum is x exactly).
+x into three bf16 limbs whose sum is x exactly). K10 keeps no state between
+launches: no workspace, no ticket.
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ from typing import Tuple
 import torch
 
 from . import _build, _wstream
+from .quant_matmul import GEMV_SIGNATURES, gemv_plan
 
 MAX_M = 512
 GROUP = 128
-SIGNATURES = {"w4a16_gemv_arith": _wstream.SIGNATURE}
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 GEMM_SIGNATURES = {"w4a16_gemm_arith": ([_vp] * 6 + [_int] * 6 + [_vp], _int)}
 
@@ -128,8 +130,15 @@ def w4a16_gemv_arith(
     M, K, N, gc, G = _shapes(x, p, gs3, "w4a16_gemv_arith")
     if M != 1:
         raise ValueError(f"w4a16_gemv_arith takes one row, got {M}")
-    out = _wstream.launch("w4_stream", "w4a16_gemv_arith", SIGNATURES, x, p, gs3,
-                          torch.bfloat16, (gc, N), G)
+    _wstream.check_args("w4a16_gemv_arith", x, p, gs3, torch.bfloat16, (gc, N))
+    plan = gemv_plan(K // 2, N, G)
+    out = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    lib = _build.load("quant_gemv", GEMV_SIGNATURES)
+    err = lib.w4a16_gemv_arith(x.data_ptr(), p.data_ptr(), gs3.data_ptr(), out.data_ptr(), K, N,
+                               G, plan.rs, plan.stages, plan.cluster,
+                               int(x.dtype == torch.bfloat16),
+                               int(N % 16 == 0 and gs3.data_ptr() % 16 == 0), _build.stream_of(x))
+    _build.check(err, "w4a16_gemv_arith")
     w4a16_gemv_arith.launches += 1
     return out
 

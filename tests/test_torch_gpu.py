@@ -28,7 +28,13 @@ plain version (out to K6's limit, the written rows exact, scores within
 1e-5) and, bit for bit on every array and the next mask, to K6 followed by
 the plain update and selection on K6's own statistics; it raises on what it
 does not take; the strided encode with it gives the K6 path's tokens and
-final cache.
+final cache. K1 (every variant and `fused_decode_attend`), whose slots
+split over a thread-block cluster, is held to its plain version at the
+split's edges (runs with no visible slot, a dead row, S not a multiple of
+the tiles or the cluster, one block a head at B = 16, GQA rep 4 with a
+window, MQA rep 32) and, with K10 on the M = 1 weight stream, gives the same
+bits on two launches and on two streams; the shared memory each lays out is
+the one its Python plan computes.
 
 Run on a machine with an NVIDIA H100 (tests/conftest.py imports JAX, which
 such a machine need not have):  python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -759,6 +765,100 @@ def test_decode_attend_kernel_matches_plain(cuda, kind, shape, window):
         assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()
 
 
+# K1's split edges: (B, Hq, Hkv, S, window, cluster of the plan)
+K1_EDGES = {
+    "masked-runs": (1, 32, 32, 768, None, 4),      # slots 300.. free: blocks 2 and 3 see none
+    "dead-row": (2, 32, 32, 768, None, 2),         # q_pos -1 in row 1
+    "ragged-S": (1, 32, 32, 777, None, 4),         # 25 tiles, the last of 9 rows
+    "b16-c1": (16, 32, 32, 768, None, 1),          # 512 pairs: one block a head
+    "gqa-rep4-window": (2, 32, 8, 768, 512, 8),    # Mistral-7B's heads, a 512-slot window
+    "mqa-rep32": (1, 32, 1, 768, None, 8),         # 32 rep rows: PV in several passes
+}
+K1_VARIANTS = ("plain", "ordered", "rank", "decode_attend")
+
+
+def _k1_edge(cuda, case, kind, variant, seed=60):
+    """The variant's kernel and plain results at one of K1's split edges."""
+    from easykv_tpu_torch.ops.cuda.decode_attention import split_plan
+    B, Hq, Hkv, S, window, cluster = K1_EDGES[case]
+    D = 128
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa: E731
+    k, v, ks, vs = _kv(cuda, 1, B, Hkv, S, D, kind, seed + 1)
+    scales = () if ks is None else (ks[0], vs[0])
+    if case == "masked-runs":
+        pos = torch.full((B, Hkv, S), -1, dtype=torch.int32, device=cuda)
+        pos[..., :300] = torch.randperm(300, generator=torch.Generator().manual_seed(seed)).to(
+            device=cuda, dtype=torch.int32)
+        ranks = age_ranks_all(pos[None])[0]
+    else:
+        pos, ranks = _unordered(cuda, B, Hkv, S, S * 7 // 8, seed + 2, dead_row=case == "dead-row")
+    q_pos = torch.full((B,), 2 * S, dtype=torch.int32, device=cuda)
+    if case == "dead-row":
+        q_pos[-1] = -1
+    rot = tuple(x.contiguous() for x in rope_cos_sin(
+        torch.arange(S, dtype=torch.int32, device=cuda), rope_inv_freq(D, 10000.0, cuda)))
+    kv = "int8" if kind == "int8" else kind
+    rid = {"plain": 0, "ordered": 1, "rank": 2, "decode_attend": 0}[variant]
+    assert split_plan(B, Hkv, Hq // Hkv, S, D, kv, rid).cluster == cluster
+    q = rnd(B, Hq, 1, D)
+    if variant == "decode_attend":
+        args = (q, k[0], v[0], pos, q_pos) + scales
+        return (fused_decode_attend(*args, sliding_window=window),
+                fused_decode_attend_plain(*args, sliding_window=window))
+    kw = dict(sliding_window=window)
+    if variant != "plain":
+        kw["rot"] = rot
+    if variant == "rank":
+        kw["rank"] = ranks
+    args = (q, rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D), k[0], v[0], pos, q_pos) + scales
+    return (fused_decode_attend_inflight(*args, **kw),
+            fused_decode_attend_inflight_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("case", list(K1_EDGES))
+@pytest.mark.parametrize("variant", K1_VARIANTS)
+def test_k1_split_edges_match_plain(cuda, variant, case, kind):
+    """K1 (plain, `ordered`, `rank`) and `fused_decode_attend`, their slots
+    split over a cluster, against their plain versions where the split has
+    edges: runs with no visible slot (their local max -inf, e = 0), a dead
+    row, S not a multiple of the 32-row tiles or of the cluster, one block a
+    (batch, kv head) at B = 16, GQA rep 4 with a 512-slot window, MQA rep 32;
+    out to K1's limit, probs (and p_new) within 1e-5, a dead row all zero."""
+    got, ref = _k1_edge(cuda, case, kind, variant)
+    torch.cuda.synchronize()
+    assert _out_ok(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    if case == "dead-row":
+        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()
+    if case == "masked-runs":
+        assert (got[1][..., 300:] == 0).all()
+
+
+def test_k1_gives_the_same_bits_every_run(cuda):
+    """K1's blocks share nothing but their cluster's distributed shared
+    memory, added in rank order, and keep no state between launches: every
+    variant gives the same bits on two launches, and on two streams at
+    once."""
+    for variant in K1_VARIANTS:
+        for kind in ("bf16", "int8"):
+            first, _ = _k1_edge(cuda, "ragged-S", kind, variant, seed=61)
+            again, _ = _k1_edge(cuda, "ragged-S", kind, variant, seed=61)
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), (variant, kind)
+            streams = [torch.cuda.Stream() for _ in range(2)]
+            torch.cuda.synchronize()
+            outs = []
+            for _ in range(8):
+                for st in streams:
+                    with torch.cuda.stream(st):
+                        outs.append(_k1_edge(cuda, "ragged-S", kind, variant, seed=61)[0])
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for o in outs for a, b in zip(o, first)), (variant, kind)
+
+
 @pytest.mark.parametrize("stride", [8, 1])
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["f32", "int8"])
 def test_streaming_encode_kernel_path_matches_plain_path(cuda, kv_quant, stride):
@@ -844,7 +944,7 @@ def _qx(cuda, M, K, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "head", "n300"])
+@pytest.mark.parametrize("name", ["wqkv", "wo", "wgu", "wd", "wg", "head", "n300"])
 def test_k10_kernel_matches_plain(cuda, name, dtype):
     from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
     quant, w = _qweights(cuda, name, 1)
@@ -856,6 +956,82 @@ def test_k10_kernel_matches_plain(cuda, name, dtype):
     torch.cuda.synchronize()
     assert w4a16_gemv_arith.launches == before + 1
     assert _quant_close(got, ref)
+
+
+@pytest.mark.parametrize("group,K", [(64, 4096), (8, 4096), (24, 3072), (136, 2176),
+                                     (256, 4096)])
+def test_k10_kernel_matches_plain_at_other_groups(cuda, group, K):
+    """K10 with groups other than the main path's 128 carrier rows: several
+    groups a stage (64, 8, 24), a group straddling stages (136) and a group
+    spanning two (256), x in bf16 and f32, N = 4096 and a ragged 264."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    for N in (4096, 264):
+        g = torch.Generator(device=cuda).manual_seed(group + N)
+        ql = quant.quantize_linear_int4(torch.randn((K, N), generator=g, device=cuda) * 0.02,
+                                        group, "arith")
+        assert ql["gs3"].shape[0] == K // group
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _qx(cuda, 1, K, dtype, 50 + group)
+            got = w4a16_gemv_arith(x, ql["q4a"], ql["gs3"])
+            ref = w4a16_gemv_arith_plain(x, ql["q4a"], ql["gs3"])
+            torch.cuda.synchronize()
+            assert _quant_close(got, ref), (group, N, dtype)
+
+
+@pytest.mark.parametrize("N", [40, 264, 4112])
+@pytest.mark.parametrize("x_offset", [0, 2, 16], ids=["x-aligned", "x+2B", "x+16B"])
+def test_k10_ragged_widths_and_offsets(cuda, N, x_offset):
+    """K10 at widths that are not a multiple of 16 (40, 264: the producer's
+    own loads of carrier and scales) or of its 256-column slab (4112: a
+    partial slab by the tensor map and bulk copies), x at a 2- and a 16-byte
+    offset (an f32 x at 4 bytes for 2), bf16 and f32 x."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    g = torch.Generator(device=cuda).manual_seed(N)
+    ql = quant.quantize_linear_int4(torch.randn((2048, N), generator=g, device=cuda) * 0.02,
+                                    128, "arith")
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.tensor([], dtype=dtype).element_size()
+        off = -(-x_offset // size)
+        base = torch.randn((2048 + 16,), generator=g, device=cuda).to(dtype)
+        x = base[off:off + 2048].view(1, 2048)
+        assert (x.data_ptr() - base.data_ptr()) == off * size
+        got = w4a16_gemv_arith(x, ql["q4a"], ql["gs3"])
+        ref = w4a16_gemv_arith_plain(x, ql["q4a"], ql["gs3"])
+        torch.cuda.synchronize()
+        assert _quant_close(got, ref)
+
+
+def test_k10_gives_the_same_bits_every_run(cuda):
+    """K10's cluster partials add in rank order and it keeps no state
+    between launches (no workspace, no ticket): two launches give the same
+    bits, and so do launches in flight on two streams at once (wq, wd:
+    clusters of 8)."""
+    from easykv_tpu_torch.ops.cuda import _wstream
+    from easykv_tpu_torch.ops.cuda.quant_matmul import gemv_plan
+    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    rows_before = dict(_wstream._rows)
+    for name in ("wo", "wd"):
+        quant, w = _qweights(cuda, name, 74)
+        ql = quant.quantize_linear_int4(w, 128, "arith")
+        assert gemv_plan(w.shape[0] // 2, w.shape[1], 128).cluster > 1
+        xs = [_qx(cuda, 1, w.shape[0], torch.bfloat16, 75 + i) for i in range(2)]
+        first = [w4a16_gemv_arith(x, ql["q4a"], ql["gs3"]) for x in xs]
+        assert all(torch.equal(a, w4a16_gemv_arith(x, ql["q4a"], ql["gs3"]))
+                   for a, x in zip(first, xs))
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(32):
+            for i, (st, x) in enumerate(zip(streams, xs)):
+                with torch.cuda.stream(st):
+                    outs.append((i, w4a16_gemv_arith(x, ql["q4a"], ql["gs3"])))
+        torch.cuda.synchronize()
+        assert all(torch.equal(y, first[i]) for i, y in outs)
+        assert all(_quant_close(a, w4a16_gemv_arith_plain(x, ql["q4a"], ql["gs3"]))
+                   for a, x in zip(first, xs))
+    assert dict(_wstream._rows) == rows_before          # no ticket row taken
 
 
 @pytest.mark.parametrize("M", [2, 4, 16, 96, 128, 511, 512])
@@ -1038,6 +1214,30 @@ def test_k13_m1_gives_the_same_bits_every_run(cuda):
                    for a, x in zip(first, xs))
 
 
+def test_k1_and_k10_layouts_match_their_python_mirrors(cuda):
+    """The shared memory the C side of K1 and of K10 lays out is the one
+    their Python plans compute (decode_attention.split_smem,
+    quant_matmul.gemv_smem with the group), which the CPU tests hold to the
+    card's 232,448 bytes."""
+    from easykv_tpu_torch.ops.cuda import _build, decode_attention as da, quant_matmul
+    lib1 = _build.load("decode_attention", da.SIGNATURES)
+    for B, Hkv, rep, S in ((1, 32, 1, 768), (1, 32, 1, 2304), (16, 32, 1, 768), (2, 8, 4, 2304),
+                           (1, 1, 32, 768), (4, 32, 1, 777)):
+        for kv, dtype, kv_int8 in (("bf16", 1, 0), ("int8", 1, 1), ("f32", 0, 0)):
+            for rot in (0, 1, 2):
+                p = da.split_plan(B, Hkv, rep, S, 128, kv, rot)
+                got = lib1.decode_attend_inflight_smem(rep, S, 128, dtype, kv_int8, rot, *p[:3])
+                assert got == p.smem, (B, Hkv, rep, S, kv, rot)
+    lib10 = _build.load("quant_gemv", quant_matmul.GEMV_SIGNATURES)
+    for K, N in W7B.values():
+        for G in (128, 64, 24, 136):
+            if (K // 2) % G:
+                continue
+            p = quant_matmul.gemv_plan(K // 2, N, G)
+            assert (lib10.w4a16_gemv_arith_smem(K, G, p.rs, p.stages, p.cluster)
+                    == quant_matmul.gemv_smem(K // 2, p, G))
+
+
 def test_k13_and_k14_layouts_match_their_python_mirrors(cuda):
     """The shared memory the C side of K13 (M = 1) and K14 lays out is the
     one their Python mirrors compute (quant_matmul.gemv_smem,
@@ -1129,28 +1329,30 @@ def test_quant_kernels_reject_groups_of_other_than_8_rows(cuda):
 def test_split_products_on_two_streams(cuda):
     """Split-row products in flight on two streams at once take their
     tickets from separate rows, and every result matches its plain
-    version."""
+    version: K13 and K11 at M = 4 (a B = 4 decode row), whose rows split
+    over blocks."""
     from easykv_tpu_torch.ops.cuda import _wstream
     from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
-    from easykv_tpu_torch.ops.cuda.w4_stream import w4a16_gemv_arith, w4a16_gemv_arith_plain
+    from easykv_tpu_torch.ops.cuda.w4_stream import (gemm_plan, w4a16_gemm_arith,
+                                                     w4a16_gemm_arith_plain)
     quant, w = _qweights(cuda, "wo", 11)
     q8, q4 = quant.quantize_linear(w), quant.quantize_linear_int4(w, 128, "arith")
-    assert _wstream.plan(1, 4096, 4096, 0, False)[3] > 1
-    assert _wstream.plan(1, 2048, 4096, 128, True)[3] > 1
+    assert _wstream.plan(4, 4096, 4096)[3] > 1
+    assert gemm_plan(4, 4096, 4096)[2] > 1
     streams = [torch.cuda.Stream() for _ in range(2)]
-    xs = [_qx(cuda, 1, 4096, torch.bfloat16, 20 + i) for i in range(2)]
+    xs = [_qx(cuda, 4, 4096, torch.bfloat16, 20 + i) for i in range(2)]
     torch.cuda.synchronize()
     outs = []
     for _ in range(64):
         for i, (s, x) in enumerate(zip(streams, xs)):
             with torch.cuda.stream(s):
                 outs.append((i, quant_matmul(x, q8["q"], q8["s"]),
-                             w4a16_gemv_arith(x, q4["q4a"], q4["gs3"])))
+                             w4a16_gemm_arith(x, q4["q4a"], q4["gs"])))
     torch.cuda.synchronize()
     rows = {_wstream._rows[(xs[0].device, s.cuda_stream)].data_ptr() for s in streams}
     assert len(rows) == 2
     refs = [(quant_matmul_plain(x, q8["q"], q8["s"]),
-             w4a16_gemv_arith_plain(x, q4["q4a"], q4["gs3"])) for x in xs]
+             w4a16_gemm_arith_plain(x, q4["q4a"], q4["gs"])) for x in xs]
     for i, y8, y4 in outs:
         assert torch.equal(y8, outs[i][1]) and torch.equal(y4, outs[i][2])   # run to run
         assert _quant_close(y8, refs[i][0]) and _quant_close(y4, refs[i][1])

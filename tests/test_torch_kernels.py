@@ -6,6 +6,9 @@ interpret mode on the CPU.
   K2 sidecar pass with the folded eviction      (pos / slot / counter exact,
                                                  scores within 1e-6)
   K3 K/V row write                              (exact)
+
+and K1's launch plan (`split_plan`: the cluster that splits S, the rings
+of cache tiles, the shared memory of a block) at the shapes the card runs.
 """
 import functools
 
@@ -21,6 +24,8 @@ from easykv_tpu.ops.pallas.row_write import write_rows as jk3
 from easykv_tpu.ops.pallas.sidecar_update import fused_write_update as jk2
 
 from easykv_tpu_torch import policies as tpol
+from easykv_tpu_torch.ops.cuda import _build
+from easykv_tpu_torch.ops.cuda import decode_attention as da
 from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight as tk1
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as tk3
 from easykv_tpu_torch.ops.cuda.sidecar_update import fused_write_update as tk2
@@ -135,3 +140,53 @@ def test_k3_plain_matches_pallas(dtype):
     ok, ov = tk3(tt(k), tt(v), tt(kn), tt(vn), t(slots))
     np.testing.assert_array_equal(ok.float().numpy(), np.asarray(rk.astype(jnp.float32)))
     np.testing.assert_array_equal(ov.float().numpy(), np.asarray(rv.astype(jnp.float32)))
+
+
+# (B, Hkv, rep, S) of K1's launches: the decode at S = 768 (bf16 / int8
+# roco, B = 1 and 4), 896 (`full`), the encoding decode (2304) and
+# `encoding_decoding` / `ppl` (2176), card tests at 256; B = 16 (c = 1), GQA
+# rep 4 (Mistral-7B widths, B = 2 with its 512-slot window), MQA rep 32
+K1_SHAPES = [(B, Hkv, rep, S) for S in (768, 896, 2176, 2304, 256)
+             for B, Hkv, rep in ((1, 32, 1), (2, 32, 1), (4, 32, 1), (16, 32, 1), (2, 8, 4),
+                                 (16, 8, 4), (1, 8, 4))] + [(1, 1, 32, 768), (2, 2, 4, 256)]
+
+
+@pytest.mark.parametrize("kv,rot", [("bf16", 0), ("int8", 0), ("f32", 0), ("bf16", 1),
+                                    ("int8", 1), ("bf16", 2), ("int8", 2), ("f32", 2)])
+def test_k1_split_plan_covers_every_slot(kv, rot):
+    """K1's plan at every shape the card runs it (phase 2 and 3 of
+    chip_smoke.py, the card tests): each slot lies in exactly one block's
+    run, every block has one, the cluster is a power of two up to 8 that
+    keeps the grid within one block an SM (c = 4 at 32 pairs, 1 from 128),
+    the rings hold all of a run's 32-row tiles or as many as fit in half an
+    SM's shared memory (two blocks an SM), and a block's shared memory is
+    within the card's."""
+    for B, Hkv, rep, S in K1_SHAPES:
+        p = da.split_plan(B, Hkv, rep, S, 128, kv, rot)
+        nt = -(-S // da.TILE)
+        assert p.cluster in (1, 2, 4, 8) and p.cluster <= nt
+        assert B * Hkv * p.cluster <= da.SMS or p.cluster == 1
+        assert 2 * p.cluster > min(8, nt) or B * Hkv * 2 * p.cluster > da.SMS
+        if B * Hkv == 32 and S >= 256:
+            assert p.cluster == 4
+        hits = np.zeros(S, np.int64)
+        for r in range(p.cluster):
+            s0, s1 = da.block_rows(p, r, S)
+            assert s1 > s0 and s0 % da.TILE == 0
+            hits[s0:s1] += 1
+        assert (hits == 1).all()
+        assert 1 <= p.nk == p.nv <= -(-nt // p.cluster)
+        assert p.smem == da.split_smem(rep, S, 128, kv, rot, p.cluster, p.nk, p.nv)
+        assert p.smem <= _build.SMEM_LIMIT
+        if p.smem <= da.TWO_A_SM:                         # two blocks an SM
+            assert 2 * (p.smem + 1024) <= da.SM_SMEM
+        if p.nk < -(-nt // p.cluster):                    # a ring: as many slots as fit
+            assert da.split_smem(rep, S, 128, kv, rot, p.cluster, p.nk + 1, p.nv + 1) > \
+                (da.TWO_A_SM if p.smem <= da.TWO_A_SM else _build.SMEM_LIMIT)
+    # the main path's decode at S = 768: every tile of a run in flight at
+    # once, two blocks' worth of shared memory an SM
+    for kv_ in ("bf16", "int8"):
+        p = da.split_plan(1, 32, 1, 768, 128, kv_, rot)
+        assert p.cluster == 4 and (rot or (p.nk == 6 and p.smem <= da.TWO_A_SM))
+    with pytest.raises(ValueError, match="head_dim 24"):
+        da.split_plan(1, 32, 1, 768, 24, kv, rot)

@@ -306,20 +306,27 @@ def test_mm_branches():
 
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
 def test_kernel_plan_covers_every_row(int4):
-    """The launch plan of K10-K13 at the 7B products: every row block is
-    walked by exactly one row split, an int4 chunk lies in one group, and a
-    group that is not a multiple of 8 rows is refused."""
+    """The launch plans of the weight streams at the 7B products: K13 at M
+    > 1 (csrc/weight_stream.cuh): every row block is walked by exactly one
+    row split; K10 (int4, csrc/quant_gemv.cu): every carrier row by exactly
+    one block of a slab's cluster, and a group that is not a multiple of 8
+    rows is refused."""
     for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)):
-        R, G = (K // 2, 128) if int4 else (K, 0)
-        for M in (1, 4, 256, 512):
-            tiles, rc, passes, ksplit = _wstream.plan(M, R, N, G, int4)
-            nb = -(-R // (_wstream.WARPS * rc))
+        if int4:
+            p = quant_matmul.gemv_plan(K // 2, N, 128)
+            spans = [quant_matmul.block_stages(p, r, K // 2) for r in range(p.cluster)]
+            assert spans[0][0] == 0 and spans[-1][1] * p.rs >= K // 2
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            continue
+        for M in (2, 4, 256):
+            tiles, rc, passes, ksplit = _wstream.plan(M, K, N)
+            nb = -(-K // (_wstream.WARPS * rc))
             assert (ksplit - 1) * passes < nb <= ksplit * passes
-            assert rc % 8 == 0 and (not int4 or G % rc == 0)
+            assert rc % 8 == 0
             assert ksplit == 1 or tiles <= _wstream.MAX_TICKETS
     if int4:
         with pytest.raises(ValueError, match="group of 86"):
-            _wstream.plan(1, 688, 512, 86, True)
+            quant_matmul.gemv_plan(688, 512, 86)
 
 
 def _covered_once(n, starts, width):
@@ -384,6 +391,54 @@ def test_k13_gemv_plan_covers_every_row_and_column(K, N):
     assert p.cluster == 1 or p.slabs * p.cluster <= 2 * quant_matmul.SMS
     assert 2 * p.cluster > min(8, stages) or p.slabs * 2 * p.cluster > 2 * quant_matmul.SMS
     assert 2 * quant_matmul.gemv_smem(K, p) <= 232448
+
+
+# (carrier rows, N) of K10's products: LLaMa-2-7B's split tree (wq = wk =
+# wv = wo, wg = wu, wd) and head, its fused tree's wqkv and wgu (the
+# per-product path without K14), Mistral-7B's wk / wv and wd, ragged widths
+K10_SHAPES = ((2048, 4096), (2048, 11008), (5504, 4096), (2048, 32000), (2048, 12288),
+              (2048, 22016), (2048, 1024), (7168, 4096), (2048, 300), (512, 264), (64, 40),
+              (1536, 4096), (1088, 4096))
+
+
+@pytest.mark.parametrize("G", [128, 64, 8, 24, 136, 256, 512])
+def test_k10_gemv_plan_covers_every_row_and_column(G):
+    """K10's plan (csrc/quant_gemv.cu over the arithmetic carrier, groups of
+    G carrier rows): every (carrier row, column) is taken by exactly one
+    block, each block of a cluster takes at least one stage, a stage is a
+    multiple of the 16 rows a consumer pass takes and of G (or G of it)
+    where 128-row stages allow it (then stages and cluster splits fall on
+    group boundaries: G = 128, the main path's, one group a stage), the cluster
+    is the largest power of two up to 8 (and up to the stages) that keeps a
+    clustered grid within two blocks an SM, the scale rows a stage's slot
+    holds cover every group it overlaps, and a block's shared memory fits
+    two to an SM."""
+    for R, N in K10_SHAPES:
+        if R % G:
+            continue
+        p = quant_matmul.gemv_plan(R, N, G)
+        assert p.rs % quant_matmul.ROW_LANES == 0 and p.rs <= 256 and 2 <= p.stages <= 16
+        assert p.cluster in (1, 2, 4, 8)
+        assert _covered_once(N, [s * quant_matmul.TN for s in range(p.slabs)], quant_matmul.TN)
+        aligned = p.rs % G == 0 or G % p.rs == 0
+        assert aligned == (G <= 64 or G % 16 == 0 and (G <= 128 or G % 128 == 0))
+        if G == 128:
+            assert p.rs == 128
+        hits = np.zeros(R, np.int64)
+        stages = -(-R // p.rs)
+        for r in range(p.cluster):
+            s0, s1 = quant_matmul.block_stages(p, r, R)
+            assert s1 > s0
+            hits[s0 * p.rs:min(R, s1 * p.rs)] += 1
+            if aligned and p.rs % G == 0:
+                assert s0 * p.rs % G == 0          # the split falls between groups
+        assert (hits == 1).all()
+        for s in range(stages):
+            r0, r1 = s * p.rs, min(R, (s + 1) * p.rs)
+            assert (r1 - 1) // G - r0 // G + 1 <= quant_matmul.stage_groups(p.rs, G)
+        assert p.cluster == 1 or p.slabs * p.cluster <= 2 * quant_matmul.SMS
+        assert 2 * p.cluster > min(8, stages) or p.slabs * 2 * p.cluster > 2 * quant_matmul.SMS
+        assert 2 * quant_matmul.gemv_smem(R, p, G) <= 232448
 
 
 # (Kh, N) of K12's products: LLaMa-2-7B's split tree (wq = wk = wv = wo, wg,

@@ -204,6 +204,9 @@ def dump(cs, dev, path):
 
 
 def compare(a, b):
+    """Per case and output of two dumps (keys "<kernel> <case>"): whether
+    they are bit-identical and their largest difference; and per kernel
+    whether all its cases are."""
     import torch
     da, db = torch.load(a), torch.load(b)
     res = {}
@@ -212,13 +215,48 @@ def compare(a, b):
                      "max_abs_diff": float((x.float() - y.float()).abs().max())}
                     for x, y in zip(da[key], db[key])]
     same = lambda keys: all(o["identical"] for k in keys for o in res[k])  # noqa: E731
-    for kernel in ("K10", "K13", "K14", "K15"):
+    for kernel in sorted({k.split(" ")[0] for k in list(res)}):
         keys = [k for k in res if k.startswith(kernel + " ")]
         res[f"{kernel} identical"] = same(keys)
         if kernel == "K13":
             res["K13 M>1 identical"] = same([k for k in keys if " M=1 " not in k])
     res["only in one"] = sorted(set(da) ^ set(db))
     return res
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def open_tree(root, defines, switches=SWITCHES, smoke=None):
+    """chip_smoke of the tree at `root` (its easykv_tpu_torch imported
+    first), or, given `smoke`, the chip_smoke.py of the tree at `smoke` run
+    on `root`'s easykv_tpu_torch; with the diagnostic builds of `defines`
+    (each -DNAME builds the source its prefix in `switches` names) loaded in
+    place of the normal ones."""
+    sys.path.insert(0, os.path.abspath(root))
+    if smoke is None:
+        import chip_smoke as cs
+    else:
+        import importlib.util
+        import easykv_tpu_torch  # noqa: F401  (root's package, before chip_smoke imports it)
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      os.path.join(smoke, "chip_smoke.py"))
+        cs = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = cs
+        spec.loader.exec_module(cs)
+    if defines:
+        import importlib
+        from easykv_tpu_torch.ops.cuda import _build
+        for prefix, (source, module, sigs) in switches.items():
+            names = [d for d in defines if d.startswith(prefix)]
+            if names and source in _build.SOURCES:
+                mod = importlib.import_module(f"easykv_tpu_torch.ops.cuda.{module}")
+                _build._libs[source] = _build.load_debug(source, names, getattr(mod, sigs))
+    return cs
 
 
 def main():
@@ -239,21 +277,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    sys.path.insert(0, os.path.abspath(opt.root))
-    import chip_smoke as cs
+    cs = open_tree(opt.root, opt.define)
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    res = {"card": smi, "root": os.path.abspath(opt.root), "define": opt.define}
-    if opt.define:
-        import importlib
-        from easykv_tpu_torch.ops.cuda import _build
-        for prefix, (source, module, sigs) in SWITCHES.items():
-            names = [d for d in opt.define if d.startswith(prefix)]
-            if names and source in _build.SOURCES:
-                mod = importlib.import_module(f"easykv_tpu_torch.ops.cuda.{module}")
-                _build._libs[source] = _build.load_debug(source, names, getattr(mod, sigs))
+    res = {"card": card_name(), "root": os.path.abspath(opt.root), "define": opt.define}
     if opt.only != "k14":
         res["k13"] = k13_times(cs, dev, 256)
     if opt.only != "k13":

@@ -19,7 +19,10 @@ while traced, the kernels that take most device time, and the PyTorch ops
 that take most host time (self CPU time under the tracer, which inflates
 it, with calls per step).
 
-    python3 tools/torch_profile_decode.py [--streaming | --quant]
+    python3 tools/torch_profile_decode.py [--streaming | --quant] [--only TEXT]
+
+--only TEXT keeps the runs whose name holds TEXT (e.g. --quant --only split:
+the int4 arithmetic split tree alone).
 """
 import importlib
 import json
@@ -100,6 +103,9 @@ def main():
                  lambda: quant.quantize_params_int4(params), 1)]
     else:
         runs = [("bf16 KV", False, None, bf16, 1), ("int8 KV", True, None, bf16, 1)]
+    if "--only" in sys.argv[1:]:
+        text = sys.argv[sys.argv.index("--only") + 1]
+        runs = [r for r in runs if text in r[0]]
     for name, kv_quant, prerot, weights, B in runs:
         flags.use_prerot(prerot)
         w = weights()

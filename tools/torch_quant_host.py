@@ -10,8 +10,8 @@ the kernel's time (chip_smoke.py phase 5 has those). `torch.matmul` over a
 bf16 copy of the same weight is timed the same way beside them, and so are
 the parts of a K10 call: the wrapper alone (without `mm`'s reshapes), the
 stream lookup (PyTorch's Stream object, and the raw handle alone), an
-output allocation, and the ctypes call into the library with a row count
-the C side refuses before any launch.
+output allocation, and the ctypes call into the library with a shape the
+C side refuses before any launch.
 
     python3 tools/torch_quant_host.py
 
@@ -29,7 +29,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from easykv_tpu_torch.ops import quant  # noqa: E402
-from easykv_tpu_torch.ops.cuda import _build, w4_stream  # noqa: E402
+from easykv_tpu_torch.ops.cuda import _build, quant_matmul, w4_stream  # noqa: E402
 
 K = N = 4096
 CALLS = 2000
@@ -56,7 +56,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    _build.build(("quant_matmul", "w4_matmul", "w4_stream"))
+    _build.build(("quant_matmul", "w4_matmul", "quant_gemv"))
     w = torch.randn((K, N), generator=torch.Generator(device=dev).manual_seed(0),
                     device=dev) * 0.02
     cases = [("K13 int8", quant.quantize_linear(w), 1),
@@ -72,14 +72,13 @@ def main():
         print(f"{name}, M={M}, ({K}, {N}): {us:.2f} us of host time a call (median of {CALLS})")
     ql = quant.quantize_linear_int4(w, 128, "arith")
     x = torch.randn((1, K), device=dev).to(torch.bfloat16)
-    lib = _build.load("w4_stream", w4_stream.SIGNATURES)
+    lib = _build.load("quant_gemv", quant_matmul.GEMV_SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     index = torch.cuda.current_device()
 
-    def refused(x_, p):       # M = 0: the entry returns an error before launching
+    def refused(x_, p):       # an odd K: the entry returns an error before launching
         return lib.w4a16_gemv_arith(x_.data_ptr(), p.data_ptr(), ql["gs3"].data_ptr(),
-                                    x_.data_ptr(), None, None, 0, K, N, 128, 64, 1, 1, 1, 0,
-                                    stream)
+                                    x_.data_ptr(), K + 1, N, 128, 128, 2, 8, 1, 1, stream)
     parts = [("K10 wrapper", lambda x_, p: w4_stream.w4a16_gemv_arith(x_, p, ql["gs3"])),
              ("torch.cuda.current_stream", lambda x_, p: torch.cuda.current_stream(dev)),
              ("raw current stream", lambda x_, p: torch._C._cuda_getCurrentRawStream(index)),
