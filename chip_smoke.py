@@ -11,7 +11,10 @@ Phases, each printing its lines before the last:
      main path's shapes (LLaMa-2-7B width, S=768): K1 decode attention (bf16
      MHA, GQA with B=2, a dead row, f32; int8 cache MHA, GQA with B=2, a dead
      row), K2 sidecar pass (all six policies, eviction gate on and off,
-     without and with the int8 scale rows: bit-exact), K3 row write (Dh=128
+     without and with the int8 scale rows: bit-exact; and, with K4, at the
+     edges of their launch plan, K2_EDGES: S=16, 777 and 2304, B=16, every
+     policy, with and without scale rows and `compact`, tied, NaN and -0.0
+     scores, a row without a candidate, a dead row), K3 row write (Dh=128
      and 64, bf16 and int8: exact), K5 chunk attention (C=128: int8 and bf16
      caches, statistics on and off, MHA, GQA with B=2 and padding rows, a
      sliding window, f32; and at the strided encode's S=2304, C=96: int8
@@ -125,7 +128,8 @@ Phases, each printing its lines before the last:
      each cache dtype the main path gives the kernel (K1's rank variant
      and fused_decode_attend at S=2304, each K1 entry beside
      scaled_dot_product_attention over the same cache, the attention half
-     alone, as its library yardstick; K7 roco at a triggered chunk,
+     alone, as its library yardstick; K2 also at B=4 and 16 (S=768) and at
+     the encoding family's S=2304, K4 also at S=2304; K7 roco at a triggered chunk,
      int8 and bf16, each call from its untouched state); K10-K13 at each 7B
      product of their phase-3 trees (bf16 activations; K11 at the split
      and the fused widths, M=4 and 512) with enough weight copies cycled that L2 is
@@ -296,9 +300,18 @@ def k5_case(B, Hq, Hkv, n_valid, dtype, quant, pad, dev, seed, S=S_MAIN, C=CHUNK
 
 def k2_case(L, B, H, S, dev, seed):
     """(sidecar state, per-row arguments, eviction arguments, int8 scale
-    rows: k_sc_new, v_sc_new, k_scale, v_scale)."""
+    rows: k_sc_new, v_sc_new, k_scale, v_scale). Below ENC_S the decode
+    cache of phase 3 (slot_positions); at ENC_S the encoding family's
+    scattered cache midway through its decode (RANK_VALID slots a head)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    pos = slot_positions(L, B, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed), dev)
+    if S >= ENC_S:
+        pos = torch.stack([scrambled_positions(B, H, S, RANK_VALID, dev, seed + l)
+                           for l in range(L)])
+        nxt = ENC_PROMPT + ENC_NEW
+    else:
+        pos = slot_positions(L, B, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(seed),
+                             dev)
+        nxt = PROMPT + NEW
     valid = pos >= 0
     u = lambda: torch.rand((L, B, H, S), generator=g, device=dev)  # noqa: E731
     score = torch.where(valid, u() * 4, 0.0)
@@ -306,7 +319,6 @@ def k2_case(L, B, H, S, dev, seed):
     counter = torch.where(valid, (u() * 200).floor(), 0.0)
     probs = torch.where(valid, u() / S, 0.0)
     p_new = torch.rand((L, B, H, 1), generator=g, device=dev) * 0.05
-    nxt = PROMPT + NEW
     per_b = dict(q_pos=torch.full((B,), nxt - 1, dtype=torch.int32, device=dev),
                  token_valid=torch.ones(B, dtype=torch.bool, device=dev),
                  update_gate=torch.ones(B, dtype=torch.bool, device=dev),
@@ -327,6 +339,165 @@ def k2_spec(policy):
 
 
 SCALE_NAMES = ("k_sc_new", "v_sc_new", "k_scale", "v_scale")
+# K2's and K4's timed shapes (L = H = 32): phase 3's decode at B = 1, 4 and 16
+# (S = 768), and the encoding family's decode (S = 2304)
+K2_SHAPES = {"B=1": (1, S_MAIN), "B=4": (B_WIDE, S_MAIN), "B=16": (B_MAX, S_MAIN),
+             "S=2304": (1, ENC_S)}
+K2_VARIANTS = ("bf16", "int8", "compact bf16", "compact int8")   # int8: with the scale rows
+
+
+def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4):
+    """K2's timed inputs at L = H = 32: n copies of k2_case (113 MB at B = 1,
+    S = 768, so that L2 is cold when they are cycled), the eviction gate on;
+    `variant` one of K2_VARIANTS. Returns (copies, run, nbytes, flops): run(fn)
+    calls K2's fn (k2, k2_plain) on a copy; the bound's bytes: pos, score,
+    score_sq, counter and probs read and score, score_sq and counter written
+    (32 a slot); a row's p_new read, its write slot written and pos at that
+    slot (and at the victim); with `compact` pos from the victim on instead
+    (at least slot S-1's -1; the victims of the plain version on each copy,
+    averaged over the copies) and the victim slot written; the two new
+    scales read and written with the scale rows; flops 8 a slot for the
+    update and the selection's keys, 31 for the bisection, 4 for the
+    minimum."""
+    L, H = 32, 32
+    compact, int8 = variant.startswith("compact"), variant.endswith("int8")
+    copies = []
+    for c in range(n):
+        state, per_b, ev, scales = k2_case(L, B, H, S, dev, seed + c)
+        kw = dict(ev, espec=k2_spec(policy), evict_gate=torch.ones(B, dtype=torch.bool, device=dev))
+        if compact:
+            kw["compact"] = True
+        if int8:
+            kw.update(zip(SCALE_NAMES, scales))
+        copies.append((state, per_b, kw))
+
+    def run(fn):
+        return lambda state, per_b, kw: fn(*state, *per_b.values(), policy, **kw)
+    slots, rows = L * B * H * S, L * B * H
+    nbytes = 32 * slots + rows * (12 + 4 + (16 if int8 else 0))
+    if compact:   # pos from each row's victim on, not the victim's alone
+        tail = 0
+        for state, per_b, kw in copies:
+            victim = run(k2_plain)([x.clone() for x in state], per_b,
+                                   {k: v.clone() if torch.is_tensor(v) else v
+                                    for k, v in kw.items()})[-1]
+            tail += int((S - victim.to(torch.int64)).clamp(min=1).sum())
+        nbytes += 4 * tail // n - 4 * rows
+    return copies, run, nbytes, slots * (8 + 31 + 4)
+
+
+def k4_time_sets(dev, B, S, gate=True, policy="roco", seed=170, n=4):
+    """K4's timed inputs at L = H = 32: n copies of k2_case's sidecars, every
+    row's gate `gate`. K4 works in place, so each call evicts one more slot a
+    row (the selection reads every slot whatever was evicted before).
+    Returns (copies, nbytes, flops): with the gate on K4 reads pos, score,
+    score_sq and counter and writes counter (20 bytes a slot) and one pos a
+    row; with it off it reads and writes the counters alone."""
+    L, H = 32, 32
+    copies = []
+    for c in range(n):
+        state, _, ev, _ = k2_case(L, B, H, S, dev, seed + c)
+        copies.append((*state[:4], torch.full((B,), gate, dtype=torch.bool, device=dev),
+                       ev["next_pos"], ev["prompt_len"], ev["rand_rank"], k2_spec(policy)))
+    slots, rows = L * B * H * S, L * B * H
+    if gate:
+        return copies, 20 * slots + rows * 4 + 16 * B, slots * (8 + 31 + 4)
+    return copies, 8 * slots + 16 * B, slots
+
+
+# K2 and K4 at the edges of their launch plan (sidecar_update.row_plan) in
+# phase 2: (L, B, H, S)
+K2_EDGES = {"S=777": (2, 2, 32, 777), "S=2304": (2, 2, 32, ENC_S), "S=16": (2, 2, 32, 16),
+            "B=16": (2, B_MAX, 32, S_MAIN)}
+
+
+def k2_edge_case(L, B, H, S, dev, seed):
+    """K2's and K4's inputs at an edge of their plan: an age-ordered cache
+    (slots [0, 3S/4) valid, the prompt's positions and then generated ones
+    with gaps, the rest free) with odd rows in layer 0, batch row 0: head 0
+    every score, score_sq and counter tied; head 1 a NaN score (the minimum
+    is NaN: no victim among the scores); head 2 a -0.0 score before a +0.0
+    one (the first zero wins); head 3 no candidate (every position in the
+    prompt); head 4 a NaN score_sq (roco's std is NaN). The last batch row
+    is dead (no token, every slot free). Gates by batch row: eviction on in
+    even rows and the dead one (at B > 2), the score update off in every
+    third. Returns (state, per_b,
+    ev, scales, spec) with state, per_b, ev and scales as k2_case's and
+    spec(policy) the policy's PolicySpec."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    n_valid = S * 3 // 4
+    plen = n_valid // 2
+    pos = torch.full((L, B, H, S), -1, dtype=torch.int32)
+    pos[..., :plen] = torch.arange(plen, dtype=torch.int32)
+    gen = torch.stack([plen + torch.randperm(2 * n_valid, generator=cpu)[:n_valid - plen]
+                       .sort().values for _ in range(L * B * H)])
+    pos[..., plen:n_valid] = gen.view(L, B, H, -1).to(torch.int32)
+    pos[0, 0, 3, plen:] = -1
+    if B > 1:
+        pos[:, -1] = -1
+    pos = pos.to(dev)
+    valid = pos >= 0
+    u = lambda: torch.rand((L, B, H, S), generator=g, device=dev)  # noqa: E731
+    score = torch.where(valid, u() * 4, 0.0)
+    ssq = score * u() * 0.1
+    counter = torch.where(valid, (u() * 50).floor() + 1, 0.0)
+    probs = torch.where(valid, u() / S, 0.0)
+    score[0, 0, 0], ssq[0, 0, 0], counter[0, 0, 0] = 0.5, 0.125, 8.0
+    probs[0, 0, 0] = 1.0 / S
+    score[0, 0, 1, plen + 1], probs[0, 0, 1, plen + 1] = float("nan"), float("nan")
+    score[0, 0, 2, plen + 2], probs[0, 0, 2, plen + 2] = -0.0, -0.0
+    score[0, 0, 2, plen + 3], probs[0, 0, 2, plen + 3] = 0.0, 0.0
+    ssq[0, 0, 4, plen + 1] = float("nan")
+    b = torch.arange(B, device=dev)
+    nxt = 3 * S + 1
+    per_b = dict(q_pos=torch.full((B,), nxt - 1, dtype=torch.int32, device=dev),
+                 token_valid=b != B - 1 if B > 1 else b >= 0,
+                 update_gate=b % 3 != 1, counter_init=(b % 2).float())
+    ev = dict(next_pos=torch.full((B,), nxt, dtype=torch.int32, device=dev),
+              prompt_len=torch.full((B,), plen, dtype=torch.int32, device=dev),
+              rand_rank=(3 + 7 * b).to(torch.int32) % max(n_valid - plen, 1),
+              evict_gate=(b % 2 == 0) | ((b == B - 1) & (B > 2)))
+    scales = (torch.rand((L, B, H, 1), generator=g, device=dev),
+              torch.rand((L, B, H, 1), generator=g, device=dev), u(), u())
+    rw, fk = max(S // 8, 1), max(S // 4, 1)
+
+    def spec(policy):
+        return PolicySpec(policy, PHASE_DECODE, 1, 4, rw, feasible_k=fk, protect_prompt=True)
+    return (pos, score, ssq, counter, probs, torch.rand((L, B, H, 1), generator=g,
+                                                        device=dev) * 0.1), per_b, ev, scales, spec
+
+
+def same_bits(a, b):
+    """a and b hold the same bits (NaN payloads and signed zeros included)."""
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def k2_edge_results(L, B, H, S, dev, seed):
+    """K2 (every policy, with and without the scale rows, and `compact` for
+    the evicting ones) and K4 (every evicting policy) against their plain
+    versions on k2_edge_case's inputs: yields (label, the kernel's outputs,
+    the plain version's), each call on copies."""
+    state, per_b, ev, scales, spec = k2_edge_case(L, B, H, S, dev, seed)
+    clone = lambda xs: [x.clone() for x in xs]  # noqa: E731
+    for policy in POLICIES:
+        for compact in ((False,) if policy is None else (False, True)):
+            for with_scales in (False, True):
+                kw = {} if policy is None else dict(ev, espec=spec(policy), compact=compact)
+                if with_scales:
+                    kw.update(zip(SCALE_NAMES, scales))
+                res = [fn(*clone(state), *per_b.values(), policy,
+                          **{n: x.clone() if torch.is_tensor(x) and x.dim() == 4 else x
+                             for n, x in kw.items()}) for fn in (k2, k2_plain)]
+                yield (f"K2 {policy}{' compact' if compact else ''}"
+                       f"{' scale rows' if with_scales else ''}", *res)
+        if policy is not None:
+            args = (ev["evict_gate"], ev["next_pos"], ev["prompt_len"], ev["rand_rank"],
+                    spec(policy))
+            res = [fn(*clone(state[:4]), *args) for fn in (k4, k4_plain)]
+            yield f"K4 {policy}", *res
 
 
 def k2_call(fn, state, per_b, ev, policy, gate_on, scales=None):
@@ -403,6 +574,9 @@ def phase_kernels(dev):
                 check(grown == [0 if gate_on else 1],
                       f"K2 policy={policy} gate={gate_on}: valid slots grew by {grown}")
     errs[("K2", "bf16")] = errs[("K2", "int8")] = 0.0
+    phase_k2_edges(dev)      # bit-exact at B = 16 and S = 2304 too: phase 5's other K2 rows
+    errs.update({(f"K2 {shape}", kv): 0.0 for shape in ("B=4", "B=16", "S=2304")
+                 for kv in ("bf16", "int8")})
     for dtype in (torch.bfloat16, torch.int8):
         for Dh in (128, 64):
             k, v, kn, vn, slots = k3_case(32, 1, 32, S_MAIN, Dh, dev, 30, dtype)
@@ -418,6 +592,30 @@ def phase_kernels(dev):
     errs.update(phase_streaming_kernels(dev))
     phase_k1_edges(dev)
     return errs
+
+
+def phase_k2_edges(dev):
+    """K2 (every policy, with and without the scale rows, `compact` for the
+    evicting ones) and K4 (every evicting policy) bit-exact against their
+    plain versions on every array they write, at the edges of their plan
+    (K2_EDGES: a scalar tail and S = 2304 on the wide path, a row shorter
+    than a warp, B = 16), with tied, NaN and signed-zero scores, a row without a
+    candidate and a dead row (k2_edge_case)."""
+    for i, (case, (L, B, H, S)) in enumerate(K2_EDGES.items()):
+        plan = sidecar_mod.row_plan(S) if hasattr(sidecar_mod, "row_plan") else None
+        bad, n, victims = [], 0, set()
+        for label, got, ref in k2_edge_results(L, B, H, S, dev, 600 + i):
+            torch.cuda.synchronize()
+            n += 1
+            if len(got) != len(ref) or not all(same_bits(a, b) for a, b in zip(got, ref)):
+                bad.append(label)
+            if "compact" in label:
+                victims.update(got[-1][0, 0, :5, 0].tolist())
+        print(f"phase 2: K2 / K4 edge {case} (L={L}, B={B}, H={H}, plan {plan}): {n - len(bad)} "
+              f"of {n} calls bit-exact; layer 0 row 0's odd heads' victims (compact) "
+              f"{sorted(victims)}")
+        check(not bad, f"K2 / K4 edge {case}: not bit-exact: {bad}")
+        check(S in victims, f"K2 / K4 edge {case}: no row without a victim")
 
 
 # K1's split edges in phase 2: (B, Hq, Hkv, S, window, positions, cluster
@@ -623,6 +821,7 @@ def phase_streaming_kernels(dev):
                   and vs[:, 1].unique().tolist() == [S] and int(vs[:, 0].max()) < S,
                   f"K2 compact policy={policy} scales={with_scales} disagrees")
     errs[("K4", "-")] = errs[("K2 compact", "bf16")] = errs[("K2 compact", "int8")] = 0.0
+    errs[("K4 S=2304", "-")] = 0.0      # phase_k2_edges holds K4 at S = 2304 bit-exact
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(150), dev)
     shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
     for kind in ("bf16", "int8"):
@@ -1770,29 +1969,20 @@ def phase_times(dev):
     n_valid = PROMPT + BUDGET
     out = {}
     out.update(k1_timings(dev, ("K1",)))   # 32 layers' K/V (403 MB bf16) cycled
-    # K2: roco with the eviction gate on (the budgeted steady state); four
-    # copies of the sidecars (113 MB) cycled; with an int8 cache also the
-    # scale rows, of which only the written slot's two scales move
-    for kv in ("bf16", "int8"):
-        copies = []
-        for c in range(4):
-            state, per_b, ev, scales = k2_case(L, 1, H, S, dev, 50 + c)
-            kw = dict(ev, espec=k2_spec("roco"),
-                      evict_gate=torch.ones(1, dtype=torch.bool, device=dev))
-            if kv == "int8":
-                kw.update(zip(SCALE_NAMES, scales))
-            copies.append((state, per_b, kw))
-
-        def run_k2(fn):
-            return lambda state, per_b, kw: fn(*state, per_b["q_pos"], per_b["token_valid"],
-                                               per_b["update_gate"], per_b["counter_init"],
-                                               "roco", **kw)
-        slots_total = L * H * S
-        out[("K2", kv)] = dict(ms=graph_ms(run_k2(k2), copies, 64),
-                               plain_ms=graph_ms(run_k2(k2_plain), copies, 8), library_ms=None,
-                               bytes=36 * slots_total + L * H * (8 + (16 if kv == "int8" else 0)),
-                               flops=slots_total * (8 + 31 + 4), peak=F32_FLOPS)
-        del copies
+    # K2: roco with the eviction gate on (the budgeted steady state), four
+    # copies of the sidecars cycled (k2_time_sets); with an int8 cache also
+    # the scale rows, of which only the written slot's two scales move. At
+    # B = 1 and S = 768, then at the batched decodes' B = 4 and 16 and the
+    # encoding family's S = 2304
+    for i, shape in enumerate(K2_SHAPES):
+        B, S_ = K2_SHAPES[shape]
+        for kv in ("bf16", "int8"):
+            copies, run, nbytes, flops = k2_time_sets(dev, B, S_, kv, seed=50 + 10 * i)
+            out[("K2" if shape == "B=1" else f"K2 {shape}", kv)] = dict(
+                ms=graph_ms(run(k2), copies, 64), plain_ms=graph_ms(run(k2_plain), copies, 8),
+                library_ms=None, bytes=nbytes, flops=flops, peak=F32_FLOPS)
+            del copies
+            torch.cuda.empty_cache()
     # K3: one launch writes every layer's rows; library yardstick: index_put_
     for kv, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
         k, v, kn3, vn3, slots = k3_case(L, 1, H, S, D, dev, 60, dtype)
@@ -1829,46 +2019,33 @@ def tail_rows(v_slot, S):
 def streaming_times(dev):
     """The ordered StreamingLLM kernels at the main path's shapes (L=32,
     B=1, H=32, S=768, D=128; victims among the 200 generated tokens, one
-    head in six without). Bounds: K4 reads pos, score, score_sq and
-    counter (16 bytes a slot) and writes counter (4) and one pos per row;
+    head in six without); K4 also at the encoding family's S = 2304. Bounds:
+    K4 reads pos, score, score_sq and counter (16 bytes a slot) and writes
+    counter (4) and one pos per row;
     K9 and K8 read and write the K and V rows (and int8 scales) at and
     above each victim once, K8
     also the four sidecars there and pos_mid / pos in full to find the
-    victims; K2 compact moves what K2 moves; K1 ordered what K1 moves plus
+    victims; K2 compact moves what K2 moves and its victim slots; K1
+    ordered what K1 moves plus
     the (S, D/2) cos and sin tables once (k1_time_cases). No PyTorch call
     computes the others: their library_ms is None; K1 ordered's is
     k1_library_ms."""
     L, H, S, D = STREAM_SHAPE
     slots = L * H * S
     out = {}
-    # K4: roco, gate on; in place, so each call evicts one more slot per row
-    # (the selection reads every slot whatever was evicted before)
-    copies = []
-    for c in range(4):
-        state, per_b, ev, _ = k2_case(L, 1, H, S, dev, 170 + c)
-        copies.append((*state[:4], torch.ones(1, dtype=torch.bool, device=dev),
-                       ev["next_pos"], ev["prompt_len"], ev["rand_rank"], k2_spec("roco")))
-    out[("K4", "-")] = dict(ms=graph_ms(k4, copies, 32), plain_ms=graph_ms(k4_plain, copies, 8),
-                            library_ms=None, bytes=20 * slots + L * H * 4 + 16,
-                            flops=slots * (8 + 31 + 4), peak=F32_FLOPS)
-    del copies
+    # K4: roco, gate on (k4_time_sets), at S = 768 and at the encoding
+    # family's S = 2304
+    for key, S_ in (("K4", S), ("K4 S=2304", ENC_S)):
+        copies, nbytes, flops = k4_time_sets(dev, 1, S_)
+        out[(key, "-")] = dict(ms=graph_ms(k4, copies, 32), plain_ms=graph_ms(k4_plain, copies, 8),
+                               library_ms=None, bytes=nbytes, flops=flops, peak=F32_FLOPS)
+        del copies
     # K2 compact: the K2 timing's inputs with compact=True
     for kv in ("bf16", "int8"):
-        copies = []
-        for c in range(4):
-            state, per_b, ev, scales = k2_case(L, 1, H, S, dev, 180 + c)
-            kw = dict(ev, espec=k2_spec("roco"), compact=True,
-                      evict_gate=torch.ones(1, dtype=torch.bool, device=dev))
-            if kv == "int8":
-                kw.update(zip(SCALE_NAMES, scales))
-            copies.append((state, per_b, kw))
-
-        def run_k2(fn):
-            return lambda state, per_b, kw: fn(*state, *per_b.values(), "roco", **kw)
+        copies, run, nbytes, flops = k2_time_sets(dev, 1, S, "compact " + kv, seed=180)
         out[("K2 compact", kv)] = dict(
-            ms=graph_ms(run_k2(k2), copies, 64), plain_ms=graph_ms(run_k2(k2_plain), copies, 8),
-            library_ms=None, bytes=36 * slots + L * H * (12 + (16 if kv == "int8" else 0)),
-            flops=slots * (8 + 31 + 4), peak=F32_FLOPS)
+            ms=graph_ms(run(k2), copies, 64), plain_ms=graph_ms(run(k2_plain), copies, 8),
+            library_ms=None, bytes=nbytes, flops=flops, peak=F32_FLOPS)
         del copies
     shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(190), dev)
@@ -2989,8 +3166,16 @@ def main():
                        "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} stream roco prerot"),
         "K3": ("write_rows", "easykv_tpu_torch/csrc/row_write.cu",
                "easykv_tpu/ops/pallas/row_write.py:36", "{kv} roco"),
+        "K2 B=4": ("fused_write_update B=4", "easykv_tpu_torch/csrc/sidecar_update.cu",
+                   "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} B=4"),
+        "K2 B=16": ("fused_write_update B=16", "easykv_tpu_torch/csrc/sidecar_update.cu",
+                    "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} B=16"),
+        "K2 S=2304": ("fused_write_update S=2304", "easykv_tpu_torch/csrc/sidecar_update.cu",
+                      "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} encoding roco"),
         "K4": ("fused_evict", "easykv_tpu_torch/csrc/sidecar_update.cu",
                "easykv_tpu/ops/pallas/sidecar_update.py:419", "int8 stream roco rotate-at-read"),
+        "K4 S=2304": ("fused_evict S=2304", "easykv_tpu_torch/csrc/sidecar_update.cu",
+                      "easykv_tpu/ops/pallas/sidecar_update.py:419", None),
         "K5": ("fused_chunk_attend", "easykv_tpu_torch/csrc/chunk_attention.cu",
                "easykv_tpu/ops/pallas/chunk_attention.py:183", "{kv} roco"),
         "K6": ("fused_chunk_write_attend", "easykv_tpu_torch/csrc/chunk_attention.cu",
@@ -3000,20 +3185,29 @@ def main():
         "K9": ("fused_kv_compact", "easykv_tpu_torch/csrc/kv_compact.cu",
                "easykv_tpu/ops/pallas/sidecar_update.py:801", "{kv} stream roco prerot"),
     }
+    # the phase-3 runs whose K2 the batched rows report: B = 4 int8 KV is
+    # phase 3's own run, the others the fused int4 tree's (K15 a step)
+    k2_runs = {"int8 B=4": "int8 roco B=4", "bf16 B=4": "int4 arith fused roco B=4 bf16 KV",
+               "int8 B=16": "int4 arith fused roco B=16",
+               "bf16 B=16": "int4 arith fused roco B=16 bf16 KV"}
     kernels = []
     for (key, kv), t in times.items():
         kname, src, repl, run = meta[key]
-        run = run.format(kv=kv)
         if kv == "int8":
             kname += " (int8 KV)"
-        launches = runs[run]["counts"][key]
-        per = "call" if key in ("K5", "K6") else "step"
-        n_per = launches / (1 if per == "call" else NEW)
         lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+        if run is None:   # K4 at S = 2304: timed at the encoding family's S, run by no path
+            launches, where = 0, "0 launches: no phase-3 run has K4 at this S"
+        else:
+            run = run.format(kv=kv)
+            run = k2_runs.get(run, run)
+            launches = runs[run]["counts"][key.split(" B=")[0].split(" S=")[0]]
+            per = "call" if key in ("K5", "K6") else "step"
+            n_per = launches / (1 if per == "call" else ENC_NEW if "encoding" in run else NEW)
+            where = f"{n_per:g} launches/{per} in the {run} run"
         print(f"phase 5: {key} {kname}: {t['ms'] * 1e3:.2f} us, plain "
               f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, "
-              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), "
-              f"{n_per:g} launches/{per} in the {run} run")
+              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {where}")
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": repl,
                         "launches": launches, "max_abs_err": errs[(key, kv)], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

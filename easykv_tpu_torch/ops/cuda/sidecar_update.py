@@ -7,7 +7,9 @@ TPU kernels easykv_tpu/ops/pallas/sidecar_update.py `fused_write_update`
 dequant scales; with `compact` it also shifts the sidecars down at each
 row's victim, for ordered StreamingLLM decoding) and `fused_evict` (decode
 phase, k = 1). Both are bound by the bytes a slot they read and write; the
-source note says what their design does about that.
+source note says what their design does about that. Their launch plan,
+`row_plan`, gives each row of up to 768 slots a warp that holds it in
+registers, and past that a block that holds it in shared memory.
 
 `fused_write_update` and `fused_evict` launch their kernels for CUDA
 tensors and run `fused_write_update_plain` / `fused_evict_plain` for CPU
@@ -19,7 +21,7 @@ the sidecars (and the scale rows) in place.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,10 +35,55 @@ POLICY_CODES = {None: 0, "full": 0, "h2o_head": 1, "roco": 2, "tova": 3,
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "write_update": ([_vp] * 20 + [_int] * 10 + [_vp], _int),
-    "write_update_smem": ([_int], ctypes.c_size_t),
-    "evict": ([_vp] * 8 + [_int] * 8 + [_vp], _int),
+    "write_update": ([_vp] * 20 + [_int] * 13 + [_vp], _int),
+    "sidecar_smem": ([_int] * 2, ctypes.c_size_t),
+    "evict": ([_vp] * 8 + [_int] * 11 + [_vp], _int),
 }
+
+LANE_CHUNKS = (2, 4, 6)   # 4-slot chunks a lane holds: the kernel's instantiations
+WIDE_WARPS = 8            # the wide path's block: 8 warps a row
+ROWS_A_BLOCK = 4          # rows a block where one warp owns a row
+
+
+class RowPlan(NamedTuple):
+    warps: int     # warps that own a row
+    chunks: int    # 4-slot chunks a lane holds in registers; 0: the wide path
+    rows: int      # rows a block
+    threads: int   # threads a block
+    smem: int      # dynamic shared memory a block, bytes
+
+
+def row_plan(S: int) -> RowPlan:
+    """K2's and K4's launch plan for rows of S slots (sidecar_update.cu
+    takes it and checks it). Up to 768 slots a row lies in one warp's
+    registers, 24 a lane at most: each lane the fewest chunks of
+    LANE_CHUNKS that cover it, ROWS_A_BLOCK rows a block. Past that, the
+    wide path: a block of WIDE_WARPS warps a row, the row in shared memory
+    (20 bytes a slot)."""
+    if S > 128 * LANE_CHUNKS[-1]:
+        return RowPlan(WIDE_WARPS, 0, 1, 32 * WIDE_WARPS, 20 * S)
+    chunks = next(c for c in LANE_CHUNKS if 128 * c >= S)
+    return RowPlan(1, chunks, ROWS_A_BLOCK, 32 * ROWS_A_BLOCK, 0)
+
+
+def lane_slots(plan: RowPlan, S: int, warp: int, lane: int) -> list:
+    """The slots of a row that one lane of the register path holds, in its
+    order: chunk j of lane t covers slots 4 (t + 32 j) .. 4 (t + 32 j) + 3
+    (those at or past S are padding); the wide path strides a thread
+    t = 32 warp + lane's slots by the block."""
+    t, T = 32 * warp + lane, 32 * plan.warps
+    if plan.chunks == 0:
+        return list(range(t, S, T))
+    return [s for j in range(plan.chunks) for s in range(4 * (t + T * j), 4 * (t + T * j) + 4)
+            if s < S]
+
+
+def _plan_for(S: int) -> RowPlan:
+    plan = row_plan(S)
+    if plan.smem > _build.SMEM_LIMIT:
+        raise ValueError(f"S={S} slots need {plan.smem} bytes of shared memory "
+                         f"(limit {_build.SMEM_LIMIT})")
+    return plan
 
 
 def evict_supported(spec: Optional[PolicySpec]) -> bool:
@@ -246,11 +293,8 @@ def fused_write_update(
                              f"{pos.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if policy not in POLICY_CODES:
         raise ValueError(f"unknown policy {policy!r}")
+    plan = _plan_for(S)
     lib = _build.load("sidecar_update", SIGNATURES)
-    smem = lib.write_update_smem(S)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"S={S} slots need {smem} bytes of shared memory "
-                         f"(limit {_build.SMEM_LIMIT})")
 
     slot = torch.empty((L, B, H, 1), dtype=torch.int32, device=pos.device)
     vslot = torch.empty((L, B, H, 1), dtype=torch.int32, device=pos.device) if compact else None
@@ -267,7 +311,7 @@ def fused_write_update(
         L, B, H, S, POLICY_CODES[policy], int(ev), int(compact),
         espec.recent_window if ev else 0,
         max(espec.feasible_k, 1) if ev else 1, int(bool(espec.protect_prompt)) if ev else 0,
-        _build.stream_of(pos))
+        plan.warps, plan.chunks, plan.rows, _build.stream_of(pos))
     _build.check(err, "write_update")
     fused_write_update.launches += 1
     if compact:
@@ -332,16 +376,13 @@ def fused_evict(
                 or not t.is_contiguous()):
             raise ValueError(f"fused_evict: expected contiguous {dtype} {shape} on "
                              f"{pos.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    plan = _plan_for(S)
     lib = _build.load("sidecar_update", SIGNATURES)
-    smem = lib.write_update_smem(S)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"S={S} slots need {smem} bytes of shared memory "
-                         f"(limit {_build.SMEM_LIMIT})")
     err = lib.evict(pos.data_ptr(), score.data_ptr(), score_sq.data_ptr(), counter.data_ptr(),
                     evict_gate.data_ptr(), next_pos.data_ptr(), prompt_len.data_ptr(),
                     rand_rank.data_ptr(), L, B, H, S, POLICY_CODES[spec.policy],
                     spec.recent_window, max(spec.feasible_k, 1), int(bool(spec.protect_prompt)),
-                    _build.stream_of(pos))
+                    plan.warps, plan.chunks, plan.rows, _build.stream_of(pos))
     _build.check(err, "evict")
     fused_evict.launches += 1
     return pos, counter

@@ -7,7 +7,12 @@ fixture decides).
 K6 (chunk write + attend) is held bit-exact on every cache array, int8
 bytes and scales included, and to K5's limits on out and the statistics.
 The ordered StreamingLLM kernels (K4, K8, K9, K2 `compact`) are held
-bit-exact on every array they write, K1 `ordered` to K1's limits; the
+bit-exact on every array they write, K1 `ordered` to K1's limits; K2 (every
+policy, with and without scale rows and `compact`) and K4 also at the edges
+of their launch plan (a row of 16 slots, B = 16, and the wide path at
+S = 777 with a scalar tail, 2304 and 8192) with tied,
+NaN and signed-zero scores, a row without a candidate and a dead row, and
+give the same bits on two launches and on two streams at once; the
 streaming decode path with the kernels must give the plain path's tokens
 and final positions. The quantized-weight kernels K10-K13 are held to
 their plain versions at LLaMa-2-7B widths and a ragged N (1e-5 of max|ref|
@@ -325,10 +330,92 @@ def test_k5_and_k11_give_the_same_bits_every_run(cuda):
         assert torch.equal(y0, y1), M
 
 
+# K2's and K4's launch-plan edges (sidecar_update.row_plan): (L, B, H, S)
+K2_EDGES = {"S=16": (2, 2, 8, 16), "S=777": (2, 2, 8, 777), "S=2304": (2, 2, 8, 2304),
+            "B=16": (2, 16, 8, 768), "S=8192": (1, 2, 8, 8192)}
+
+
+def _same_bits(a, b):
+    """The same bits (NaN payloads and signed zeros included)."""
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _k2_edge(cuda, L, B, H, S, seed, gate=True):
+    """K2's and K4's inputs at a plan edge: an age-ordered cache (slots
+    [0, 3S/4) valid) whose layer 0, batch row 0 has odd heads: 0 every
+    score, score_sq and counter tied; 1 a NaN score (victim S among the
+    scores); 2 a -0.0 score before a +0.0 one; 3 no candidate (every
+    position in the prompt); 4 a NaN score_sq. The last batch row is dead
+    (at B > 1).
+    Row 0's eviction gate is `gate`, the others' alternate. Returns (state,
+    per_b, ev, scales, spec)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    n_valid = S * 3 // 4
+    plen = n_valid // 2
+    pos = torch.full((L, B, H, S), -1, dtype=torch.int32)
+    pos[..., :plen] = torch.arange(plen, dtype=torch.int32)
+    gen_pos = torch.stack([plen + torch.randperm(2 * n_valid, generator=cpu)[:n_valid - plen]
+                           .sort().values for _ in range(L * B * H)])
+    pos[..., plen:n_valid] = gen_pos.view(L, B, H, -1).to(torch.int32)
+    pos[0, 0, 3, plen:] = -1
+    if B > 1:
+        pos[:, -1] = -1
+    pos = pos.to(cuda)
+    valid = pos >= 0
+    u = lambda: torch.rand((L, B, H, S), generator=g, device=cuda)  # noqa: E731
+    score = torch.where(valid, u() * 4, 0.0)
+    ssq = score * u() * 0.1
+    counter = torch.where(valid, (u() * 50).floor() + 1, 0.0)
+    probs = torch.where(valid, u() / S, 0.0)
+    score[0, 0, 0], ssq[0, 0, 0], counter[0, 0, 0], probs[0, 0, 0] = 0.5, 0.125, 8.0, 1.0 / S
+    score[0, 0, 1, plen + 1], probs[0, 0, 1, plen + 1] = float("nan"), float("nan")
+    score[0, 0, 2, plen + 2], probs[0, 0, 2, plen + 2] = -0.0, -0.0
+    score[0, 0, 2, plen + 3], probs[0, 0, 2, plen + 3] = 0.0, 0.0
+    ssq[0, 0, 4, plen + 1] = float("nan")
+    b = torch.arange(B, device=cuda)
+    nxt = 3 * S + 1
+    per_b = (torch.full((B,), nxt - 1, dtype=torch.int32, device=cuda), (b != B - 1) | (B == 1),
+             b % 3 != 1, (b % 2).float())
+    ev = dict(next_pos=torch.full((B,), nxt, dtype=torch.int32, device=cuda),
+              prompt_len=torch.full((B,), plen, dtype=torch.int32, device=cuda),
+              rand_rank=(3 + 7 * b).to(torch.int32) % max(n_valid - plen, 1),
+              evict_gate=torch.where(b == 0, gate, (b % 2 == 0) | (b == B - 1)))
+    scales = (torch.rand((L, B, H, 1), generator=g, device=cuda),
+              torch.rand((L, B, H, 1), generator=g, device=cuda), u(), u())
+    spec = lambda policy: PolicySpec(policy, PHASE_DECODE, 1, 4, max(S // 8, 1),  # noqa: E731
+                                     feasible_k=max(S // 4, 1), protect_prompt=True)
+    state = (pos, score, ssq, counter, probs,
+             torch.rand((L, B, H, 1), generator=g, device=cuda) * 0.1)
+    return state, per_b, ev, scales, spec
+
+
+def _k2_edge_calls(cuda, policy, gate, scale_rows, compact, seed):
+    """K2 and its plain version on copies of each K2_EDGES case: yields
+    (case, the kernel's outputs, the plain version's)."""
+    names = ("k_sc_new", "v_sc_new", "k_scale", "v_scale")
+    for i, (case, shape) in enumerate(K2_EDGES.items()):
+        state, per_b, ev, scales, spec = _k2_edge(cuda, *shape, seed + i, gate)
+        kw = {} if policy is None else dict(ev, espec=spec(policy), compact=compact)
+        if scale_rows:
+            kw.update(zip(names, scales))
+        res = [fn(*[x.clone() for x in state], *per_b, policy,
+                  **{n: x.clone() if torch.is_tensor(x) and x.dim() == 4 else x
+                     for n, x in kw.items()})
+               for fn in (fused_write_update, fused_write_update_plain)]
+        yield case, *res
+
+
 @pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
 @pytest.mark.parametrize("gate", [True, False])
 @pytest.mark.parametrize("policy", [None, "h2o_head", "tova", "roco", "recency", "random"])
 def test_k2_kernel_bit_exact(cuda, policy, gate, scale_rows):
+    """At L=2, B=2, H=4, S=256, then at each of K2_EDGES (_k2_edge)."""
+    for case, got, ref in _k2_edge_calls(cuda, policy, gate, scale_rows, False, 70):
+        assert len(got) == len(ref) == (7 if scale_rows else 5), case
+        assert all(_same_bits(a, b) for a, b in zip(got, ref)), case
     L, B, H, S = 2, 2, 4, 256
     gen = torch.Generator(device=cuda).manual_seed(1)
     pos = torch.stack([_positions(B, H, S, 200, torch.Generator().manual_seed(l))
@@ -468,6 +555,16 @@ def _ordered_sidecars(cuda, L, B, H, S, n_valid, seed):
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("policy", ["h2o_head", "tova", "roco", "recency", "random"])
 def test_k4_kernel_bit_exact(cuda, policy, shape):
+    """At SHAPES' two shapes; with the small one also at each of K2_EDGES
+    (_k2_edge)."""
+    for i, (case, edge) in enumerate(K2_EDGES.items() if shape == "small" else ()):
+        state, _, ev, _, spec = _k2_edge(cuda, *edge, 90 + i)
+        args = (ev["evict_gate"], ev["next_pos"], ev["prompt_len"], ev["rand_rank"], spec(policy))
+        a = [x.clone() for x in state[:4]]
+        b = [x.clone() for x in state[:4]]
+        fused_evict(*a, *args)
+        fused_evict_plain(*b, *args)
+        assert all(_same_bits(x, y) for x, y in zip(a, b)), case
     L, B, H, S, _ = SHAPES[shape]
     n_valid = S * 3 // 4
     pos, score, ssq, counter, plen = _ordered_sidecars(cuda, L, B, H, S, n_valid, 5)
@@ -554,6 +651,14 @@ def test_k8_kernel_bit_exact(cuda, kind, shape):
 @pytest.mark.parametrize("scale_rows", [False, True], ids=["float-cache", "int8-scale-rows"])
 @pytest.mark.parametrize("policy", ["h2o_head", "tova", "roco", "recency", "random"])
 def test_k2_compact_kernel_bit_exact(cuda, policy, scale_rows):
+    """At SHAPES' two shapes, then at each of K2_EDGES (_k2_edge), where
+    a NaN score leaves h2o_head and tova without a victim (S)."""
+    victims = set()
+    for case, got, ref in _k2_edge_calls(cuda, policy, True, scale_rows, True, 110):
+        assert len(got) == len(ref) == (8 if scale_rows else 6), case
+        assert all(_same_bits(a, b) for a, b in zip(got, ref)), case
+        victims.add(int(got[-1][0, 0, 1, 0]) == got[0].shape[-1])
+    assert victims == {policy in ("h2o_head", "tova")}
     for shape in SHAPES:
         L, B, H, S, _ = SHAPES[shape]
         B = max(B, 2)
@@ -589,6 +694,58 @@ def test_k2_compact_kernel_bit_exact(cuda, policy, scale_rows):
         for a, b in zip(got, ref):
             assert torch.equal(a, b), shape
         assert (got[-1][:, 1] == S).all() and (got[-1][:, 0] < S).all()
+
+
+def test_k2_k4_give_the_same_bits_every_run(cuda):
+    """K2 (roco, `compact`, scale rows) and K4 (roco) keep no state between
+    launches and their blocks share nothing: the same bits on two launches,
+    and on two streams at once, with a warp a row (S = 768, L = 32, B = 1)
+    and a block a row (S = 2304 and 8192)."""
+    for shape in ((32, 1, 32, 768), (2, 2, 8, 2304), (1, 2, 8, 8192)):
+        state, per_b, ev, scales, spec = _k2_edge(cuda, *shape, 130)
+        kw = dict(ev, espec=spec("roco"), compact=True)
+
+        def k2():
+            return fused_write_update(*[x.clone() for x in state], *per_b, "roco", **kw,
+                                      k_sc_new=scales[0], v_sc_new=scales[1],
+                                      k_scale=scales[2].clone(), v_scale=scales[3].clone())
+
+        def k4():
+            a = [x.clone() for x in state[:4]]
+            return fused_evict(*a, ev["evict_gate"], ev["next_pos"], ev["prompt_len"],
+                               ev["rand_rank"], spec("roco"))
+        for fn in (k2, k4):
+            first, again = fn(), fn()
+            assert all(_same_bits(a, b) for a, b in zip(first, again)), shape
+            streams = [torch.cuda.Stream() for _ in range(2)]
+            torch.cuda.synchronize()
+            outs = []
+            for _ in range(4):
+                for st in streams:
+                    with torch.cuda.stream(st):
+                        outs.append(fn())
+            torch.cuda.synchronize()
+            assert all(_same_bits(a, b) for o in outs for a, b in zip(o, first)), shape
+
+
+def test_k2_k4_take_their_python_plan(cuda, monkeypatch):
+    """The kernels take row_plan's plan: at S = 16 and 768 (a warp a row),
+    777, 2304 and 8192 (the wide path) they lay out the shared memory the
+    plan computes; both refuse a team of warps a row (their register path
+    is a warp's) and a plan whose lanes miss a slot."""
+    lib = sidecar_update._build.load("sidecar_update", sidecar_update.SIGNATURES)
+    for S in (16, 768, 777, 2304, 8192):
+        p = sidecar_update.row_plan(S)
+        assert lib.sidecar_smem(S, p.chunks) == p.smem
+    state, per_b, ev, _, spec = _k2_edge(cuda, 2, 2, 8, 777, 140)
+    for bad in (sidecar_update.RowPlan(2, 4, 1, 64, 0), sidecar_update.RowPlan(1, 6, 4, 128, 0)):
+        monkeypatch.setattr(sidecar_update, "row_plan", lambda S, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_write_update(*[x.clone() for x in state], *per_b, "roco", **ev,
+                               espec=spec("roco"))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_evict(*[x.clone() for x in state[:4]], ev["evict_gate"], ev["next_pos"],
+                        ev["prompt_len"], ev["rand_rank"], spec("roco"))
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])

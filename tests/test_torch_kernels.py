@@ -5,10 +5,13 @@ interpret mode on the CPU.
   K1 decode attention with the in-flight token  (tolerance 1e-5, f32)
   K2 sidecar pass with the folded eviction      (pos / slot / counter exact,
                                                  scores within 1e-6)
+  K2 and K4 on rows at the selection's edges    (the same; ties, NaN, -0.0)
   K3 K/V row write                              (exact)
 
 and K1's launch plan (`split_plan`: the cluster that splits S, the rings
-of cache tiles, the shared memory of a block) at the shapes the card runs.
+of cache tiles, the shared memory of a block) and K2's and K4's
+(`row_plan`: the warps that own a row, the slots of each lane) at the
+shapes the card runs.
 """
 import functools
 
@@ -21,13 +24,16 @@ import torch
 from easykv_tpu import policies as jpol
 from easykv_tpu.ops.pallas.decode_attention import fused_decode_attend_inflight as jk1
 from easykv_tpu.ops.pallas.row_write import write_rows as jk3
+from easykv_tpu.ops.pallas.sidecar_update import fused_evict as jk4
 from easykv_tpu.ops.pallas.sidecar_update import fused_write_update as jk2
 
 from easykv_tpu_torch import policies as tpol
 from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import decode_attention as da
+from easykv_tpu_torch.ops.cuda import sidecar_update as su
 from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight as tk1
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as tk3
+from easykv_tpu_torch.ops.cuda.sidecar_update import fused_evict as tk4
 from easykv_tpu_torch.ops.cuda.sidecar_update import fused_write_update as tk2
 
 POLICIES = [None, "h2o_head", "tova", "roco", "recency", "random"]
@@ -190,3 +196,114 @@ def test_k1_split_plan_covers_every_slot(kv, rot):
         assert p.cluster == 4 and (rot or (p.nk == 6 and p.smem <= da.TWO_A_SM))
     with pytest.raises(ValueError, match="head_dim 24"):
         da.split_plan(1, 32, 1, 768, 24, kv, rot)
+
+
+@pytest.mark.parametrize("S", [16, 256, 768, 777, 2304, 6144, 6145, 8192, 11622])
+def test_k2_row_plan_covers_every_slot(S):
+    """K2's and K4's launch plan (`row_plan`) at the shapes the card runs
+    them (chip_smoke.py's phases 2 and 5, the card tests: S = 16, 777, 768
+    at B = 1, 4 and 16, 2304) and at the ends of their range: every row of
+    L·B·H falls to exactly one warp or block, every slot of a row to exactly
+    one lane of one warp, a lane holds at most 24 slots in registers, and a
+    block stays within 256 threads and the card's shared memory; one more
+    slot than that memory holds raises, as before."""
+    plan = su.row_plan(S)
+    assert plan.threads == 32 * plan.warps * plan.rows <= 256
+    assert plan.smem <= _build.SMEM_LIMIT
+    if plan.chunks:
+        assert plan.chunks in su.LANE_CHUNKS and plan.smem == 0
+        assert plan.warps == 1 and plan.rows == su.ROWS_A_BLOCK
+        assert 128 * plan.chunks >= S
+    else:
+        assert S > 128 * su.LANE_CHUNKS[-1]
+        assert plan.warps == su.WIDE_WARPS and plan.rows == 1 and plan.smem == 20 * S
+    hits = np.zeros(S, np.int64)
+    for warp in range(plan.warps):
+        for lane in range(32):
+            slots = su.lane_slots(plan, S, warp, lane)
+            assert slots == sorted(slots)
+            assert plan.chunks == 0 or len(slots) <= 4 * plan.chunks <= 24
+            hits[slots] += 1
+    assert (hits == 1).all()
+    for B in (1, 4, 16):
+        nrows = 32 * B * 32
+        owned = [k * plan.rows + w for k in range(-(-nrows // plan.rows))
+                 for w in range(plan.rows) if k * plan.rows + w < nrows]
+        assert owned == list(range(nrows))
+    expect = {16: (1, 2), 768: (1, 6), 777: (8, 0), 2304: (8, 0), 6144: (8, 0)}
+    if S in expect:
+        assert (plan.warps, plan.chunks) == expect[S]
+    with pytest.raises(ValueError, match="shared memory"):
+        su._plan_for(_build.SMEM_LIMIT // 20 + 1)
+
+
+def _edge_rows(S=128, prompt=6):
+    """Sidecars (L=1, B=2, H=5, S; the TPU kernels take S % 128 == 0) whose
+    heads hold the selection's edges: h0 tied scores and stds, h1 a NaN
+    score, h2 a -0.0 score before a +0.0 one, h3 no candidate (every
+    position inside the protected prompt), h4 a full row (positions
+    0..S-1); the others positions 0..15 with a hole at slot 9."""
+    rng = np.random.default_rng(21)
+    L, B, H = 1, 2, 5
+    pos = np.full((L, B, H, S), -1, np.int32)
+    pos[..., :16] = np.arange(16)
+    pos[..., 9] = -1
+    pos[:, :, 3] = np.where(np.arange(S) < prompt, np.arange(S), -1)
+    pos[:, :, 4] = np.arange(S)
+    valid = pos >= 0
+    score = np.where(valid, rng.random(pos.shape), 0).astype(np.float32)
+    ssq = (score * rng.random(pos.shape)).astype(np.float32)
+    counter = np.where(valid, rng.integers(1, 30, pos.shape), 0).astype(np.float32)
+    score[:, :, 0], ssq[:, :, 0], counter[:, :, 0] = 0.5, 0.25, 4.0
+    score[:, :, 1, 7] = np.nan
+    score[:, :, 2, 8], score[:, :, 2, 11] = -0.0, 0.0
+    ssq[:, :, 2, 8] = ssq[:, :, 2, 11] = 0.0
+    probs = np.where(valid, rng.random(pos.shape) / S, 0).astype(np.float32)
+    p_new = (rng.random((L, B, H, 1)) * 0.1).astype(np.float32)
+    return pos, score, ssq, counter, probs, p_new
+
+
+@pytest.mark.parametrize("policy", ["h2o_head", "tova", "roco", "recency", "random"])
+@pytest.mark.parametrize("kernel", ["k2", "k2-compact", "k4"])
+def test_k2_k4_plain_match_pallas_at_selection_edges(kernel, policy):
+    """The plain K2 (with and without `compact`) and K4, which the card
+    holds the kernels to bit for bit, against the TPU kernels in interpret
+    mode on rows at the selection's edges (_edge_rows): tied keys, a NaN
+    minimum, -0.0 against +0.0, no candidate, a full row (write slot 0);
+    batch row 1 is dead and its gate off."""
+    pos, score, ssq, counter, probs, p_new = _edge_rows()
+    budget, rw = 20, 6
+    specs = [m.PolicySpec(policy, m.PHASE_DECODE, 1, 4, rw, feasible_k=budget - rw,
+                          protect_prompt=True) for m in (jpol, tpol)]
+    per_b = dict(evict_gate=np.array([True, False]), next_pos=np.array([129, 129], np.int32),
+                 prompt_len=np.array([6, 6], np.int32), rand_rank=np.array([5, 3], np.int32))
+    if kernel == "k4":
+        args = (pos, score, ssq, counter) + tuple(per_b.values())
+        ref = jax.jit(functools.partial(jk4, spec=specs[0], interpret=True))(
+            *map(jnp.asarray, args))
+        out = tk4(*map(t, args), specs[1])
+        names = ("pos", "counter")
+    else:
+        live = np.array([True, False])
+        args = (pos, score, ssq, counter, probs, p_new, np.array([128, 128], np.int32), live,
+                live.copy(), np.array([3.0, 0.0], np.float32))
+        compact = kernel == "k2-compact"
+        ref = jax.jit(functools.partial(jk2, policy=policy, interpret=True, espec=specs[0],
+                                        compact=compact))(
+            *map(jnp.asarray, args), **{k: jnp.asarray(v) for k, v in per_b.items()})
+        out = tk2(*map(t, args), policy=policy, espec=specs[1], compact=compact,
+                  **{k: t(v) for k, v in per_b.items()})
+        names = ("pos", "score", "score_sq", "counter", "slot") + (("victim",) if compact else ())
+    assert len(out) == len(ref) == len(names)
+    for name, a, b in zip(names, out, ref):
+        if name in ("score", "score_sq"):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    # the dead, ungated row kept its positions
+    np.testing.assert_array_equal(out[0].numpy()[:, 1], pos[:, 1])
+    if kernel == "k4" and policy == "h2o_head":
+        # a NaN minimum evicts nothing; of -0.0 and +0.0 the first goes
+        np.testing.assert_array_equal(out[0].numpy()[0, 0, 1], pos[0, 0, 1])
+        assert out[0].numpy()[0, 0, 2, 8] == -1 and out[0].numpy()[0, 0, 2, 11] == 11

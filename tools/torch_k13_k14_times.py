@@ -205,13 +205,21 @@ def dump(cs, dev, path):
 
 def compare(a, b):
     """Per case and output of two dumps (keys "<kernel> <case>"): whether
-    they are bit-identical and their largest difference; and per kernel
-    whether all its cases are."""
+    they are bit-identical (NaN payloads and signed zeros included) and
+    their largest difference; and per kernel whether all its cases are."""
     import torch
     da, db = torch.load(a), torch.load(b)
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def same(x, y):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            x, y = x.view(bits[x.element_size()]), y.view(bits[y.element_size()])
+        return torch.equal(x, y)
     res = {}
     for key in sorted(set(da) & set(db)):
-        res[key] = [{"identical": bool(torch.equal(x, y)),
+        res[key] = [{"identical": bool(same(x, y)),
                      "max_abs_diff": float((x.float() - y.float()).abs().max())}
                     for x, y in zip(da[key], db[key])]
     same = lambda keys: all(o["identical"] for k in keys for o in res[k])  # noqa: E731
