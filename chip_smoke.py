@@ -33,16 +33,18 @@ Phases, each printing its lines before the last:
      the ordered StreamingLLM kernels: K4 gated
      eviction (five policies, gate on and off by row, B=2), K2 `compact`
      (five policies, with and without the scale rows), K9 K/V shift (bf16
-     and int8, rotate on and off, victims at the first, a middle and the
-     last tile, and none) and K8 compaction (bf16 and int8) bit-exact on
+     and int8, rotate on and off, at the main path's shape, S=777 and 2304
+     and B=4; victims at slot 0, inside, S-1, none, negative and among the
+     generated tokens) and K8 compaction (bf16 and int8) bit-exact on
      every array; K1 `ordered` (bf16 and int8, MHA, GQA with B=2) within
      K1's limit; the quantized-weight kernels at the 7B products (x bf16 and
      f32): K10 at M=1 and K12 at M=1..8 (launched twice, bit-identical)
      over the split tree's widths and the head, K11 at M=2, 4,
      16, 96, 128, 512 over the split and the fused tree's widths (both of
      its tile configurations and its group split), K13 at M=1 (its own
-     kernel, launched twice, bit-identical), 4, 256 over the fused tree's
-     and the LM head
+     kernel) and at M=2, 3, 4, 5, 16, 17, 128, 255, 256 (the edges of its
+     tensor-core tiles), each launched twice, bit-identical, over the fused
+     tree's widths and the LM head
      (N=32000, with f32 logits), each within 1e-5 of max|ref| (plus
      one bf16 ulp of the value in bf16) of its plain version; K14, the
      one-kernel decode step, at 7B width with L=2 (bf16 activations; bf16
@@ -129,10 +131,11 @@ Phases, each printing its lines before the last:
      and fused_decode_attend at S=2304, each K1 entry beside
      scaled_dot_product_attention over the same cache, the attention half
      alone, as its library yardstick; K2 also at B=4 and 16 (S=768) and at
-     the encoding family's S=2304, K4 also at S=2304; K7 roco at a triggered chunk,
-     int8 and bf16, each call from its untouched state); K10-K13 at each 7B
-     product of their phase-3 trees (bf16 activations; K11 at the split
-     and the fused widths, M=4 and 512) with enough weight copies cycled that L2 is
+     the encoding family's S=2304, K4 also at S=2304, K9 also at B=4; K7 roco at a
+     triggered chunk, int8 and bf16, each call from its untouched state); K10-K13
+     at each 7B product of their phase-3 trees (bf16 activations; K11 at the split
+     and the fused widths, M=4 and 512; K13 at M=1, 4, 16, 128 and 256, each
+     record naming the source that serves its M) with enough weight copies cycled that L2 is
      cold, the library call torch.matmul over a bf16 copy dequantized
      beforehand; K14 for a whole decode step at 7B width (L=32, S=768),
      bf16 and int8 KV, first held to its plain version on the same
@@ -772,8 +775,35 @@ def stream_victims(L, B, H, S, dev, seed, edges=False):
                        dtype=torch.int32)
     vs[torch.rand((L, B, H), generator=g, device=dev) < 1 / 6] = S
     if edges:
-        vs.view(-1)[:6] = torch.tensor([0, 5, S // 2, S - 33, S - 1, S], dtype=torch.int32)
+        vs.view(-1)[:7] = torch.tensor([0, 5, S // 2, S - 33, S - 1, S, -1], dtype=torch.int32)
     return vs
+
+
+# K9's phase-2 shapes (L, B, H, S): the main path's, then the edges of its
+# row split (a tail past one round of the cluster; S = 777, no multiple of
+# a tile) and the fused tree's streaming B = 4
+K9_EDGES = ((32, 1, 32, S_MAIN), (2, 1, 8, 777), (2, 1, 8, 2304), (32, B_WIDE, 32, S_MAIN))
+
+
+def k9_edge_cases(dev, small=False):
+    """(label, ((k, v, v_slot[, k_scale, v_scale]), {"rot": ...})) of K9's
+    phase-2 cases, each made anew: every shape of K9_EDGES (L cut to 2 and
+    H to 8 with `small`), bf16 and int8, rot on and off. Victims among the
+    generated tokens, one head in six none, and the first heads' at slots
+    0, 5, S/2, S-33, S-1, S (none) and -1 (every row moves)."""
+    D = STREAM_SHAPE[3]
+    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
+    for i, (L, B, H, S) in enumerate(K9_EDGES):
+        if small:
+            L, H = 2, 8
+        for kind in ("bf16", "int8"):
+            kv = kv_rows(L, B, H, S, D, kind, dev, 151 + 10 * i)
+            vs = stream_victims(L, B, H, S, dev, 152 + 10 * i, edges=True)
+            for rotate in (True, False):
+                label = f"L={L} B={B} H={H} S={S} {kind} rotate={rotate}"
+                yield label, ((kv[0].clone(), kv[1].clone(), vs, *[x.clone() for x in kv[2:]]),
+                              {"rot": shift if rotate else None})
+            del kv
 
 
 def phase_streaming_kernels(dev):
@@ -823,24 +853,22 @@ def phase_streaming_kernels(dev):
     errs[("K4", "-")] = errs[("K2 compact", "bf16")] = errs[("K2 compact", "int8")] = 0.0
     errs[("K4 S=2304", "-")] = 0.0      # phase_k2_edges holds K4 at S = 2304 bit-exact
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(150), dev)
-    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
+    for label, (args, kw) in k9_edge_cases(dev):
+        kv, vs = list(args[:2]) + list(args[3:]), args[2]
+        a = [x.clone() for x in kv]
+        b = [x.clone() for x in kv]
+        k9(a[0], a[1], vs, *a[2:], **kw)
+        k9_plain(b[0], b[1], vs, *b[2:], **kw)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        moved = not torch.equal(a[1], kv[1])
+        print(f"phase 2: K9 {label}: bit-exact {all(same)} (k, v"
+              f"{', k_scale, v_scale' if len(kv) == 4 else ''} = {same}); V moved {moved}")
+        check(all(same) and moved, f"K9 {label} disagrees")
+        del a, b, kv, args
     for kind in ("bf16", "int8"):
+        errs[("K9", kind)] = errs[("K9 B=4", kind)] = 0.0
         kv = kv_rows(L, 1, H, S, D, kind, dev, 151)
-        vs = stream_victims(L, 1, H, S, dev, 152, edges=True)
-        for rotate in (True, False):
-            a = [x.clone() for x in kv]
-            b = [x.clone() for x in kv]
-            k9(a[0], a[1], vs, *a[2:], rot=shift if rotate else None)
-            k9_plain(b[0], b[1], vs, *b[2:], rot=shift if rotate else None)
-            torch.cuda.synchronize()
-            same = [torch.equal(x, y) for x, y in zip(a, b)]
-            moved = not torch.equal(a[1], kv[1])
-            print(f"phase 2: K9 {kind} rotate={rotate}: bit-exact {all(same)} (k, v"
-                  f"{', k_scale, v_scale' if kind == 'int8' else ''} = {same}); victims at "
-                  f"slots 0, 5, {S // 2}, {S - 33}, {S - 1}, none and {PROMPT}..{PROMPT + BUDGET - 1}"
-                  f"; V moved {moved}")
-            check(all(same) and moved, f"K9 {kind} rotate={rotate} disagrees")
-        errs[("K9", kind)] = 0.0
         # K8: one victim per head among the generated tokens, some heads none
         post = pos.clone()
         victim = stream_victims(L, 1, H, S, dev, 153)
@@ -2003,6 +2031,12 @@ def phase_times(dev):
     out[("K5", "int8")] = k5_times(dev)
     out[("K6", "int8")] = k6_times(dev)
     out.update(streaming_times(dev))
+    return with_bounds(out)
+
+
+def with_bounds(out):
+    """Each timing's bound_ms, the larger of its bytes over 3.35 TB/s and its
+    operations over its peak, and bound_by, which of the two it is."""
     for r in out.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r.pop("peak") * 1e3
@@ -2016,10 +2050,44 @@ def tail_rows(v_slot, S):
     return int((S - v_slot.clamp(max=S)).sum())
 
 
+def k9_times(dev, B, kinds=("bf16", "int8"), plain=True):
+    """K9 (rotate) at the main path's shapes (L=32, H=32, S=768, D=128) and
+    B rows: B=1 the pre-rotated streaming decode, B=4 the fused int4 tree's
+    streaming B=4 run; victims among the 200 generated tokens, one head in
+    six without. Keyed ("K9", kv) at B=1, ("K9 B=4", kv) at B=4. Bound: the
+    K and V rows (and int8 scales) at and above each victim read and written
+    once, and the victims."""
+    L, H, S, D = STREAM_SHAPE
+    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
+    out = {}
+    for kv in kinds:
+        seed = 191 if B == 1 else 191 + 4 * B
+        kvr = kv_rows(L, B, H, S, D, kv, dev, seed)
+        vs = stream_victims(L, B, H, S, dev, seed + 1)
+        rows = tail_rows(vs, S)
+        row_bytes = 2 * D * (1 if kv == "int8" else 2) + (8 if kv == "int8" else 0)
+        args = [(kvr[0], kvr[1], vs, *kvr[2:])]
+
+        def run_k9(fn):
+            return lambda *a: fn(*a, rot=shift)
+        key = "K9" if B == 1 else f"K9 B={B}"
+        out[(key, kv)] = dict(ms=graph_ms(run_k9(k9), args, 64),
+                              plain_ms=graph_ms(run_k9(k9_plain), args, 8) if plain else None,
+                              library_ms=None, bytes=2 * rows * row_bytes + vs.numel() * 4,
+                              flops=rows * D * 6, peak=F32_FLOPS)
+        print(f"phase 5: {key} {kv} inputs: {rows} rows at and above the victims of "
+              f"{L * B * H} heads ({rows / (L * B * H):.1f} per head), "
+              f"{(2 * rows * row_bytes) / 1e6:.2f} MB to move")
+        del kvr, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def streaming_times(dev):
     """The ordered StreamingLLM kernels at the main path's shapes (L=32,
     B=1, H=32, S=768, D=128; victims among the 200 generated tokens, one
-    head in six without); K4 also at the encoding family's S = 2304. Bounds:
+    head in six without); K4 also at the encoding family's S = 2304, K9 also
+    at B = 4 (k9_times). Bounds:
     K4 reads pos, score, score_sq and counter (16 bytes a slot) and writes
     counter (4) and one pos per row;
     K9 and K8 read and write the K and V rows (and int8 scales) at and
@@ -2047,48 +2115,36 @@ def streaming_times(dev):
             ms=graph_ms(run(k2), copies, 64), plain_ms=graph_ms(run(k2_plain), copies, 8),
             library_ms=None, bytes=nbytes, flops=flops, peak=F32_FLOPS)
         del copies
-    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
     pos = slot_positions(L, 1, H, S, PROMPT + BUDGET, torch.Generator().manual_seed(190), dev)
-    for kv in ("bf16", "int8"):
-        kvr = kv_rows(L, 1, H, S, D, kv, dev, 191)
-        vs = stream_victims(L, 1, H, S, dev, 192)
-        rows = tail_rows(vs, S)
-        row_bytes = 2 * D * (1 if kv == "int8" else 2) + (8 if kv == "int8" else 0)
-        args = [(kvr[0], kvr[1], vs, *kvr[2:])]
+    for B in (1, B_WIDE):
+        out.update(k9_times(dev, B))
+    # K8 (the rotate-at-read path, int8 run): the same victims as K9's int8
+    # timing at B = 1, as pos_mid -> pos; each call restores pos first (a 3
+    # MB copy timed alone and subtracted), since K8 consumes its victims
+    kvr = kv_rows(L, 1, H, S, D, "int8", dev, 191)
+    vs = stream_victims(L, 1, H, S, dev, 192)
+    rows = tail_rows(vs, S)
+    row_bytes = 2 * D + 8
+    post = pos.clone()
+    idx = vs.clamp(max=S - 1)[..., None].long()
+    post.scatter_(-1, idx, torch.where((vs < S)[..., None], -1, post.gather(-1, idx)))
+    state = k2_case(L, 1, H, S, dev, 193)[0]
+    work = [post.clone(), *[x.clone() for x in state[1:4]], *kvr]
 
-        def run_k9(fn):
-            return lambda *a: fn(*a, rot=shift)
-        out[("K9", kv)] = dict(ms=graph_ms(run_k9(k9), args, 64),
-                               plain_ms=graph_ms(run_k9(k9_plain), args, 8), library_ms=None,
-                               bytes=2 * rows * row_bytes + vs.numel() * 4,
-                               flops=rows * D * 6, peak=F32_FLOPS)
-        print(f"phase 5: K9 {kv} inputs: {rows} rows at and above the victims of "
-              f"{L * H} heads ({rows / (L * H):.1f} per head), "
-              f"{(2 * rows * row_bytes) / 1e6:.2f} MB to move")
-        if kv == "int8":
-            # K8 (the rotate-at-read path, int8 run): the same victims, as
-            # pos_mid -> pos; each call restores pos first (a 3 MB copy timed
-            # alone and subtracted), since K8 consumes its victims
-            post = pos.clone()
-            idx = vs.clamp(max=S - 1)[..., None].long()
-            post.scatter_(-1, idx, torch.where((vs < S)[..., None], -1, post.gather(-1, idx)))
-            state = k2_case(L, 1, H, S, dev, 193)[0]
-            work = [post.clone(), *[x.clone() for x in state[1:4]], *kvr]
+    def run_k8(fn):
+        def call():
+            work[0].copy_(post)
+            fn(pos, *work)
+        return call
 
-            def run_k8(fn):
-                def call():
-                    work[0].copy_(post)
-                    fn(pos, *work)
-                return call
-
-            def restore():
-                work[0].copy_(post)
-            t_restore = graph_ms(restore, [()], 64)
-            out[("K8", kv)] = dict(
-                ms=graph_ms(run_k8(k8), [()], 64) - t_restore,
-                plain_ms=graph_ms(run_k8(k8_plain), [()], 8) - t_restore, library_ms=None,
-                bytes=2 * rows * (row_bytes + 16) + 2 * slots * 4, flops=0, peak=F32_FLOPS)
-        del kvr
+    def restore():
+        work[0].copy_(post)
+    t_restore = graph_ms(restore, [()], 64)
+    out[("K8", "int8")] = dict(
+        ms=graph_ms(run_k8(k8), [()], 64) - t_restore,
+        plain_ms=graph_ms(run_k8(k8_plain), [()], 8) - t_restore, library_ms=None,
+        bytes=2 * rows * (row_bytes + 16) + 2 * slots * 4, flops=0, peak=F32_FLOPS)
+    del kvr
     out.update(k1_timings(dev, ("K1 ordered",)))
     return out
 
@@ -2217,12 +2273,7 @@ def k7_times(dev):
               f"write, {need} (query, slot) pairs over {H} heads, {k7_bytes / 1e6:.2f} MB to move")
         del sets, pristine
         torch.cuda.empty_cache()
-    for r in out.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / r.pop("peak") * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return out
+    return with_bounds(out)
 
 
 def k7_records(k7t, errs, runs, k6_library_ms):
@@ -2256,7 +2307,11 @@ QSHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "wgu": (4096, 22016),
            "wd": (11008, 4096), "wq": (4096, 4096), "wg": (4096, 11008), "head": (4096, 32000)}
 FUSED = ("wqkv", "wo", "wgu", "wd")
 SPLIT_SHAPES = ("wq", "wg", "wd")          # wq = wk = wv = wo, wg = wu
-K11_MS, K12_MS, K13_MS = (2, 4, 16, 96, 128, 512), tuple(range(1, 9)), (1, 4, 256)
+K11_MS, K12_MS = (2, 4, 16, 96, 128, 512), tuple(range(1, 9))
+# K13: M = 1 (its own stream), then the edges of the tensor-core kernel's
+# configurations (x rows on the MMA's 8-wide side up to 8 and 16; 64-, 128-
+# and 256-row tiles); timed at the batched decode's and the ppl blocks' M
+K13_MS, K13_TIMED = (1, 2, 3, 4, 5, 16, 17, 128, 255, 256), (1, 4, 16, 128, 256)
 K11_SHAPES = SPLIT_SHAPES + ("wqkv", "wgu")  # wq = wo: every width of both trees
 SPLIT_USES = {"wq": 4, "wg": 2, "wd": 1}   # products a layer of the split tree runs per width
 QUANT_RUNS = {  # the phase-3 run whose launches a quantized kernel reports
@@ -2303,8 +2358,10 @@ def phase_quant_kernels(dev):
     (split widths; K12 twice, bit-identical),
     K11 at M = 2, 4, 16 (its small tiles), 96, 128, 512 (its 64-row tiles;
     its groups split over blocks at 2-128) over the split and the fused
-    widths, K13 at M = 1, 4, 256 (fused widths; the head with a float32
-    result). Returns the max |err| keyed (kernel, shape, M, x dtype)."""
+    widths, K13 at M = 1 (its own stream) and at the edges of its
+    tensor-core tiles, M = 2, 3, 4, 5, 16, 17, 128, 255, 256 (fused widths;
+    the head with a float32 result; K13 twice, bit-identical). Returns the
+    max |err| keyed (kernel, shape, M, x dtype)."""
     plan = [("K10", "arith", SPLIT_SHAPES + ("head",), (1,)),
             ("K12", "halves", SPLIT_SHAPES + ("head",), K12_MS),
             ("K11", "arith", K11_SHAPES, K11_MS),
@@ -2328,7 +2385,7 @@ def phase_quant_kernels(dev):
                     check(got.dtype == ref.dtype and got.shape == ref.shape and ratio <= 1
                           and bool(torch.isfinite(got).all()),
                           f"{kernel} {name} M={M} {dtype}: {ratio:.3f} of its limit")
-                    if kernel in ("K10", "K12") or (kernel, M) == ("K13", 1):   # no shared state:
+                    if kernel in ("K10", "K12", "K13"):           # no shared state:
                         check(torch.equal(got, fn(x, *args, **kw)),   # the same bits every run
                               f"{kernel} {name} M={M} {dtype}: two launches differ")
                     errs[(kernel, name, M, dtype)] = err.max().item()
@@ -2532,18 +2589,23 @@ def quant_copies(nbytes, cap=32):
     return max(2, min(cap, math.ceil(100e6 / nbytes)))
 
 
-def quant_times(dev):
+QUANT_TIMED = [("K10", "arith", SPLIT_SHAPES, (1,)), ("K12", "halves", SPLIT_SHAPES, (1,)),
+               ("K11", "arith", K11_SHAPES, (4, 512)),
+               ("K13", "int8", FUSED + ("head",), K13_TIMED)]
+
+
+def quant_times(dev, plan=QUANT_TIMED):
     """K10-K13 at the 7B shapes, bf16 activations: K10 and K12 at the split
     tree's three widths (M = 1), K11 at them and at the fused tree's wqkv
     and wgu at M = 4 (B=4 decode) and M = 512 (the prompt's prefill), K13
-    at the fused tree's four products and
-    the head (f32 logits), M = 1. Each
+    at the fused tree's four products and the head (f32 logits), M = 1
+    (the decode row), 4 and 16 (batched decode steps) and 128 and 256 (ppl
+    blocks of the head). Each
     graph cycles enough copies of the weight that L2 is cold. Bound: the
     weight, scale, x and out bytes at 3.35 TB/s, or 2 M K N operations at
     989 TFLOP/s (bf16 x) where that is larger. Library: torch.matmul of x
-    with a bf16 copy dequantized beforehand (not timed)."""
-    plan = [("K10", "arith", SPLIT_SHAPES, (1,)), ("K12", "halves", SPLIT_SHAPES, (1,)),
-            ("K11", "arith", K11_SHAPES, (4, 512)), ("K13", "int8", FUSED + ("head",), (1,))]
+    with a bf16 copy dequantized beforehand (not timed). `plan`: (kernel,
+    format, widths, Ms) rows, QUANT_TIMED by default."""
     out = {}
     for i, (kernel, fmt, names, ms) in enumerate(plan):
         fn, plain = QPAIRS[kernel]
@@ -2573,12 +2635,7 @@ def quant_times(dev):
                     bytes=wbytes + M * K * 2 + out_bytes, flops=2 * M * K * N, peak=BF16_FLOPS)
             del copies, lib_w
             torch.cuda.empty_cache()
-    for r in out.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / r.pop("peak") * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return out
+    return with_bounds(out)
 
 
 QMETA = {  # name, source, TPU kernel it replaces
@@ -2590,7 +2647,14 @@ QMETA = {  # name, source, TPU kernel it replaces
             "easykv_tpu/ops/pallas/w4_matmul.py:62"),
     "K13": ("quant_matmul", "easykv_tpu_torch/csrc/quant_gemv.cu",   # M = 1, its own kernel
             "easykv_tpu/ops/pallas/quant_matmul.py:41"),
+    "K13 M>1": ("quant_matmul", "easykv_tpu_torch/csrc/quant_matmul.cu",   # 1 < M <= 256
+                "easykv_tpu/ops/pallas/quant_matmul.py:41"),
 }
+# the phase-3 run whose K13 launches a timed M > 1 reports: the int8 head at
+# M = B of the split tree's B=4 and the fused tree's B=16 runs (every one of
+# their K13 launches); no phase-3 run has the fused widths at M > 1 or the
+# head at M = 128 (a quantized ppl block) or 256
+K13_RUNS = {("head", 4): "int4 arith split roco B=4", ("head", 16): "int4 arith fused roco B=16"}
 
 
 def quant_records(qtimes, errs, runs):
@@ -2600,19 +2664,21 @@ def quant_records(qtimes, errs, runs):
     tree's wqkv and wgu, that tree's B=1 roco run, whose prefill runs K11
     at all four fused widths). Per decode step:
     K10 and K12 over the split tree's seven products a layer, K13 over the
-    fused tree's four."""
+    fused tree's four. K13 at M > 1: K13_RUNS."""
     records = []
     for (kernel, name, M), t in qtimes.items():
-        kname, src, repl = QMETA[kernel]
+        kname, src, repl = QMETA["K13 M>1" if kernel == "K13" and M > 1 else kernel]
         run = ("int4 arith fused roco" if kernel == "K11" and name in ("wqkv", "wgu")
-               else "int4 arith split roco" if (kernel, M) == ("K11", 512) else QUANT_RUNS[kernel])
-        launches = runs[run]["counts"][kernel]
+               else "int4 arith split roco" if (kernel, M) == ("K11", 512)
+               else K13_RUNS.get((name, M)) if kernel == "K13" and M > 1 else QUANT_RUNS[kernel])
+        launches = 0 if run is None else runs[run]["counts"][kernel]
         K, N = QSHAPES[name]
         label = f"{kname} {name} (M={M}, K={K}, N={N}{', f32 out' if name == 'head' else ''})"
         print(f"phase 5: {kernel} {label}: {t['ms'] * 1e3:.2f} us, plain "
               f"{t['plain_ms'] * 1e3:.2f} us, library {t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {t['copies']} weight copies "
-              f"cycled; {launches} launches of {kernel} in the {run} run")
+              f"cycled; " + (f"{launches} launches of {kernel} in the {run} run" if run else
+                             "0 launches: no phase-3 run has this product at this M"))
         records.append({"name": label, "route": "cuda", "source": src, "replaces": repl,
                         "launches": launches,
                         "max_abs_err": errs[(kernel, name, M, torch.bfloat16)], "ms": t["ms"],
@@ -3081,12 +3147,7 @@ def rank_times(dev):
     visible = out[("K1 rank", "bf16")]["visible"]
     print(f"phase 5: K1 rank / fused_decode_attend inputs: {visible / H:.0f} of {S} slots "
           f"visible per head, {H} heads, {L} layers' K/V cycled")
-    for r in out.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / r.pop("peak") * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return out
+    return with_bounds(out)
 
 
 def rank_records(rtimes, errs, runs):
@@ -3184,23 +3245,27 @@ def main():
                "easykv_tpu/ops/pallas/sidecar_update.py:565", "int8 stream roco rotate-at-read"),
         "K9": ("fused_kv_compact", "easykv_tpu_torch/csrc/kv_compact.cu",
                "easykv_tpu/ops/pallas/sidecar_update.py:801", "{kv} stream roco prerot"),
+        "K9 B=4": ("fused_kv_compact B=4", "easykv_tpu_torch/csrc/kv_compact.cu",
+                   "easykv_tpu/ops/pallas/sidecar_update.py:801", "{kv} fused stream B=4"),
     }
     # the phase-3 runs whose K2 the batched rows report: B = 4 int8 KV is
     # phase 3's own run, the others the fused int4 tree's (K15 a step)
     k2_runs = {"int8 B=4": "int8 roco B=4", "bf16 B=4": "int4 arith fused roco B=4 bf16 KV",
                "int8 B=16": "int4 arith fused roco B=16",
-               "bf16 B=16": "int4 arith fused roco B=16 bf16 KV"}
+               "bf16 B=16": "int4 arith fused roco B=16 bf16 KV",
+               # K9 at B = 4: the fused int4 tree's streaming run (int8 KV; no
+               # bf16 KV run streams at B = 4)
+               "int8 fused stream B=4": "int4 arith fused stream roco B=4"}
     kernels = []
     for (key, kv), t in times.items():
         kname, src, repl, run = meta[key]
         if kv == "int8":
             kname += " (int8 KV)"
         lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
-        if run is None:   # K4 at S = 2304: timed at the encoding family's S, run by no path
-            launches, where = 0, "0 launches: no phase-3 run has K4 at this S"
+        run = None if run is None else k2_runs.get(run.format(kv=kv), run.format(kv=kv))
+        if run not in runs:   # K4 at S = 2304, K9 bf16 at B = 4: timed, run by no path
+            launches, where = 0, f"0 launches: no phase-3 run has {key} with this cache"
         else:
-            run = run.format(kv=kv)
-            run = k2_runs.get(run, run)
             launches = runs[run]["counts"][key.split(" B=")[0].split(" S=")[0]]
             per = "call" if key in ("K5", "K6") else "step"
             n_per = launches / (1 if per == "call" else ENC_NEW if "encoding" in run else NEW)

@@ -4,8 +4,8 @@
 //     s (N,), accumulated in f32 over the whole K and scaled once, rounded
 //     once to the output type (x's, or f32 for the int8 LM head). Replaces,
 //     at M = 1, the TPU kernel easykv_tpu/ops/pallas/quant_matmul.py
-//     `quant_matmul`; quant_matmul.cu takes 1 < M <= 256 on
-//     weight_stream.cuh;
+//     `quant_matmul`; quant_matmul.cu takes 1 < M <= 256 on the tensor
+//     cores;
 //   * kernel K10, w4a16 over the arithmetic int4 carrier p (K/2, N) int8 =
 //     16 hi + lo, nibbles in [-7, 7], rows r of the low half (x[r]) and K/2
 //     + r of the high half (x[K/2 + r]), with the bf16 scale pair gs3 (K/G,
@@ -62,7 +62,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
 
 #include "tma_ring.cuh"
 
@@ -393,41 +392,6 @@ gemv_kernel(const __grid_constant__ CUtensorMap map, const XT* __restrict__ x,
 // host: tensor maps, launch
 // ---------------------------------------------------------------------------
 
-// The tensor map of a weight (R rows of N bytes at w) in boxes of rs rows x
-// kTN columns, made once per (address, shape) and kept (open addressing
-// over a fixed table; a weight freed and another allocated at its address
-// with its shape gets the same map, which is right for it).
-int weight_map(const int8_t* w, int R, int N, int rs, CUtensorMap* out) {
-  struct Entry {
-    const void* w;
-    int R, N, rs;
-    CUtensorMap map;
-  };
-  constexpr int kSlots = 4096, kProbe = 16;
-  static std::mutex mu;
-  static Entry table[kSlots];
-  std::lock_guard<std::mutex> lock(mu);
-  const uint64_t key = reinterpret_cast<uint64_t>(w) ^ ((uint64_t)R << 40) ^ ((uint64_t)N << 20) ^
-                       (uint64_t)rs;
-  const int h = (int)((key * 0x9E3779B97F4A7C15ull) >> 52);   // 12 bits
-  Entry* free_slot = nullptr;
-  for (int i = 0; i < kProbe; ++i) {
-    Entry& e = table[(h + i) % kSlots];
-    if (e.w == w && e.R == R && e.N == N && e.rs == rs) {
-      *out = e.map;
-      return 0;
-    }
-    if (e.w == nullptr && free_slot == nullptr) free_slot = &e;
-  }
-  CUtensorMap map;
-  const int err = byte_map(w, R, N, rs, kTN, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, &map);
-  if (err != 0) return err;
-  Entry* e = free_slot != nullptr ? free_slot : &table[h % kSlots];   // full: replace the first
-  *e = Entry{w, R, N, rs, map};
-  *out = map;
-  return 0;
-}
-
 template <int FMT, typename XT, typename OT>
 int launch_t(const CUtensorMap& map, const void* x, const int8_t* w, const float* s,
              const void* gs3, void* out, int R, int N, int G, int rs, int S, int CS, int tma,
@@ -494,7 +458,7 @@ int quant_gemv(const void* x, const int8_t* q, const float* s, void* out, int K,
   if (quant_gemv_smem(K, rs, stages, cluster) > kSmemLimit) return (int)cudaErrorInvalidValue;
   CUtensorMap map = {};
   if (tma) {
-    const int err = weight_map(q, K, N, rs, &map);
+    const int err = weight_map(q, K, N, rs, kTN, CU_TENSOR_MAP_SWIZZLE_NONE, &map);
     if (err != 0) return err;
   }
   cudaStream_t st = (cudaStream_t)stream;
@@ -525,7 +489,7 @@ int w4a16_gemv_arith(const void* x, const int8_t* p, const void* gs3, void* out,
     return (int)cudaErrorInvalidValue;
   CUtensorMap map = {};
   if (tma) {
-    const int err = weight_map(p, R, N, rs, &map);
+    const int err = weight_map(p, R, N, rs, kTN, CU_TENSOR_MAP_SWIZZLE_NONE, &map);
     if (err != 0) return err;
   }
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,6 +1,7 @@
-// The pieces of an asynchronous ring on Hopper, shared by K10 and K13 at
-// M = 1 (quant_gemv.cu) and K14 (fused_decode.cu); K1 (decode_attention.cu)
-// takes its mbarriers: mbarriers in shared
+// The pieces of an asynchronous ring on Hopper, shared by K10 and K13
+// (quant_gemv.cu, quant_matmul.cu) and K14 (fused_decode.cu); K1
+// (decode_attention.cu) takes its mbarriers, K9 (kv_compact.cu) its
+// mbarriers and bulk copies: mbarriers in shared
 // memory, copies by the Tensor Memory Accelerator (a 2-D box of a tensor
 // map, or a bulk copy of contiguous bytes) that count their bytes against a
 // barrier, and the host side that encodes a tensor map of a byte matrix
@@ -131,13 +132,16 @@ inline EncodeTiled encoder() {
 }
 
 // The tensor map of a byte matrix (rows x cols at w, row stride cols, a
-// multiple of 16) in boxes of box_rows x box_cols bytes, no swizzle: a box
-// lands as box_rows rows of box_cols contiguous bytes; `promo` is the L2
-// promotion of a box row's fetch (none where a box row is narrower than
-// what the promotion would fetch, which then reads bytes nobody asked for).
-// Returns 0 or a CUDA error.
+// multiple of 16) in boxes of box_rows x box_cols bytes: with no swizzle a
+// box lands as box_rows rows of box_cols contiguous bytes (with
+// CU_TENSOR_MAP_SWIZZLE_128B, box_cols <= 128, the 16-byte chunk c of row r
+// lands at chunk c ^ (r mod 8)); `promo` is the L2 promotion of a box row's
+// fetch (none where a box row is narrower than what the promotion would
+// fetch, which then reads bytes nobody asked for). Returns 0 or a CUDA
+// error.
 inline int byte_map(const void* w, long long rows, long long cols, int box_rows, int box_cols,
-                    CUtensorMapL2promotion promo, CUtensorMap* out) {
+                    CUtensorMapL2promotion promo, CUtensorMap* out,
+                    CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_NONE) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -145,9 +149,48 @@ inline int byte_map(const void* w, long long rows, long long cols, int box_rows,
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   if (enc(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box, estr,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, promo,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, swz, promo,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// The tensor map of a weight (R rows of N bytes at w) in boxes of box_rows
+// rows x box_cols columns with swizzle `swz` (byte_map, L2 promotion of 256
+// bytes), made once per (address, shape, box, swizzle) and kept (open
+// addressing over a fixed table; a weight freed and another allocated at
+// its address with its shape gets the same map, which is right for it).
+inline int weight_map(const void* w, int R, int N, int box_rows, int box_cols,
+                      CUtensorMapSwizzle swz, CUtensorMap* out) {
+  struct Entry {
+    const void* w;
+    int R, N, box_rows, box_cols, swz;
+    CUtensorMap map;
+  };
+  constexpr int kSlots = 4096, kProbe = 16;
+  static std::mutex mu;
+  static Entry table[kSlots];
+  std::lock_guard<std::mutex> lock(mu);
+  const uint64_t key = reinterpret_cast<uint64_t>(w) ^ ((uint64_t)R << 40) ^ ((uint64_t)N << 20) ^
+                       ((uint64_t)box_cols << 10) ^ (uint64_t)box_rows ^ ((uint64_t)swz << 60);
+  const int h = (int)((key * 0x9E3779B97F4A7C15ull) >> 52);   // 12 bits
+  Entry* free_slot = nullptr;
+  for (int i = 0; i < kProbe; ++i) {
+    Entry& e = table[(h + i) % kSlots];
+    if (e.w == w && e.R == R && e.N == N && e.box_rows == box_rows && e.box_cols == box_cols &&
+        e.swz == (int)swz) {
+      *out = e.map;
+      return 0;
+    }
+    if (e.w == nullptr && free_slot == nullptr) free_slot = &e;
+  }
+  CUtensorMap map;
+  const int err =
+      byte_map(w, R, N, box_rows, box_cols, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, &map, swz);
+  if (err != 0) return err;
+  Entry* e = free_slot != nullptr ? free_slot : &table[h % kSlots];   // full: replace the first
+  *e = Entry{w, R, N, box_rows, box_cols, (int)swz, map};
+  *out = map;
   return 0;
 }
 

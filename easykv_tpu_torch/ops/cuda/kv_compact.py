@@ -6,7 +6,9 @@ CUDA kernels: easykv_tpu_torch/csrc/kv_compact.cu, which replace the TPU
 kernels easykv_tpu/ops/pallas/sidecar_update.py `fused_kv_compact` and
 `fused_compact`. Both are bound by the bytes of the rows at and above each
 head's victim, read once and written once; the source note says what their
-design does about that.
+design does about that. K9 takes each head's tail in rounds of rows held
+in shared memory, all of a round's rows in flight at once (`shift_plan`;
+`shift_dealing` mirrors the rounds); K8 walks each head's tail in tiles.
 
 `fused_kv_compact` and `fused_compact` launch their kernels for CUDA
 tensors and run `fused_kv_compact_plain` / `fused_compact_plain` for CPU
@@ -19,7 +21,7 @@ is left as it is; launches need no host check of which heads evict.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,10 +33,51 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "kv_compact": ([_vp] * 7 + [_int] * 5 + [_vp], _int),
+    "kv_compact": ([_vp] * 7 + [_int] * 7 + [_vp], _int),
     "compact": ([_vp] * 9 + [_int] * 4 + [_vp], _int),
     "kv_compact_smem": ([_int] * 4, ctypes.c_size_t),
+    "kv_shift_smem": ([_int] * 3, ctypes.c_size_t),
 }
+
+
+# K9's row kernel (csrc/kv_compact.cu shift_rows_kernel): a block of
+# SHIFT_THREADS threads a head, its tail in rounds of rows holding SHIFT_TILE
+# bytes of K and V (from `python3 tools/torch_k13_k9_times.py --sweep`,
+# PERF.md section 6)
+SHIFT_THREADS = 256
+SHIFT_TILE = 65536
+
+
+class ShiftPlan(NamedTuple):
+    lanes: int     # lanes a row (G): its 16-byte units, at most 32; 0: the per-head walk
+    units: int     # 16-byte units a lane holds of a row (1 or 2)
+    threads: int   # threads a block
+    rows: int      # rows a round
+
+
+def shift_smem(rows: int, units: int) -> int:
+    """Shared memory of a block of the row kernel (csrc/kv_compact.cu
+    shift_smem): its mbarrier, `rows` rows of K and of V and slot 0's, and
+    their scales."""
+    return 16 + 16 * (2 * rows * units + 2 * units) + 4 * (2 * rows + 2)
+
+
+def shift_plan(D: int, elem_bytes: int) -> ShiftPlan:
+    """K9's launch for rows of D elements of `elem_bytes` bytes: the row
+    kernel where a row is a power of two 16-byte units, 2 to 64 (half rows
+    whole units; one or two a lane; rows a round: SHIFT_TILE bytes of K and
+    V), else the per-head walk (all zero)."""
+    units = D * elem_bytes // 16
+    if units < 2 or units > 64 or units & (units - 1):
+        return ShiftPlan(0, 0, 0, 0)
+    lanes = min(units, 32)
+    return ShiftPlan(lanes, units // lanes, SHIFT_THREADS, SHIFT_TILE // (2 * 16 * units))
+
+
+def shift_dealing(p: ShiftPlan, S: int, vs: int) -> List[Tuple[int, int]]:
+    """(first row, rows) of every round the row kernel runs in a head whose
+    victim is `vs`: its tail [max(vs, 0), S) in rounds of p.rows rows."""
+    return [(first, min(p.rows, S - first)) for first in range(max(vs, 0), S, p.rows)]
 
 
 def shift_rotation(inv_freq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -132,13 +175,14 @@ def fused_kv_compact(
         _check([("cos", cos, torch.float32, (D // 2,)), ("sin", sin, torch.float32, (D // 2,))],
                k.device)
     lib = _lib(k, S, False)
+    plan = shift_plan(D, k.element_size())
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = lib.kv_compact(k.data_ptr(), v.data_ptr(), v_slot.data_ptr(), ptr(k_scale),
                          ptr(v_scale), ptr(cos), ptr(sin), L * B * H, S, D, _DTYPES[k.dtype],
-                         int(rot is not None), _build.stream_of(k))
+                         int(rot is not None), plan.threads, plan.rows, _build.stream_of(k))
     _build.check(err, "kv_compact")
     fused_kv_compact.launches += 1
     return (k, v) if k_scale is None else (k, v, k_scale, v_scale)

@@ -5,13 +5,17 @@ CUDA kernels, which replace the TPU kernel
 easykv_tpu/ops/pallas/quant_matmul.py `quant_matmul`: at M = 1 (the decode
 row) easykv_tpu_torch/csrc/quant_gemv.cu, a ring of tensor-map copies in
 shared memory filled by a producer warp, the rows split over a thread-block
-cluster whose partials add through distributed shared memory (no workspace,
-no ticket); at 1 < M <= 256 easykv_tpu_torch/csrc/quant_matmul.cu (on
-csrc/weight_stream.cuh). Both are bound by the int8 weight bytes at decode
-widths; the source notes say what the designs do about that. `gemv_plan`
-picks the M = 1 launch of either format of quant_gemv.cu: K13's int8
-weight, or (with a group G) K10's arithmetic int4 carrier
-(ops/cuda/w4_stream.py w4a16_gemv_arith).
+cluster whose partials add through distributed shared memory; at 1 < M <=
+256 easykv_tpu_torch/csrc/quant_matmul.cu, mma.sync on the tensor cores
+over a ring of tensor-map copies of the weight and x, a block owning a
+column tile and every row of x, the stages split over a cluster in the same
+way. Neither keeps a workspace or a
+ticket. Both are bound by the int8 weight bytes at decode widths, the M >
+1 kernel by its multiply-adds at M = 256; the source notes say what the
+designs do about that. `gemv_plan` picks the M = 1 launch of either format
+of quant_gemv.cu: K13's int8 weight, or (with a group G) K10's arithmetic
+int4 carrier (ops/cuda/w4_stream.py w4a16_gemv_arith); `matmul_plan` the
+M > 1 launch.
 
 `quant_matmul` launches a kernel for CUDA tensors and runs
 `quant_matmul_plain` for CPU tensors. All accumulate the whole contraction
@@ -32,8 +36,9 @@ import torch
 from . import _build, _wstream
 
 MAX_M = 256
-SIGNATURES = {"quant_matmul": _wstream.SIGNATURE}
 _vp, _int = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"quant_matmul": ([_vp] * 4 + [_int] * 12 + [_vp], _int),
+              "quant_matmul_smem": ([_int] * 5, ctypes.c_size_t)}
 GEMV_SIGNATURES = {"quant_gemv": ([_vp] * 4 + [_int] * 8 + [_vp], _int),
                    "quant_gemv_smem": ([_int] * 4, ctypes.c_size_t),
                    "w4a16_gemv_arith": ([_vp] * 4 + [_int] * 8 + [_vp], _int),
@@ -118,6 +123,80 @@ def block_stages(p: GemvPlan, rank: int, R: int):
     return rank * ns // p.cluster, (rank + 1) * ns // p.cluster
 
 
+# The M > 1 kernel (csrc/quant_matmul.cu): 256 threads; the small tiles (M
+# <= 16: 256 columns by 8 or 16 rows, the weight on the MMA's 16-row side)
+# or the large (128 columns by 64, 128 or 256 rows); the weight and x in
+# boxes of 128-byte rows. Rows of a stage and stages from `python3
+# tools/torch_k13_k9_times.py --sweep` (PERF.md section 6).
+SMALL_M = 16
+MM_TN = {True: 256, False: 128}
+MM_BOX = 128              # bytes of a box row (the weight's and x's)
+SMEM_LIMIT = 232448       # shared memory one block may use
+SM_SMEM = 233472          # shared memory of an SM, 1 KB of it reserved a block
+MM_REG_BLOCKS = {(True, 1): 2, (True, 2): 2, (False, 1): 2, (False, 2): 1, (False, 4): 1}
+
+
+class MatmulPlan(NamedTuple):
+    small: bool    # the small tiles (M <= SMALL_M)
+    rows: int      # small: n8 blocks of x rows (1, 2); large: m16 tiles a warp (1, 2, 4)
+    rs: int        # weight rows a stage (32, 64 or 128)
+    stages: int    # stages in the ring
+    cluster: int   # blocks a column tile's stages split over
+    tiles: int     # column tiles
+
+
+def matmul_smem(p: MatmulPlan, x_f32: bool) -> int:
+    """Shared memory of one block of the M > 1 kernel (csrc/quant_matmul.cu
+    geometry): the ring (each stage the tile's weight rows, then its x rows
+    at those K columns), or the partial tile (f32) that reuses it, whichever
+    is larger; the stages' mbarriers and release counts; 1 KB of slack for
+    the alignment."""
+    tn = MM_TN[p.small]
+    tm = 8 * p.rows if p.small else 64 * p.rows
+    stage = p.rs * tn + tm * p.rs * (4 if x_f32 else 2)
+    return 1024 + max(p.stages * stage, tm * tn * 4) + 12 * p.stages
+
+
+def matmul_ring(small: bool, rows: int, x_f32: bool):
+    """(rows a stage, stages) of a configuration: 128-row stages, two of
+    them (three for the large tiles up to 128 rows of x); with an f32 x on
+    the large tiles, stages of 32 rows (one 128-byte box of x), three of
+    them."""
+    if x_f32 and not small:
+        return 32, 3
+    return 128, 3 if not small and rows < 4 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(M: int, K: int, N: int, x_f32: bool) -> MatmulPlan:
+    """The 1 < M <= 256 launch for x (M, K) and a weight (K, N): the tile
+    configuration that holds every row of x (so each weight byte is read
+    once), its ring (matmul_ring), and the largest power-of-two cluster (at
+    most 8, at most one a stage) that keeps the grid within a third over one
+    wave of the blocks the card holds at once (the sweep's best at the 7B
+    widths but for the large tiles' wgu, wo and wd, 10-20% off)."""
+    if not 1 < M <= MAX_M:
+        raise ValueError(f"the M > 1 kernel takes 1 < M <= {MAX_M}, got {M}")
+    small = M <= SMALL_M
+    rows = (1 if M <= 8 else 2) if small else (1 if M <= 64 else 2 if M <= 128 else 4)
+    rs, stages = matmul_ring(small, rows, x_f32)
+    p = MatmulPlan(small, rows, rs, stages, 1, -(-N // MM_TN[small]))
+    per_sm = min(MM_REG_BLOCKS[(small, rows)], SM_SMEM // (matmul_smem(p, x_f32) + 1024))
+    ns = -(-K // rs)
+    cluster = 1
+    while (2 * cluster <= min(MAX_CLUSTER, ns)
+           and 3 * p.tiles * 2 * cluster <= 4 * max(per_sm, 1) * SMS):
+        cluster *= 2
+    return p._replace(cluster=cluster)
+
+
+def matmul_stages(p: MatmulPlan, rank: int, K: int):
+    """Stages [s0, s1) that block `rank` of a tile's cluster takes (the
+    kernel's block_stages; stage s is weight rows s * p.rs .. + p.rs)."""
+    ns = -(-K // p.rs)
+    return rank * ns // p.cluster, (rank + 1) * ns // p.cluster
+
+
 def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                        out_f32: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel; same arguments and result."""
@@ -139,6 +218,24 @@ def quant_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return out
 
 
+def quant_mm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, out_f32: bool) -> torch.Tensor:
+    """The 1 < M <= 256 kernel on x's current stream (arguments checked)."""
+    M, K = x.shape
+    N = q.shape[1]
+    x_f32 = x.dtype == torch.float32
+    p = matmul_plan(M, K, N, x_f32)
+    out = torch.empty((M, N), dtype=torch.float32 if out_f32 or x_f32 else x.dtype,
+                      device=x.device)
+    lib = _build.load("quant_matmul", SIGNATURES)
+    err = lib.quant_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, K, N,
+                           int(p.small), p.rows, p.rs, p.stages, p.cluster, int(not x_f32),
+                           int(out_f32), int(N % 16 == 0 and q.data_ptr() % 16 == 0),
+                           int(K * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0),
+                           _build.stream_of(x))
+    _build.check(err, "quant_matmul")
+    return out
+
+
 def quant_matmul(
     x: torch.Tensor,      # (M, K) f32 or bf16, M <= 256
     q: torch.Tensor,      # (K, N) int8
@@ -155,12 +252,8 @@ def quant_matmul(
     if not 1 <= M <= MAX_M or q.shape[0] != K:
         raise ValueError(f"quant_matmul takes 1 <= M <= {MAX_M} rows of K = q's rows; got x "
                          f"{tuple(x.shape)}, q {tuple(q.shape)}")
-    if M == 1:
-        _wstream.check_args("quant_matmul", x, q, s, torch.float32, (N,))
-        out = quant_gemv(x, q, s, out_f32)
-    else:
-        out = _wstream.launch("quant_matmul", "quant_matmul", SIGNATURES, x, q, s,
-                              torch.float32, (N,), out_f32=out_f32)
+    _wstream.check_args("quant_matmul", x, q, s, torch.float32, (N,))
+    out = quant_gemv(x, q, s, out_f32) if M == 1 else quant_mm(x, q, s, out_f32)
     quant_matmul.launches += 1
     return out
 

@@ -64,7 +64,7 @@ def plan(M: int, Kh: int, N: int, G: int) -> Plan:
     blocks an SM (at most MAX_CLUSTER, at most one a stage)."""
     if not _wstream.group_ok(G) or Kh % G:
         raise ValueError(f"group of {G} rows: the kernel takes groups of a multiple of "
-                         f"{_wstream.ROW_CHUNKS[-1]} rows")
+                         f"{_wstream.GROUP_ROWS} rows")
     rs = math.gcd(G, 64)
     slabs = -(-N // TN)
     cluster = max([1] + [c for c in range(2, min(MAX_CLUSTER, Kh // rs) + 1)

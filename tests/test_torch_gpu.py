@@ -624,6 +624,44 @@ def test_k9_kernel_bit_exact(cuda, kind, rotate, shape):
         assert torch.equal(x, y), name
 
 
+@pytest.mark.parametrize("L,B,H,S", [(2, 1, 4, 16), (2, 1, 8, 777), (2, 1, 8, 2304),
+                                     (2, 4, 8, 768)], ids=["S16", "S777", "S2304", "B4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_k9_row_split_edges_bit_exact(cuda, kind, L, B, H, S):
+    """K9's row kernel at the edges of its dealing (kv_compact.shift_dealing):
+    a tail shorter than a block's rows (S = 16), S = 777, tails of several
+    rounds of the cluster (S = 2304, victim 0 and -1: the wraparound row
+    loaded before the first round), B = 4; victims at 0, 5, S/2, S - 33,
+    S - 1, none, -1 and among the rest; rotate and shift: bit-exact."""
+    D = 128
+    k, v, ks, vs = _kv(cuda, L, B, H, S, D, kind, 30 + S)
+    g = torch.Generator(device=cuda).manual_seed(31 + S)
+    v_slot = torch.randint(0, S, (L, B, H), generator=g, device=cuda, dtype=torch.int32)
+    edges = [0, 5 % S, S // 2, max(S - 33, 0), S - 1, S, -1]
+    v_slot.view(-1)[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    for rotate in (True, False):
+        rot = shift_rotation(rope_inv_freq(D, 10000.0, cuda)) if rotate else None
+        arrs = [x for x in (k, v, ks, vs) if x is not None]
+        a = [x.clone() for x in arrs]
+        b = [x.clone() for x in arrs]
+        kw = lambda xs: dict(k_scale=xs[2], v_scale=xs[3]) if ks is not None else {}  # noqa: E731
+        fused_kv_compact(a[0], a[1], v_slot, rot=rot, **kw(a))
+        fused_kv_compact_plain(b[0], b[1], v_slot, rot=rot, **kw(b))
+        for name, x, y in zip(("k", "v", "k_scale", "v_scale"), a, b):
+            assert torch.equal(x, y), (name, rotate)
+
+
+def test_k9_layout_matches_its_python_mirror(cuda):
+    """The shared memory the C side of K9's row kernel lays out is the one
+    kv_compact.shift_smem computes (which the CPU tests hold to the card's
+    232,448 bytes)."""
+    from easykv_tpu_torch.ops.cuda import _build, kv_compact as kc
+    lib = _build.load("kv_compact", kc.SIGNATURES)
+    for D, dtype, eb in ((128, 1, 2), (128, 2, 1), (128, 0, 4), (256, 0, 4), (64, 1, 2)):
+        p = kc.shift_plan(D, eb)
+        assert lib.kv_shift_smem(p.rows, D, dtype) == kc.shift_smem(p.rows, D * eb // 16)
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 def test_k8_kernel_bit_exact(cuda, kind, shape):
@@ -1371,6 +1409,88 @@ def test_k13_m1_gives_the_same_bits_every_run(cuda):
                    for a, x in zip(first, xs))
 
 
+K13_EDGES = (2, 3, 4, 5, 16, 17, 128, 255, 256)
+
+
+@pytest.mark.parametrize("M", K13_EDGES)
+def test_k13_tensor_core_kernel_at_its_edges(cuda, M):
+    """K13 at 1 < M <= 256 (csrc/quant_matmul.cu) at the edges of its tile
+    configurations (x rows on the MMA's 8-wide side up to 8 and 16, 64-,
+    128- and 256-row tiles) over the fused tree's four products and the LM
+    head (f32 out), x in bf16 and f32: within the plain version's limit, one
+    launch a call, and the same bits from a second launch."""
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    for name in ("wqkv", "wo", "wgu", "wd", "head"):
+        quant, w = _qweights(cuda, name, 90)
+        ql = quant.quantize_linear(w)
+        del w
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _qx(cuda, M, ql["q"].shape[0], dtype, 91 + M)
+            kw = dict(out_f32=name == "head")
+            before = quant_matmul.launches
+            got = quant_matmul(x, ql["q"], ql["s"], **kw)
+            again = quant_matmul(x, ql["q"], ql["s"], **kw)
+            assert quant_matmul.launches == before + 2
+            ref = quant_matmul_plain(x, ql["q"], ql["s"], **kw)
+            torch.cuda.synchronize()
+            assert _quant_close(got, ref), (name, dtype)
+            assert torch.equal(got, again), (name, dtype)
+
+
+@pytest.mark.parametrize("N", [40, 264, 4112])
+@pytest.mark.parametrize("x_offset", [0, 2, 16], ids=["x-aligned", "x+2B", "x+16B"])
+def test_k13_ragged_widths_and_offsets(cuda, N, x_offset):
+    """K13 at M = 3, 16 and 100 (small tiles, large tiles) at widths that are
+    not a multiple of 16 (40, 264: element copies of the weight) or of a
+    column tile (4112), x at a 2- and a 16-byte offset (element copies of x
+    at 2), and K = 2056 (not a multiple of a stage's rows: the last stage
+    zero-filled); bf16 and f32 x."""
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    g = torch.Generator(device=cuda).manual_seed(N)
+    K = 2056
+    ql = quant.quantize_linear(torch.randn((K, N), generator=g, device=cuda) * 0.02)
+    for M in (3, 16, 100):
+        for dtype in (torch.bfloat16, torch.float32):
+            size = torch.tensor([], dtype=dtype).element_size()
+            off = -(-x_offset // size)
+            base = torch.randn((M * K + 16,), generator=g, device=cuda).to(dtype)
+            x = base[off:off + M * K].view(M, K)
+            got = quant_matmul(x, ql["q"], ql["s"])
+            ref = quant_matmul_plain(x, ql["q"], ql["s"])
+            torch.cuda.synchronize()
+            assert _quant_close(got, ref), (M, dtype)
+
+
+def test_k13_takes_its_python_plan(cuda, monkeypatch):
+    """The shared memory the C side of K13 at M > 1 lays out is the one
+    matmul_smem computes (which the CPU tests hold to the card's 232,448
+    bytes), and the kernel gives the same results under other stage rows,
+    stages and clusters than the plan's (the row split adds in rank
+    order: the sums differ only in their order)."""
+    from easykv_tpu_torch.ops.cuda import _build, quant_matmul as qm
+    lib = _build.load("quant_matmul", qm.SIGNATURES)
+    for K, N in W7B.values():
+        for M in K13_EDGES:
+            for x_f32 in (False, True):
+                p = qm.matmul_plan(M, K, N, x_f32)
+                assert lib.quant_matmul_smem(int(p.small), p.rows, p.rs, p.stages,
+                                             4 if x_f32 else 2) == qm.matmul_smem(p, x_f32)
+    quant, w = _qweights(cuda, "wo", 95)
+    ql = quant.quantize_linear(w)
+    plan = qm.matmul_plan
+    for M in (4, 128):
+        x = _qx(cuda, M, 4096, torch.bfloat16, 96)
+        ref = qm.quant_matmul_plain(x, ql["q"], ql["s"])
+        for rs, stages, cluster in ((64, 2, 1), (128, 2, 8), (64, 6, 2)):
+            alt = plan(M, 4096, 4096, False)._replace(rs=rs, stages=stages, cluster=cluster)
+            monkeypatch.setattr(qm, "matmul_plan", lambda *a, alt=alt: alt)
+            got = qm.quant_matmul(x, ql["q"], ql["s"])
+            torch.cuda.synchronize()
+            assert _quant_close(got, ref), (M, rs, stages, cluster)
+        monkeypatch.setattr(qm, "matmul_plan", plan)
+
+
 def test_k1_and_k10_layouts_match_their_python_mirrors(cuda):
     """The shared memory the C side of K1 and of K10 lays out is the one
     their Python plans compute (decode_attention.split_smem,
@@ -1484,17 +1604,19 @@ def test_quant_kernels_reject_groups_of_other_than_8_rows(cuda):
 
 
 def test_split_products_on_two_streams(cuda):
-    """Split-row products in flight on two streams at once take their
-    tickets from separate rows, and every result matches its plain
-    version: K13 and K11 at M = 4 (a B = 4 decode row), whose rows split
-    over blocks."""
+    """Split-row products in flight on two streams at once: K11 at M = 4 (a
+    B = 4 decode row), whose groups split over blocks, takes its tickets
+    from separate rows; K13 at M = 4, whose rows split over a cluster (no
+    ticket), gives the same bits on both streams; every result matches its
+    plain version."""
     from easykv_tpu_torch.ops.cuda import _wstream
-    from easykv_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    from easykv_tpu_torch.ops.cuda.quant_matmul import (matmul_plan, quant_matmul,
+                                                        quant_matmul_plain)
     from easykv_tpu_torch.ops.cuda.w4_stream import (gemm_plan, w4a16_gemm_arith,
                                                      w4a16_gemm_arith_plain)
     quant, w = _qweights(cuda, "wo", 11)
     q8, q4 = quant.quantize_linear(w), quant.quantize_linear_int4(w, 128, "arith")
-    assert _wstream.plan(4, 4096, 4096)[3] > 1
+    assert matmul_plan(4, 4096, 4096, False).cluster > 1
     assert gemm_plan(4, 4096, 4096)[2] > 1
     streams = [torch.cuda.Stream() for _ in range(2)]
     xs = [_qx(cuda, 4, 4096, torch.bfloat16, 20 + i) for i in range(2)]

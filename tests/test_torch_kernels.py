@@ -30,6 +30,7 @@ from easykv_tpu.ops.pallas.sidecar_update import fused_write_update as jk2
 from easykv_tpu_torch import policies as tpol
 from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import decode_attention as da
+from easykv_tpu_torch.ops.cuda import kv_compact as kc
 from easykv_tpu_torch.ops.cuda import sidecar_update as su
 from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight as tk1
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as tk3
@@ -235,6 +236,33 @@ def test_k2_row_plan_covers_every_slot(S):
         assert (plan.warps, plan.chunks) == expect[S]
     with pytest.raises(ValueError, match="shared memory"):
         su._plan_for(_build.SMEM_LIMIT // 20 + 1)
+
+
+@pytest.mark.parametrize("S", [16, 768, 777, 2304])
+def test_k9_shift_plan_covers_every_tail_row(S):
+    """K9's row kernel (`shift_plan`, `shift_dealing`) at the shapes the card
+    runs it (phase 2: S = 768, 777, 2304; the card tests: S = 16): for
+    victims at slot 0, 1, inside, at S - 1, none and negative, every row of
+    the tail [max(vs, 0), S) is written by exactly one round of at most the
+    plan's rows, each round's rows above every earlier round's (so no round
+    reads a row an earlier one wrote), and no row outside the tail. bf16 /
+    int8 / f32 rows of D = 128 take the row kernel (16 / 8 / 32 lanes a row,
+    64 KB of K and V a round: one round at S = 768 in int8); a row that is
+    not a power of two units takes the per-head walk."""
+    for D, eb, lanes in ((128, 2, 16), (128, 1, 8), (128, 4, 32), (256, 4, 32), (64, 2, 8)):
+        p = kc.shift_plan(D, eb)
+        assert p.lanes == lanes and p.lanes * p.units == D * eb // 16
+        assert p.threads % 32 == 0 and p.threads <= 512 and p.rows * 2 * D * eb <= kc.SHIFT_TILE
+        assert kc.shift_smem(p.rows, D * eb // 16) <= _build.SMEM_LIMIT
+        for vs in sorted({0, 1 % S, S // 2, S - 1, S, -1, 5 % S}):
+            rounds = kc.shift_dealing(p, S, vs)
+            hits = np.zeros(S, np.int64)
+            for i, (first, n) in enumerate(rounds):
+                assert 1 <= n <= p.rows and (i == 0 or first == sum(rounds[i - 1]))
+                hits[first:first + n] += 1
+            assert (hits == (np.arange(S) >= max(vs, 0))).all()
+    assert len(kc.shift_dealing(kc.shift_plan(128, 1), 768, 512)) == 1
+    assert kc.shift_plan(96, 2).lanes == 0 and kc.shift_plan(8, 2).lanes == 0
 
 
 def _edge_rows(S=128, prompt=6):

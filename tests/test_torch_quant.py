@@ -306,11 +306,14 @@ def test_mm_branches():
 
 @pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
 def test_kernel_plan_covers_every_row(int4):
-    """The launch plans of the weight streams at the 7B products: K13 at M
-    > 1 (csrc/weight_stream.cuh): every row block is walked by exactly one
-    row split; K10 (int4, csrc/quant_gemv.cu): every carrier row by exactly
-    one block of a slab's cluster, and a group that is not a multiple of 8
-    rows is refused."""
+    """The launch plans of the weight streams at the 7B products: K13 at 1
+    < M <= 256 (csrc/quant_matmul.cu): one tile holds every row of x, every
+    weight row is taken by exactly one block of a tile's cluster (no split
+    workspace) and every column by exactly one tile, so each weight byte is
+    read once; its shared memory fits a block, and the ring its stage;
+    K10 (int4, csrc/quant_gemv.cu): every carrier row by exactly one block
+    of a slab's cluster, and a group that is not a multiple of 8 rows is
+    refused."""
     for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)):
         if int4:
             p = quant_matmul.gemv_plan(K // 2, N, 128)
@@ -318,12 +321,22 @@ def test_kernel_plan_covers_every_row(int4):
             assert spans[0][0] == 0 and spans[-1][1] * p.rs >= K // 2
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
             continue
-        for M in (2, 4, 256):
-            tiles, rc, passes, ksplit = _wstream.plan(M, K, N)
-            nb = -(-K // (_wstream.WARPS * rc))
-            assert (ksplit - 1) * passes < nb <= ksplit * passes
-            assert rc % 8 == 0
-            assert ksplit == 1 or tiles <= _wstream.MAX_TICKETS
+        for M in (2, 3, 4, 5, 16, 17, 128, 255, 256):
+            for x_f32 in (False, True):
+                p = quant_matmul.matmul_plan(M, K, N, x_f32)
+                tm = 8 * p.rows if p.small else 64 * p.rows
+                assert p.small == (M <= 16) and M <= tm and (p.small or tm < M + 64 * p.rows)
+                assert _covered_once(N, [t * quant_matmul.MM_TN[p.small]
+                                         for t in range(p.tiles)], quant_matmul.MM_TN[p.small])
+                spans = [quant_matmul.matmul_stages(p, r, K) for r in range(p.cluster)]
+                assert all(a < b for a, b in spans)   # no block without rows
+                assert _covered_once(K, [s * p.rs for a, b in spans for s in range(a, b)], p.rs)
+                assert p.rs * (4 if x_f32 else 2) % quant_matmul.MM_BOX == 0 and p.rs <= 128
+                assert 1 <= p.cluster <= quant_matmul.MAX_CLUSTER
+                assert quant_matmul.matmul_smem(p, x_f32) <= quant_matmul.SMEM_LIMIT
+                assert 3 * p.tiles * p.cluster <= 4 * 2 * quant_matmul.SMS
+        with pytest.raises(ValueError, match="1 < M <= 256"):
+            quant_matmul.matmul_plan(257, K, N, False)
     if int4:
         with pytest.raises(ValueError, match="group of 86"):
             quant_matmul.gemv_plan(688, 512, 86)
