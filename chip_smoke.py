@@ -14,8 +14,10 @@ Phases, each printing its lines before the last:
      without and with the int8 scale rows: bit-exact; and, with K4, at the
      edges of their launch plan, K2_EDGES: S=16, 777 and 2304, B=16, every
      policy, with and without scale rows and `compact`, tied, NaN and -0.0
-     scores, a row without a candidate, a dead row), K3 row write (Dh=128
-     and 64, bf16 and int8: exact), K5 chunk attention (C=128: int8 and bf16
+     scores, a row without a candidate, a dead row; and at K2_EDGES, K2
+     given the step's K / V rows, bf16 and int8, bit-identical on every
+     output, k and v to K2 without them followed by K3), K3 row write
+     (Dh=128 and 64, bf16 and int8: exact), K5 chunk attention (C=128: int8 and bf16
      caches, statistics on and off, MHA, GQA with B=2 and padding rows, a
      sliding window, f32; and at the strided encode's S=2304, C=96: int8
      MHA, bf16 GQA rep 4 at B=2 with padding rows), K6 chunk write + attend (S=2304, C=96: int8 and
@@ -107,8 +109,13 @@ Phases, each printing its lines before the last:
      int8 KV cache (K13) and int4 halves split with a bf16 KV cache (K12),
      each with its launch counts, weight bytes per step and retained
      tokens (row 0's kv_len, and the valid slots of every (layer, row,
-     head) of the final cache). Launch counters are zeroed just before
-     each run and read just after;
+     head) of the final cache). Every decode replays a CUDA graph of its
+     step (the capture's seconds and the graph's nodes on each line; K3 0
+     launches: K2, given the rows, writes them in its launch, "K2 rows"
+     counts those); the bf16 and int8 roco runs have eager twins
+     (flags.eager_decode_loop), tok/s side by side, equal tokens, final pos
+     / k / v (and scales) bit-identical. Launch counters are zeroed just
+     before each run and read just after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
      equal greedy tokens and final positions; StreamingLLM `decoding` over
@@ -124,14 +131,21 @@ Phases, each printing its lines before the last:
      arithmetic split and int4 halves split trees of those weights, f32 KV:
      equal tokens and final positions; the fused tree with an int8 KV cache
      too (B=1 and 4): equal tokens, layer 0's positions equal, K/V within
-     one int8 step elsewhere;
+     one int8 step elsewhere; then the decode loop replayed as a CUDA graph
+     against the same loop eager (GRAPH_CASES: full width, L=2, bf16
+     weights; bf16 and int8 KV roco at B=1 and 4, `full`, `random`,
+     StreamingLLM pre-rotated, rotate-at-read and rank, the split int4 tree
+     at B=4, K14, K15 at B=4, a sampled run at temperature 0.7): every row's
+     tokens, kv_len, final cache arrays and carried ranks bit-identical,
+     launch counts equal;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel (K1's rank variant
      and fused_decode_attend at S=2304, each K1 entry beside
      scaled_dot_product_attention over the same cache, the attention half
      alone, as its library yardstick; K2 also at B=4 and 16 (S=768) and at
-     the encoding family's S=2304, K4 also at S=2304, K9 also at B=4; K7 roco at a
+     the encoding family's S=2304, K4 also at S=2304, K9 also at B=4; K3
+     as K2 given the rows less K2 alone, the stand-alone kernel beside it; K7 roco at a
      triggered chunk, int8 and bf16, each call from its untouched state); K10-K13
      at each 7B product of their phase-3 trees (bf16 activations; K11 at the split
      and the fused widths, M=4 and 512; K13 at M=1, 4, 16, 128 and 256, each
@@ -349,7 +363,7 @@ K2_SHAPES = {"B=1": (1, S_MAIN), "B=4": (B_WIDE, S_MAIN), "B=16": (B_MAX, S_MAIN
 K2_VARIANTS = ("bf16", "int8", "compact bf16", "compact int8")   # int8: with the scale rows
 
 
-def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4):
+def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4, rows=False, Dh=128):
     """K2's timed inputs at L = H = 32: n copies of k2_case (113 MB at B = 1,
     S = 768, so that L2 is cold when they are cycled), the eviction gate on;
     `variant` one of K2_VARIANTS. Returns (copies, run, nbytes, flops): run(fn)
@@ -361,9 +375,11 @@ def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4):
     averaged over the copies) and the victim slot written; the two new
     scales read and written with the scale rows; flops 8 a slot for the
     update and the selection's keys, 31 for the bisection, 4 for the
-    minimum."""
+    minimum. With `rows`, K2 also writes the step's K / V rows (int8 with
+    the scale rows, else bf16; Dh elements), read and written once more."""
     L, H = 32, 32
     compact, int8 = variant.startswith("compact"), variant.endswith("int8")
+    kv_dtype = torch.int8 if int8 else torch.bfloat16
     copies = []
     for c in range(n):
         state, per_b, ev, scales = k2_case(L, B, H, S, dev, seed + c)
@@ -372,12 +388,19 @@ def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4):
             kw["compact"] = True
         if int8:
             kw.update(zip(SCALE_NAMES, scales))
+        if rows:
+            kw.update(k=torch.empty((L, B, H, S, Dh), dtype=kv_dtype, device=dev),
+                      v=torch.empty((L, B, H, S, Dh), dtype=kv_dtype, device=dev),
+                      kn=torch.ones((L, B, H, 1, Dh), dtype=kv_dtype, device=dev),
+                      vn=torch.ones((L, B, H, 1, Dh), dtype=kv_dtype, device=dev))
         copies.append((state, per_b, kw))
 
     def run(fn):
         return lambda state, per_b, kw: fn(*state, *per_b.values(), policy, **kw)
-    slots, rows = L * B * H * S, L * B * H
-    nbytes = 32 * slots + rows * (12 + 4 + (16 if int8 else 0))
+    slots, n_rows = L * B * H * S, L * B * H
+    nbytes = 32 * slots + n_rows * (12 + 4 + (16 if int8 else 0))
+    if rows:
+        nbytes += n_rows * 4 * Dh * (1 if int8 else 2)
     if compact:   # pos from each row's victim on, not the victim's alone
         tail = 0
         for state, per_b, kw in copies:
@@ -385,7 +408,7 @@ def k2_time_sets(dev, B, S, variant, policy="roco", seed=50, n=4):
                                    {k: v.clone() if torch.is_tensor(v) else v
                                     for k, v in kw.items()})[-1]
             tail += int((S - victim.to(torch.int64)).clamp(min=1).sum())
-        nbytes += 4 * tail // n - 4 * rows
+        nbytes += 4 * tail // n - 4 * n_rows
     return copies, run, nbytes, slots * (8 + 31 + 4)
 
 
@@ -501,6 +524,44 @@ def k2_edge_results(L, B, H, S, dev, seed):
                     spec(policy))
             res = [fn(*clone(state[:4]), *args) for fn in (k4, k4_plain)]
             yield f"K4 {policy}", *res
+
+
+def k2_rows_results(L, B, H, S, dev, seed, Dh=128):
+    """K2 given the step's K / V rows against K2 without them followed by
+    K3 at the write slot it returns (the decode step's two launches before
+    K2 took K3's work into its own), on k2_edge_case's inputs, every variant
+    K2_EDGES runs: yields (label, K2 with the rows' outputs and k, v, the
+    two launches' outputs and k, v). The rows are bf16, int8 with the scale
+    rows."""
+    state, per_b, ev, scales, spec = k2_edge_case(L, B, H, S, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    rows = {}
+    for kv, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        rows[kv] = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=dtype)
+                    if dtype == torch.int8 else
+                    torch.randn(shape, generator=g, device=dev).to(dtype)
+                    for shape in ((L, B, H, S, Dh),) * 2 + ((L, B, H, 1, Dh),) * 2]
+    for policy in POLICIES:
+        for compact in ((False,) if policy is None else (False, True)):
+            for with_scales in (False, True):
+                k, v, kn, vn = rows["int8" if with_scales else "bf16"]
+                kw = {} if policy is None else dict(ev, espec=spec(policy), compact=compact)
+                if with_scales:
+                    kw.update(zip(SCALE_NAMES, scales))
+
+                def call(folded):
+                    kk, vv = k.clone(), v.clone()
+                    args = {n: x.clone() if torch.is_tensor(x) and x.dim() == 4 else x
+                            for n, x in kw.items()}
+                    if folded:
+                        args.update(k=kk, v=vv, kn=kn, vn=vn)
+                    res = k2(*[x.clone() for x in state], *per_b.values(), policy, **args)
+                    if not folded:
+                        k3(kk, vv, kn, vn, res[4][..., 0].contiguous())
+                    return (*res, kk, vv)
+                yield (f"K2 {policy}{' compact' if compact else ''}"
+                       f"{' int8 rows, scale rows' if with_scales else ' bf16 rows'}",
+                       call(True), call(False))
 
 
 def k2_call(fn, state, per_b, ev, policy, gate_on, scales=None):
@@ -619,6 +680,17 @@ def phase_k2_edges(dev):
               f"{sorted(victims)}")
         check(not bad, f"K2 / K4 edge {case}: not bit-exact: {bad}")
         check(S in victims, f"K2 / K4 edge {case}: no row without a victim")
+        before = k2.rows_launches
+        bad, n = [], 0
+        for label, got, ref in k2_rows_results(L, B, H, S, dev, 640 + i):
+            torch.cuda.synchronize()
+            n += 1
+            if len(got) != len(ref) or not all(same_bits(a, b) for a, b in zip(got, ref)):
+                bad.append(label)
+        print(f"phase 2: K2 with the rows edge {case}: {n - len(bad)} of {n} calls bit-exact "
+              f"with K2 then K3 (every output, k, v)")
+        check(not bad and k2.rows_launches == before + n,
+              f"K2 with the rows edge {case}: not bit-exact with K2 then K3: {bad}")
 
 
 # K1's split edges in phase 2: (B, Hq, Hkv, S, window, positions, cluster
@@ -1166,7 +1238,7 @@ KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K7": k7,
            "decode_attend": kda}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K1 rank": (k1, "rank_launches"),
-            "K2 compact": (k2, "compact_launches")}
+            "K2 compact": (k2, "compact_launches"), "K2 rows": (k2, "rows_launches")}
 
 
 def reset_counts():
@@ -1185,6 +1257,13 @@ def counts():
 def zero_counts(**want):
     """Expected launch counts: the ones given, every other kernel 0."""
     return {**{key: 0 for key in list(KERNELS) + list(VARIANTS)}, **want}
+
+
+def graph_note(name, st):
+    """The decode's CUDA graph on a phase-3 line, checked: every phase-3
+    decode replays one."""
+    check(st.graph_nodes > 0, f"{name}: the decode did not replay a CUDA graph")
+    return f"graph captured in {st.capture_s:.3f} s, {st.graph_nodes} nodes"
 
 
 def kv_cache_mb(cfg, B, S, quant):
@@ -1211,39 +1290,71 @@ def phase_end_to_end(dev):
               top_p=1.0, eos_token_ids=[], seed=0)
     for model in models.values():
         model.easykv_generate(prompts[0].tolist(), dict(gc, max_new_tokens=8))  # warm-up
-    runs = {}
+    runs, finals = {}, {}
     for kv, policy, B in (("bf16", "roco", 1), ("bf16", "full", 1), ("int8", "roco", 1),
                           ("int8", "full", 1), ("int8", "roco", B_WIDE)):
         name = f"{kv} {policy}" + (f" B={B}" if B > 1 else "")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        out = models[kv].easykv_generate(prompts[0].tolist() if B == 1 else prompts[:B].numpy(),
-                                         dict(gc, kv_policy=policy))
+        with engine_caches() as made:
+            out = models[kv].easykv_generate(
+                prompts[0].tolist() if B == 1 else prompts[:B].numpy(), dict(gc, kv_policy=policy))
         c = counts()
         st = models[kv].last_run
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         tok_s = B * st.n_tokens / st.decode_s
         S = gen_mod._round_up(PROMPT + (BUDGET + 1 if policy == "roco" else NEW), 128)
         print(f"phase 3: {name}: prefill {st.prefill_s:.3f} s, decode {B}x{st.n_tokens} "
-              f"tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len {st.kv_len}, "
-              f"KV cache {kv_cache_mb(cfg, B, S, kv == 'int8'):.1f} MB (S={S}), "
-              f"peak memory {peak:.2f} GiB, launches {c}")
+              f"tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s ({graph_note(name, st)}), "
+              f"kv_len {st.kv_len}, KV cache {kv_cache_mb(cfg, B, S, kv == 'int8'):.1f} MB "
+              f"(S={S}), peak memory {peak:.2f} GiB, launches {c}")
         check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
         n_k5 = L * PROMPT // CHUNK if kv == "int8" else 0
-        check(c["K1"] == L * NEW and c["K2"] == NEW and c["K3"] == NEW and c["K5"] == n_k5,
-              f"{name}: launch counts {c}")
+        check(c["K1"] == L * NEW and c["K2"] == c["K2 rows"] == NEW and c["K3"] == 0
+              and c["K5"] == n_k5, f"{name}: launch counts {c}")
         if policy == "roco":
             check(st.kv_len - PROMPT == BUDGET,
                   f"{name} kept {st.kv_len - PROMPT} generated tokens, not {BUDGET}")
         runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak)
-    del models
+        if policy == "roco" and B == 1:
+            finals[kv] = (out, made[-1])
+        del made
+    for kv, (out, cache) in finals.items():
+        eager_twin(models[kv], f"{kv} roco", prompts[0].tolist(), dict(gc, kv_policy="roco"),
+                   out, cache, runs[f"{kv} roco"])
+    del models, finals
     runs.update(phase_streaming(dev, cfg, params))
     runs.update(phase_encoding(dev, cfg, params))
     runs.update(phase_quant(dev, cfg, params))
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+def eager_twin(model, name, prompt, gc, out, cache, run):
+    """The phase-3 run `name` again with the decode loop eager
+    (flags.eager_decode_loop: every kernel launched from the host, as before
+    the decode replayed a CUDA graph): decode tok/s side by side with the
+    graph's, equal tokens, final pos / k / v (and scales) bit-identical,
+    equal launch counts."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with flags.eager_decode_loop(), engine_caches() as made:
+        twin = model.easykv_generate(prompt, gc)
+    c = counts()
+    st = model.last_run
+    tok_s = st.n_tokens / st.decode_s
+    arrays = [n for n in ("pos", "k", "v", "k_scale", "v_scale") if getattr(cache, n) is not None]
+    same = all(same_bits(getattr(cache, n), getattr(made[-1], n)) for n in arrays)
+    print(f"phase 3: {name} eager twin: decode {st.n_tokens} tokens in {st.decode_s:.3f} s = "
+          f"{tok_s:.2f} tok/s eager against {run['tok_s']:.2f} tok/s replayed; tokens equal "
+          f"{twin == out}, final {' / '.join(arrays)} bit-identical {same}, launches equal "
+          f"{c == run['counts']}")
+    check(st.graph_nodes == 0, f"{name} eager twin: the decode replayed a graph")
+    check(twin == out and same and c == run["counts"],
+          f"{name}: the eager twin differs from the replayed graph")
+    run["eager_tok_s"] = tok_s
 
 
 def ordered_invariant(pos):
@@ -1295,11 +1406,12 @@ def phase_streaming(dev, cfg, params):
         tok_s = st.n_tokens / st.decode_s
         line = printed.getvalue().strip().splitlines()[-1]
         print(f"phase 3: {name}: prefill {st.prefill_s:.3f} s, decode {st.n_tokens} tokens in "
-              f"{st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len {st.kv_len}, valid slots per "
-              f"(layer, head) {held}, ordered invariant {ordered}, peak memory {peak:.2f} GiB, "
-              f"launches {c}; printed: {line}")
+              f"{st.decode_s:.3f} s = {tok_s:.2f} tok/s ({graph_note(name, st)}), kv_len "
+              f"{st.kv_len}, valid slots per (layer, head) {held}, ordered invariant {ordered}, "
+              f"peak memory {peak:.2f} GiB, launches {c}; printed: {line}")
         check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
-        want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=L * PROMPT // CHUNK if kv == "int8" else 0)
+        want = {"K1": L * NEW, "K2": NEW, "K2 rows": NEW,
+                "K5": L * PROMPT // CHUNK if kv == "int8" else 0}
         if policy == "roco" and prerot:
             want.update({"K9": NEW, "K2 compact": NEW})
         elif policy == "roco":
@@ -1386,8 +1498,9 @@ def phase_encoding(dev, cfg, params):
         streaming = " stream " in name
         runs[name] = encoding_run(
             models[kv], name, prompt, dict(gc, budget=budget, streaming=streaming), mode,
-            STRIDE, zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n5, K6=n6,
-                                **{"K1 rank": L * n_dec if streaming else 0}),
+            STRIDE, zero_counts(K1=L * n_dec, K2=n_dec, K5=n5, K6=n6,
+                                **{"K1 rank": L * n_dec if streaming else 0,
+                                   "K2 rows": n_dec}),
             slots, ratio, ENC_S if mode == "encoding" else ENCDEC_S, cfg,
             keep=name == "int8 encoding roco")
     runs.update(step_runs(models, prompt, gc, runs, cfg, n_prefix, n_enc, n_encdec,
@@ -1408,9 +1521,9 @@ def phase_encoding(dev, cfg, params):
     name = "int8 stream encoding roco stride 1"
     runs[name] = encoding_run(
         model, name, prompt[:n1], dict(gc, budget=0.5, max_new_tokens=new1, streaming=True),
-        "encoding", 1, zero_counts(K1=L * steps, K2=steps, K3=steps,
+        "encoding", 1, zero_counts(K1=L * steps, K2=steps,
                                    K5=L * ((ridx1 + CHUNK - 1) // CHUNK),
-                                   **{"K1 rank": L * steps}),
+                                   **{"K1 rank": L * steps, "K2 rows": steps}),
         idx1 + new1, f"KV cache budget ratio: {idx1 / n1 * 100:.2f}%({idx1}/{n1})",
         gen_mod._round_up(idx1 + 1 + new1, 128), cfg, n_new=new1)
     for kv in ("bf16", "int8"):
@@ -1445,8 +1558,8 @@ def step_runs(models, prompt, gc, runs, cfg, n_prefix, n_enc, n_encdec, ratio_en
         try:
             new[name] = encoding_run(
                 models[kv], name, prompt, dict(gc, budget=0.5, kv_policy=policy), mode, STRIDE,
-                zero_counts(K1=L * n_dec, K2=n_dec, K3=n_dec, K5=n_prefix if enc else L,
-                            **{"K7" if step else "K6": n_chunks}),
+                zero_counts(K1=L * n_dec, K2=n_dec, K5=n_prefix if enc else L,
+                            **{"K7" if step else "K6": n_chunks, "K2 rows": n_dec}),
                 ENC_IDX + n_dec, ratio_enc, ENC_S if enc else ENCDEC_S, cfg, keep=True)
         finally:
             flags.use_chunk_kernel(None)
@@ -1512,7 +1625,8 @@ def encoding_run(model, name, prompt, gc, mode, stride, want, slots, ratio, S, c
         check(math.isfinite(out) and st.logits_finite, f"{name}: ppl {out}")
     else:
         tok_s = st.n_tokens / st.decode_s
-        desc += f", decode {st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s"
+        desc += (f", decode {st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s "
+                 f"({graph_note(name, st)})")
         check(len(out) == n_new and st.logits_finite, f"{name}: bad output / NaN logits")
     if gc.get("streaming") and mode != "ppl":
         same = bool(ranks) and torch.equal(ranks[-1], age_ranks_all(pos))
@@ -1606,10 +1720,11 @@ def forward_bootstrap(dev, cfg, params, kv, prompt):
 def plain_kernels():
     """The model with each kernel's wrapper swapped for its plain version
     (K4 where policies.evict_cache imports it, K8 in the engine, K10-K13
-    where ops.quant.mm calls them, K14 and K15 in the decode step)."""
+    where ops.quant.mm calls them, K14 and K15 in the decode step; K3's
+    plain version inside K2's, which writes the rows)."""
     with mock.patch.multiple(llama_mod, fused_decode_attend_inflight=k1_plain,
                              fused_decode_attend=kda_plain,
-                             fused_write_update=k2_plain, write_rows=k3_plain,
+                             fused_write_update=k2_plain,
                              fused_chunk_attend=k5_plain, fused_chunk_write_attend=k6_plain,
                              fused_kv_compact=k9_plain, fused_decode_step=k14_plain,
                              fused_decode_step_batch=k15_plain), \
@@ -2011,8 +2126,13 @@ def phase_times(dev):
                 library_ms=None, bytes=nbytes, flops=flops, peak=F32_FLOPS)
             del copies
             torch.cuda.empty_cache()
-    # K3: one launch writes every layer's rows; library yardstick: index_put_
+    # K3 inside K2's launch: K2 given the rows less K2 alone (B = 1, S =
+    # 768, roco, the gate on); beside it the stand-alone kernel (alone_ms);
+    # library yardstick: index_put_
     for kv, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        copies, run, _, _ = k2_time_sets(dev, 1, S, kv, seed=50, rows=True)
+        folded = graph_ms(run(k2), copies, 64) - out[("K2", kv)]["ms"]
+        del copies
         k, v, kn3, vn3, slots = k3_case(L, 1, H, S, D, dev, 60, dtype)
         idx = (torch.arange(L, device=dev)[:, None, None],
                torch.zeros(1, 1, 1, dtype=torch.long, device=dev),
@@ -2023,7 +2143,7 @@ def phase_times(dev):
             k.index_put_(idx, kr)
             v.index_put_(idx, vr)
         rows = L * H
-        out[("K3", kv)] = dict(ms=graph_ms(k3, [(k, v, kn3, vn3, slots)], 200),
+        out[("K3", kv)] = dict(ms=folded, alone_ms=graph_ms(k3, [(k, v, kn3, vn3, slots)], 200),
                                plain_ms=graph_ms(k3_plain, [(k, v, kn3, vn3, slots)], 50),
                                library_ms=graph_ms(library, [()], 50),
                                bytes=2 * 2 * rows * D * k.element_size() + rows * 4, flops=0,
@@ -2481,13 +2601,14 @@ def phase_quant(dev, cfg, params):
             tok_s = B * st.n_tokens / st.decode_s
             line = printed.getvalue().strip().splitlines()[-1]
             print(f"phase 3: {name} ({kv} KV): prefill {st.prefill_s:.3f} s, decode "
-                  f"{B}x{st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s, kv_len "
-                  f"{st.kv_len}, valid slots per (layer, row, head) {held}, weights "
+                  f"{B}x{st.n_tokens} tokens in {st.decode_s:.3f} s = {tok_s:.2f} tok/s "
+                  f"({graph_note(name, st)}), kv_len {st.kv_len}, valid slots per (layer, row, "
+                  f"head) {held}, weights "
                   f"{step_gb:.3f} GB per step, peak memory {peak:.2f} GiB, launches {c}; "
                   f"printed: {line}")
             check(len(out) == NEW and st.logits_finite, f"{name}: bad output / NaN logits")
-            want = dict(K1=L * NEW, K2=NEW, K3=NEW, K5=n_k5 if kv == "int8" else 0,
-                        K13=NEW + 1)
+            want = {"K1": L * NEW, "K2": NEW, "K2 rows": NEW,
+                    "K5": n_k5 if kv == "int8" else 0, "K13": NEW + 1}
             if tree == "int4 arith fused":
                 if B == 1:
                     want.update(K1=0, K14=NEW, K11=4 * L)       # prefill: K11 at M = 512
@@ -2516,6 +2637,109 @@ def phase_quant(dev, cfg, params):
         del models, model, qparams
         torch.cuda.empty_cache()
     return runs
+
+
+# Phase 4's decode loop replayed as a CUDA graph against the same loop
+# eager, at LLaMa-2-7B width with L = 2 and bf16 weights drawn from seed 2:
+# name -> (weights: None bf16, "split" int4 arithmetic through K10 / K11,
+# "fused" K14 at B = 1 and K15 above; KV; kv_mode; policy; B; more of the
+# generate config, "prerot" the flag)
+GRAPH_CASES = {
+    "bf16 roco": (None, "bf16", "decoding", "roco", 1, {}),
+    "bf16 roco B=4": (None, "bf16", "decoding", "roco", 4, {}),
+    "int8 roco": (None, "int8", "decoding", "roco", 1, {}),
+    "int8 roco B=4": (None, "int8", "decoding", "roco", 4, {}),
+    "bf16 full": (None, "bf16", "decoding", "full", 1, {}),
+    "int8 random B=4": (None, "int8", "decoding", "random", 4, {}),
+    "bf16 stream prerot": (None, "bf16", "decoding", "roco", 1, {"streaming": True}),
+    "int8 stream rotate-at-read": (None, "int8", "decoding", "roco", 1,
+                                   {"streaming": True, "prerot": False}),
+    "int8 stream rank (encoding_decoding)": (None, "int8", "encoding_decoding", "roco", 1,
+                                             {"streaming": True}),
+    "int4 arith split roco B=4": ("split", "int8", "decoding", "roco", 4, {}),
+    "int4 arith fused roco (K14)": ("fused", "int8", "decoding", "roco", 1, {}),
+    "int4 arith fused roco B=4 (K15)": ("fused", "bf16", "decoding", "roco", 4, {}),
+    "bf16 roco sampled": (None, "bf16", "decoding", "roco", 1,
+                          {"temperature": 0.7, "top_p": 0.9}),
+}
+GRAPH_PROMPT, GRAPH_BUDGET, GRAPH_NEW, GRAPH_STRIDE = 200, 24, 48, 24
+CACHE_ARRAYS = ("pos", "score", "score_sq", "counter", "k", "v", "k_scale", "v_scale")
+
+
+def graph_twin(model, case, prompts):
+    """One GRAPH_CASES run through generate(), its decode replayed as a CUDA
+    graph and then eager (flags.eager_decode_loop). Returns (the two runs'
+    graph nodes, what differs between them: every row's tokens, kv_len,
+    the final cache's arrays, the carried ranks, the launch counts; the
+    replayed run's launch counts)."""
+    _, _, mode, policy, B, more = case
+    more = dict(more)
+    prerot = more.pop("prerot", None)
+    gc = dict(budget=GRAPH_BUDGET if mode == "decoding" else 4 * GRAPH_BUDGET, kv_policy=policy,
+              max_new_tokens=GRAPH_NEW, temperature=1e-9, top_p=1.0, eos_token_ids=[], seed=5)
+    gc.update(more)
+    ids = prompts[0].tolist() if B == 1 else prompts[:B].numpy()
+    got = []
+    for eager in (False, True):
+        flags.use_prerot(prerot)
+        reset_counts()
+        try:
+            with flags.eager_decode_loop() if eager else contextlib.nullcontext(), \
+                    contextlib.redirect_stdout(io.StringIO()), \
+                    recorded("_decode_loop") as res, engine_caches() as made, \
+                    recorded("_carry_ranks", last_only=True) as ranks:
+                easykv_tpu_torch.generate(model, ids, gc, kv_mode=mode, stride=GRAPH_STRIDE)
+        finally:
+            flags.use_prerot(None)
+        got.append((res[-1], made[-1], ranks[-1] if ranks else None, counts(),
+                    model.last_run.graph_nodes))
+    (rg, cg, kg, ng, nodes), (re_, ce, ke, ne, eager_nodes) = got
+    diff = [n for n in ("out_ids", "kv_len") if not torch.equal(getattr(rg, n), getattr(re_, n))]
+    diff += [n for n in CACHE_ARRAYS
+             if getattr(cg, n) is not None and not same_bits(getattr(cg, n), getattr(ce, n))]
+    if (kg is None) != (ke is None) or (kg is not None and not torch.equal(kg, ke)):
+        diff.append("carried ranks")
+    if ng != ne:
+        diff.append(f"launches (eager {ne})")
+    return (nodes, eager_nodes), diff, ng
+
+
+def graph_twin_results(dev):
+    """graph_twin over every GRAPH_CASES path: yields (name, the two runs'
+    graph nodes, what differs, the replayed run's launch counts)."""
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
+    params = init_params(cfg, seed=2, dtype=torch.bfloat16, device=dev)
+    split = quant_mod.quantize_params_int4(params, layout="arith")
+    trees = {None: params, "split": split, "fused": quant_mod.fuse_gemv_params(split)}
+    prompts = torch.randint(1, cfg.vocab_size, (4, GRAPH_PROMPT),
+                            generator=torch.Generator().manual_seed(2))
+    for name, case in GRAPH_CASES.items():
+        model = easykv_tpu_torch.CausalLM(cfg, trees[case[0]], device=dev,
+                                          kv_quant=case[1] == "int8")
+        yield (name, *graph_twin(model, case, prompts))
+    del trees, split, params
+    torch.cuda.empty_cache()
+
+
+def phase_graph_vs_eager(dev):
+    """Every GRAPH_CASES path (bf16 / int8 KV, B = 1 and 4, roco, `full`,
+    `random`, StreamingLLM pre-rotated, rotate-at-read and rank, the split
+    int4 tree at B = 4 with K11's split tickets, K14, K15, a sampled run at
+    temperature 0.7) decodes GRAPH_NEW tokens with the loop replayed as a
+    CUDA graph and eager: bit-identical tokens, kv_len, final cache arrays
+    (pos, score, score_sq, counter, k, v, scales) and carried ranks, equal
+    launch counts."""
+    L = 2
+    for name, (nodes, eager_nodes), diff, c in graph_twin_results(dev):
+        print(f"phase 4: full width L=2, {name}: replayed graph ({nodes} nodes) against the "
+              f"eager loop: bit-identical {not diff}" + (f" but for {diff}" if diff else "")
+              + f"; launches {c}")
+        check(nodes > 0 and eager_nodes == 0 and not diff,
+              f"{name}: the replayed graph and the eager loop differ in {diff}")
+        want = {"int4 arith split roco B=4": ("K11", 7 * L * GRAPH_NEW),
+                "int4 arith fused roco (K14)": ("K14", GRAPH_NEW),
+                "int4 arith fused roco B=4 (K15)": ("K15", GRAPH_NEW)}.get(name)
+        check(want is None or c[want[0]] == want[1], f"{name}: launch counts {c}")
 
 
 def phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen):
@@ -3203,6 +3427,7 @@ def main():
     phase_k15(dev)
     runs = phase_end_to_end(dev)
     phase_plain_vs_kernel(dev)
+    phase_graph_vs_eager(dev)
     times = phase_times(dev)
     k7t = k7_times(dev)
     rtimes = rank_times(dev)
@@ -3225,7 +3450,8 @@ def main():
                "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} roco"),
         "K2 compact": ("fused_write_update compact", "easykv_tpu_torch/csrc/sidecar_update.cu",
                        "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} stream roco prerot"),
-        "K3": ("write_rows", "easykv_tpu_torch/csrc/row_write.cu",
+        "K3": ("write_rows (inside fused_write_update's launch)",
+               "easykv_tpu_torch/csrc/sidecar_update.cu",
                "easykv_tpu/ops/pallas/row_write.py:36", "{kv} roco"),
         "K2 B=4": ("fused_write_update B=4", "easykv_tpu_torch/csrc/sidecar_update.cu",
                    "easykv_tpu/ops/pallas/sidecar_update.py:270", "{kv} B=4"),
@@ -3270,7 +3496,10 @@ def main():
             per = "call" if key in ("K5", "K6") else "step"
             n_per = launches / (1 if per == "call" else ENC_NEW if "encoding" in run else NEW)
             where = f"{n_per:g} launches/{per} in the {run} run"
-        print(f"phase 5: {key} {kname}: {t['ms'] * 1e3:.2f} us, plain "
+        alone = ("" if "alone_ms" not in t else
+                 f" (K2 given the rows less K2 alone; the stand-alone kernel "
+                 f"{t['alone_ms'] * 1e3:.2f} us)")
+        print(f"phase 5: {key} {kname}: {t['ms'] * 1e3:.2f} us{alone}, plain "
               f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, "
               f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), {where}")
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": repl,

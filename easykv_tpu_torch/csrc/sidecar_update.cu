@@ -24,7 +24,12 @@
 //      the row's pos, score, score_sq and bumped counter shift down by one
 //      at and above the victim instead (slot S-1 takes slot 0's values,
 //      as jnp.roll does, and pos -1), and the victim slot (S when the gate
-//      is off or no slot is a candidate) goes out for the K/V shift (K9).
+//      is off or no slot is a candidate) goes out for the K/V shift (K9);
+//   5. with the step's K and V rows (kn, vn; the former kernel K3, which
+//      replaces the TPU kernel easykv_tpu/ops/pallas/row_write.py
+//      `write_rows`): the row's K and V at the write slot of step 1 (before
+//      any `compact` shift, where K9 then moves them), whether live or not,
+//      as the TPU kernel writes them.
 //
 // K4 replaces `fused_evict` (body `_evict_kernel`), decode phase, k = 1:
 // per row, counter += 1 under the gate, the same victim selection, and
@@ -42,6 +47,15 @@
 // row is never touched (the same result, since the update is in place). K4
 // reads the four sidecars and writes counter back: 20 bytes a slot (a row
 // whose gate is off reads and writes only its counters).
+//
+// Step 5 moves 2 Dh elements a row (1 MB a step at LLaMa-2-7B width in
+// bf16, 0.3 us at 3.35 TB/s), less than a launch of its own costs: as a
+// kernel of its own (K3) it was bound by its launch, so K2 does it. The
+// lane group that owns the row (its warp; on the wide path the block's
+// first warp) loads the two rows with the sidecars, 16 bytes a lane (a
+// bf16 Dh = 128 row pair is one load a lane, int8 16 lanes), and stores
+// them once the write slot is chosen, before the selection. The copy is
+// byte-wise, so every element type takes it.
 //
 // The rows are independent, so a warp owns a row of up to 768 slots (the
 // launch plan is sidecar_update.row_plan, which this file checks): each
@@ -592,7 +606,10 @@ struct K2Args {
   const float *k_sc_new, *v_sc_new;
   float *k_scale, *v_scale;
   int *slot_out, *vslot_out;
+  uint4 *k, *v;               // step 5: the cache's K and V, (L, B, H, S, row_words)
+  const uint4 *kn, *vn;       // and the step's rows, (L, B, H, 1, row_words)
   int nrows, B, H, S, policy, evict, compact, recent_window, feasible_k, protect_prompt;
+  int row_words;              // 16-byte words of a row; 0: no rows
   int warps, vec;
 };
 
@@ -605,6 +622,42 @@ struct K4Args {
   int nrows, B, H, S, policy, recent_window, feasible_k, protect_prompt;
   int warps, vec;
 };
+
+// Step 5: the row's K and V (2 n 16-byte words, K's first), word i = lane +
+// 32 m of one warp; the first kRowWords a lane are loaded ahead and stored
+// once the write slot is known, any further words copied then.
+constexpr int kRowWords = 2;
+
+__device__ __forceinline__ const uint4* row_src(const K2Args& a, int row, int i) {
+  const int n = a.row_words;
+  return i < n ? a.kn + (size_t)row * n + i : a.vn + (size_t)row * n + (i - n);
+}
+
+__device__ __forceinline__ uint4* row_dst(const K2Args& a, int row, int slot, int i) {
+  const int n = a.row_words;
+  const size_t at = ((size_t)row * a.S + slot) * n;
+  return i < n ? a.k + at + i : a.v + at + (i - n);
+}
+
+__device__ __forceinline__ void rows_load(const K2Args& a, int row, int lane,
+                                          uint4 (&w)[kRowWords]) {
+#pragma unroll
+  for (int m = 0; m < kRowWords; ++m) {
+    const int i = lane + 32 * m;
+    if (i < 2 * a.row_words) w[m] = *row_src(a, row, i);
+  }
+}
+
+__device__ __forceinline__ void rows_store(const K2Args& a, int row, int slot, int lane,
+                                           const uint4 (&w)[kRowWords]) {
+#pragma unroll
+  for (int m = 0; m < kRowWords; ++m) {
+    const int i = lane + 32 * m;
+    if (i < 2 * a.row_words) *row_dst(a, row, slot, i) = w[m];
+  }
+  for (int i = lane + 32 * kRowWords; i < 2 * a.row_words; i += 32)
+    *row_dst(a, row, slot, i) = *row_src(a, row, i);
+}
 
 // the row's score, score_sq, counter and (with_pos) pos back to device memory
 template <int NCH>
@@ -649,6 +702,8 @@ __global__ void __launch_bounds__(kBlock) write_update_rows(const K2Args a) {
 #endif
   const int npos = fire ? a.next_pos[b] : 0, plen = fire ? a.prompt_len[b] : 0,
             rrank = fire ? a.rand_rank[b] : 0;
+  uint4 rw[kRowWords] = {};
+  rows_load(a, row, tm.t, rw);
   stamp(0);
 
   // 1-3: load (every chunk in flight before the first use), update, free slot
@@ -682,6 +737,7 @@ __global__ void __launch_bounds__(kBlock) write_update_rows(const K2Args a) {
       a.v_scale[off + slot] = vsn;
     }
   }
+  rows_store(a, row, slot, tm.t, rw);   // 5
   int jj, ee;
   const bool mine = live && holds(tm, slot, jj, ee);   // this lane writes the new token
   if (mine) {
@@ -875,6 +931,8 @@ __global__ void __launch_bounds__(kBlock) write_update_wide(const K2Args a) {
   const bool g_upd = a.update_gate[b] != 0;
   const float gf = g_upd ? 1.0f : 0.0f;
   const float pn = a.p_new[row];
+  uint4 rw[kRowWords] = {};
+  if (tm.t < 32) rows_load(a, row, tm.t, rw);
   stamp(0);
 
   int first_free = S;
@@ -907,6 +965,7 @@ __global__ void __launch_bounds__(kBlock) write_update_wide(const K2Args a) {
       sq[slot] = sq_new;
     }
   }
+  if (tm.t < 32) rows_store(a, row, slot, tm.t, rw);   // 5
   __syncthreads();
   stamp(2);
 
@@ -1030,27 +1089,39 @@ size_t sidecar_smem(int S, int chunks) { return chunks == 0 ? (size_t)5 * 4 * S 
 // and writes each row's victim slot (S: none) to vslot_out (L, B, H).
 // k_sc_new, v_sc_new (L, B, H, 1) and k_scale, v_scale (L, B, H, S): the
 // int8 cache's scale rows, or all null for a float cache.
+// k, v (L, B, H, S, row_bytes) and kn, vn (L, B, H, 1, row_bytes): the
+// cache's K / V and the step's rows, written at the write slot (step 5),
+// every pointer 16-byte aligned and row_bytes a multiple of 16; or all null
+// (row_bytes ignored).
 // (warps, chunks, rows): sidecar_update.row_plan(S).
-// Updates pos / score / score_sq / counter (and the scale rows) in place.
-// Returns cudaGetLastError().
+// Updates pos / score / score_sq / counter (the scale rows, the K / V rows)
+// in place. Returns cudaGetLastError().
 int write_update(int* pos, float* score, float* score_sq, float* counter, const float* probs,
                  const float* p_new, const int* q_pos, const uint8_t* token_valid,
                  const uint8_t* update_gate, const float* counter_init,
                  const uint8_t* evict_gate, const int* next_pos, const int* prompt_len,
                  const int* rand_rank, const float* k_sc_new, const float* v_sc_new,
-                 float* k_scale, float* v_scale, int* slot_out, int* vslot_out, int L, int B,
-                 int H, int S, int policy, int evict, int compact, int recent_window,
-                 int feasible_k, int protect_prompt, int warps, int chunks, int rows,
+                 float* k_scale, float* v_scale, int* slot_out, int* vslot_out, void* k,
+                 void* v, const void* kn, const void* vn, int L, int B, int H, int S,
+                 int policy, int evict, int compact, int recent_window, int feasible_k,
+                 int protect_prompt, int row_bytes, int warps, int chunks, int rows,
                  void* stream) {
   if (compact && (!evict || vslot_out == nullptr)) return (int)cudaErrorInvalidValue;
   if (!plan_ok(S, warps, chunks, rows)) return (int)cudaErrorInvalidValue;
+  const bool with_rows = k != nullptr;
+  if (with_rows && (v == nullptr || kn == nullptr || vn == nullptr || row_bytes < 16 ||
+                    row_bytes % 16 != 0 || !aligned16(k) || !aligned16(v) ||
+                    !aligned16(kn) || !aligned16(vn)))
+    return (int)cudaErrorInvalidValue;
   const int nrows = L * B * H;
   const int vec = S % 4 == 0 && aligned16(pos) && aligned16(score) && aligned16(score_sq) &&
                   aligned16(counter) && aligned16(probs);
   const K2Args a{pos, score, score_sq, counter, probs, p_new, q_pos, token_valid, update_gate,
                  counter_init, evict_gate, next_pos, prompt_len, rand_rank, k_sc_new, v_sc_new,
-                 k_scale, v_scale, slot_out, vslot_out, nrows, B, H, S, policy, evict,
-                 compact, recent_window, feasible_k, protect_prompt, warps, vec};
+                 k_scale, v_scale, slot_out, vslot_out, (uint4*)k, (uint4*)v,
+                 (const uint4*)kn, (const uint4*)vn, nrows, B, H, S, policy, evict,
+                 compact, recent_window, feasible_k, protect_prompt,
+                 with_rows ? row_bytes / 16 : 0, warps, vec};
   cudaStream_t st = (cudaStream_t)stream;
   if (chunks == 0) {
     const size_t smem = sidecar_smem(S, chunks);

@@ -51,7 +51,8 @@
 // the groups are split over gridDim.z blocks: each writes its f32 partial
 // to a per-stream workspace and the last block of a tile to finish (an
 // atomic ticket, reset by that block) adds them in split order. Every run
-// gives the same bits; no float atomics.
+// gives the same bits; no float atomics. Inside a CUDA graph capture the
+// tickets are the capture's own (capture_id), not the stream's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -567,6 +568,18 @@ int w4a16_gemm_arith(const void* x, const int8_t* p, const float* gs, void* out,
   const Args a{x, p, gs, out, ws, tickets, M, Kh, N, gps};
   if (x_bf16) return launch<__nv_bfloat16>(a, small, ksplit, (cudaStream_t)stream);
   return launch<float>(a, small, ksplit, (cudaStream_t)stream);
+}
+
+// The id of the CUDA graph capture under way on `stream`, 0 when none: the
+// wrapper keys the split tickets by it (ops/cuda/_wstream.tickets).
+unsigned long long capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &id) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return status == cudaStreamCaptureStatusActive ? id : 0;
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@ easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
 EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
 _strided_encode, _strided_encode_layer_major, _ce_from_hidden,
 _prerotate_cache, _compact_one, _decode_loop (with its carried ranks,
-_carry_ranks), _engine_cache,
+_carry_ranks; split into _Carry, _DecodeStep and _drive), _engine_cache,
 _run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
 CausalLM, enable_fixed_kv, set_dynamicntk_rope_length, generate).
 
@@ -37,10 +37,13 @@ trigger schedule is static (it is computed on the host from the lengths),
 the sampled token, `done`, `out`, `g` and `kv_len` stay on the device, and
 the decode loop reads back whether every row is done at most once every
 ALL_DONE_CHECK_EVERY steps (only when there are EOS ids to stop on).
-Tokens after EOS are -1.
+Tokens after EOS are -1. On the card the decode loop replays a CUDA graph
+of one step (the JAX package's on-device while_loop), so no kernel of a
+step waits for the host; flags.eager_decode_loop runs it eagerly there too.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -56,6 +59,7 @@ from ..config import GenerationConfig, ModelConfig, resolve_device
 from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
 from ..ops.aux_math import confidence
+from ..ops.cuda import launch_counters
 from ..ops.cuda.kv_compact import fused_compact
 from ..ops.rope import rotate
 from ..policies import (PHASE_DECODE, PHASE_ENCDEC_DECODE, PHASE_ENCODE, PolicySpec,
@@ -189,13 +193,16 @@ class DecodeResult(NamedTuple):
     # the emitted tokens; None otherwise.
     token_probs: Optional[torch.Tensor] = None
     confidence: Optional[torch.Tensor] = None
+    capture_s: float = 0.0  # host seconds capturing the step's CUDA graph (0: none)
+    graph_nodes: int = 0    # the graph's nodes
 
 
 @dataclasses.dataclass
 class RunStats:
     """Host-clock timings and counts of the last generate() call. prefill_s
     is the prompt (decoding) or prefix (encoding family) prefill, encode_s
-    the strided encode, decode_s the decode loop; each ends in a
+    the strided encode, decode_s the decode loop (its CUDA graph's capture
+    included: capture_s of it, a graph of graph_nodes nodes); each ends in a
     synchronise."""
 
     n_tokens: int
@@ -204,6 +211,8 @@ class RunStats:
     decode_s: float
     logits_finite: bool
     encode_s: float = 0.0
+    capture_s: float = 0.0
+    graph_nodes: int = 0
 
 
 def _sync(device: torch.device) -> None:
@@ -433,23 +442,196 @@ def _compact_one(cache: KVCache, pos_mid: torch.Tensor) -> None:
 def _carry_ranks(ranks: torch.Tensor, pos_pre: torch.Tensor, pos_mid: torch.Tensor,
                  pos: torch.Tensor) -> torch.Tensor:
     """The age ranks (L, B, H, S) of the unordered StreamingLLM cache after
-    one decode step, from the ranks before it and the cache's pos before the
-    forward (pos_pre), after it (pos_mid) and after the step's eviction
-    (pos; pos_mid itself when none ran). The written slot gets the pre-write
-    valid count (every head of a row holds the same count); then, where a
-    slot was evicted, every younger slot's rank drops by one and the
-    victim's becomes 0. Equal to _age_ranks(pos) while every eviction
-    removes at most one slot per head (the JAX package's inc_ranks,
-    generate.py:854-877 there)."""
+    one decode step, written into `ranks` (the ranks before it) and
+    returned, from the cache's pos before the forward (pos_pre), after it
+    (pos_mid) and after the step's eviction (pos; pos_mid itself when none
+    ran). The written slot gets the pre-write valid count (every head of a
+    row holds the same count); then, where a slot was evicted, every younger
+    slot's rank drops by one and the victim's becomes 0. Equal to
+    _age_ranks(pos) while every eviction removes at most one slot per head
+    (the JAX package's inc_ranks, generate.py:854-877 there)."""
     written = (pos_mid >= 0) & (pos_pre < 0)
     n_valid = (pos_pre[:, :, :1, :] >= 0).sum(dim=-1, keepdim=True, dtype=torch.int32)
-    ranks = torch.where(written, n_valid, ranks)
-    if pos is pos_mid:
-        return ranks
-    evicted = (pos_mid >= 0) & (pos < 0)
-    rank_e = torch.where(evicted, ranks, -1).amax(dim=-1, keepdim=True)     # (L, B, H, 1)
-    ranks = torch.where((ranks > rank_e) & (rank_e >= 0) & ~evicted, ranks - 1, ranks)
-    return torch.where(evicted, 0, ranks)
+    new = torch.where(written, n_valid, ranks)
+    if pos is not pos_mid:
+        evicted = (pos_mid >= 0) & (pos < 0)
+        rank_e = torch.where(evicted, new, -1).amax(dim=-1, keepdim=True)     # (L, B, H, 1)
+        new = torch.where((new > rank_e) & (rank_e >= 0) & ~evicted, new - 1, new)
+        new = torch.where(evicted, 0, new)
+    return ranks.copy_(new)
+
+
+class _Carry(NamedTuple):
+    """The decode loop's state from step to step (the JAX package's
+    while_loop carry, generate.py:880-885 there, less the cache and the
+    key). Each step reads it and writes it in place, never rebinding a
+    tensor, so that a CUDA graph of one step reads and writes the same
+    storage on every replay."""
+    n: torch.Tensor                  # (1,) int64 index of the step
+    lastlog: torch.Tensor            # (B, V) f32 logits producing the next token
+    done: torch.Tensor               # (B,) bool
+    g: torch.Tensor                  # (B,) int32 live steps so far
+    kv_len: torch.Tensor             # (B,) int32
+    finite: torch.Tensor             # () bool: every step's logits finite
+    out: torch.Tensor                # (B, M) int32, -1 past the end
+    tps: Optional[torch.Tensor]      # (B, M) f32 with st.collect_stats
+    confs: Optional[torch.Tensor]
+    ranks: Optional[torch.Tensor]    # (L, B, H, S) int32: the rank cache's age ranks
+
+
+def _uniform(generator: torch.Generator, B: int, device: torch.device) -> torch.Tensor:
+    """The `random` policy's draw of a step, (B,) f32 in [0, 1)."""
+    return torch.rand((B,), generator=generator, device=device)
+
+
+@dataclasses.dataclass
+class _DecodeStep:
+    """One decode step of _decode_loop, reading and writing the carry and
+    the cache in place: sample, record, one forward, the step's eviction,
+    the carried ranks, the counts. Everything it keeps across steps is in
+    the carry, so it can be called eagerly or captured once and replayed."""
+
+    st: EngineStatics
+    params: LlamaParams
+    cache: KVCache
+    c: _Carry
+    start_pos: torch.Tensor
+    prompt_len: torch.Tensor
+    spec: Optional[PolicySpec]
+    generator: torch.Generator
+    temperature: float
+    top_p: float
+    evict_mode: str
+    stream: Optional[llama.StreamRot]
+    ordered: bool     # the age-ordered StreamingLLM cache: compact after each eviction
+    evicts: bool      # evict_cache after the forward (the eviction is not folded into K2)
+
+    def __post_init__(self):
+        dev, B = self.c.out.device, self.c.out.shape[0]
+        self.eos = (torch.tensor(self.st.eos_token_ids, dtype=torch.int32, device=dev)
+                    if self.st.eos_token_ids else None)
+        self.zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.zeros_f = torch.zeros((B,), dtype=torch.float32, device=dev)
+
+    def __call__(self) -> None:
+        st, c, cache, spec = self.st, self.c, self.cache, self.spec
+        token = sample_topp(self.generator, c.lastlog, self.temperature, self.top_p)
+        c.out.index_copy_(1, c.n, torch.where(c.done, -1, token)[:, None])
+        if st.collect_stats:
+            raw = torch.softmax(c.lastlog / max(self.temperature, 1e-9), dim=-1)
+            tp = torch.where(c.done, 0.0, raw.gather(-1, token[:, None].long())[:, 0])
+            c.tps.index_copy_(1, c.n, tp[:, None])
+            c.confs.index_copy_(1, c.n, torch.where(c.done, 0.0, confidence(raw))[:, None])
+        newly_done = c.done | _isin_eos(token, self.eos)
+        live = ~newly_done
+        tok_pos = self.start_pos + c.g
+        if self.evict_mode == "budget":
+            gate_b = live & (c.g + 1 > st.budget)                 # easykv.py:302-303
+            cinit = (st.budget - c.g).clamp(min=0).to(torch.float32)
+        elif self.evict_mode == "always":
+            gate_b = live                                         # easykv.py:670-748
+            cinit = self.zeros_f
+        else:
+            gate_b = torch.zeros_like(live)
+            cinit = self.zeros_f
+        if spec is not None and spec.policy == "random":
+            u = _uniform(self.generator, live.shape[0], live.device)
+            if spec.phase == PHASE_DECODE:
+                # uniform over retained generated tokens (easykv.py:353-362)
+                n_rank = (c.g + 1).clamp(max=st.budget + 1)
+            else:
+                # encdec decode: uniform over non-sink valid slots
+                n_rank = (c.kv_len + 1 - spec.sink_length).clamp(min=1)
+            rand_rank = (u * n_rank.to(torch.float32)).to(torch.int32)
+        else:
+            rand_rank = self.zeros_i
+        ctx = StepCtx(
+            q_pos=torch.where(live, tok_pos, -1).to(torch.int32)[:, None],
+            token_valid=live[:, None],
+            counter_init=cinit[:, None],
+            next_pos=tok_pos + 1,
+            prompt_len=self.prompt_len,
+            evict_gate=gate_b,
+            update_gate=live,
+            rand_rank=rand_rank,
+        )
+        stream = self.stream
+        if c.ranks is not None:
+            pos_pre = cache.pos.clone()
+            stream = stream._replace(ranks=c.ranks)
+        logits = llama._decode_forward(self.params, st.cfg, cache, token[:, None], ctx, spec,
+                                       stream)
+        pos_mid = cache.pos.clone() if self.evicts and st.streaming else cache.pos
+        if self.evicts:
+            evict_cache(cache, spec, ctx.next_pos, self.prompt_len, rand_rank, gate_b)
+            if self.ordered:
+                _compact_one(cache, pos_mid)
+        if c.ranks is not None:
+            _carry_ranks(c.ranks, pos_pre, pos_mid, cache.pos)
+        c.finite.logical_and_(torch.isfinite(logits).all())
+        c.lastlog.copy_(torch.where(newly_done[:, None], c.lastlog, logits[:, -1, :]))
+        k_evict = spec.k if spec is not None else 0
+        c.kv_len.add_(live.to(torch.int32) - gate_b.to(torch.int32) * k_evict)
+        c.g.add_(live.to(torch.int32))
+        c.done.copy_(newly_done)
+        c.n.add_(1)
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a captured graph (kept with keep_graph=True)."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    return n.value
+
+
+def _drive(step: _DecodeStep, M: int, graph: bool) -> Tuple[float, int]:
+    """Runs up to M steps, stopping early once every row is done (read back
+    every ALL_DONE_CHECK_EVERY steps, only when there are EOS ids). Eager:
+    each step called in turn. graph: step 0 runs eagerly (it loads the
+    kernels and makes the tables, ticket rows and library handles the step
+    keeps), one step is captured as a CUDA graph, and the graph is replayed
+    for the others; the launch counts, which the wrappers bump only while
+    the step is captured, gain the capture's counts once per replay. A
+    capture or replay that fails raises. Returns (the capture's seconds, the
+    graph's nodes), (0, 0) without a graph."""
+    c = step.c
+
+    def all_done(n: int) -> bool:
+        return (step.eos is not None and (n + 1) % ALL_DONE_CHECK_EVERY == 0
+                and bool(c.done.all()))
+
+    if not graph:
+        for n in range(M):
+            step()
+            if all_done(n):
+                break
+        return 0.0, 0
+    step()
+    if M == 1 or all_done(0):
+        return 0.0, 0
+    t0 = time.perf_counter()
+    counters = launch_counters()
+    before = [getattr(fn, attr) for fn, attr in counters]
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.register_generator_state(step.generator)
+    with torch.cuda.graph(g):
+        step()
+    per_step = [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)]
+    nodes = _graph_nodes(g)
+    g.instantiate()
+    capture_s = time.perf_counter() - t0
+    replays = 0
+    for n in range(1, M):
+        g.replay()
+        replays += 1
+        if all_done(n):
+            break
+    for (fn, attr), d in zip(counters, per_step):
+        setattr(fn, attr, getattr(fn, attr) + d * (replays - 1))
+    return capture_s, nodes
 
 
 @torch.no_grad()
@@ -473,6 +655,13 @@ def _decode_loop(
     decode-phase k=1 spec folds its eviction into K2; any other spec is
     evicted by policies.evict_cache after the step.
 
+    The loop is the JAX package's lax.while_loop (generate.py:730-903
+    there) split in three: the carry (_Carry), one step that updates it and
+    the cache in place (_DecodeStep), and the loop that runs it (_drive). On
+    the card _drive replays a CUDA graph of the step, so that no kernel of a step
+    waits for the host; on the CPU, or on the card inside
+    flags.eager_decode_loop, it calls the step eagerly.
+
     StreamingLLM `decoding` (st.streaming, st.mode == "decoding") keeps
     the cache age-ordered: rank == slot, kept so by compacting each head at
     its victim after every eviction. With flags.prerot_enabled (the
@@ -495,9 +684,7 @@ def _decode_loop(
     B = first_logits.shape[0]
     M = st.max_new_tokens
     dev = first_logits.device
-    eos = (torch.tensor(st.eos_token_ids, dtype=torch.int32, device=dev)
-           if st.eos_token_ids else None)
-    k_evict = spec.k if spec is not None else 0
+    graph = dev.type == "cuda" and flags.decode_graph_enabled()
     ordered = st.streaming and st.mode == "decoding"
     prerot = ordered and flags.prerot_enabled()
     stream = ranks = None
@@ -508,81 +695,26 @@ def _decode_loop(
         _prerotate_cache(cache, st.cfg)
     if st.streaming and not ordered:
         ranks = llama.age_ranks_all(cache.pos)
-    folded = (llama.decode_evict_folded(spec, st.streaming)
-              or llama.decode_stream_folded(spec, st.streaming, ordered, prerot))
-
-    out = torch.full((B, M), -1, dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    g = torch.zeros((B,), dtype=torch.int32, device=dev)
-    kv_len = kv_len0.clone()
-    zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
-    zeros_f = torch.zeros((B,), dtype=torch.float32, device=dev)
-    finite = torch.isfinite(first_logits).all()
-    lastlog = first_logits
     tps = confs = None
     if st.collect_stats:
         tps = torch.zeros((B, M), dtype=torch.float32, device=dev)
         confs = torch.zeros_like(tps)
-    for n in range(M):
-        token = sample_topp(generator, lastlog, temperature, top_p)
-        out[:, n] = torch.where(done, -1, token)
-        if st.collect_stats:
-            raw = torch.softmax(lastlog.to(torch.float32) / max(temperature, 1e-9), dim=-1)
-            tps[:, n] = torch.where(done, 0.0, raw.gather(-1, token[:, None].long())[:, 0])
-            confs[:, n] = torch.where(done, 0.0, confidence(raw))
-        newly_done = done | _isin_eos(token, eos)
-        live = ~newly_done
-        tok_pos = start_pos + g
-        if evict_mode == "budget":
-            gate_b = live & (g + 1 > st.budget)                   # easykv.py:302-303
-            cinit = (st.budget - g).clamp(min=0).to(torch.float32)
-        elif evict_mode == "always":
-            gate_b = live                                         # easykv.py:670-748
-            cinit = zeros_f
-        else:
-            gate_b = torch.zeros_like(live)
-            cinit = zeros_f
-        if spec is not None and spec.policy == "random":
-            u = torch.rand((B,), generator=generator, device=dev)
-            if spec.phase == PHASE_DECODE:
-                # uniform over retained generated tokens (easykv.py:353-362)
-                n_rank = (g + 1).clamp(max=st.budget + 1)
-            else:
-                # encdec decode: uniform over non-sink valid slots
-                n_rank = (kv_len + 1 - spec.sink_length).clamp(min=1)
-            rand_rank = (u * n_rank.to(torch.float32)).to(torch.int32)
-        else:
-            rand_rank = zeros_i
-        ctx = StepCtx(
-            q_pos=torch.where(live, tok_pos, -1).to(torch.int32)[:, None],
-            token_valid=live[:, None],
-            counter_init=cinit[:, None],
-            next_pos=tok_pos + 1,
-            prompt_len=prompt_len,
-            evict_gate=gate_b,
-            update_gate=live,
-            rand_rank=rand_rank,
-        )
-        pos_pre = None if ranks is None else cache.pos.clone()
-        logits = llama._decode_forward(params, st.cfg, cache, token[:, None], ctx, spec,
-                                       stream if ranks is None else stream._replace(ranks=ranks))
-        evicts = spec is not None and not folded
-        pos_mid = cache.pos.clone() if evicts and st.streaming else cache.pos
-        if evicts:
-            evict_cache(cache, spec, ctx.next_pos, prompt_len, rand_rank, gate_b)
-            if ordered:
-                _compact_one(cache, pos_mid)
-        if ranks is not None:
-            ranks = _carry_ranks(ranks, pos_pre, pos_mid, cache.pos)
-        finite &= torch.isfinite(logits).all()
-        lastlog = torch.where(newly_done[:, None], lastlog, logits[:, -1, :])
-        g = g + live.to(torch.int32)
-        kv_len = kv_len + live.to(torch.int32) - gate_b.to(torch.int32) * k_evict
-        done = newly_done
-        if eos is not None and (n + 1) % ALL_DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
-    emitted = (out >= 0).sum(dim=-1)
-    return DecodeResult(out, emitted, kv_len, finite, tps, confs)
+    c = _Carry(n=torch.zeros((1,), dtype=torch.int64, device=dev),
+               lastlog=first_logits.to(torch.float32).clone(),
+               done=torch.zeros((B,), dtype=torch.bool, device=dev),
+               g=torch.zeros((B,), dtype=torch.int32, device=dev),
+               kv_len=kv_len0.to(torch.int32).clone(),
+               finite=torch.isfinite(first_logits).all(),
+               out=torch.full((B, M), -1, dtype=torch.int32, device=dev),
+               tps=tps, confs=confs, ranks=ranks)
+    folded = (llama.decode_evict_folded(spec, st.streaming)
+              or llama.decode_stream_folded(spec, st.streaming, ordered, prerot))
+    step = _DecodeStep(st, params, cache, c, start_pos, prompt_len, spec, generator,
+                       temperature, top_p, evict_mode, stream, ordered,
+                       spec is not None and not folded)
+    capture_s, nodes = _drive(step, M, graph) if M else (0.0, 0)
+    emitted = (c.out >= 0).sum(dim=-1)
+    return DecodeResult(c.out, emitted, c.kv_len, c.finite, tps, confs, capture_s, nodes)
 
 
 def _engine_cache(st: EngineStatics, B: int, S: int, dtype: torch.dtype,
@@ -816,7 +948,7 @@ def _finalize(model: CausalLM, res: DecodeResult, kv_len: int, phases) -> list:
     out_ids = res.out_ids.cpu().numpy()
     prefill_s, encode_s, decode_s = phases
     model.last_run = RunStats(int(res.n_tokens[0]), kv_len, prefill_s, decode_s,
-                              bool(res.finite), encode_s)
+                              bool(res.finite), encode_s, res.capture_s, res.graph_nodes)
     ids_out = [int(t) for t in out_ids[0] if t >= 0]
     if model.tokenizer is not None:
         return model.tokenizer.decode(ids_out, skip_special_tokens=True).strip()

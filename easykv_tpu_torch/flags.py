@@ -32,17 +32,25 @@ the strided encode's one-call chunk step K7 (write + attend + score update
 + eviction, ops/cuda/chunk_attention.fused_chunk_step) as
 EASYKV_TPU_STEP_KERNEL does (flags.py:286-295 there): off by default, and
 taken only where the chunk kernels are (models/llama.use_step_kernel).
+
+eager_decode_loop (a context manager) runs the decode loop eagerly on the
+card too, every kernel of every step launched from the host, for an A/B
+against the default there: one step captured as a CUDA graph and replayed
+(engine/generate._decode_loop). No environment variable sets it, and on the
+CPU the loop is always eager.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+from typing import Iterator, Optional
 
 _PREROT_OVERRIDE: Optional[bool] = None
 _MEGA_OVERRIDE: Optional[bool] = None
 _MEGA_BATCH_OVERRIDE: Optional[bool] = None
 _CHUNK_KERNEL_OVERRIDE: Optional[bool] = None
 _STEP_KERNEL_OVERRIDE: Optional[bool] = None
+_EAGER_DECODE = False
 
 
 def _env_on(name: str) -> bool:
@@ -118,3 +126,20 @@ def step_kernel_enabled() -> bool:
     if _STEP_KERNEL_OVERRIDE is not None:
         return _STEP_KERNEL_OVERRIDE
     return os.environ.get("EASYKV_TPU_STEP_KERNEL", "0") not in ("0", "false", "off")
+
+
+@contextlib.contextmanager
+def eager_decode_loop() -> Iterator[None]:
+    """Inside: the decode loop runs every step eagerly on the card too."""
+    global _EAGER_DECODE
+    before, _EAGER_DECODE = _EAGER_DECODE, True
+    try:
+        yield
+    finally:
+        _EAGER_DECODE = before
+
+
+def decode_graph_enabled() -> bool:
+    """Whether a decode loop on the card replays a CUDA graph of its step
+    (outside eager_decode_loop)."""
+    return not _EAGER_DECODE

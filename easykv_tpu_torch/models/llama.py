@@ -11,11 +11,12 @@ projection goes through ops.quant.mm: a plain weight is `torch.matmul`, as
 the JAX package leaves it to XLA; a QuantLinear (int8 or int4) runs K10-K13
 or their plain branches by the shape of the product (ops/quant.py). The
 int8 LM head is K13 with f32 logits (ops.quant.lm_head_mm). The decode step
-always runs three CUDA kernels: decode attention per layer (K1), then one
-sidecar pass with the folded eviction (K2) and one K/V row write (K3) for
-all layers; over the fused arithmetic-int4 tree the layers are one launch
-of the one-kernel decode step, K14 at B = 1 and K15 at 1 < B <= 16 (8 for
-GQA) (mega_tree, as the JAX package's default). Where use_chunk_kernel
+always runs two CUDA kernels: decode attention per layer (K1), then one
+sidecar pass with the folded eviction and the step's K/V rows (K2, which
+took the row write K3 into its launch) for all layers; over the fused
+arithmetic-int4 tree the layers are one launch of the one-kernel decode
+step, K14 at B = 1 and K15 at 1 < B <= 16 (8 for GQA) (mega_tree, as the
+JAX package's default). Where use_chunk_kernel
 holds (the JAX package's _use_chunk_kernel, llama.py:150-169 there: by
 default an int8 cache only, flags.chunk_kernel_mode), the prompt prefill and
 the chunk-major forward attend through the chunk kernel (K5) and the
@@ -56,7 +57,6 @@ from ..ops.cuda.decode_attention import fused_decode_attend, fused_decode_attend
 from ..ops.cuda.fused_decode import fused_decode_step
 from ..ops.cuda.fused_decode_batch import fused_decode_step_batch, max_rows
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
-from ..ops.cuda.row_write import write_rows
 from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
 from ..ops.quant import QuantLinear, lm_head_mm, mm
 from ..ops.rope import apply_rope, rope_base_for, rope_cos_sin, rope_inv_freq, rotate
@@ -507,12 +507,12 @@ def _decode_forward(
     """One decode token through all layers with a late cache write: the
     token's K/V joins each layer's softmax in flight (K1); after the layers
     one sidecar pass picks every (layer, head)'s write slot, updates the
-    scores with the policy's rule and, when decode_evict_folded(spec),
-    applies the step's gated eviction (K2); one
-    launch then writes the K/V rows (K3). An int8 cache folds its scales
-    into K1; the step's rows are quantized once after the layers, K2 writes
-    their scales and K3 their int8 bytes. Updates `cache` in place and
-    returns logits (B, 1, V) f32.
+    scores with the policy's rule, when decode_evict_folded(spec) applies
+    the step's gated eviction, and writes the step's K/V rows at the write
+    slots (K2; on CPU tensors its plain version, then row_write's plain K3).
+    An int8 cache folds its scales into K1; the step's rows are quantized
+    once after the layers, and K2 writes their scales and int8 bytes.
+    Updates `cache` in place and returns logits (B, 1, V) f32.
 
     StreamingLLM (`stream`, reference llama_patch.py:251-379): q and the
     in-flight K rotate by the token's cache-relative position, each layer's
@@ -521,7 +521,7 @@ def _decode_forward(
     `prerotated` (the age-ordered cache of `decoding`, K already rotated by
     its slot): attention is the plain K1, the stored row is the rotated K,
     and when decode_stream_folded the step runs K2 with `compact` (victim
-    slots out), K3 at the pre-compact write slot, then K9 (shift +
+    slots out; the rows at the pre-compact write slot), then K9 (shift +
     R(-theta) of the moved rows, from stream's tables). `ordered` (the
     age-ordered cache, raw K): K1 rotates every slot by its index from
     stream's (S, D/2) tables, and the engine evicts (K4) and compacts (K8)
@@ -589,8 +589,7 @@ def _decode_forward(
         cache.pos, cache.score, cache.score_sq, cache.counter, probs, p_new,
         q_pos_b, ctx.token_valid[:, 0].contiguous(), ctx.update_gate,
         ctx.counter_init[:, 0].contiguous(), None if spec is None else spec.policy,
-        **ekw)
-    write_rows(cache.k, cache.v, kn, vn, res[4][..., 0].contiguous())
+        k=cache.k, v=cache.v, kn=kn.contiguous(), vn=vn.contiguous(), **ekw)
     if fold_stream:
         # the rows just written shift too, as evict_cache + _compact_one would
         fused_kv_compact(cache.k, cache.v, res[-1][..., 0].contiguous(), cache.k_scale,

@@ -1,8 +1,9 @@
 """Per-stream state of the kernels that split a sum over blocks and add the
 partials in a second step: the split tickets that pick the block adding
 them (K11's split groups, csrc/w4_gemm.cu) and the workspace of the
-partials (K11; K14 and K15, csrc/fused_decode*.cu), one of each per stream;
-and the argument checks of a weight product (K10-K13). K13 (both of its
+partials (K11; K14 and K15, csrc/fused_decode*.cu), one of each per stream
+and, inside a CUDA graph capture, of their own for the graph; and the
+argument checks of a weight product (K10-K13). K13 (both of its
 kernels), K10 and K12 keep no such state: their row splits add through a
 thread-block cluster's distributed shared memory. K10 and K12 share
 `group_ok`.
@@ -20,6 +21,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _pools: Dict[torch.device, torch.Tensor] = {}
 _rows: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_capture_row: Dict[torch.device, Tuple[int, torch.Tensor]] = {}
 _workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -29,11 +31,25 @@ def group_ok(G: int) -> bool:
     return G % GROUP_ROWS == 0
 
 
-def tickets(device: torch.device, stream: int) -> torch.Tensor:
-    """The stream's row of zeroed tickets on `device`. The rows are zeroed
-    once, when the device's first split launch makes them (not inside a
-    CUDA graph capture); the adding block of each tile puts its ticket back
-    to 0, so each row stays zeroed between the launches of its stream."""
+def tickets(device: torch.device, stream: int, capture: int = 0) -> torch.Tensor:
+    """A row of zeroed tickets on `device` for a launch on `stream`. The
+    adding block of each tile puts its ticket back to 0, so a row stays
+    zeroed between launches that run one after the other.
+
+    Outside a capture (capture == 0) that is the stream's row, zeroed once,
+    when the device's first split launch makes it. Inside a CUDA graph
+    capture (`capture` the id of the capture under way, csrc/w4_gemm.cu
+    `capture_id`) it is the capture's own row, allocated zeroed in the
+    graph's memory pool at the capture's first split launch: the zeroing is
+    a node of the graph, run by every replay before that launch. Graphs
+    captured on one stream then hold rows of their own, and may be replayed
+    at once on two streams; a stream's row would be shared by them."""
+    if capture:
+        hit = _capture_row.get(device)
+        if hit is None or hit[0] != capture:
+            hit = _capture_row[device] = (
+                capture, torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device))
+        return hit[1]
     row = _rows.get((device, stream))
     if row is None:
         pool = _pools.get(device)

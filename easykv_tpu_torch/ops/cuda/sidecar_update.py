@@ -6,8 +6,12 @@ TPU kernels easykv_tpu/ops/pallas/sidecar_update.py `fused_write_update`
 (decode phase, k = 1; with an int8 cache it also writes the new rows'
 dequant scales; with `compact` it also shifts the sidecars down at each
 row's victim, for ordered StreamingLLM decoding) and `fused_evict` (decode
-phase, k = 1). Both are bound by the bytes a slot they read and write; the
-source note says what their design does about that. Their launch plan,
+phase, k = 1). Given the step's K and V rows, K2 also writes them at each
+row's write slot: the TPU kernel easykv_tpu/ops/pallas/row_write.py
+`write_rows`, whose own kernel (K3, ops/cuda/row_write.py) was bound by its
+launch, so K2 takes that work into its launch. Both are bound by the bytes
+a slot they read and write; the source note says what their design does
+about that. Their launch plan,
 `row_plan`, gives each row of up to 768 slots a warp that holds it in
 registers, and past that a block that holds it in shared memory.
 
@@ -15,8 +19,9 @@ registers, and past that a block that holds it in shared memory.
 tensors and run `fused_write_update_plain` / `fused_evict_plain` for CPU
 tensors. The plain versions repeat the TPU kernels' arithmetic op by op
 (`_first_min_idx`, `_kth_smallest_bits`, `_select_victim`, `_write_kernel`,
-`_evict_kernel`), so the kernels are held to them bit for bit. All update
-the sidecars (and the scale rows) in place.
+`_evict_kernel`; the rows by row_write.write_rows_plain), so the kernels
+are held to them bit for bit. All update the sidecars (the scale rows, the
+K / V rows) in place.
 """
 from __future__ import annotations
 
@@ -29,13 +34,14 @@ from ...cache import free_slot_ids
 from ...policies import (INT_MAX, PHASE_DECODE, ROCO_STD_GUARD, STD_EXCLUDE,
                          STD_FORCE, PolicySpec)
 from . import _build
+from .row_write import write_rows_plain
 
 POLICY_CODES = {None: 0, "full": 0, "h2o_head": 1, "roco": 2, "tova": 3,
                 "recency": 4, "random": 5}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "write_update": ([_vp] * 20 + [_int] * 13 + [_vp], _int),
+    "write_update": ([_vp] * 24 + [_int] * 14 + [_vp], _int),
     "sidecar_smem": ([_int] * 2, ctypes.c_size_t),
     "evict": ([_vp] * 8 + [_int] * 11 + [_vp], _int),
 }
@@ -164,9 +170,11 @@ def fused_write_update_plain(
     update_gate, counter_init, policy: Optional[str],
     espec: Optional[PolicySpec] = None, evict_gate=None, next_pos=None,
     prompt_len=None, rand_rank=None, k_sc_new=None, v_sc_new=None, k_scale=None,
-    v_scale=None, compact: bool = False,
+    v_scale=None, compact: bool = False, k=None, v=None, kn=None, vn=None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of the kernel; same arguments and results."""
+    """Plain PyTorch version of the kernel; same arguments and results:
+    the sidecar pass, then with the rows write_rows_plain at the write
+    slot."""
     _check_espec(espec)
     if compact and espec is None:
         raise ValueError("compact needs espec")
@@ -224,6 +232,8 @@ def fused_write_update_plain(
     score.copy_(sc)
     score_sq.copy_(sq)
     counter.copy_(new_cnt)
+    if k is not None:
+        write_rows_plain(k, v, kn, vn, slot[..., 0])
     res = (pos, score, score_sq, counter, slot)
     if k_scale is not None:
         res += (k_scale, v_scale)
@@ -252,9 +262,14 @@ def fused_write_update(
     k_scale: Optional[torch.Tensor] = None,     # (L, B, H, S) f32, updated
     v_scale: Optional[torch.Tensor] = None,     # in place
     compact: bool = False,                      # ordered streaming: shift at the victim
+    k: Optional[torch.Tensor] = None,           # (L, B, H, S, Dh) cache K and V: with
+    v: Optional[torch.Tensor] = None,           # kn, vn the rows are written
+    kn: Optional[torch.Tensor] = None,          # (L, B, H, 1, Dh) the step's rows, the
+    vn: Optional[torch.Tensor] = None,          # cache's dtype
 ) -> Tuple[torch.Tensor, ...]:
-    """Slot select, score update, new-row sidecar write and (with espec) the
-    gated eviction, in place. Returns (pos, score, score_sq, counter,
+    """Slot select, score update, new-row sidecar write, (with espec) the
+    gated eviction and (with k, v, kn, vn) the step's K / V rows at the
+    write slot, whether the row is live or not, in place. Returns (pos, score, score_sq, counter,
     write_slot (L, B, H, 1) int32), then (k_scale, v_scale) when the scale
     rows are given, then with `compact` the victim slot (L, B, H, 1) int32
     (S: no eviction). pos and counter are post-eviction (and post-shift);
@@ -265,7 +280,7 @@ def fused_write_update(
         return fused_write_update_plain(
             pos, score, score_sq, counter, probs, p_new, q_pos, token_valid,
             update_gate, counter_init, policy, espec, evict_gate, next_pos,
-            prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale, v_scale, compact)
+            prompt_len, rand_rank, k_sc_new, v_sc_new, k_scale, v_scale, compact, k, v, kn, vn)
     _check_espec(espec)
     if compact and espec is None:
         raise ValueError("compact needs espec")
@@ -286,6 +301,18 @@ def fused_write_update(
     if with_scales:
         checks += [(k_sc_new, torch.float32, (L, B, H, 1)), (v_sc_new, torch.float32, (L, B, H, 1)),
                    (k_scale, torch.float32, full), (v_scale, torch.float32, full)]
+    rows = (k, v, kn, vn)
+    with_rows = k is not None
+    if any((t is None) == with_rows for t in rows):
+        raise ValueError("rows: pass all of k, v, kn, vn or none")
+    if with_rows:
+        Dh = k.shape[-1]
+        checks += [(k, k.dtype, full + (Dh,)), (v, k.dtype, full + (Dh,)),
+                   (kn, k.dtype, (L, B, H, 1, Dh)), (vn, k.dtype, (L, B, H, 1, Dh))]
+        row_bytes = Dh * k.element_size()
+        if row_bytes % 16 or any(t.data_ptr() % 16 for t in rows):
+            raise ValueError(f"rows: {row_bytes} bytes a row and every base must be "
+                             "multiples of 16")
     for t, dtype, shape in checks:
         if (t.dtype != dtype or tuple(t.shape) != shape or t.device != pos.device
                 or not t.is_contiguous()):
@@ -308,14 +335,17 @@ def fused_write_update(
         probs.data_ptr(), p_new.data_ptr(), q_pos.data_ptr(), token_valid.data_ptr(),
         update_gate.data_ptr(), counter_init.data_ptr(), ptr(evict_gate), ptr(next_pos),
         ptr(prompt_len), ptr(rand_rank), *map(ptr, scales), slot.data_ptr(), ptr(vslot),
-        L, B, H, S, POLICY_CODES[policy], int(ev), int(compact),
+        *map(ptr, rows), L, B, H, S, POLICY_CODES[policy], int(ev), int(compact),
         espec.recent_window if ev else 0,
         max(espec.feasible_k, 1) if ev else 1, int(bool(espec.protect_prompt)) if ev else 0,
-        plan.warps, plan.chunks, plan.rows, _build.stream_of(pos))
+        row_bytes if with_rows else 0, plan.warps, plan.chunks, plan.rows,
+        _build.stream_of(pos))
     _build.check(err, "write_update")
     fused_write_update.launches += 1
     if compact:
         fused_write_update.compact_launches += 1
+    if with_rows:
+        fused_write_update.rows_launches += 1
     res = (pos, score, score_sq, counter, slot)
     if with_scales:
         res += (k_scale, v_scale)
@@ -324,6 +354,7 @@ def fused_write_update(
 
 fused_write_update.launches = 0
 fused_write_update.compact_launches = 0   # those with `compact`
+fused_write_update.rows_launches = 0      # those that write the step's K / V rows
 
 
 def fused_evict_plain(pos, score, score_sq, counter, evict_gate, next_pos, prompt_len,

@@ -36,7 +36,8 @@ from .quant_matmul import GEMV_SIGNATURES, gemv_plan
 MAX_M = 512
 GROUP = 128
 _vp, _int = ctypes.c_void_p, ctypes.c_int
-GEMM_SIGNATURES = {"w4a16_gemm_arith": ([_vp] * 6 + [_int] * 6 + [_vp], _int)}
+GEMM_SIGNATURES = {"w4a16_gemm_arith": ([_vp] * 6 + [_int] * 6 + [_vp], _int),
+                   "capture_id": ([_vp], ctypes.c_ulonglong)}
 
 # K11's tiles (csrc/w4_gemm.cu): 128 columns; 16 rows of x (M <= SMALL_M,
 # the weights on the MMA's 16-row side) or 64
@@ -166,11 +167,12 @@ def w4a16_gemm_arith(
                          f"{tuple(x.stride())}, carrier {p.dtype}, scales {gs.dtype}")
     small, gps, ksplit, _ = gemm_plan(M, K, N)
     stream = _build.stream_of(x)
+    lib = _build.load("w4_gemm", GEMM_SIGNATURES)
     ws = tk = None
     if ksplit > 1:
-        ws, tk = _wstream.workspace(dev, stream, ksplit * M * N), _wstream.tickets(dev, stream)
+        ws = _wstream.workspace(dev, stream, ksplit * M * N)
+        tk = _wstream.tickets(dev, stream, lib.capture_id(stream))
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    lib = _build.load("w4_gemm", GEMM_SIGNATURES)
     err = lib.w4a16_gemm_arith(x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
                                _wstream.ptr(ws), _wstream.ptr(tk), M, K, N, int(small), gps,
                                ksplit, int(x.dtype == torch.bfloat16), stream)

@@ -452,6 +452,26 @@ def test_k2_kernel_bit_exact(cuda, policy, gate, scale_rows):
         assert torch.equal(a, b)
 
 
+def _k3_fold_matches(cuda, k, v, kn, vn):
+    """K2 given the rows writes them where K3 writes them at K2's slots."""
+    L, B, H, S, _ = k.shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pos = torch.where(torch.rand((L, B, H, S), generator=g, device=cuda) < 0.8, 7, -1).int()
+    z = torch.zeros((L, B, H, S), device=cuda)
+    on = torch.ones(B, dtype=torch.bool, device=cuda)
+
+    def state():
+        return (pos.clone(), z.clone(), z.clone(), z.clone(), z.clone(),
+                torch.zeros((L, B, H, 1), device=cuda), torch.full((B,), S, dtype=torch.int32,
+                                                                   device=cuda),
+                on, on, torch.zeros(B, device=cuda), None)
+    ka, va, kb, vb = k.clone(), v.clone(), k.clone(), v.clone()
+    fused_write_update(*state(), k=ka, v=va, kn=kn, vn=vn)
+    slot = fused_write_update(*state())[4]
+    write_rows(kb, vb, kn, vn, slot[..., 0].contiguous())
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
 @pytest.mark.parametrize("Dh", [64, 128])
 def test_k3_kernel_exact(cuda, Dh):
     L, B, H, S = 2, 2, 4, 128
@@ -463,6 +483,7 @@ def test_k3_kernel_exact(cuda, Dh):
     ka, va = write_rows(k.clone(), v.clone(), kn, vn, slots)
     kb, vb = write_rows_plain(k.clone(), v.clone(), kn, vn, slots)
     assert torch.equal(ka, kb) and torch.equal(va, vb)
+    _k3_fold_matches(cuda, k, v, kn, vn)
 
 
 @pytest.mark.parametrize("Dh", [64, 128])
@@ -477,6 +498,7 @@ def test_k3_int8_kernel_exact(cuda, Dh):
     ka, va = write_rows(k.clone(), v.clone(), kn, vn, slots)
     kb, vb = write_rows_plain(k.clone(), v.clone(), kn, vn, slots)
     assert torch.equal(ka, kb) and torch.equal(va, vb)
+    _k3_fold_matches(cuda, k, v, kn, vn)
 
 
 def _decode_paths(cuda, policy, kv_quant):
@@ -486,7 +508,7 @@ def _decode_paths(cuda, policy, kv_quant):
     llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
     plain_kernels = mock.patch.multiple(
         llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
-        fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+        fused_write_update=fused_write_update_plain,
         fused_chunk_attend=fused_chunk_attend_plain,
         fused_chunk_write_attend=fused_chunk_write_attend_plain)
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
@@ -837,7 +859,7 @@ def _streaming_paths(cuda, kv_quant, prerot):
             if plain:
                 patches.enter_context(mock.patch.multiple(
                     llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
-                    fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+                    fused_write_update=fused_write_update_plain,
                     fused_chunk_attend=fused_chunk_attend_plain,
                     fused_kv_compact=fused_kv_compact_plain))
                 patches.enter_context(mock.patch.object(gen_mod, "fused_compact",
@@ -1081,7 +1103,7 @@ def test_streaming_encode_kernel_path_matches_plain_path(cuda, kv_quant, stride)
         if plain:
             patches.enter_context(mock.patch.multiple(
                 llama_mod, fused_decode_attend_inflight=fused_decode_attend_inflight_plain,
-                fused_write_update=fused_write_update_plain, write_rows=write_rows_plain,
+                fused_write_update=fused_write_update_plain,
                 fused_chunk_attend=fused_chunk_attend_plain))
         ranked = fused_decode_attend_inflight.rank_launches
         with patches:
@@ -2145,3 +2167,97 @@ def test_strided_encode_step_kernel_matches_k6_path(cuda, policy, kv_quant):
     for name in K6_CACHE:
         a, b_ = getattr(outs[0][1], name), getattr(outs[1][1], name)
         assert (a is None and b_ is None) or torch.equal(a, b_), name
+
+
+# --------------------------------------------------------------------------
+# the decode loop as a replayed CUDA graph of its step; K3 inside K2's launch
+# --------------------------------------------------------------------------
+
+def _smoke():
+    """chip_smoke.py's cases and helpers (imported on the card only)."""
+    return importlib.import_module("chip_smoke")
+
+
+def test_decode_graph_matches_eager_loop(cuda):
+    """chip_smoke.GRAPH_CASES at LLaMa-2-7B width, L = 2: bf16 and int8 KV
+    roco at B = 1 and 4, `full`, `random`, StreamingLLM pre-rotated,
+    rotate-at-read and rank, the split int4 tree at B = 4 (K11's split
+    tickets), K14 at B = 1, K15 at B = 4 and a sampled run at temperature
+    0.7: the decode replayed as a CUDA graph and the eager loop give the same
+    tokens of every row, kv_len, bits of every final cache array and carried
+    ranks, and the same launch counts."""
+    bad = {name: (nodes, diff) for name, nodes, diff, _ in _smoke().graph_twin_results(cuda)
+           if diff or nodes[0] == 0 or nodes[1] != 0}
+    assert not bad
+
+
+@pytest.mark.parametrize("case", ["S=777", "S=2304", "S=16", "B=16"])
+def test_k2_with_rows_matches_k2_then_k3(cuda, case):
+    """K2 given the step's K / V rows against K2 without them then K3, at
+    phase 2's K2_EDGES (every policy, `compact`, bf16 rows and int8 rows
+    with the scale rows): every output, k and v bit for bit."""
+    smoke = _smoke()
+    L, B, H, S = smoke.K2_EDGES[case]
+    before = fused_write_update.rows_launches
+    results = list(smoke.k2_rows_results(L, B, H, S, cuda, 640))
+    bad = [label for label, got, ref in results
+           if len(got) != len(ref) or not all(smoke.same_bits(a, b) for a, b in zip(got, ref))]
+    assert not bad
+    assert fused_write_update.rows_launches == before + len(results)
+
+
+def test_two_graphs_replayed_at_once_keep_their_own_tickets(cuda):
+    """Split tickets belong to the capture, not the stream: two CUDA graphs
+    of the split int4 decode step at B = 4 (K11 with its groups split over
+    blocks), captured one after the other on one stream and replayed at
+    once on two streams, leave their logits and caches bit-identical to the
+    eager step's. With a ticket row per stream, as before, both graphs
+    would count on the capture stream's row."""
+    from easykv_tpu_torch.cache import init_cache
+    from easykv_tpu_torch.models.llama import StepCtx, _decode_forward
+    from easykv_tpu_torch.ops import quant
+    from easykv_tpu_torch.ops.cuda.w4_stream import gemm_plan
+    cfg = ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32)
+    params = quant.quantize_params_int4(init_params(cfg, seed=3, dtype=torch.bfloat16,
+                                                    device=cuda), layout="arith")
+    B, S, P, steps = 4, 256, 100, 12
+    assert gemm_plan(B, 4096, 4096)[2] > 1          # the groups split: tickets in use
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = init_cache(2, B, 32, S, 128, dtype=torch.bfloat16, device=cuda)
+    base.pos[..., :P] = torch.arange(P, dtype=torch.int32, device=cuda)
+    base.k.copy_(torch.randn(base.k.shape, generator=g, device=cuda))
+    base.v.copy_(torch.randn(base.v.shape, generator=g, device=cuda))
+    copy = lambda: KVCache(*(None if t is None else t.clone()  # noqa: E731
+                             for t in (base.k, base.v, base.pos, base.score, base.score_sq,
+                                       base.counter)))
+    tok = torch.randint(1, 32000, (B, 1), generator=g, device=cuda, dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.bool, device=cuda)
+    ctx = StepCtx(q_pos=torch.full((B, 1), P, dtype=torch.int32, device=cuda),
+                  token_valid=ones[:, None], counter_init=torch.zeros((B, 1), device=cuda),
+                  next_pos=torch.full((B,), P + 1, dtype=torch.int32, device=cuda),
+                  prompt_len=torch.full((B,), P, dtype=torch.int32, device=cuda),
+                  evict_gate=~ones, update_gate=ones,
+                  rand_rank=torch.zeros(B, dtype=torch.int32, device=cuda))
+    eager = copy()
+    for _ in range(steps):
+        ref = _decode_forward(params, cfg, eager, tok, ctx, None)
+    caches, graphs, outs = [copy(), copy()], [], []
+    stream = torch.cuda.Stream()
+    for c in caches:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs.append(_decode_forward(params, cfg, c, tok, ctx, None))
+        graphs.append(graph)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(steps):
+        with torch.cuda.stream(s1):
+            graphs[0].replay()
+        with torch.cuda.stream(s2):
+            graphs[1].replay()
+    torch.cuda.synchronize()
+    for c, out in zip(caches, outs):
+        assert torch.equal(out, ref)
+        for name in ("k", "v", "pos", "score", "score_sq", "counter"):
+            assert torch.equal(getattr(c, name), getattr(eager, name)), name

@@ -15,7 +15,11 @@ variants (chip_smoke.K2_VARIANTS: no scale rows, the int8 cache's scale
 rows, `compact` without and with them), roco with the eviction gate on;
 at B = 1, S = 768 also h2o_head, recency and random. K4 with roco, the gate
 on and off. Bounds as phase 5 computes them (chip_smoke.k2_time_sets,
-k4_time_sets): the bytes over 3.35 TB/s.
+k4_time_sets): the bytes over 3.35 TB/s. Where K2 takes the step's K / V
+rows (the row write K3 inside its launch), also K2 given the rows against
+K2 alone at every K2_SHAPES shape, bf16 and int8 (with the scale rows), in
+turns (alone, rows, rows, alone), their difference (K3's time inside K2's
+launch) and the stand-alone K3 at the same shape.
 
 --root DIR runs the kernels of the tree at DIR (an unpacked older commit,
 for an A/B in one call: run the two trees in turns, each in its own
@@ -81,6 +85,28 @@ def times(cs, dev, reps=64):
                               "bound_us": bound_us(cs, nbytes, flops)}
         del copies
         torch.cuda.empty_cache()
+    return out
+
+
+def rows_times(cs, dev, reps=64):
+    """K2 (roco, the gate on) given the step's K / V rows against K2 alone
+    at K2_SHAPES, bf16 and int8: µs of each (two readings each, in turns),
+    the difference, and the stand-alone K3 at the same shape."""
+    import torch
+    out = {}
+    for i, (shape, (B, S)) in enumerate(cs.K2_SHAPES.items()):
+        for variant, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+            sets = [cs.k2_time_sets(dev, B, S, variant, seed=700 + 4 * i, rows=rows)
+                    for rows in (False, True)]
+            t = [cs.graph_ms(sets[r][1](cs.k2), sets[r][0], reps) * 1e3 for r in (0, 1, 1, 0)]
+            del sets
+            k, v, kn, vn, slots = cs.k3_case(32, B, 32, S, 128, dev, 60, dtype)
+            alone, rows = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            out[f"{variant} {shape}"] = {
+                "k2_us": t[::3], "k2_rows_us": t[1:3], "k3_in_k2_us": rows - alone,
+                "k3_alone_us": cs.graph_ms(cs.k3, [(k, v, kn, vn, slots)], 200) * 1e3}
+            del k, v, kn, vn
+            torch.cuda.empty_cache()
     return out
 
 
@@ -192,6 +218,8 @@ def main():
         print(json.dumps(res, indent=1))
         return
     res["us"] = times(cs, dev)
+    if hasattr(cs.k2, "rows_launches"):
+        res["rows_us"] = rows_times(cs, dev)
     if opt.sweep:
         res["sweep_us"] = sweep(cs, dev)
     if opt.dump:

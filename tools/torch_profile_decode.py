@@ -12,18 +12,22 @@ the same decode over quantized weights made on the card from the bf16 ones
 (int4 arithmetic fused with an int8 KV cache, decoded by the one-kernel
 step K14, then at B=4 by its batched twin K15; int4 arithmetic split with
 an int8 KV cache, int8 fused with an int8 KV cache, int4 halves split with
-a bf16 one). Prints, for each, the
-host-clock time per step of both runs, the
-device time per step (sum of kernel durations), the device's idle share
-while traced, the kernels that take most device time, and the PyTorch ops
-that take most host time (self CPU time under the tracer, which inflates
-it, with calls per step).
+a bf16 one). Each decode runs twice: as the engine runs it on the card
+(one step captured as a CUDA graph and replayed) and eagerly
+(flags.eager_decode_loop). Prints, for each, the host-clock time per step
+and tokens/s of the untraced run, the traced run's time per step, the
+graph's capture seconds and nodes, the device time per step (sum of kernel
+durations), the device's idle share while traced (over the whole decode,
+the eager step 0 and the capture included), the kernels that take most
+device time, and the PyTorch ops that take most host time (self CPU time
+under the tracer, which inflates it, with calls per step).
 
     python3 tools/torch_profile_decode.py [--streaming | --quant] [--only TEXT]
 
 --only TEXT keeps the runs whose name holds TEXT (e.g. --quant --only split:
 the int4 arithmetic split tree alone).
 """
+import contextlib
 import importlib
 import json
 import os
@@ -74,10 +78,10 @@ def main():
     def decode(st, cache, last, params, plen):
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
-        gen_mod._decode_loop(st, params, cache, last, plen, plen, plen, st.decode_spec(),
-                             gen, 1e-9, 1.0, "budget")
+        r = gen_mod._decode_loop(st, params, cache, last, plen, plen, plen, st.decode_spec(),
+                                 gen, 1e-9, 1.0, "budget")
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        return time.perf_counter() - t0, r.capture_s, r.graph_nodes
 
     res = {"card": smi, "layers": cfg.num_hidden_layers}
     # eviction runs in every step from budget + 1 on; the traced decode
@@ -106,14 +110,16 @@ def main():
     if "--only" in sys.argv[1:]:
         text = sys.argv[sys.argv.index("--only") + 1]
         runs = [r for r in runs if text in r[0]]
-    for name, kv_quant, prerot, weights, B in runs:
+    for (name, kv_quant, prerot, weights, B), loop in [(r, m) for r in runs
+                                                       for m in ("graph", "eager")]:
         flags.use_prerot(prerot)
         w = weights()
-        decode(*prefilled(8, kv_quant, w, B))          # build + warm-up
-        base_s = decode(*prefilled(n_steps, kv_quant, w, B))
-        state = prefilled(n_steps, kv_quant, w, B)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            dec_s = decode(*state)
+        with flags.eager_decode_loop() if loop == "eager" else contextlib.nullcontext():
+            decode(*prefilled(8, kv_quant, w, B))          # build + warm-up
+            base_s, capture_s, nodes = decode(*prefilled(n_steps, kv_quant, w, B))
+            state = prefilled(n_steps, kv_quant, w, B)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dec_s, _, _ = decode(*state)
         kernels = {}
         busy_us = 0.0
         for e in prof.events():
@@ -125,8 +131,10 @@ def main():
         host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:12]
         flags.use_prerot(None)
-        res[name] = {
+        res[f"{name}, {loop}"] = {
             "untraced_ms_per_step": base_s / n_steps * 1e3,
+            "untraced_tok_s": B * n_steps / base_s,
+            "capture_s": capture_s, "graph_nodes": nodes,
             "traced_ms_per_step": dec_s / n_steps * 1e3,
             "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
             "device_idle_share_traced": 1 - (busy_us / 1e6) / dec_s,

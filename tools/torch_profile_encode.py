@@ -9,7 +9,9 @@ the strided encode (22 chunks x 32 layers) once untraced and once under
 torch.profiler, with an int8 KV cache (K6 per chunk and layer) and then a
 bf16 one (write_tokens_at + plain attend); then, with the int8 cache, the
 `encoding_decoding` roco run at budget 2048: STEPS decode steps after its
-encode, each followed by policies.evict_cache, untraced and traced. Prints
+encode, each followed by policies.evict_cache, untraced and traced, eager
+and as the engine runs them on the card (one step captured as a CUDA graph
+and replayed; profiler ranges show only in the eager loop). Prints
 host-clock seconds of both runs, the device time (sum of kernel
 durations), the device's idle share while traced, the kernels that take
 most device time, and the PyTorch ops that take most host time (self CPU
@@ -162,15 +164,16 @@ def streaming(res, statics, prefixed, encoded, decode, L, n, dev, params, ids):
         per_chunk = summarize(prof, enc_s, base_s, chunks)
         per_chunk["device_busy_ms_per_chunk_layer"] = per_chunk["device_busy_ms_per_unit"] / L
         res[f"StreamingLLM encode, {kv} KV, per chunk ({chunks} chunks x {L} layers)"] = per_chunk
-    for on in (False, True):
+    for on, graph in ((on, graph) for on in (False, True) for graph in (False, True)):
         st = dataclasses.replace(statics("encoding_decoding", True, STEPS), streaming=on)
-        decode(st, *encoded(st))                                 # warm-up
-        base_s = decode(st, *encoded(st))
+        decode(st, *encoded(st), graph)                          # warm-up
+        base_s = decode(st, *encoded(st), graph)
         state = encoded(st)
         with labelled(), profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
-            dec_s = decode(st, *state)
-        res[f"encoding_decoding decode, int8 KV, streaming {on}, per step ({STEPS})"] = \
+            dec_s = decode(st, *state, graph)
+        res[f"encoding_decoding decode, int8 KV, streaming {on}, "
+            f"{'replayed graph' if graph else 'eager'}, per step ({STEPS})"] = \
             summarize(prof, dec_s, base_s, STEPS)
 
 
@@ -250,11 +253,12 @@ def main():
         torch.cuda.synchronize()
         return cache, last, kv_len
 
-    def decode(st, cache, last, kv_len):
+    def decode(st, cache, last, kv_len, graph=True):
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
-        gen_mod._decode_loop(st, params, cache, last, length, length, kv_len,
-                             st.encdec_decode_spec(), gen, 1e-9, 1.0, "always")
+        with contextlib.nullcontext() if graph else flags.eager_decode_loop():
+            gen_mod._decode_loop(st, params, cache, last, length, length, kv_len,
+                                 st.encdec_decode_spec(), gen, 1e-9, 1.0, "always")
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -280,13 +284,14 @@ def main():
             f"({units})"] = summarize(prof, enc_s, base_s, units)
 
     st = statics("encoding_decoding", True, STEPS)
-    decode(st, *encoded(st))                                 # warm-up
-    base_s = decode(st, *encoded(st))
-    state = encoded(st)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec_s = decode(st, *state)
-    res[f"encoding_decoding decode, int8 KV, per step ({STEPS})"] = summarize(
-        prof, dec_s, base_s, STEPS)
+    for graph in (False, True):
+        decode(st, *encoded(st), graph)                      # warm-up
+        base_s = decode(st, *encoded(st), graph)
+        state = encoded(st)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dec_s = decode(st, *state, graph)
+        res[f"encoding_decoding decode, int8 KV, {'replayed graph' if graph else 'eager'}, "
+            f"per step ({STEPS})"] = summarize(prof, dec_s, base_s, STEPS)
     print(json.dumps(res, indent=1))
 
 
