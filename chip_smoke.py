@@ -114,8 +114,24 @@ Phases, each printing its lines before the last:
      launches: K2, given the rows, writes them in its launch, "K2 rows"
      counts those); the bf16 and int8 roco runs have eager twins
      (flags.eager_decode_loop), tok/s side by side, equal tokens, final pos
-     / k / v (and scales) bit-identical. Launch counters are zeroed just
-     before each run and read just after;
+     / k / v (and scales) bit-identical. Then the serving engines
+     (easykv_tpu_torch.serving, phase_serving): (a) ScheduledBatchEngine at
+     benchmarks/bench_serving.py's configuration (the int4 arithmetic fused
+     tree, int8 KV, 8 slots, 16 requests of 128-512 tokens, 128 new, roco
+     b=200, chunk 128, T=1.0, top_p 0.95: decode ticks through K15 at B=8);
+     (b) ScheduledBatchEngine, bf16 weights, bf16 and then int8 KV, 4 slots,
+     8 requests, 128 new, greedy, roco b=64 (every row evicts); (c)
+     ContinuousBatchEngine, bf16 KV, (b)'s requests, its decode tick
+     replayed and eager: equal tokens, bit-identical final cache arrays.
+     Each run: exactly 128 tokens a request, the finishing row's valid
+     slots per (layer, head) before it is cleared equal to the
+     single-request rule (prompt + min(forwarded tokens, budget)), every
+     pos -1 at the end, each tick kind's exact launches (a pure-decode tick
+     of (b) / (c): 32 K1, one K2 with the rows; of (a): one K15, K13 and
+     K2; a merged tick: 32 K5 with int8 KV and one K4); aggregate tok/s,
+     inter-token p50 / p95, ticks by kind and their ms, the decode tick
+     replayed and eager, capture s and graph nodes printed. Launch counters
+     are zeroed just before each run and read just after;
   4. the kernel path against the plain path on the card: full width, L=2,
      float32, 32 new tokens with roco at budget 8, float and int8 caches:
      equal greedy tokens and final positions; StreamingLLM `decoding` over
@@ -137,7 +153,12 @@ Phases, each printing its lines before the last:
      StreamingLLM pre-rotated, rotate-at-read and rank, the split int4 tree
      at B=4, K14, K15 at B=4, a sampled run at temperature 0.7): every row's
      tokens, kv_len, final cache arrays and carried ranks bit-identical,
-     launch counts equal;
+     launch counts equal; then serving (phase_plain_vs_kernel_serving), f32
+     and int8 KV: ScheduledBatchEngine and ContinuousBatchEngine over (b)'s
+     requests (32 new, roco b=8) through the kernels and with
+     plain_kernels(): equal tokens; a sampled ScheduledBatchEngine
+     snapshotted mid-flight (its decode graph already replayed) and
+     resumed: the uninterrupted run's outputs;
   5. per-kernel device times (CUDA graphs of many launches, timed with CUDA
      events) beside each one's plain version, library call and bound, for
      each cache dtype the main path gives the kernel (K1's rank variant
@@ -157,7 +178,8 @@ Phases, each printing its lines before the last:
      version's own spread when its input moves by one f32 ulp (the
      record's max_abs_err), then timed with CUDA events over back-to-back
      launches, its bound from the bytes the step reads and writes; K15 the
-     same way at B=4 and 16 (bar: twice its reorder spread), then
+     same way at B=4, 8 (serving run (a), int8 KV) and 16 (bar: twice its
+     reorder spread), then
      k15_control: at f32 activations, B=4 and 16, f32 and int8 KV, K15
      within the bar and the plain K15 with its residual rounded to bf16
      between the layers over it.
@@ -175,9 +197,11 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 import easykv_tpu_torch
@@ -219,6 +243,8 @@ from easykv_tpu_torch.ops.cuda.w4_stream import (
     w4a16_gemm_arith as k11, w4a16_gemm_arith_plain as k11_plain, w4a16_gemv_arith as k10,
     w4a16_gemv_arith_plain as k10_plain)
 from easykv_tpu_torch.policies import PHASE_DECODE, PolicySpec
+from easykv_tpu_torch.serving import engine as serving_engine
+from easykv_tpu_torch.serving import scheduled as serving_sched
 
 gen_mod = importlib.import_module("easykv_tpu_torch.engine.generate")
 llama_mod = importlib.import_module("easykv_tpu_torch.models.llama")
@@ -240,6 +266,12 @@ ENC_PROMPT, STRIDE, ENC_NEW = 4096, 96, 128
 ENC_IDX, ENC_RIDX, ENC_S = 2080, 1984, 2304    # encoding at budget 0.5
 ENCDEC_RIDX, ENCDEC_S = 64, 2176               # encoding_decoding at budget 2048
 STREAM_SHAPE = (32, 32, S_MAIN, 128)           # L, H, S, D of the streaming kernels' checks
+# serving, benchmarks/bench_serving.py:38-78: 8 slots, 16 requests, prompts of
+# 128-512 tokens, 128 new, roco b=200, chunk 128, T=1.0, top_p 0.95
+SERVE_SLOTS, SERVE_REQS, SERVE_NEW, SERVE_MAX_PROMPT = 8, 16, 128, 512
+# serving runs (b) and (c): 4 slots, 8 requests, roco at budget 64 (every row
+# evicts from its 65th generated token), greedy
+SMALL_SLOTS, SMALL_REQS, SMALL_BUDGET = 4, 8, 64
 
 
 def k1_out_limit(ref):
@@ -528,8 +560,8 @@ def k2_edge_results(L, B, H, S, dev, seed):
 
 def k2_rows_results(L, B, H, S, dev, seed, Dh=128):
     """K2 given the step's K / V rows against K2 without them followed by
-    K3 at the write slot it returns (the decode step's two launches before
-    K2 took K3's work into its own), on k2_edge_case's inputs, every variant
+    K3 at the write slot it returns for the live rows (the decode step's
+    two launches before K2 took K3's work into its own), on k2_edge_case's inputs, every variant
     K2_EDGES runs: yields (label, K2 with the rows' outputs and k, v, the
     two launches' outputs and k, v). The rows are bf16, int8 with the scale
     rows."""
@@ -558,6 +590,8 @@ def k2_rows_results(L, B, H, S, dev, seed, Dh=128):
                     res = k2(*[x.clone() for x in state], *per_b.values(), policy, **args)
                     if not folded:
                         k3(kk, vv, kn, vn, res[4][..., 0].contiguous())
+                        dead = ~per_b["token_valid"]      # K2 writes no row of a dead row
+                        kk[:, dead], vv[:, dead] = k[:, dead], v[:, dead]
                     return (*res, kk, vv)
                 yield (f"K2 {policy}{' compact' if compact else ''}"
                        f"{' int8 rows, scale rows' if with_scales else ' bf16 rows'}",
@@ -1327,6 +1361,7 @@ def phase_end_to_end(dev):
     runs.update(phase_streaming(dev, cfg, params))
     runs.update(phase_encoding(dev, cfg, params))
     runs.update(phase_quant(dev, cfg, params))
+    runs.update(phase_serving(dev, cfg, params))
     del params
     torch.cuda.empty_cache()
     return runs
@@ -1766,6 +1801,7 @@ def phase_plain_vs_kernel(dev):
     phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen)
     phase_plain_vs_kernel_encoding(dev, cfg, params)
     phase_plain_vs_kernel_quant(dev, cfg, params, ids, plen)
+    phase_plain_vs_kernel_serving(dev, cfg, params)
 
 
 def phase_plain_vs_kernel_streaming(dev, cfg, params, ids, plen):
@@ -3106,10 +3142,11 @@ def k14_records(ktimes, runs):
 
 K15_META = ("fused_decode_step_batch", "easykv_tpu_torch/csrc/fused_decode_batch.cu",
             "easykv_tpu/ops/pallas/fused_decode_batch.py:73")
-K15_RUNS = {(B_WIDE, "int8"): "int4 arith fused roco B=4",
-            (B_WIDE, "bf16"): "int4 arith fused roco B=4 bf16 KV",
-            (B_MAX, "int8"): "int4 arith fused roco B=16",
-            (B_MAX, "bf16"): "int4 arith fused roco B=16 bf16 KV"}
+K15_RUNS = {(B_WIDE, "bf16"): "int4 arith fused roco B=4 bf16 KV",
+            (B_WIDE, "int8"): "int4 arith fused roco B=4",
+            (SERVE_SLOTS, "int8"): "serving (a)",        # its decode ticks, phase 3
+            (B_MAX, "bf16"): "int4 arith fused roco B=16 bf16 KV",
+            (B_MAX, "int8"): "int4 arith fused roco B=16"}
 K15_MORE_B = (2, 3, 5, 9)     # phase 2's other batch sizes of K15
 # Mistral-7B's published widths (GQA: 32 query heads, 8 KV heads, F 14336), with
 # a sliding window of 512 slots, shorter than the 712 the main path's cache
@@ -3180,7 +3217,8 @@ def k15_rounded_residual(layers, cfg, args, dt):
 def k15_times(dev, cfg, tree):
     """K15 at the main path's step: LLaMa-2-7B width, L=32 (cfg, tree:
     step_tree's), S=768, the prompt and 200 generated tokens visible in every
-    row, B=4 and 16, bf16 and int8 KV. Bound: the bytes one step reads once
+    row, B=4 and 16, bf16 and int8 KV, and B=8 (serving run (a)'s slots) with
+    int8 KV: K15_RUNS. Bound: the bytes one step reads once
     (every layer's carriers, scale pairs and norms; every row's visible K/V
     rows with their int8 scales; pos) and writes once (probs, kn, vn, p_new,
     h) at 3.35 TB/s; its operations (3 B multiply-adds a carrier byte on the
@@ -3194,27 +3232,26 @@ def k15_times(dev, cfg, tree):
     L, H, S, D = cfg.num_hidden_layers, cfg.num_key_value_heads, S_MAIN, cfg.head_dim
     wbytes = step_tree_bytes(tree)
     out = {}
-    for B in (B_WIDE, B_MAX):
-        for kv in ("bf16", "int8"):
-            args, _ = step_case(dev, cfg, B, kv, False, 800)
-            pos, q_pos = args[2], args[4]
-            visible = int(((pos >= 0) & (pos <= q_pos[None, :, None, None])).sum())
-            row = D * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
-            kv_bytes = 2 * visible * row + L * B * H * S * 4               # K, V rows; pos
-            out_bytes = (L * B * H * S * 4 + 2 * L * B * H * D * 2 + L * B * H * 4
-                         + B * cfg.hidden_size * 2)
-            what = f"B={B}, {kv} KV, L={L}, RoPE at q_pos"
-            spread = k15_spread(tree.layers, cfg, args, draws=2)
-            err, _ = step_check("phase 5", what, tree.layers, cfg, args, spread=spread,
-                                key="K15")
-            ms = event_ms(lambda *a: k15(tree.layers, cfg, *a), [args], 20)
-            plain = event_ms(lambda *a: k15_plain(tree.layers, cfg, *a), [args], 2)
-            nbytes = wbytes + kv_bytes + out_bytes
-            out[(B, kv)] = dict(ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes,
-                                max_abs_err=err, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                                bound_by="bytes", weight_gb=wbytes / 1e9, kv_gb=kv_bytes / 1e9)
-            del args
-            torch.cuda.empty_cache()
+    for B, kv in K15_RUNS:
+        args, _ = step_case(dev, cfg, B, kv, False, 800)
+        pos, q_pos = args[2], args[4]
+        visible = int(((pos >= 0) & (pos <= q_pos[None, :, None, None])).sum())
+        row = D * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+        kv_bytes = 2 * visible * row + L * B * H * S * 4               # K, V rows; pos
+        out_bytes = (L * B * H * S * 4 + 2 * L * B * H * D * 2 + L * B * H * 4
+                     + B * cfg.hidden_size * 2)
+        what = f"B={B}, {kv} KV, L={L}, RoPE at q_pos"
+        spread = k15_spread(tree.layers, cfg, args, draws=2)
+        err, _ = step_check("phase 5", what, tree.layers, cfg, args, spread=spread,
+                            key="K15")
+        ms = event_ms(lambda *a: k15(tree.layers, cfg, *a), [args], 20)
+        plain = event_ms(lambda *a: k15_plain(tree.layers, cfg, *a), [args], 2)
+        nbytes = wbytes + kv_bytes + out_bytes
+        out[(B, kv)] = dict(ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes,
+                            max_abs_err=err, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                            bound_by="bytes", weight_gb=wbytes / 1e9, kv_gb=kv_bytes / 1e9)
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3256,10 +3293,11 @@ def k15_records(ktimes, runs):
     for (B, kv), t in ktimes.items():
         run = K15_RUNS[(B, kv)]
         launches = runs[run]["counts"]["K15"]
+        per = runs[run].get("dec_ticks", NEW)       # a serving run: its decode ticks
         label = f"{kname} (B={B}, {kv} KV, L=32, S={S_MAIN})"
         print(f"phase 5: K15 {label}: {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library none, bound {t['bound_ms'] * 1e3:.2f} us (bytes: weights "
-              f"{t['weight_gb']:.3f} GB, K/V and pos {t['kv_gb']:.3f} GB), {launches / NEW:g} "
+              f"{t['weight_gb']:.3f} GB, K/V and pos {t['kv_gb']:.3f} GB), {launches / per:g} "
               f"launches/step in the {run} run")
         records.append({"name": label, "route": "cuda", "source": src, "replaces": repl,
                         "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -3398,6 +3436,269 @@ def rank_records(rtimes, errs, runs):
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     return records
+
+
+# ---------------------------------------------------------------------------
+# serving: easykv_tpu_torch.serving's engines
+# ---------------------------------------------------------------------------
+
+
+def serving_prompts(n, vocab, seed):
+    """bench_serving.py's requests: n lengths from
+    np.random.default_rng(seed).integers(128, 513), then each prompt from
+    the same generator."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(128, 513, size=n)
+    return [rng.integers(1, vocab, size=int(T)) for T in lengths]
+
+
+def count_delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def submitted(eng, prompts, new):
+    """The engine with every prompt submitted (request i, max_new_tokens = new)."""
+    for i, p in enumerate(prompts):
+        eng.submit(serving_engine.Request(request_id=i, ids=p, max_new_tokens=new))
+    return eng
+
+
+def serve(eng, prompts, new, want_dec=None, want_merged=None):
+    """Submits the prompts (max_new_tokens = new) and drains the engine a
+    step at a time (ScheduledBatchEngine.tick, ContinuousBatchEngine.step),
+    with the counts set to 0 before and read after. Each decode tick is
+    timed on the host clock (it ends in its (B,) readback) and its launch
+    counts read, as each step's; before each _clear_row the finishing row's
+    valid slots per (layer, head) are held to the single-request
+    `decoding` rule (prompt + the forwarded tokens, at most the budget: the
+    runs evict, roco).
+    Checks: every request ends with exactly `new` tokens, all in the
+    vocabulary; every decode tick launches want_dec, every merged tick
+    want_merged (when given); every row's pos is -1 after the run. Returns
+    the readings."""
+    scheduled = isinstance(eng, serving_sched.ScheduledBatchEngine)
+    tick = eng.decode_tick
+    dec, steps, bad_rows = [], [], []
+    calls = {"merged": 0, "admit": 0, "finished": 0}
+
+    def timed_tick(*args):
+        c0, r0, had = counts(), tick.replays, tick.graph is not None
+        t0 = time.perf_counter()
+        out = tick(*args)
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = ("replay" if had else "capture") if tick.replays > r0 else "eager"
+        dec.append((kind, ms, count_delta(counts(), c0)))
+        return out
+
+    real_clear = serving_engine._clear_row
+
+    def checked_clear(cache, row):
+        req = next(reversed(eng.finished.values()))
+        want = len(req.ids) + min(len(req.out) - 1, eng.budget)
+        held = (cache.pos[:, row] >= 0).sum(dim=-1)
+        if not bool((held == want).all()):
+            bad_rows.append((req.request_id, int(held.min()), int(held.max()), want))
+        calls["finished"] += 1
+        real_clear(cache, row)
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    submitted(eng, prompts, new)
+    step = eng.tick if scheduled else eng.step
+
+    def busy():
+        return (eng.requests or eng.sched.num_waiting) if scheduled else (
+            eng.pending or any(s is not None for s in eng.slots))
+    emit_t = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    with mock.patch.object(eng, "decode_tick", timed_tick), \
+            mock.patch.object(serving_engine, "_clear_row", checked_clear), \
+            mock.patch.object(serving_sched, "_clear_row", checked_clear), \
+            mock.patch.object(serving_sched, "_merged_step",
+                              counted(serving_sched._merged_step, "merged")), \
+            mock.patch.object(serving_engine, "_prefill_chunk",
+                              counted(serving_engine._prefill_chunk, "admit")):
+        t_run = time.perf_counter()
+        while busy():
+            before, d0, c0 = dict(calls), len(dec), counts()
+            t0 = time.perf_counter()
+            emitted = step()
+            t1 = time.perf_counter()
+            for rid, _ in emitted:
+                emit_t.setdefault(rid, []).append(t1)
+            kind = next((k for k in ("merged", "admit") if calls[k] > before[k]),
+                        dec[-1][0] if len(dec) > d0 else "idle")
+            steps.append((kind, (t1 - t0) * 1e3, count_delta(counts(), c0)))
+        wall = time.perf_counter() - t_run
+    total = counts()
+    outs = {rid: r.out for rid, r in eng.finished.items()}
+    V = eng.cfg.vocab_size
+    check(sorted(outs) == list(range(len(prompts))) and calls["finished"] == len(prompts),
+          f"serving: {len(outs)} of {len(prompts)} requests finished")
+    check(all(len(o) == new and all(0 <= t < V for t in o) for o in outs.values()),
+          f"serving: a request did not end with exactly {new} tokens in the vocabulary")
+    check(not bad_rows, f"serving: valid slots (request, min, max, want) {bad_rows}")
+    check(bool((eng.cache.pos == -1).all()), "serving: a row still holds valid slots")
+    if want_dec is not None:
+        off = [(k, c) for k, _, c in dec if c != want_dec]
+        check(not off, f"serving: decode tick launches {off[:1]}, expected {want_dec}")
+    if want_merged is not None:
+        off = [c for k, _, c in steps if k == "merged" and c != want_merged]
+        check(not off, f"serving: merged tick launches {off[:1]}, expected {want_merged}")
+    itl = [1e3 * (b - a) for ts in emit_t.values() for a, b in zip(ts, ts[1:])]
+    by_kind = {}
+    for kind, ms, _ in steps:
+        by_kind.setdefault(kind, []).append(ms)
+    dec_ms = {}
+    for kind, ms, _ in dec:
+        dec_ms.setdefault(kind, []).append(ms)
+    n_tok = sum(len(o) for o in outs.values())
+    return dict(outs=outs, counts=total, wall_s=wall, tok_s=n_tok / wall, tokens=n_tok,
+                itl_p50=float(np.percentile(itl, 50)), itl_p95=float(np.percentile(itl, 95)),
+                ticks={k: len(v) for k, v in by_kind.items()},
+                step_ms={k: float(np.median(v)) for k, v in by_kind.items()},
+                dec_ms={k: float(np.median(v)) for k, v in dec_ms.items()},
+                dec_ticks=len(dec), capture_s=tick.capture_s, nodes=tick.nodes)
+
+
+def serving_line(name, r, extra=""):
+    ticks = ", ".join(f"{k} {n} ({r['step_ms'][k]:.3f} ms median)" for k, n in r["ticks"].items())
+    dec = ", ".join(f"{k} {ms:.3f}" for k, ms in r["dec_ms"].items())
+    print(f"phase 3: serving {name}: {len(r['outs'])} requests, {r['tokens']} tokens in "
+          f"{r['wall_s']:.3f} s = {r['tok_s']:.2f} tok/s aggregate; inter-token p50 "
+          f"{r['itl_p50']:.3f} ms, p95 {r['itl_p95']:.3f} ms; steps by kind: {ticks}; decode tick "
+          f"ms (median, host clock to its readback): {dec}; graph captured in "
+          f"{r['capture_s']:.3f} s, {r['nodes']} nodes; launches {r['counts']}{extra}")
+
+
+def phase_serving(dev, cfg, params):
+    """The serving engines at LLaMa-2-7B width, weights from phase 3's bf16
+    ones: (a) ScheduledBatchEngine at bench_serving.py's configuration (the
+    int4 arithmetic fused tree, quantized on the card, int8 KV; decode ticks
+    through K15 at B=8); (b) ScheduledBatchEngine with bf16 weights, bf16
+    and then int8 KV, SMALL_SLOTS slots, SMALL_REQS requests, greedy, roco
+    at budget 64; (c) ContinuousBatchEngine, bf16 KV, (b)'s requests,
+    replayed and then eager (flags.eager_decode_loop): equal tokens and
+    bit-identical final cache arrays. serve()'s checks on every run, and
+    each tick kind's exact launches."""
+    L = cfg.num_hidden_layers
+    runs = {}
+    t0 = time.perf_counter()
+    qparams = quant_mod.fuse_gemv_params(quant_mod.quantize_params_int4(params, layout="arith"))
+    torch.cuda.synchronize()
+    print(f"phase 3: serving (a): int4 arith fused tree quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model = easykv_tpu_torch.CausalLM(cfg, qparams, device=dev, kv_quant=True)
+    eng = serving_sched.ScheduledBatchEngine(
+        model, batch_slots=SERVE_SLOTS, max_prompt=SERVE_MAX_PROMPT, budget=BUDGET,
+        kv_policy="roco", temperature=1.0, top_p=0.95, prefill_chunk=CHUNK, seed=0)
+    r = serve(eng, serving_prompts(SERVE_REQS, cfg.vocab_size, 0), SERVE_NEW,
+              want_dec=zero_counts(K15=1, K13=1, K2=1, **{"K2 rows": 1}),
+              want_merged=zero_counts(K5=L, K4=1))
+    serving_line("(a) scheduled, int4 arith fused, int8 KV, B=8, roco b=200, T=1.0 top_p 0.95",
+                 r)
+    runs["serving (a)"] = r
+    del eng, model, qparams
+    torch.cuda.empty_cache()
+    prompts = serving_prompts(SMALL_REQS, cfg.vocab_size, 1)
+    kw = dict(batch_slots=SMALL_SLOTS, max_prompt=SERVE_MAX_PROMPT, budget=SMALL_BUDGET,
+              kv_policy="roco", temperature=1e-9, top_p=1.0, prefill_chunk=CHUNK, seed=0)
+    want_dec = zero_counts(K1=L, K2=1, **{"K2 rows": 1})
+    for kv in ("bf16", "int8"):
+        model = easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8")
+        r = serve(serving_sched.ScheduledBatchEngine(model, **kw), prompts, SERVE_NEW,
+                  want_dec=want_dec, want_merged=zero_counts(K5=L if kv == "int8" else 0, K4=1))
+        serving_line(f"(b) scheduled, bf16 weights, {kv} KV, B={SMALL_SLOTS}, roco "
+                     f"b={SMALL_BUDGET}, greedy", r)
+        runs[f"serving (b) {kv} KV"] = r
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev)
+    twin = {}
+    for eager in (False, True):
+        eng = serving_engine.ContinuousBatchEngine(model, **kw)
+        with flags.eager_decode_loop() if eager else contextlib.nullcontext():
+            twin[eager] = (serve(eng, prompts, SERVE_NEW, want_dec=want_dec), eng.cache)
+    (rg, cg), (re_, ce) = twin[False], twin[True]
+    diff = [f.name for f in dataclasses.fields(KVCache)
+            if getattr(cg, f.name) is not None
+            and not same_bits(getattr(cg, f.name), getattr(ce, f.name))]
+    serving_line(f"(c) continuous, bf16 weights, bf16 KV, B={SMALL_SLOTS}, roco "
+                 f"b={SMALL_BUDGET}, greedy, replayed", rg,
+                 f"; its eager twin: {re_['tok_s']:.2f} tok/s, decode tick ms {re_['dec_ms']}, "
+                 f"tokens equal {rg['outs'] == re_['outs']}, final cache bit-identical "
+                 f"{not diff}" + (f" but for {diff}" if diff else ""))
+    check(rg["nodes"] > 0 and re_["nodes"] == 0, "serving (c): replayed / eager twin graphs")
+    check(rg["outs"] == re_["outs"] and not diff,
+          f"serving (c): the replayed decode tick differs from the eager one in {diff}")
+    runs["serving (c)"], runs["serving (c) eager"] = rg, re_
+    del twin, model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def continuous_run(model, prompts, new, **kw):
+    """ContinuousBatchEngine's outputs, final cache and decode graph nodes."""
+    eng = submitted(serving_engine.ContinuousBatchEngine(model, **kw), prompts, new)
+    return eng.run_all(), eng.cache, eng.decode_tick.nodes
+
+
+def scheduled_outputs(model, prompts, new, snapshot_after=None, path=None, **kw):
+    """ScheduledBatchEngine's outputs; with snapshot_after = n, the engine is
+    snapshotted to `path` after n ticks, dropped, and resumed into a new
+    engine, which finishes the run."""
+    eng = submitted(serving_sched.ScheduledBatchEngine(model, **kw), prompts, new)
+    if snapshot_after is None:
+        return eng.run_all()
+    for _ in range(snapshot_after):
+        eng.tick()
+    replays = eng.decode_tick.replays
+    eng.snapshot(path)
+    del eng
+    return serving_sched.ScheduledBatchEngine.resume(path, model, **kw).run_all(), replays
+
+
+def phase_plain_vs_kernel_serving(dev, cfg, params):
+    """Phase 4's serving checks at full width, L=2, f32 weights, f32 and int8
+    KV, (b)'s and (c)'s requests cut to 32 new tokens and budget 8 (so
+    every row evicts): ScheduledBatchEngine and ContinuousBatchEngine
+    through the kernels against the same engines with plain_kernels(),
+    equal tokens; a sampled (T=1.0, top_p 0.95) ScheduledBatchEngine
+    snapshotted after 24 ticks (requests decoding, some waiting; its decode
+    tick already replayed) and resumed gives the uninterrupted run's
+    outputs."""
+    prompts = serving_prompts(SMALL_REQS, cfg.vocab_size, 1)
+    new = 32
+    kw = dict(batch_slots=SMALL_SLOTS, max_prompt=SERVE_MAX_PROMPT, budget=8,
+              kv_policy="roco", temperature=1e-9, top_p=1.0, prefill_chunk=CHUNK, seed=0)
+    for kv in ("f32", "int8"):
+        model = easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8")
+        for name, run in (("scheduled", lambda: scheduled_outputs(model, prompts, new, **kw)),
+                          ("continuous", lambda: continuous_run(model, prompts, new, **kw)[0])):
+            reset_counts()
+            kern = run()
+            c = counts()
+            with plain_kernels():
+                plain = run()
+            print(f"phase 4: full width L=2 f32 weights, {kv} KV, serving {name}, "
+                  f"{SMALL_SLOTS} slots, {len(prompts)} requests, roco b=8, {new} tokens: kernel "
+                  f"path against plain path tokens equal {kern == plain}; launches {c}")
+            check(kern == plain, f"serving {name} {kv} KV: kernel path and plain path disagree")
+            check(c["K1"] > 0 and c["K2"] > 0 and (c["K4"] > 0) == (name == "scheduled")
+                  and (c["K5"] > 0) == (kv == "int8"), f"serving {name}: launches {c}")
+        sampled = dict(kw, temperature=1.0, top_p=0.95, seed=7)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/engine.snap"
+            whole = scheduled_outputs(model, prompts, new, **sampled)
+            resumed, replays = scheduled_outputs(model, prompts, new, 24, path, **sampled)
+        print(f"phase 4: full width L=2 f32 weights, {kv} KV, serving scheduled sampled (T=1.0, "
+              f"top_p 0.95): snapshot after 24 ticks ({replays} decode ticks replayed) and "
+              f"resume against the uninterrupted run: outputs equal {resumed == whole}")
+        check(replays > 0 and resumed == whole, f"serving {kv} KV: snapshot / resume differs")
+        del model
 
 
 def main():

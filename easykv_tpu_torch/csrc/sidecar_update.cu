@@ -11,10 +11,11 @@
 //   1. write slot = first slot with pos < 0 (slot 0 if the row is full);
 //   2. score / score_sq update from this step's probabilities per policy
 //      (h2o_head and roco accumulate, tova overwrites), under update_gate;
-//   3. when the row is live: the new token's sidecars at the write slot;
-//      with an int8 cache, whether live or not (as the TPU kernel does: a
-//      dead row's slot keeps pos < 0, so its bytes are inert): the new
-//      token's K and V dequant scales at the write slot, in place;
+//   3. when the row is live: the new token's sidecars at the write slot
+//      and, with an int8 cache, its K and V dequant scales there, in place;
+//      a dead row (token_valid off) is left untouched, as the JAX package's
+//      XLA decode write leaves it (its TPU kernel writes the scales, and the
+//      rows of step 5, whatever the row, into a slot whose pos stays < 0);
 //   4. when evict_gate fires: counter += 1 on every slot, victim selection
 //      (h2o_head / tova: first minimum score; recency: oldest position;
 //      random: the slot at age rank rand_rank; roco: the lowest mean score
@@ -28,8 +29,7 @@
 //   5. with the step's K and V rows (kn, vn; the former kernel K3, which
 //      replaces the TPU kernel easykv_tpu/ops/pallas/row_write.py
 //      `write_rows`): the row's K and V at the write slot of step 1 (before
-//      any `compact` shift, where K9 then moves them), whether live or not,
-//      as the TPU kernel writes them.
+//      any `compact` shift, where K9 then moves them), when the row is live.
 //
 // K4 replaces `fused_evict` (body `_evict_kernel`), decode phase, k = 1:
 // per row, counter += 1 under the gate, the same victim selection, and
@@ -732,12 +732,12 @@ __global__ void __launch_bounds__(kBlock) write_update_rows(const K2Args a) {
   const int slot = first_free < S ? first_free : 0;
   if (tm.t == 0) {
     a.slot_out[row] = slot;
-    if (scales) {
+    if (scales && live) {
       a.k_scale[off + slot] = ksn;
       a.v_scale[off + slot] = vsn;
     }
   }
-  rows_store(a, row, slot, tm.t, rw);   // 5
+  if (live) rows_store(a, row, slot, tm.t, rw);   // 5
   int jj, ee;
   const bool mine = live && holds(tm, slot, jj, ee);   // this lane writes the new token
   if (mine) {
@@ -951,7 +951,7 @@ __global__ void __launch_bounds__(kBlock) write_update_wide(const K2Args a) {
   const int slot = first_free < S ? first_free : 0;
   if (tm.t == 0) {
     a.slot_out[row] = slot;
-    if (a.k_scale != nullptr) {
+    if (a.k_scale != nullptr && live) {
       a.k_scale[off + slot] = a.k_sc_new[row];
       a.v_scale[off + slot] = a.v_sc_new[row];
     }
@@ -965,7 +965,7 @@ __global__ void __launch_bounds__(kBlock) write_update_wide(const K2Args a) {
       sq[slot] = sq_new;
     }
   }
-  if (tm.t < 32) rows_store(a, row, slot, tm.t, rw);   // 5
+  if (tm.t < 32 && live) rows_store(a, row, slot, tm.t, rw);   // 5
   __syncthreads();
   stamp(2);
 

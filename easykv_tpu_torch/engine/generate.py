@@ -4,7 +4,7 @@ easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
 EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
 _strided_encode, _strided_encode_layer_major, _ce_from_hidden,
 _prerotate_cache, _compact_one, _decode_loop (with its carried ranks,
-_carry_ranks; split into _Carry, _DecodeStep and _drive), _engine_cache,
+_carry_ranks; split into _Carry, _DecodeStep, capture_step and _drive), _engine_cache,
 _run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
 CausalLM, enable_fixed_kv, set_dynamicntk_rope_length, generate).
 
@@ -587,14 +587,48 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     return n.value
 
 
+class CapturedStep(NamedTuple):
+    """One call of a step captured as a CUDA graph (capture_step)."""
+    graph: torch.cuda.CUDAGraph
+    launches: list          # [(wrapper, counter attribute, launches a replay)]
+    capture_s: float        # host seconds of the capture and instantiation
+    nodes: int              # the graph's nodes
+
+    def replay(self) -> None:
+        """Replays the graph and adds its launches to the wrappers' counts."""
+        self.graph.replay()
+        for fn, attr, d in self.launches:
+            setattr(fn, attr, getattr(fn, attr) + d)
+
+
+def capture_step(step, generator: torch.Generator) -> CapturedStep:
+    """Captures one call of `step` (which must have run eagerly on the card
+    once: that loads the kernels and makes the tables, ticket rows and
+    library handles it keeps) as a CUDA graph, `generator` registered with
+    it so that replayed draws equal eager ones. The wrappers bump their
+    launch counts while the step is captured; those counts are put back
+    (the capture ran nothing) and kept for the replays. A capture that
+    fails raises."""
+    t0 = time.perf_counter()
+    counters = launch_counters()
+    before = [getattr(fn, attr) for fn, attr in counters]
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.register_generator_state(generator)
+    with torch.cuda.graph(g):
+        step()
+    launches = [(fn, attr, getattr(fn, attr) - b) for (fn, attr), b in zip(counters, before)]
+    for (fn, attr), b in zip(counters, before):
+        setattr(fn, attr, b)
+    nodes = _graph_nodes(g)
+    g.instantiate()
+    return CapturedStep(g, launches, time.perf_counter() - t0, nodes)
+
+
 def _drive(step: _DecodeStep, M: int, graph: bool) -> Tuple[float, int]:
     """Runs up to M steps, stopping early once every row is done (read back
     every ALL_DONE_CHECK_EVERY steps, only when there are EOS ids). Eager:
-    each step called in turn. graph: step 0 runs eagerly (it loads the
-    kernels and makes the tables, ticket rows and library handles the step
-    keeps), one step is captured as a CUDA graph, and the graph is replayed
-    for the others; the launch counts, which the wrappers bump only while
-    the step is captured, gain the capture's counts once per replay. A
+    each step called in turn. graph: step 0 runs eagerly, one step is
+    captured (capture_step), and the graph is replayed for the others. A
     capture or replay that fails raises. Returns (the capture's seconds, the
     graph's nodes), (0, 0) without a graph."""
     c = step.c
@@ -612,26 +646,12 @@ def _drive(step: _DecodeStep, M: int, graph: bool) -> Tuple[float, int]:
     step()
     if M == 1 or all_done(0):
         return 0.0, 0
-    t0 = time.perf_counter()
-    counters = launch_counters()
-    before = [getattr(fn, attr) for fn, attr in counters]
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    g.register_generator_state(step.generator)
-    with torch.cuda.graph(g):
-        step()
-    per_step = [getattr(fn, attr) - b for (fn, attr), b in zip(counters, before)]
-    nodes = _graph_nodes(g)
-    g.instantiate()
-    capture_s = time.perf_counter() - t0
-    replays = 0
+    captured = capture_step(step, step.generator)
     for n in range(1, M):
-        g.replay()
-        replays += 1
+        captured.replay()
         if all_done(n):
             break
-    for (fn, attr), d in zip(counters, per_step):
-        setattr(fn, attr, getattr(fn, attr) + d * (replays - 1))
-    return capture_s, nodes
+    return captured.capture_s, captured.nodes
 
 
 @torch.no_grad()

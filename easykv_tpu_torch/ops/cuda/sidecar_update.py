@@ -174,7 +174,7 @@ def fused_write_update_plain(
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel; same arguments and results:
     the sidecar pass, then with the rows write_rows_plain at the write
-    slot."""
+    slot of each live row."""
     _check_espec(espec)
     if compact and espec is None:
         raise ValueError("compact needs espec")
@@ -201,11 +201,10 @@ def fused_write_update_plain(
         s_new = pn * gf
 
     iota = torch.arange(S, dtype=torch.int32, device=pos.device)
-    if k_scale is not None:
-        # unconditional, as in the TPU kernel: a dead row's slot keeps pos < 0
-        k_scale.copy_(torch.where(iota == slot, k_sc_new, k_scale))
-        v_scale.copy_(torch.where(iota == slot, v_sc_new, v_scale))
     at_slot = (iota == slot) & per_b(token_valid)
+    if k_scale is not None:
+        k_scale.copy_(torch.where(at_slot, k_sc_new, k_scale))
+        v_scale.copy_(torch.where(at_slot, v_sc_new, v_scale))
     new_pos = torch.where(at_slot, per_b(q_pos), pos)
     new_cnt = torch.where(at_slot, per_b(counter_init), counter)
     sc = torch.where(at_slot, s_new, sc)
@@ -233,7 +232,11 @@ def fused_write_update_plain(
     score_sq.copy_(sq)
     counter.copy_(new_cnt)
     if k is not None:
-        write_rows_plain(k, v, kn, vn, slot[..., 0])
+        # a dead row writes back the rows its write slot holds
+        at = slot[..., None].long().expand(kn.shape)
+        live = per_b(token_valid)[..., None]
+        write_rows_plain(k, v, torch.where(live, kn, k.gather(3, at)),
+                         torch.where(live, vn, v.gather(3, at)), slot[..., 0])
     res = (pos, score, score_sq, counter, slot)
     if k_scale is not None:
         res += (k_scale, v_scale)
@@ -274,8 +277,10 @@ def fused_write_update(
     rows are given, then with `compact` the victim slot (L, B, H, 1) int32
     (S: no eviction). pos and counter are post-eviction (and post-shift);
     the write slot stays the pre-shift one, where the caller writes the
-    step's K/V rows before shifting them with fused_kv_compact. The new
-    scales land at the write slot whether or not the row is live."""
+    step's K/V rows before shifting them with fused_kv_compact. A dead row
+    (token_valid off) is left as it was: no sidecar, scale or K / V row is
+    written (the JAX package's XLA decode write; its TPU kernel writes the
+    scales and rows of a dead row into a slot whose pos stays < 0)."""
     if pos.device.type == "cpu":
         return fused_write_update_plain(
             pos, score, score_sq, counter, probs, p_new, q_pos, token_valid,

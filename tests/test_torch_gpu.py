@@ -2261,3 +2261,114 @@ def test_two_graphs_replayed_at_once_keep_their_own_tickets(cuda):
         assert torch.equal(out, ref)
         for name in ("k", "v", "pos", "score", "score_sq", "counter"):
             assert torch.equal(getattr(c, name), getattr(eager, name)), name
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode tick replayed as a CUDA graph, dead rows, snapshot / resume
+# ---------------------------------------------------------------------------
+
+def _serving_model(cuda, kv_quant, tree=None, seed=6):
+    """LLaMa-2-7B width, L = 2, bf16 weights drawn on the card (tree "fused":
+    the int4 arithmetic fused tree of them), with a bf16 or int8 KV cache."""
+    import dataclasses
+
+    import easykv_tpu_torch
+    from easykv_tpu_torch.ops import quant
+    cfg = dataclasses.replace(_smoke().LLAMA2_7B, num_hidden_layers=2)
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device=cuda)
+    if tree == "fused":
+        params = quant.fuse_gemv_params(quant.quantize_params_int4(params, layout="arith"))
+    return easykv_tpu_torch.CausalLM(cfg, params, device=cuda, kv_quant=kv_quant)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_serving_decode_tick_replay_matches_eager(cuda, kv_quant):
+    """ContinuousBatchEngine (4 slots, 6 requests of 128-512 tokens, 40 new,
+    roco at budget 16, greedy) with its decode tick replayed as a CUDA graph
+    and eager (flags.eager_decode_loop): the same tokens and the bits of
+    every final cache array."""
+    smoke = _smoke()
+    model = _serving_model(cuda, kv_quant)
+    prompts = smoke.serving_prompts(6, model.cfg.vocab_size, 2)
+    kw = dict(batch_slots=4, max_prompt=512, budget=16, kv_policy="roco", temperature=1e-9,
+              top_p=1.0, prefill_chunk=128)
+    (out_g, cache_g, nodes_g) = smoke.continuous_run(model, prompts, 40, **kw)
+    with flags.eager_decode_loop():
+        (out_e, cache_e, nodes_e) = smoke.continuous_run(model, prompts, 40, **kw)
+    assert nodes_g > 0 and nodes_e == 0
+    assert out_g == out_e
+    for name, a in vars(cache_g).items():
+        if a is not None:
+            assert smoke.same_bits(a, getattr(cache_e, name)), name
+
+
+@pytest.mark.parametrize("tree,kv_quant", [(None, False), (None, True), ("fused", True)],
+                         ids=["bf16-K1", "int8-K1", "int8-K15"])
+def test_serving_dead_rows_untouched(cuda, tree, kv_quant):
+    """Three rows prefilled through _prefill_chunk one row at a time (an
+    int8 cache: K5 at one valid row of three; the other rows' arrays keep
+    their bits), then decode steps with row 1 inactive (K1 per layer and K2,
+    or K15 over the fused int4 tree, and K2): every array of row 1 keeps its
+    bits, its valid slots and the dead slots where K2 would have written."""
+    from easykv_tpu_torch.ops.cuda.chunk_attention import fused_chunk_attend as k5
+    from easykv_tpu_torch.ops.cuda.fused_decode_batch import fused_decode_step_batch as k15
+    from easykv_tpu_torch.serving import engine as serving
+    model = _serving_model(cuda, kv_quant, tree)
+    B, L, pc = 3, model.cfg.num_hidden_layers, 128
+    cache = serving.serving_cache(model, B, 256, 16)
+    g = torch.Generator().manual_seed(7)
+    lens = (150, 100, 90)
+
+    def snap():
+        return {n: a.clone() for n, a in vars(cache).items() if a is not None}
+    for row, T in enumerate(lens):
+        ids = torch.randint(1, 32000, (2 * pc,), generator=g, dtype=torch.int32).to(cuda)
+        for c in range(0, T, pc):
+            before, k5_before = snap(), k5.launches
+            serving._prefill_chunk(model.cfg, pc, model.params, cache, ids[c:c + pc], c, T, row)
+            assert k5.launches == k5_before + (L if kv_quant else 0)
+            for r in set(range(B)) - {row}:
+                for n, a in before.items():
+                    assert smoke_equal(getattr(cache, n)[:, r], a[:, r]), (row, r, n)
+    spec = serving.serving_spec("roco", 16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    active = torch.tensor([True, False, True], device=cuda)
+    plen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    tokens = torch.tensor([5, 6, 7], dtype=torch.int32, device=cuda)
+    before = snap()
+    counts = (fused_decode_attend_inflight.launches, fused_write_update.launches, k15.launches)
+    for step in range(20):                   # past the budget: rows 0 and 2 evict
+        gcount = torch.tensor([step, 0, step], dtype=torch.int32, device=cuda)
+        logits = serving._decode_step(model.cfg, spec, 16, model.params, cache, tokens, active,
+                                      plen, gcount, gen)
+        tokens = logits.argmax(-1).to(torch.int32)
+    k15_on = tree == "fused"
+    assert fused_decode_attend_inflight.launches - counts[0] == (0 if k15_on else 20 * L)
+    assert fused_write_update.launches - counts[1] == 20
+    assert k15.launches - counts[2] == (20 if k15_on else 0)
+    for n, a in before.items():
+        assert smoke_equal(getattr(cache, n)[:, 1], a[:, 1]), n
+    assert not torch.equal(cache.pos[:, 0], before["pos"][:, 0])
+
+
+def smoke_equal(a, b):
+    return _smoke().same_bits(a.contiguous(), b.contiguous())
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_sampled_scheduled_snapshot_resume(cuda, kv_quant, tmp_path):
+    """A sampled (T = 1.0, top_p 0.95) ScheduledBatchEngine (4 slots, 8
+    requests of 128-512 tokens, 32 new, roco at budget 8) snapshotted after
+    24 ticks, when its decode tick has already replayed its graph, and
+    resumed into a fresh engine gives the uninterrupted run's outputs: the
+    generator's state, advanced by the replays, travels with the snapshot."""
+    smoke = _smoke()
+    model = _serving_model(cuda, kv_quant)
+    prompts = smoke.serving_prompts(8, model.cfg.vocab_size, 3)
+    kw = dict(batch_slots=4, max_prompt=512, budget=8, kv_policy="roco", temperature=1.0,
+              top_p=0.95, prefill_chunk=128, seed=11)
+    whole = smoke.scheduled_outputs(model, prompts, 32, **kw)
+    resumed, replays = smoke.scheduled_outputs(model, prompts, 32, 24,
+                                               str(tmp_path / "engine.snap"), **kw)
+    assert replays > 0
+    assert resumed == whole
