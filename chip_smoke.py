@@ -182,7 +182,24 @@ Phases, each printing its lines before the last:
      reorder spread), then
      k15_control: at f32 activations, B=4 and 16, f32 and int8 KV, K15
      within the bar and the plain K15 with its residual rounded to bf16
-     between the layers over it.
+     between the layers over it;
+  6. the phase-3 tree (bf16, seed 0, L=32) through disk: written as an HF
+     checkpoint (HF names, (out, in), BF16, three shards, the index and an
+     HF-keyed config.json) into a temporary directory, with the free space,
+     the bytes and the seconds; load_hf_checkpoint through the port's mmap
+     reader in bf16 (seconds, GB/s, peak device memory over the tree),
+     then with quantize="int4" and "int8" (each fused, bit-identical to
+     fuse_gemv_params of phase 3's quantize_params_int4(layout="arith") /
+     quantize_params; the int4 load's peak over the tree it returns at most
+     3 GB, beside the in-memory quantize's own); the loaded bf16 tree (bf16
+     KV) and int4 fused tree (int8 KV) decode phase 3's prompt with roco at
+     budget 200 to phase 3's tokens with its launch counts (32 K1 and one K2
+     a step; one K14), tok/s beside phase 3's; save_checkpoint /
+     load_checkpoint of the int4 fused tree bit-identical; and
+     `python3 -m easykv_tpu_torch` info, generate (`decoding`, 16 tokens,
+     budget 8: the same call's tokens in-process) and ppl (the in-process
+     value) as subprocesses. The phase adds no kernel: it runs K1, K2, K11,
+     K13 and K14 on trees that came from disk.
 
 It exits non-zero, without a result line, when there is no CUDA device, a
 kernel does not build, or any check fails. The last line is
@@ -195,6 +212,9 @@ import importlib
 import io
 import json
 import math
+import re
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -205,11 +225,14 @@ import numpy as np
 import torch
 
 import easykv_tpu_torch
-from easykv_tpu_torch import flags
+from easykv_tpu_torch import cli, flags
 from easykv_tpu_torch import policies as policies_mod
 from easykv_tpu_torch.cache import KVCache, quantize_kv
 from easykv_tpu_torch.config import ModelConfig
+from easykv_tpu_torch.models import checkpoint as ckpt_mod
+from easykv_tpu_torch.models import hf as hf_mod
 from easykv_tpu_torch.models.llama import StepCtx, age_ranks_all, init_params, rotation_tables
+from easykv_tpu_torch.native import save_safetensors
 from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import sidecar_update as sidecar_mod
 from easykv_tpu_torch.ops.cuda.kv_compact import (
@@ -1350,7 +1373,8 @@ def phase_end_to_end(dev):
         if policy == "roco":
             check(st.kv_len - PROMPT == BUDGET,
                   f"{name} kept {st.kv_len - PROMPT} generated tokens, not {BUDGET}")
-        runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak)
+        runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak,
+                          tokens=out)
         if policy == "roco" and B == 1:
             finals[kv] = (out, made[-1])
         del made
@@ -2669,7 +2693,7 @@ def phase_quant(dev, cfg, params):
             check(line == ratio, f"{name}: printed {line!r}, expected {ratio!r}")
             check(ordered, f"{name}: the final cache is not age-ordered")
             runs[name] = dict(counts=c, tok_s=tok_s, prefill_s=st.prefill_s, peak_gib=peak,
-                              weight_gb=step_gb)
+                              weight_gb=step_gb, tokens=out)
         del models, model, qparams
         torch.cuda.empty_cache()
     return runs
@@ -3701,6 +3725,213 @@ def phase_plain_vs_kernel_serving(dev, cfg, params):
         del model
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the 7B-width tree through disk: an HF checkpoint, the loader, the
+# native checkpoint, the CLI
+# ---------------------------------------------------------------------------
+
+HF_SHARDS = 3                  # model-0000{1,2,3}-of-00003.safetensors, as a 7B release ships
+CLI_GENERATE = ["generate", "--mode", "decoding", "--max-new-tokens", "16", "--budget", "8"]
+INT4_OVER_LIMIT = 3e9          # the int4 load's peak device bytes over the tree it returns
+
+
+def hf_config_json(cfg):
+    """config.json with HF's keys, as LlamaForCausalLM's config writes them."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": "bfloat16"}
+
+
+def write_hf_checkpoint(path, cfg, params, shards=HF_SHARDS):
+    """A plain tree as an HF checkpoint in `path`: HF names, (out, in), the
+    tree's dtype, the layers split over `shards` files (the embedding in the
+    first, the norm and head in the last), the index and config.json.
+    Returns the bytes of the tensor files."""
+    sd = hf_mod.hf_state_dict(params)
+    L = cfg.num_hidden_layers
+    groups = [[k for k in sd if k.startswith("model.layers.")
+               and s * L // shards <= int(k.split(".")[2]) < (s + 1) * L // shards]
+              for s in range(shards)]
+    groups[0].insert(0, "model.embed_tokens.weight")
+    groups[-1] += [k for k in ("model.norm.weight", "lm_head.weight") if k in sd]
+    weight_map, total = {}, 0
+    for s, names in enumerate(groups):
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        total += save_safetensors(os.path.join(path, fname), {k: sd[k] for k in names},
+                                  {"format": "pt"})
+        weight_map.update({k: fname for k in names})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_json(cfg), f)
+    return total
+
+
+def tree_bytes(params):
+    return sum(t.numel() * t.element_size() for t in ckpt_mod._flat(params).values())
+
+
+def trees_identical(a, b):
+    """a and b hold the same leaves under the same names, dtypes, shapes and
+    bits."""
+    fa, fb = ckpt_mod._flat(a), ckpt_mod._flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+        and torch.equal(fa[k].contiguous().view(torch.uint8), fb[k].contiguous().view(torch.uint8))
+        for k in fa)
+
+
+def measured(dev, fn):
+    """(fn()'s result, its seconds, its peak device bytes over what it
+    leaves allocated, the bytes it leaves allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev) - base
+    return out, secs, torch.cuda.max_memory_allocated(dev) - base - held, held
+
+
+def loaded_decode(dev, cfg, params, kv, run, runs):
+    """Phase 3's run `run` (the 512-token prompt, 384 new tokens, roco at
+    budget 200, greedy) again on a tree loaded from disk: the same tokens
+    and launch counts; tok/s beside phase 3's."""
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)[0].tolist()
+    gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=NEW, temperature=1e-9,
+              top_p=1.0, eos_token_ids=[], seed=0)
+    model = easykv_tpu_torch.enable_fixed_kv(
+        easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8"), None,
+        "decoding")
+    with contextlib.redirect_stdout(io.StringIO()):
+        model.easykv_generate(prompt, dict(gc, max_new_tokens=8))       # warm-up
+        reset_counts()
+        out = model.easykv_generate(prompt, gc)
+    c = counts()
+    st = model.last_run
+    tok_s = st.n_tokens / st.decode_s
+    want = runs[run]
+    print(f"phase 6: decode from the loaded tree, {run} ({kv} KV): {tok_s:.2f} tok/s against "
+          f"phase 3's {want['tok_s']:.2f} ({graph_note(run, st)}); tokens equal "
+          f"{out == want['tokens']}, launches equal {c == want['counts']}: {c}")
+    check(out == want["tokens"], f"phase 6 {run}: the loaded tree's tokens differ from phase 3's")
+    check(c == want["counts"], f"phase 6 {run}: launches {c}, phase 3 {want['counts']}")
+
+
+def cli_run(argv):
+    """`python3 -m easykv_tpu_torch argv` from the repository's root:
+    (its stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "easykv_tpu_torch", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"CLI {argv[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_loading(dev, runs):
+    """Phase 3's bf16 LLaMa-2-7B tree (seed 0) written to disk as a 3-shard
+    HF checkpoint and read back through the port's own reader: bf16, int4
+    and int8 loads bit-identical to their in-memory twins, the int4 load's
+    peak device memory over its tree within INT4_OVER_LIMIT, phase 3's
+    decode tokens and launches from the loaded bf16 and int4 fused trees, a
+    save_checkpoint / load_checkpoint round trip of the int4 fused tree, and
+    the CLI's info, generate and ppl as subprocesses."""
+    cfg = LLAMA2_7B
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="easykv_hf_") as root:
+        hf_dir, native_dir = os.path.join(root, "hf"), os.path.join(root, "native")
+        os.makedirs(hf_dir)
+        free = shutil.disk_usage(root).free
+        need = tree_bytes(params)
+        print(f"phase 6: {root}: {free / 1e9:.2f} GB free; the bf16 tree is {need / 1e9:.3f} GB")
+        check(free > 1.4 * need, f"phase 6: {free / 1e9:.2f} GB free under {root}, "
+              f"{1.4 * need / 1e9:.2f} GB needed")
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(hf_dir, cfg, params)
+        secs = time.perf_counter() - t0
+        print(f"phase 6: (a) HF checkpoint, {HF_SHARDS} shards: {written} bytes written in "
+              f"{secs:.2f} s ({written / secs / 1e9:.2f} GB/s from the card to the files)")
+
+        (lcfg, bf16), secs, over, held = measured(dev, lambda: hf_mod.load_hf_checkpoint(
+            hf_dir, device=dev))
+        same = trees_identical(bf16, params)
+        print(f"phase 6: (b) load_hf_checkpoint bf16: {secs:.2f} s, {written / secs / 1e9:.2f} "
+              f"GB/s; tree {held / 1e9:.3f} GB, peak {over / 1e9:.3f} GB over it; "
+              f"bit-identical {same}")
+        check(lcfg == cfg and same, "phase 6: the loaded bf16 tree differs from the drawn one")
+
+        trees = {}
+        for mode, make in (("int4", lambda p: quant_mod.quantize_params_int4(p, layout="arith")),
+                           ("int8", quant_mod.quantize_params)):
+            twin, q_secs, q_over, q_held = measured(dev, lambda: make(params))
+            twin = quant_mod.fuse_gemv_params(twin)
+            (_, tree), secs, over, held = measured(dev, lambda: hf_mod.load_hf_checkpoint(
+                hf_dir, quantize=mode, device=dev))
+            tree = quant_mod.fuse_gemv_params(tree)
+            same = trees_identical(tree, twin)
+            print(f"phase 6: (c) load_hf_checkpoint quantize={mode!r}: {secs:.2f} s; tree "
+                  f"{held / 1e9:.3f} GB, peak {over / 1e9:.3f} GB over it; in-memory quantize of "
+                  f"the bf16 tree {q_secs:.2f} s, peak {q_over / 1e9:.3f} GB over its "
+                  f"{q_held / 1e9:.3f} GB; fused, bit-identical {same}")
+            check(same, f"phase 6: the {mode} load differs from the in-memory quantized tree")
+            if mode == "int4":
+                check(over <= INT4_OVER_LIMIT, f"phase 6: the int4 load peaked {over / 1e9:.3f} "
+                      f"GB over its tree, limit {INT4_OVER_LIMIT / 1e9:.1f}")
+            trees[mode] = tree
+            del twin
+        del params, trees["int8"]
+        torch.cuda.empty_cache()
+
+        loaded_decode(dev, cfg, bf16, "bf16", "bf16 roco", runs)
+        loaded_decode(dev, cfg, trees["int4"], "int8", "int4 arith fused roco", runs)
+
+        t0 = time.perf_counter()
+        n = ckpt_mod.save_checkpoint(native_dir, cfg, trees["int4"])
+        save_s = time.perf_counter() - t0
+        (ccfg, back), secs, _, _ = measured(dev, lambda: ckpt_mod.load_checkpoint(
+            native_dir, device=dev))
+        same = trees_identical(back, trees["int4"])
+        print(f"phase 6: (e) save_checkpoint of the int4 fused tree: {n} bytes in {save_s:.2f} s; "
+              f"load_checkpoint {secs:.2f} s; config equal {ccfg == cfg}, bit-identical {same}")
+        check(ccfg == cfg and same, "phase 6: the checkpoint round trip differs")
+        del back, trees
+
+        args = cli.parser().parse_args(CLI_GENERATE + ["--model", hf_dir])
+        args.device = dev
+        model = easykv_tpu_torch.CausalLM(lcfg, bf16, tokenizer=cli.load_tokenizer(hf_dir),
+                                          device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want_ids, want_ppl = (cli.run_generate(model, args),
+                                  cli.run_ppl(model, cli.parser().parse_args(["ppl"])))
+        del model, bf16
+        torch.cuda.empty_cache()
+        out, secs = cli_run(["info", "--model", hf_dir])
+        info = json.loads(out)
+        print(f"phase 6: (f) CLI info: {secs:.1f} s, {info}")
+        check(info == dataclasses.asdict(cfg), "phase 6: CLI info differs from the config")
+        out, secs = cli_run(CLI_GENERATE + ["--model", hf_dir])
+        print(f"phase 6: (f) CLI {' '.join(CLI_GENERATE)}: {secs:.1f} s, printed "
+              f"{out.strip().splitlines()}")
+        check(out.strip().splitlines()[-1] == str(want_ids),
+              f"phase 6: the CLI's tokens differ from the same call in-process, {want_ids}")
+        out, secs = cli_run(["ppl", "--model", hf_dir])
+        ppl = float(re.findall(r"ppl: (\S+)", out)[-1])
+        print(f"phase 6: (f) CLI ppl: {secs:.1f} s, ppl {ppl} (in-process {want_ppl:.4f})")
+        check(math.isfinite(ppl) and f"{ppl:.4f}" == f"{want_ppl:.4f}",
+              "phase 6: the CLI's ppl is not the in-process one")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3739,6 +3970,7 @@ def main():
     del tree32
     torch.cuda.empty_cache()
     k15_control(dev)
+    phase_loading(dev, runs)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",

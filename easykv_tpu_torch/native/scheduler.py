@@ -3,28 +3,22 @@
 Action, NativeScheduler, with the same C signatures).
 
 The scheduler is framework-neutral host code. It is compiled from the
-repository's native/scheduler.cc at first use, by the host C++ compiler with
-native/Makefile's flags, into easykv_tpu_torch/_build/, named by a hash of
-the source and the flags (as ops/cuda/_build.py names the CUDA libraries).
-Nothing is written into native/ and nothing is built at import. A failed
-build raises.
+repository's native/scheduler.cc at first use into easykv_tpu_torch/_build/
+(native/_host_build.py: the host C++ compiler, native/Makefile's flags, a
+name hashed from the source). Nothing is written into native/ and nothing is
+built at import. A failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
 
-PKG = Path(__file__).resolve().parents[1]
-SOURCE = PKG.parent / "native" / "scheduler.cc"
-BUILD = PKG / "_build"
-FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]   # native/Makefile's CXXFLAGS, -shared
+from . import _host_build
+from ._host_build import BUILD
+
+SOURCE = _host_build.NATIVE / "scheduler.cc"
 
 PREFILL_CHUNK = 0
 DECODE = 1
@@ -63,52 +57,12 @@ SIGNATURES = {  # name: (argtypes, restype), as native/scheduler.cc declares the
     "sched_num_active": ([_ptr], _i32),
 }
 
-_lock = threading.Lock()
-_lib = None
-
-
-def compiler() -> str:
-    """The host C++ compiler: $CXX, else g++, else c++."""
-    for cand in (os.environ.get("CXX"), "g++", "c++"):
-        if cand and shutil.which(cand):
-            return shutil.which(cand)
-    raise RuntimeError("no host C++ compiler found: set CXX or put g++ on PATH")
-
-
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"libscheduler-{key}.so"
-
-
-def build() -> Path:
-    """Compile native/scheduler.cc unless its library exists; returns the
-    library's path. Raises RuntimeError with the compiler's output if the
-    build fails."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([compiler(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"scheduler build failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return _host_build.library_path(SOURCE)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
-                getattr(lib, name).argtypes = argtypes
-                getattr(lib, name).restype = restype
-            _lib = lib
-        return _lib
+    return _host_build.load(SOURCE, SIGNATURES)
 
 
 class NativeScheduler:

@@ -2372,3 +2372,142 @@ def test_sampled_scheduled_snapshot_resume(cuda, kv_quant, tmp_path):
                                                str(tmp_path / "engine.snap"), **kw)
     assert replays > 0
     assert resumed == whole
+
+
+# ---------------------------------------------------------------------------
+# loading, checkpoints, utils and testing on the card
+# ---------------------------------------------------------------------------
+
+def _hf_dir(path, cfg, params, shards=1):
+    """Writes `params` (a plain split tree) as an HF checkpoint: HF names,
+    (out, in), config.json with HF keys."""
+    import json
+
+    from easykv_tpu_torch.models.hf import hf_state_dict
+    from easykv_tpu_torch.native import save_safetensors
+    sd = hf_state_dict(params)
+    names = sorted(sd)
+    for s in range(shards):
+        save_safetensors(str(path / f"model-{s:05d}.safetensors"),
+                         {k: sd[k] for k in names[s::shards]})
+    hf = {"model_type": "llama", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_hidden_layers,
+          "num_attention_heads": cfg.num_attention_heads,
+          "num_key_value_heads": cfg.num_key_value_heads,
+          "max_position_embeddings": cfg.max_position_embeddings,
+          "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": cfg.tie_word_embeddings}
+    (path / "config.json").write_text(json.dumps(hf))
+
+
+def test_reader_and_loader_into_cuda_tensors(cuda, tmp_path):
+    """The mmap reader's views copied to the card equal the written tensors,
+    and load_hf_checkpoint on the card gives the CPU load's tree bit for
+    bit; quantized on the card, the in-memory quantized tree of the card's
+    bf16 load (CUDA's division by a scalar multiplies by its reciprocal, so
+    the card's int8 scales may differ from the CPU's by an ulp)."""
+    from easykv_tpu_torch.models.checkpoint import _flat
+    from easykv_tpu_torch.models.hf import load_hf_checkpoint
+    from easykv_tpu_torch.native import SafetensorsFile, save_safetensors
+    g = torch.Generator().manual_seed(0)
+    tensors = {"a": torch.randn(33, 7, generator=g), "b": torch.arange(3, dtype=torch.int8),
+               "c": torch.randn(5, generator=g).to(torch.bfloat16)}
+    save_safetensors(str(tmp_path / "t.safetensors"), tensors)
+    with SafetensorsFile(str(tmp_path / "t.safetensors")) as f:
+        for k, t in tensors.items():
+            assert torch.equal(f.tensor(k).to(cuda).cpu(), t), k
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    _hf_dir(tmp_path, cfg, init_params(cfg, seed=1, device="cpu"), shards=2)
+    from easykv_tpu_torch.ops import quant
+    _, plain = load_hf_checkpoint(str(tmp_path), device=cuda)
+    _, on_cpu = load_hf_checkpoint(str(tmp_path), device="cpu")
+    twins = {None: (plain, on_cpu),
+             "int4": (load_hf_checkpoint(str(tmp_path), quantize="int4", device=cuda)[1],
+                      quant.quantize_params_int4(plain, layout="arith")),
+             "int8": (load_hf_checkpoint(str(tmp_path), quantize="int8", device=cuda)[1],
+                      quant.quantize_params(plain))}
+    for quantize, (got, want) in twins.items():
+        a, b = _flat(got), _flat(want)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].is_cuda and smoke_equal(a[k].cpu(), b[k].cpu()), (quantize, k)
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_streamed_load_peak_at_7b_width(cuda, tmp_path, quantize):
+    """One LLaMa-2-7B-width layer (and its embedding and head) loaded a layer
+    at a time: the peak device memory over the returned tree is at most one
+    layer's raw bf16 weights and one weight's transposed copy (0.49 GB), and
+    within 3 GB with int4 (the quantizer's f32 temporaries)."""
+    import dataclasses
+
+    from easykv_tpu_torch.models.hf import load_hf_checkpoint
+    cfg = ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=1, num_attention_heads=32, num_key_value_heads=32)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    _hf_dir(tmp_path, cfg, params)
+    del params
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got_cfg, tree = load_hf_checkpoint(str(tmp_path), quantize=quantize, device=cuda)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda) - base
+    over = torch.cuda.max_memory_allocated(cuda) - base - held
+    assert dataclasses.replace(got_cfg, max_position_embeddings=4096) == cfg
+    layer_raw = 2 * (4 * 4096 * 4096 + 3 * 4096 * 11008 + 2 * 4096)
+    limit = layer_raw + 2 * 4096 * 11008 + 2**20 if quantize is None else 3e9
+    assert 0 < over <= limit, (over, limit)
+
+
+def test_check_graph_eager_parity_on_a_decode_step(cuda):
+    """testing.check_graph_eager_parity on a bf16 decode step at LLaMa-2-7B
+    width (L = 2, roco's scores and the step's cache writes in place): the
+    replayed graph gives the eager step's logits; a step that reads a host
+    value at capture time is caught."""
+    from easykv_tpu_torch.cache import init_cache
+    from easykv_tpu_torch.models.llama import StepCtx, _decode_forward
+    from easykv_tpu_torch.testing import check_graph_eager_parity
+    cfg = ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                      num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32)
+    params = init_params(cfg, seed=4, dtype=torch.bfloat16, device=cuda)
+    B, S, P = 1, 256, 100
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cache = init_cache(2, B, 32, S, 128, dtype=torch.bfloat16, device=cuda)
+    cache.pos[..., :P] = torch.arange(P, dtype=torch.int32, device=cuda)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=cuda))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=cuda))
+    tok = torch.randint(1, 32000, (B, 1), generator=g, device=cuda, dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.bool, device=cuda)
+    ctx = StepCtx(q_pos=torch.full((B, 1), P, dtype=torch.int32, device=cuda),
+                  token_valid=ones[:, None], counter_init=torch.zeros((B, 1), device=cuda),
+                  next_pos=torch.full((B,), P + 1, dtype=torch.int32, device=cuda),
+                  prompt_len=torch.full((B,), P, dtype=torch.int32, device=cuda),
+                  evict_gate=~ones, update_gate=ones,
+                  rand_rank=torch.zeros(B, dtype=torch.int32, device=cuda))
+    spec = PolicySpec("roco", PHASE_DECODE, 1, 4, 1, feasible_k=8, protect_prompt=True)
+    pos0 = cache.pos.clone()
+    check_graph_eager_parity(
+        lambda c, t: _decode_forward(params, cfg, c, t, ctx, spec), cache, tok, atol=0, rtol=0)
+    assert not torch.equal(cache.pos, pos0)   # the replay wrote the step in place
+    calls = []
+
+    def stale(t):   # a host value frozen into the graph at capture
+        calls.append(1)
+        return t.float() * len(calls)
+    with pytest.raises(AssertionError):
+        check_graph_eager_parity(stale, torch.ones(4, device=cuda))
+
+
+def test_device_memory_stats_on_the_card(cuda):
+    from easykv_tpu_torch.utils import device_memory_stats, print_device_stats
+    torch.cuda.synchronize()
+    before = device_memory_stats()
+    x = torch.empty(2**30, dtype=torch.uint8, device=cuda)
+    after = device_memory_stats(cuda)
+    assert set(after) == {"current_gb", "peak_gb", "limit_gb"}
+    assert abs(after["current_gb"] - before["current_gb"] - 1.0) < 0.01
+    assert after["peak_gb"] >= after["current_gb"] and 70 < after["limit_gb"] < 200
+    del x
+    print_device_stats()
