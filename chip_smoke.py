@@ -212,6 +212,7 @@ import importlib
 import io
 import json
 import math
+import pickle
 import re
 import os
 import shutil
@@ -219,6 +220,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from unittest import mock
 
 import numpy as np
@@ -228,7 +230,10 @@ import easykv_tpu_torch
 from easykv_tpu_torch import cli, flags
 from easykv_tpu_torch import policies as policies_mod
 from easykv_tpu_torch.cache import KVCache, quantize_kv
-from easykv_tpu_torch.config import ModelConfig
+from easykv_tpu_torch import parallel as parallel_mod
+from easykv_tpu_torch.config import MeshConfig, ModelConfig
+from easykv_tpu_torch.parallel import mesh as parallel_mesh
+from easykv_tpu_torch.parallel import sharding as parallel_sharding
 from easykv_tpu_torch.models import checkpoint as ckpt_mod
 from easykv_tpu_torch.models import hf as hf_mod
 from easykv_tpu_torch.models.llama import StepCtx, age_ranks_all, init_params, rotation_tables
@@ -239,14 +244,18 @@ from easykv_tpu_torch.ops.cuda.kv_compact import (
     fused_compact as k8, fused_compact_plain as k8_plain, fused_kv_compact as k9,
     fused_kv_compact_plain as k9_plain, shift_rotation)
 from easykv_tpu_torch.ops.rope import rope_inv_freq
+from easykv_tpu_torch.ops.cuda import chunk_attention as chunk_mod
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
     chunk_step_evict_plain, fused_chunk_attend as k5, fused_chunk_attend_plain as k5_plain,
-    fused_chunk_step as k7, fused_chunk_step_plain as k7_plain,
-    fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain)
+    fused_chunk_attend_sharded as k5s, fused_chunk_step as k7,
+    fused_chunk_step_plain as k7_plain, fused_chunk_step_sharded as k7s,
+    fused_chunk_write_attend as k6, fused_chunk_write_attend_plain as k6_plain,
+    fused_chunk_write_attend_sharded as k6s)
 from easykv_tpu_torch.ops.cuda import decode_attention as da_mod
 from easykv_tpu_torch.ops.cuda.decode_attention import (
     fused_decode_attend as kda, fused_decode_attend_inflight as k1,
-    fused_decode_attend_inflight_plain as k1_plain, fused_decode_attend_plain as kda_plain)
+    fused_decode_attend_inflight_plain as k1_plain, fused_decode_attend_inflight_sharded as k1s,
+    fused_decode_attend_plain as kda_plain)
 from easykv_tpu_torch.ops.cuda import fused_decode as k14_fd
 from easykv_tpu_torch.ops.cuda.fused_decode import (fused_decode_step as k14,
                                                     fused_decode_step_plain as k14_plain)
@@ -256,8 +265,9 @@ from easykv_tpu_torch.ops.cuda.step_bars import (STEP_OUTPUTS, k14_ulp_spread, k
                                                  k15_spread, step_shares)
 from easykv_tpu_torch.ops.cuda.row_write import write_rows as k3, write_rows_plain as k3_plain
 from easykv_tpu_torch.ops.cuda.sidecar_update import (
-    fused_evict as k4, fused_evict_plain as k4_plain, fused_write_update as k2,
-    fused_write_update_plain as k2_plain)
+    fused_evict as k4, fused_evict_plain as k4_plain, fused_evict_sharded as k4s,
+    fused_write_update as k2, fused_write_update_plain as k2_plain,
+    fused_write_update_sharded as k2s)
 from easykv_tpu_torch.ops import quant as quant_mod
 from easykv_tpu_torch.ops.cuda.quant_matmul import (quant_matmul as k13,
                                                     quant_matmul_plain as k13_plain)
@@ -1292,7 +1302,8 @@ def phase_k7(dev):
 
 KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K7": k7, "K8": k8, "K9": k9,
            "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15,
-           "decode_attend": kda}
+           "decode_attend": kda, "K1s": k1s, "K2s": k2s, "K4s": k4s, "K5s": k5s, "K6s": k6s,
+           "K7s": k7s}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K1 rank": (k1, "rank_launches"),
             "K2 compact": (k2, "compact_launches"), "K2 rows": (k2, "rows_launches")}
@@ -3932,6 +3943,704 @@ def phase_loading(dev, runs):
               "phase 6: the CLI's ppl is not the in-process one")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: tensor / data parallelism over a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+TP_NEW = 256                 # new tokens of (a) and (b): 56 steps past the budget of 200
+EXACT_NEW = 32               # (c)'s new tokens (phase 4's)
+EXACT_ENC_PROMPT = 1056      # (c)'s encoding prompt: 11 chunks of the stride
+MESH_TIMEOUT = 900           # seconds a phase-7 group may take, and a collective may wait
+LOGIT_LIMIT = 1e-3           # (c), f32 KV: max |logits - one-process'| / max |one-process'|
+WRAP_SETS = 32               # (d): argument sets cycled in a timing (phase 5's 32 layers)
+SHARDED_META = {  # key: (wrapper, its kernel's source, the TPU wrapper it replaces)
+    "K1s": ("fused_decode_attend_inflight_sharded", "easykv_tpu_torch/csrc/decode_attention.cu",
+            "easykv_tpu/ops/pallas/decode_attention.py:338"),
+    "K2s": ("fused_write_update_sharded", "easykv_tpu_torch/csrc/sidecar_update.cu",
+            "easykv_tpu/ops/pallas/sidecar_update.py:360"),
+    "K4s": ("fused_evict_sharded", "easykv_tpu_torch/csrc/sidecar_update.cu",
+            "easykv_tpu/ops/pallas/sidecar_update.py:472"),
+    "K5s": ("fused_chunk_attend_sharded", "easykv_tpu_torch/csrc/chunk_attention.cu",
+            "easykv_tpu/ops/pallas/chunk_attention.py:348"),
+    "K6s": ("fused_chunk_write_attend_sharded", "easykv_tpu_torch/csrc/chunk_attention.cu",
+            "easykv_tpu/ops/pallas/chunk_attention.py:844"),
+    "K7s": ("fused_chunk_step_sharded", "easykv_tpu_torch/csrc/chunk_attention.cu",
+            "easykv_tpu/ops/pallas/chunk_attention.py:1199"),
+}
+
+
+class RankFailure(Exception):
+    pass
+
+
+def need(cond, msg):
+    """check() inside a rank: the rank reports the failure to phase 7."""
+    if not cond:
+        raise RankFailure(msg)
+
+
+def rank_main(rank, world, data, model, backend, tmp, job, ctx):
+    """One rank of a phase-7 group: joins the group's process group (a
+    file:// rendezvous in `tmp`), makes the (data, model) mesh on card
+    rank % device_count(), runs JOBS[job] and pickles what it found (and any
+    failure) to tmp/rank{rank}.pkl for the parent."""
+    out = {"lines": []}
+    try:
+        parallel_mod.init_distributed(backend, "file://" + os.path.join(tmp, "rendezvous"),
+                                      world, rank, timeout_s=MESH_TIMEOUT)
+        mc = MeshConfig(data, model)
+        mesh = parallel_mod.make_mesh(mc, "cuda")
+        out["device"] = str(mesh.device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            JOBS[job](mesh, mc, ctx, out)
+    except BaseException:  # noqa: BLE001 - every failure goes back to the parent
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    if "error" in out:
+        os._exit(1)      # the other ranks' collectives then fail instead of waiting
+
+
+def spawn_ranks(job, data, model, ctx):
+    """JOBS[job] on a (data, model) mesh of data * model spawned ranks:
+    NCCL when the machine has a card a rank, else gloo (several ranks a
+    card; NCCL refuses that). Returns (backend, each rank's results); a rank
+    that fails fails the phase."""
+    world = data * model
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    mp = importlib.import_module("multiprocessing").get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="easykv_mesh_") as tmp:
+        ctx = dict(ctx, tmp=tmp)
+        procs = [mp.Process(target=rank_main, args=(r, world, data, model, backend, tmp, job,
+                                                     ctx)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + MESH_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        res = []
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+                p.join()
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            check(os.path.exists(path), f"phase 7 {job}: rank {r} left no result "
+                  f"(exit code {p.exitcode})")
+            with open(path, "rb") as f:
+                res.append(pickle.load(f))
+        for r, x in enumerate(res):
+            if "error" in x:
+                print(f"phase 7 {job}: rank {r}'s results before it failed: "
+                      f"{ {k: v for k, v in x.items() if k != 'error'} }"[:6000])
+            check("error" not in x, f"phase 7 {job} ({data}, {model}): rank {r} failed:\n"
+                  f"{x.get('error', '')[-4000:]}")
+    return backend, res
+
+
+def local(t, spec, mesh):
+    """This rank's shard of a global tensor under spec."""
+    return parallel_sharding._shard(t, spec, mesh, t.device)
+
+
+def gathered(t, mesh, mc, hdim):
+    """The global tensor from every rank's shard: rows (dim hdim - 1) over
+    data, heads (dim hdim) over model."""
+    t = parallel_mesh.all_gather_cat(t, mesh, mc.axis_model, hdim)
+    return parallel_mesh.all_gather_cat(t, mesh, mc.axis_data, hdim - 1)
+
+
+def bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def float_ok(got, ref):
+    """A float output of a kernel whose launch plan differs between the
+    shard and the whole (its sums run in another order): bf16 within one
+    ulp of the reference value plus 1e-3 (k1_out_limit), f32 within 1e-5 of
+    max(1, max |ref|)."""
+    err = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        return bool((err <= k1_out_limit(ref)).all())
+    return err.max().item() <= 1e-5 * max(1.0, ref.float().abs().max().item())
+
+
+# the sharded wrappers' cases at 7B width: per wrapper, the arguments'
+# specs (a string a dimension: d, m, or . for whole), the outputs' head dim,
+# and the inputs it changes in place
+WRAP_SPECS = {
+    "K1s": (("dm..",) * 5 + ("dm.", "d"), 1),
+    "K2s": ((".dm.",) * 6 + ("d",) * 4, 2),
+    "K4s": ((".dm.",) * 4 + ("d",) * 4, 2),
+    "K5s": (("dm..",) * 3 + ("dm.", "d.", "dm.", "dm."), 1),
+    "K6s": (("dm..",) * 3 + ("dm.", "d.", "d.", "dm..", "dm..") + ("dm.",) * 6, 1),
+    "K7s": (("dm..",) * 3 + ("dm.", "d.", "d.", "d", "d", "d", "d", "dm..", "dm..")
+            + ("dm.",) * 6, 1),
+}
+K2_ROWS_SPEC = ".dm.."
+
+
+def _spec(code, mc):
+    return tuple({"d": mc.axis_data, "m": mc.axis_model, ".": None}[c] for c in code)
+
+
+def wrapper_calls(dev, mesh, mc):
+    """Per sharded wrapper: (unsharded kernel call, sharded call, plain
+    call) taking one argument set, the global sets at phase 5's shapes
+    (phase 3's decode at B = 1, S = 768; the int8 prefill's chunk; the int8
+    `encoding` run's triggered chunk at S = 2304), the sets of the shape
+    where the shard's launch plan equals the whole's (K1 at B = 8; K5, K6
+    and K7 with f32 queries, one attention run; K2 and K4 plan by S
+    alone), reps for the timings, whether the plans at phase 5's shape
+    coincide, and a restore for the calls that change their inputs."""
+    kw = dict(mesh=mesh, data_axis=mc.axis_data, model_axis=mc.axis_model)
+    st = enc_step_statics("roco")
+    H, D = 32, 128
+    cases = {}
+    # K1: phase 5's sets (32 layers' bf16 cache cycled)
+    _, _, sets, _, lib, _, _, _ = next(k1_time_cases(dev, ("K1",)))
+    wide = [tuple(a.repeat(8, *([1] * (a.dim() - 1))) for a in s[:7]) for s in sets[:2]]
+    same = (da_mod.split_plan(1, H, 1, S_MAIN, D, "bf16")
+            == da_mod.split_plan(1, H // mc.model, 1, S_MAIN, D, "bf16"))
+    cases["K1s"] = dict(kernel=lambda *a: k1(*a), sharded=lambda *a: k1s(*a, **kw),
+                        plain=lambda *a: k1_plain(*a), sets=sets, exact_sets=wide,
+                        reps=(320, 64), same_plan=same, lib=lib)
+    # K2: roco unfolded (no espec: the mesh's K2), given the step's bf16 rows
+    copies, run, nbytes, flops = k2_time_sets(dev, 1, S_MAIN, "bf16", rows=True)
+    k2_sets = []
+    for state, per_b, kwargs in copies:
+        rows = {k: kwargs[k] for k in ("k", "v", "kn", "vn")}
+        k2_sets.append(tuple(state) + tuple(per_b.values()) + tuple(rows[k] for k in
+                                                                     ("k", "v", "kn", "vn")))
+
+    def k2_call(fn):
+        return lambda *a: fn(*a[:10], "roco", k=a[10], v=a[11], kn=a[12], vn=a[13])
+    cases["K2s"] = dict(kernel=k2_call(k2), sharded=k2_call(lambda *a, **k: k2s(*a, **k, **kw)),
+                        plain=k2_call(k2_plain), sets=k2_sets, exact_sets=None, reps=(64, 8),
+                        same_plan=True, bound=(nbytes, flops, F32_FLOPS))
+    # K4: roco, the gate on (phase 5's sets)
+    k4_sets, _, _ = k4_time_sets(dev, 1, S_MAIN)
+    spec = k4_sets[0][8]
+    cases["K4s"] = dict(kernel=lambda *a: k4(*a[:8], spec),
+                        sharded=lambda *a: k4s(*a[:8], spec=spec, **kw),
+                        plain=lambda *a: k4_plain(*a[:8], spec), sets=[s[:8] for s in k4_sets],
+                        exact_sets=None, reps=(32, 8), same_plan=True)
+    # K5: the int8 prefill's last chunk (phase 5's sets), no statistics
+    k5_sets = [k5_case(1, H, H, PROMPT, torch.bfloat16, True, False, dev, 90 + l)
+               for l in range(WRAP_SETS)]
+    k5_f32 = [k5_case(1, H, H, PROMPT, torch.float32, True, False, dev, 95 + l)
+              for l in range(2)]
+    same = (chunk_mod.attend_splits(1, H, 1, CHUNK, S_MAIN)
+            == chunk_mod.attend_splits(1, H // mc.model, 1, CHUNK, S_MAIN))
+    cases["K5s"] = dict(kernel=lambda *a: k5(*a, need_scores=False),
+                        sharded=lambda *a: k5s(*a, need_scores=False, **kw),
+                        plain=lambda *a: k5_plain(*a, need_scores=False), sets=k5_sets,
+                        exact_sets=k5_f32, reps=(64, 16), same_plan=same)
+    # K6: the int8 `encoding` run's triggered chunk (phase 5's sets)
+    k6_sets = [k6_case(1, H, H, torch.bfloat16, True, True, True, dev, 130 + l)
+               for l in range(WRAP_SETS)]
+    k6_f32 = [k6_case(1, H, H, torch.float32, True, True, True, dev, 135 + l) for l in range(2)]
+    same = (chunk_mod.attend_splits(1, H, 1, STRIDE, ENC_S)
+            == chunk_mod.attend_splits(1, H // mc.model, 1, STRIDE, ENC_S))
+    cases["K6s"] = dict(kernel=lambda *a: k6(*a), sharded=lambda *a: k6s(*a, **kw),
+                        plain=lambda *a: k6_plain(*a), sets=k6_sets, exact_sets=k6_f32,
+                        reps=(32, 8), same_plan=same)
+    # K7: roco at that chunk, gates on (phase 5's sets), each call from its
+    # untouched state
+    k7_sets = [list(k7_case(1, H, H, "int8", [(True, True)], dev, 330 + l))
+               for l in range(WRAP_SETS)]
+    k7_f32 = [list(k7_case(1, H, H, "int8", [(True, True)], dev, 335 + l, dtype=torch.float32))
+              for l in range(2)]
+    cases["K7s"] = dict(kernel=lambda *a: k7(*a, policy="roco", **st),
+                        sharded=lambda *a: k7s(*a, policy="roco", **st, **kw),
+                        plain=lambda *a: k7_plain(*a, policy="roco", **st), sets=k7_sets,
+                        exact_sets=k7_f32, reps=(32, 32), same_plan=same, restore_from=10)
+    return cases
+
+
+def restorer(sets, i0):
+    """For calls that change sets' arguments from index i0 on in place (K7):
+    a function that puts them back (graph_ms's restore); None for i0 None."""
+    if i0 is None:
+        return None
+    pristine = [[a.clone() for a in x[i0:]] for x in sets]
+
+    def restore():
+        for x, p in zip(sets, pristine):
+            for a, b in zip(x[i0:], p):
+                a.copy_(b)
+    return restore
+
+
+def sdpa_ms(sets, at):
+    """The library yardstick of K5 / K6 on these sets (phase 5's): one
+    scaled_dot_product_attention over a bf16 copy of the int8 cache (K, V
+    and their scales at sets[at], [at + 1], [-2], [-1]) dequantized
+    beforehand, with the same mask; K6's sets already hold the written
+    chunk."""
+    deq = [(a[0], (a[at].float() * a[-2][..., None]).to(torch.bfloat16),
+            (a[at + 1].float() * a[-1][..., None]).to(torch.bfloat16),
+            (a[at + 2][:, :, None, :] >= 0)
+            & (a[at + 2][:, :, None, :] <= a[4][:, None, :, None])) for a in sets]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return graph_ms(lambda q_, k_, v_, m_: sdpa(q_, k_, v_, attn_mask=m_), deq, 64)
+
+
+def _outputs(res, args, key):
+    """A wrapper's outputs as a flat list: its results, then the inputs it
+    changes in place (K2's k and v rows, K6's and K7's cache arrays)."""
+    if key == "K7s":
+        o, arrs, wm = res
+        return [o, *arrs, wm]
+    res = list(res) if isinstance(res, (tuple, list)) else [res]
+    if key == "K2s":
+        return res[:5] + list(args[10:12])
+    if key == "K6s":
+        return res + list(args[6:])
+    return res
+
+
+def _compare(case, key, args, mesh, mc, hdim, specs):
+    """The sharded call on this rank's shards, gathered, against the
+    unsharded kernel on copies of the global args: (max |err|, bits equal,
+    floats within the limit, integers equal)."""
+    ref_args = [a.clone() for a in args]
+    mine = [local(a, _spec(s, mc), mesh) for a, s in zip(args, specs)]
+    got = _outputs(case["sharded"](*mine), mine, key)
+    ref = _outputs(case["kernel"](*ref_args), ref_args, key)
+    err, bits, floats, ints = 0.0, True, True, True
+    for g, r in zip(got, ref):
+        if g is None:
+            continue
+        full = gathered(g, mesh, mc, hdim)
+        bits &= bits_equal(full, r)
+        if r.is_floating_point():
+            err = max(err, (full.float() - r.float()).abs().max().item())
+            floats &= float_ok(full, r)
+        else:
+            ints &= torch.equal(full, r)
+    return err, bits, floats, ints
+
+
+def sharded_wrappers(mesh, mc, out):
+    """(d): each sharded wrapper at 7B width against the unsharded launch of
+    its kernel on the same global inputs, each rank's outputs gathered:
+    bit-identical where the shard's launch plan is the whole's (always at
+    the plan-coincident shape), else floats within float_ok and integers
+    equal (K7's victims follow its statistics, so only bits at the
+    plan-coincident shape). Rank 0 then times the sharded call on its shard
+    (graph_ms, as phase 5), the plain version on the shard and the
+    unsharded kernel on the global sets, while the other ranks wait."""
+    dev = mesh.device
+    rec = {}
+    for key, case in wrapper_calls(dev, mesh, mc).items():
+        specs, hdim = WRAP_SPECS[key]
+        if key == "K2s":
+            specs = specs + (K2_ROWS_SPEC,) * 4
+        err, bits, floats, ints = _compare(case, key, case["sets"][0], mesh, mc, hdim, specs)
+        if case["same_plan"]:
+            need(bits, f"{key} at phase 5's shape (the same launch plan): not bit-identical, "
+                 f"max |err| {err:.3e}")
+        else:
+            need(floats and (ints or key == "K7s"), f"{key}: floats within the limit {floats}, "
+                 f"integers equal {ints}, max |err| {err:.3e}")
+        exact_bits = True
+        for s in case["exact_sets"] or ():
+            e2, b2, _, _ = _compare(case, key, s, mesh, mc, hdim, specs)
+            exact_bits &= b2
+            need(b2, f"{key} at the plan-coincident shape: not bit-identical ({e2:.3e})")
+        rec[key] = dict(max_abs_err=err, bits=bits, same_plan=case["same_plan"],
+                        exact_bits=exact_bits if case["exact_sets"] else None)
+        if mesh.rank == 0:
+            mine = [[local(a, _spec(s, mc), mesh) for a, s in zip(args, specs)]
+                    for args in case["sets"]]
+            i0 = case.get("restore_from")
+            restore, restore_whole = restorer(mine, i0), restorer(case["sets"], i0)
+            reps, plain_reps = case["reps"]
+            n = len(mine) if i0 else reps
+            rec[key].update(
+                ms=graph_ms(case["sharded"], mine, n, restore),
+                plain_ms=graph_ms(case["plain"], mine, n if i0 else plain_reps, restore),
+                whole_ms=graph_ms(case["kernel"], case["sets"], n, restore_whole),
+                library_ms=(k1_library_ms([m_[:7] for m_ in mine], False) if key == "K1s"
+                            else sdpa_ms(mine, 6 if key == "K6s" else 1)
+                            if key in ("K5s", "K6s") else None))
+            if "bound" in case:
+                nbytes, flops, peak = case["bound"]
+                t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+                rec[key]["whole_bound"] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+            del mine
+        parallel_mesh.barrier(mesh)
+        del case
+        torch.cuda.empty_cache()
+    out["wrappers"] = rec
+
+
+def mesh_decode(mesh, mc, ctx, out, kvs, B):
+    """(a) / (b): phase 3's decode (its 512-token prompt, or its B = 4
+    prompts, roco at budget 200, greedy) for TP_NEW new tokens through
+    generate() under the mesh, on this rank's shards of the LLaMa-2-7B bf16
+    tree drawn from seed 0, for each KV cache dtype in kvs. Per rank: tok/s,
+    prefill s, peak memory, launches (exact: 32 K1 on Hkv / m local heads, one
+    K2 unfolded with the rows, one K4 a step, K14 / K15 never, 128 K5 with
+    int8 KV, each through its sharded wrapper), and the final cache (every
+    (layer, row, head) holds the prompt and 200 generated tokens)."""
+    dev, cfg, L = mesh.device, LLAMA2_7B, LLAMA2_7B.num_hidden_layers
+    full = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sp = parallel_mod.shard_params(full, cfg, mc, mesh)
+    del full
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(0)
+    prompts = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)
+    ids = prompts[0].tolist() if B == 1 else prompts[:B].numpy()
+    gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=TP_NEW, temperature=1e-9,
+              top_p=1.0, eos_token_ids=[], seed=0)
+    flags.set_active_mesh(mesh, mc.axis_data, mc.axis_model)
+    res = {}
+    try:
+        for kv in kvs:
+            model = easykv_tpu_torch.CausalLM(cfg, sp, device=dev, kv_quant=kv == "int8")
+            easykv_tpu_torch.generate(model, ids, dict(gc, max_new_tokens=8), kv_mode="decoding")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            with engine_caches() as made:
+                toks = easykv_tpu_torch.generate(model, ids, gc, kv_mode="decoding")
+            c = counts()
+            st = model.last_run
+            cache = made[-1]
+            Bl = cache.pos.shape[1]
+            n_k5 = L * PROMPT // CHUNK if kv == "int8" else 0
+            want = zero_counts(K1=L * TP_NEW, K1s=L * TP_NEW, K2=TP_NEW, K2s=TP_NEW,
+                               **{"K2 rows": TP_NEW}, K4=TP_NEW, K4s=TP_NEW, K5=n_k5, K5s=n_k5)
+            need(c == want, f"{kv} B={B}: launches {c}, want {want}")
+            need(tuple(cache.pos.shape) == (L, B // mc.data, cfg.num_key_value_heads // mc.model,
+                                            S_MAIN),
+                 f"{kv}: the rank's cache is {tuple(cache.pos.shape)}")
+            kept = (cache.pos >= PROMPT).sum(-1)
+            need(bool((kept == BUDGET).all()) and bool(((cache.pos >= 0).sum(-1)
+                                                        == PROMPT + BUDGET).all()),
+                 f"{kv}: generated tokens kept per (layer, row, head) {kept.unique().tolist()}")
+            need(len(toks) == TP_NEW and st.logits_finite, f"{kv}: bad output / NaN logits")
+            need(st.graph_nodes == 0 or mesh.backend == "nccl",
+                 f"{kv}: a gloo step was captured")
+            res[kv] = dict(tokens=toks, kv_len=st.kv_len, tok_s=B * st.n_tokens / st.decode_s,
+                           prefill_s=st.prefill_s, decode_s=st.decode_s, counts=c,
+                           peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                           local=(Bl, cache.pos.shape[2]), graph=st.graph_nodes)
+            del made, cache, model
+            torch.cuda.empty_cache()
+    finally:
+        flags.set_active_mesh(None)
+    out["decode"] = res
+    return sp
+
+
+def mesh_load(mesh, mc, ctx, out, sp):
+    """(e): this rank's shard of the LLaMa-2-7B bf16 checkpoint (the parent
+    wrote it with save_checkpoint), read with load_checkpoint(mesh=),
+    bit-identical to shard_params of the in-memory tree."""
+    dev = mesh.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, loaded = ckpt_mod.load_checkpoint(ctx["ckpt"], mesh=mesh, mesh_config=mc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = trees_identical(loaded, sp)
+    need(cfg == LLAMA2_7B and same, "load_checkpoint(mesh=) differs from shard_params")
+    out["load"] = dict(secs=secs, gb=tree_bytes(loaded) / 1e9, same=same,
+                       device=str(dev))
+
+
+def int4_mesh_tree(full, m):
+    """The split int4 arithmetic tree (quantize_params_int4, groups of
+    128) with each row-parallel product's group shrunk until a shard of its
+    in-rows holds whole groups in both halves (parallel/sharding.py): wd's
+    11008 / 2 in-rows are 43 groups of 128, so wd takes groups of 64."""
+    tree = quant_mod.quantize_params_int4(full, layout="arith")
+    for p, src in zip(tree.layers, full.layers):
+        for name in ("wo", "wd"):
+            K = getattr(src, name).shape[0]
+            G = 128
+            while (K // m) % (2 * G):
+                G //= 2
+            if G != 128:
+                setattr(p, name, quant_mod.quantize_linear_int4(getattr(src, name).detach(), G,
+                                                                "arith"))
+    return tree
+
+
+EXACT_CASES = {   # (c): name -> (tree, KV, kv_mode, policy, flags)
+    "f32 KV decoding": ("f32", "f32", "decoding", "roco", {}),
+    "int8 KV decoding": ("f32", "int8", "decoding", "roco", {}),
+    "int8 tree decoding": ("int8", "f32", "decoding", "roco", {}),
+    "int4 arith split tree decoding": ("int4", "f32", "decoding", "roco", {}),
+    "f32 KV encoding, chunk kernels and K7": ("f32", "f32", "encoding", "roco",
+                                              {"chunk": True, "step": True}),
+    "f32 KV tova encoding, chunk kernels": ("f32", "f32", "encoding", "tova", {"chunk": True}),
+}
+EXACT_BY_MESH = {(1, 2): list(EXACT_CASES), (2, 1): ["f32 KV decoding", "int8 KV decoding"],
+                 (2, 2): ["f32 KV decoding", "int8 KV decoding"]}
+
+
+def exact_run(model, ids, name, mesh, mc):
+    """One (c) run through generate(), its decode loop eager (a gloo mesh's
+    is): (every row's tokens, gathered over data; this rank's final cache
+    pos; every step's logits; launches)."""
+    _, kv, mode, policy, fl = EXACT_CASES[name]
+    gc = dict(budget=8 if mode == "decoding" else 0.5, kv_policy=policy,
+              max_new_tokens=EXACT_NEW, temperature=1e-9, top_p=1.0, eos_token_ids=[], seed=0)
+    logits = []
+    tail = llama_mod._logits_tail
+
+    def keep(*a):
+        logits.append(tail(*a))
+        return logits[-1]
+    flags.use_step_kernel(fl.get("step"))
+    flags.use_chunk_kernel(fl.get("chunk"))
+    if mesh is not None:
+        flags.set_active_mesh(mesh, mc.axis_data, mc.axis_model)
+    reset_counts()
+    try:
+        with contextlib.ExitStack() as stack:
+            # eager on both sides, so that every step's logits are recorded
+            stack.enter_context(flags.eager_decode_loop())
+            rows = stack.enter_context(recorded("_gather_result", last_only=True))
+            made = stack.enter_context(engine_caches())
+            stack.enter_context(mock.patch.object(llama_mod, "_logits_tail", keep))
+            easykv_tpu_torch.generate(model, ids, gc, kv_mode=mode,
+                                      stride=STRIDE if mode == "encoding" else 1)
+    finally:
+        flags.set_active_mesh(None)
+        flags.use_step_kernel(None)
+        flags.use_chunk_kernel(None)
+    return rows[-1].out_ids.cpu(), made[-1].pos, logits, counts()
+
+
+def mesh_exact(mesh, mc, ctx, out):
+    """(c): at full width with L = 2 and f32 weights, each case of this
+    mesh's EXACT_BY_MESH through generate() without a mesh (this rank, the
+    whole tree) and under it (its shards): equal tokens in every row; with
+    an f32 cache also this rank's final pos equal to the whole cache's at
+    its rows and heads, and every logits row within LOGIT_LIMIT of the
+    one-process one. With an int8 cache the positions and logits are
+    printed: the row-parallel products sum in another order, so an int8
+    rounding of K or V can flip by one step past layer 0, and roco then
+    keeps another slot (phase 4's standard for the kernel path against the
+    plain one)."""
+    dev = mesh.device
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
+    full = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
+    g = torch.Generator().manual_seed(1)
+    res = {}
+    for name in EXACT_BY_MESH[(mc.data, mc.model)]:
+        tree_kind, kv, mode = EXACT_CASES[name][:3]
+        tree = {"f32": lambda: full, "int8": lambda: quant_mod.quantize_params(full),
+                "int4": lambda: int4_mesh_tree(full, mc.model)}[tree_kind]()
+        T = PROMPT if mode == "decoding" else EXACT_ENC_PROMPT
+        ids = torch.randint(1, cfg.vocab_size, (2, T), generator=g).numpy()
+        runs = []
+        for m_ in (None, mesh):
+            params = tree if m_ is None else parallel_mod.shard_params(tree, cfg, mc, mesh)
+            model = easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=kv == "int8")
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs.append(exact_run(model, ids, name, m_, mc))
+            del model, params
+        (rows0, pos0, log0, _), (rows1, pos1, log1, c) = runs
+        r0, n = parallel_mesh.rows_of(mesh, mc.axis_data, 2)
+        h = pos0.shape[2] // mc.model
+        hi = mesh.index(mc.axis_model)
+        want_pos = pos0[:, r0:r0 + n, hi * h:(hi + 1) * h]
+        rel = max(((a - b.narrow(0, r0, n) if a.shape[0] != b.shape[0] else a - b)
+                   .abs().max().item() / b.abs().max().item()) for a, b in zip(log1, log0))
+        same_tok = torch.equal(rows0, rows1)
+        diff = (pos1 != want_pos).flatten(1).sum(1).tolist()     # per layer
+        need(same_tok and len(log0) == len(log1), f"(c) {name}: tokens equal {same_tok}")
+        need(kv == "int8" or (sum(diff) == 0 and rel <= LOGIT_LIMIT),
+             f"(c) {name}: final pos differing per layer {diff}, logits rel err {rel:.2e} "
+             f"(limit {LOGIT_LIMIT:g})")
+        res[name] = dict(rel=rel, tokens=tuple(rows1.shape), counts=c, diff_pos=diff, kv=kv)
+        if tree is not full:
+            del tree
+        torch.cuda.empty_cache()
+    out["exact"] = res
+
+
+def mesh_serving(mesh, mc, ctx, out):
+    """(c) serving at (2, 1): ScheduledBatchEngine over serving run (b)'s
+    requests (cut to 32 new tokens, budget 8, as phase 4; sampled, T=1.0,
+    top_p 0.95) at full width, L = 2, f32 weights and KV: without a mesh, under
+    the mesh (the slots sharded over data), and under the mesh snapshotted
+    after 24 ticks (each rank its shard, rank 0 the host state, into one
+    directory) and resumed: equal outputs."""
+    dev = mesh.device
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
+    full = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
+    prompts = serving_prompts(SMALL_REQS, cfg.vocab_size, 1)
+    kw = dict(batch_slots=SMALL_SLOTS, max_prompt=SERVE_MAX_PROMPT, budget=8, kv_policy="roco",
+              temperature=1.0, top_p=0.95, prefill_chunk=CHUNK, seed=7)
+    model = easykv_tpu_torch.CausalLM(cfg, full, device=dev)
+    single = scheduled_outputs(model, prompts, 32, **kw)
+    mkw = dict(kw, mesh=mesh, mesh_config=mc)
+    reset_counts()
+    whole = scheduled_outputs(model, prompts, 32, **mkw)
+    c = counts()
+    path = os.path.join(ctx["tmp"], "engine.snap")
+    resumed, _ = scheduled_outputs(model, prompts, 32, 24, path, **mkw)
+    need(whole == single and resumed == whole and os.path.isdir(path),
+         f"(c) serving: mesh = one process {whole == single}, resumed = whole "
+         f"{resumed == whole}")
+    need(c["K1s"] > 0 and c["K2s"] > 0 and c["K4s"] > 0, f"(c) serving: launches {c}")
+    out["serving"] = dict(requests=len(prompts), equal=True, counts=c,
+                          files=sorted(os.listdir(path)))
+
+
+def job_tp(mesh, mc, ctx, out):
+    """Mesh (1, 2): (d), (a), (e), then (c)."""
+    sharded_wrappers(mesh, mc, out)
+    sp = mesh_decode(mesh, mc, ctx, out, ("bf16", "int8"), 1)
+    mesh_load(mesh, mc, ctx, out, sp)
+    del sp
+    torch.cuda.empty_cache()
+    mesh_exact(mesh, mc, ctx, out)
+
+
+def job_dp(mesh, mc, ctx, out):
+    """Mesh (2, 1): (b), then (c) and its serving run."""
+    sp = mesh_decode(mesh, mc, ctx, out, ("int8",), B_WIDE)
+    del sp
+    torch.cuda.empty_cache()
+    mesh_exact(mesh, mc, ctx, out)
+    mesh_serving(mesh, mc, ctx, out)
+
+
+def job_exact(mesh, mc, ctx, out):
+    """Mesh (2, 2): (c)."""
+    mesh_exact(mesh, mc, ctx, out)
+
+
+JOBS = {"tp": job_tp, "dp": job_dp, "exact": job_exact}
+
+
+def exact_note(x):
+    """A (c) case's line: what was held and what was read."""
+    if x["kv"] == "int8":
+        return (f"tokens of both rows equal; rank 0's final pos differing per layer "
+                f"{x['diff_pos']}, logits rel err {x['rel']:.2e} (int8 KV: read, no limit)")
+    return (f"tokens of both rows equal, final pos equal, logits rel err {x['rel']:.2e} "
+            f"(limit {LOGIT_LIMIT:g})")
+
+
+def first_difference(a, b):
+    """The first position at which two token lists part (None: they do not)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_parallel(dev, runs, times, k7t):
+    """Phase 7: tensor and data parallelism over a (data, model) mesh of
+    spawned ranks (torch.distributed; gloo with several ranks a card),
+    each on its own shards: (1, 2) runs (d), (a), (e) and (c); (2, 1) runs
+    (b) and (c) with serving; (2, 2) runs (c). Returns the six sharded
+    wrappers' kernels-line records."""
+    cfg = LLAMA2_7B
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="easykv_tp_ckpt_") as ckpt:
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        t0 = time.perf_counter()
+        n = ckpt_mod.save_checkpoint(ckpt, cfg, params)
+        print(f"phase 7: (e) the bf16 tree (seed 0) saved for the ranks: {n} bytes in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        backend, tp = spawn_ranks("tp", 1, 2, dict(ckpt=ckpt))
+    cards = torch.cuda.device_count()
+    loop = "graph (nccl)" if backend == "nccl" else "eager (gloo)"
+    print(f"phase 7: mesh (data=1, model=2): backend {backend}, {cards} card(s), ranks on "
+          f"{[r['device'] for r in tp]}, decode loop {loop}; {time.perf_counter() - t0:.1f} s")
+    for kv in ("bf16", "int8"):
+        ranks = [r["decode"][kv] for r in tp]
+        p3 = runs[f"{kv} roco"]
+        part = first_difference(ranks[0]["tokens"], p3["tokens"][:TP_NEW])
+        same_ranks = all(r["tokens"] == ranks[0]["tokens"] and r["kv_len"] == ranks[0]["kv_len"]
+                         for r in ranks)
+        print(f"phase 7: (a) TP {kv} KV roco b={BUDGET}, {PROMPT}-token prompt, {TP_NEW} new: "
+              + "; ".join(f"rank {i}: {r['tok_s']:.2f} tok/s, prefill {r['prefill_s']:.3f} s, "
+                          f"peak {r['peak_gib']:.2f} GiB, local (B, Hkv) {r['local']}"
+                          for i, r in enumerate(ranks))
+              + f"; phase 3 one card: {p3['tok_s']:.2f} tok/s (graph), prefill "
+              f"{p3['prefill_s']:.3f} s, peak {p3['peak_gib']:.2f} GiB; tokens part from "
+              f"phase 3's at {part if part is not None else 'no position'} (no limit); "
+              f"ranks agree {same_ranks}, kv_len {ranks[0]['kv_len']}; launches a rank "
+              f"{ranks[0]['counts']}")
+        check(same_ranks, f"(a) {kv}: the ranks' tokens or kv_len differ")
+    ld = [r["load"] for r in tp]
+    print(f"phase 7: (e) load_checkpoint(mesh=) of the 7B bf16 checkpoint: " + "; ".join(
+        f"rank {i} {x['gb']:.3f} GB in {x['secs']:.2f} s, bit-identical to shard_params "
+        f"{x['same']}" for i, x in enumerate(ld)))
+    records = []
+    w = tp[0]["wrappers"]
+    launches = {"K1s": tp[0]["decode"]["bf16"]["counts"]["K1s"],
+                "K2s": tp[0]["decode"]["bf16"]["counts"]["K2s"],
+                "K4s": tp[0]["decode"]["bf16"]["counts"]["K4s"],
+                "K5s": tp[0]["decode"]["int8"]["counts"]["K5s"],
+                "K6s": tp[0]["exact"]["f32 KV tova encoding, chunk kernels"]["counts"]["K6s"],
+                "K7s": tp[0]["exact"]["f32 KV encoding, chunk kernels and K7"]["counts"]["K7s"]}
+    whole_keys = {"K1s": ("K1", "bf16"), "K4s": ("K4", "-"), "K5s": ("K5", "int8"),
+                  "K6s": ("K6", "int8")}
+    for key, (name, src, repl) in SHARDED_META.items():
+        r = w[key]
+        if key == "K7s":
+            bound, by = k7t[("K7", "int8")]["bound_ms"], k7t[("K7", "int8")]["bound_by"]
+        elif key == "K2s":
+            bound, by = r["whole_bound"]
+        else:
+            t = times[whole_keys[key]]
+            bound, by = t["bound_ms"], t["bound_by"]
+        bound /= 2            # every term but a few bytes a row is per (row, kv-head)
+        check(launches[key] > 0, f"phase 7: {name} was not launched on the main path")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        print(f"phase 7: (d) {name} at 7B width on a (1, 2) shard: {r['ms'] * 1e3:.2f} us a call "
+              f"(the unsharded kernel on the whole {r['whole_ms'] * 1e3:.2f} us), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound {bound * 1e3:.2f} us ({by}); "
+              f"gathered against the unsharded launch: launch plan the same {r['same_plan']}, "
+              f"bit-identical {r['bits']} (max |err| {r['max_abs_err']:.3e}), at the "
+              f"plan-coincident shape bit-identical {r['exact_bits']}; {launches[key]} "
+              f"launches on rank 0's main-path run")
+        records.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches[key], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound,
+                        "bound_by": by, "library_ms": r["library_ms"]})
+    for name, x in tp[0]["exact"].items():
+        print(f"phase 7: (c) (1, 2) L=2 f32 weights, {name}: {exact_note(x)}; launches "
+              f"{x['counts']}")
+
+    t0 = time.perf_counter()
+    backend, dp = spawn_ranks("dp", 2, 1, {})
+    ranks = [r["decode"]["int8"] for r in dp]
+    p3 = runs[f"int8 roco B={B_WIDE}"]
+    part = first_difference(ranks[0]["tokens"], p3["tokens"][:TP_NEW])
+    print(f"phase 7: (b) DP mesh (data=2, model=1), backend {backend}: int8 KV roco b={BUDGET}, "
+          f"B={B_WIDE} ({B_WIDE // 2} rows a rank), {TP_NEW} new: " + "; ".join(
+              f"rank {i}: {r['tok_s']:.2f} tok/s, prefill {r['prefill_s']:.3f} s, peak "
+              f"{r['peak_gib']:.2f} GiB" for i, r in enumerate(ranks))
+          + f"; phase 3 one card: {p3['tok_s']:.2f} tok/s; row 0's tokens part from phase 3's at "
+          f"{part if part is not None else 'no position'}; launches a rank {ranks[0]['counts']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks), "(b): ranks disagree")
+    for name, x in dp[0]["exact"].items():
+        print(f"phase 7: (c) (2, 1) L=2 f32 weights, {name}: {exact_note(x)}")
+    s = dp[0]["serving"]
+    print(f"phase 7: (c) (2, 1) serving, {s['requests']} requests, sampled: mesh = one process = "
+          f"snapshot after 24 ticks and resumed; snapshot files {s['files']}")
+    t0 = time.perf_counter()
+    backend, ex = spawn_ranks("exact", 2, 2, {})
+    for name, x in ex[0]["exact"].items():
+        print(f"phase 7: (c) (2, 2) L=2 f32 weights, {name}: {exact_note(x)}")
+    print(f"phase 7: mesh (2, 2), 4 ranks, backend {backend}: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3971,6 +4680,7 @@ def main():
     torch.cuda.empty_cache()
     k15_control(dev)
     phase_loading(dev, runs)
+    sharded = phase_parallel(dev, runs, times, k7t)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",
@@ -4044,6 +4754,7 @@ def main():
     kernels += quant_records(qtimes, errs, runs)
     kernels += k14_records(ktimes, runs)
     kernels += k15_records(btimes, runs)
+    kernels += sharded
     print("phase 5: K5 launches in the encoding family's runs: " + ", ".join(
         f"{run} {r['counts']['K5']}" for run, r in runs.items()
         if "encod" in run or "ppl" in run))

@@ -1,5 +1,5 @@
 """Configuration dataclasses for the PyTorch port (counterpart of
-easykv_tpu/config.py:17-135; the mesh layout waits for the parallel slice).
+easykv_tpu/config.py: ModelConfig, GenerationConfig, MeshConfig).
 
 Knob names mirror the reference generation_config dict (reference
 easykv/easykv.py:200-210): budget, kv_policy, stride, temp_length,
@@ -120,6 +120,24 @@ class GenerationConfig:
 
     def with_policy(self) -> "GenerationConfig":
         return dataclasses.replace(self, kv_policy=canonical_policy(self.kv_policy))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout (easykv_tpu/config.py:138-153): `data` shards the
+    batch, `model` shards attention heads, the MLP, the LM head's vocab and
+    the budgeted KV ring buffer. Eviction is per (layer, kv-head), so the
+    score / evict / attend loop never crosses a model shard
+    (parallel/mesh.py)."""
+
+    data: int = 1
+    model: int = 1
+    axis_data: str = "data"
+    axis_model: str = "model"
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
 
 
 def resolve_device(device=None):

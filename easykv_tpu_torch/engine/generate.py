@@ -40,6 +40,21 @@ ALL_DONE_CHECK_EVERY steps (only when there are EOS ids to stop on).
 Tokens after EOS are -1. On the card the decode loop replays a CUDA graph
 of one step (the JAX package's on-device while_loop), so no kernel of a
 step waits for the host; flags.eager_decode_loop runs it eagerly there too.
+
+Under a (data, model) mesh (flags.set_active_mesh; parallel/) every rank
+calls generate with the same global batch and the same config, and gets the
+same result: the rank runs its B / d rows (EngineStatics.row0, .batch) on
+its shards (parallel.local_config: Hkv / m kv-heads; the engine's cache is
+allocated as the rank's (B / d, Hkv / m) shard), the `random` policy's and
+the sampler's draws are made for the global batch and sliced, so a row
+draws what it draws in the unsharded run, and every host-side number read
+from the run (tokens, counts, kv_len, the budget-ratio line, ppl, the
+confidence line) is gathered over `data` first (_gather_rows). Gloo
+collectives cannot be captured in a CUDA graph: under a gloo mesh the
+decode loop runs eagerly (decode_graph_ok). Pre-rotated StreamingLLM
+`decoding` under a mesh is not run here (the JAX package compacts it in XLA
+with the rotation; the port's compaction with the rotation is K2's folded
+`compact` + K9, off under a mesh): use flags.use_prerot(False) there.
 """
 from __future__ import annotations
 
@@ -55,13 +70,15 @@ import torch
 
 from .. import flags
 from ..cache import KVCache, init_cache, quantize_kv
-from ..config import GenerationConfig, ModelConfig, resolve_device
+from ..config import GenerationConfig, MeshConfig, ModelConfig, resolve_device
 from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
 from ..ops.aux_math import confidence
 from ..ops.cuda import launch_counters
 from ..ops.cuda.kv_compact import fused_compact
 from ..ops.rope import rotate
+from ..parallel.mesh import all_gather_cat, all_reduce_min, rows_of
+from ..parallel.sharding import local_config
 from ..policies import (PHASE_DECODE, PHASE_ENCDEC_DECODE, PHASE_ENCODE, PolicySpec,
                         evict_cache)
 from ..sampling import sample_topp
@@ -129,6 +146,21 @@ class EngineStatics:
     keep_attention: bool = False
     streaming: bool = False     # StreamingLLM: RoPE by cache-relative position
     collect_stats: bool = False  # keep each step's token probability and confidence
+    # under a mesh (flags.tp_mesh()): (mesh, data_axis, model_axis); cfg is
+    # then this rank's (parallel.local_config) and its rows are [row0, row0 +
+    # B) of a batch of `batch` rows
+    tp: Optional[Tuple] = None
+    batch: Optional[int] = None
+    row0: int = 0
+
+    def rows(self) -> Optional[Tuple[int, int]]:
+        """(first row, global rows) of a rank's rows under a mesh (the
+        sampler's `rows`), None without one."""
+        return None if self.batch is None else (self.row0, self.batch)
+
+    def draw_rows(self, u: torch.Tensor, B: int, dim: int = 0) -> torch.Tensor:
+        """This rank's B rows of a draw u made for the global batch."""
+        return u if self.batch is None else u.narrow(dim, self.row0, B)
 
     def encode_spec(self) -> PolicySpec:
         return PolicySpec(
@@ -302,7 +334,8 @@ def _encode_schedule(st: EngineStatics, B: int, spec: PolicySpec,
     if spec.policy == "random":
         # uniform span start over ranks [0, S_enc - stride) (easykv.py:494-497)
         S_enc = idx + stride   # the reference's encode-phase buffer width
-        u = torch.rand((n, B), generator=generator, device=dev)
+        u = torch.rand((n, st.batch or B), generator=generator, device=dev)
+        u = st.draw_rows(u, B, dim=1)
         rand_rank = (u * (S_enc - stride)).to(torch.int32)
     else:
         rand_rank = torch.zeros((n, B), dtype=torch.int32, device=dev)
@@ -515,7 +548,8 @@ class _DecodeStep:
 
     def __call__(self) -> None:
         st, c, cache, spec = self.st, self.c, self.cache, self.spec
-        token = sample_topp(self.generator, c.lastlog, self.temperature, self.top_p)
+        token = sample_topp(self.generator, c.lastlog, self.temperature, self.top_p,
+                            rows=st.rows())
         c.out.index_copy_(1, c.n, torch.where(c.done, -1, token)[:, None])
         if st.collect_stats:
             raw = torch.softmax(c.lastlog / max(self.temperature, 1e-9), dim=-1)
@@ -535,7 +569,8 @@ class _DecodeStep:
             gate_b = torch.zeros_like(live)
             cinit = self.zeros_f
         if spec is not None and spec.policy == "random":
-            u = _uniform(self.generator, live.shape[0], live.device)
+            u = st.draw_rows(_uniform(self.generator, st.batch or live.shape[0], live.device),
+                             live.shape[0])
             if spec.phase == PHASE_DECODE:
                 # uniform over retained generated tokens (easykv.py:353-362)
                 n_rank = (c.g + 1).clamp(max=st.budget + 1)
@@ -624,6 +659,13 @@ def capture_step(step, generator: torch.Generator) -> CapturedStep:
     return CapturedStep(g, launches, time.perf_counter() - t0, nodes)
 
 
+def decode_graph_ok(tp: Optional[Tuple]) -> bool:
+    """Whether a decode step under the mesh `tp` (None: one card) may be
+    captured as a CUDA graph: not under gloo, whose collectives cannot be
+    captured (the loop then runs eagerly)."""
+    return tp is None or tp[0].backend == "nccl"
+
+
 def _drive(step: _DecodeStep, M: int, graph: bool) -> Tuple[float, int]:
     """Runs up to M steps, stopping early once every row is done (read back
     every ALL_DONE_CHECK_EVERY steps, only when there are EOS ids). Eager:
@@ -704,9 +746,12 @@ def _decode_loop(
     B = first_logits.shape[0]
     M = st.max_new_tokens
     dev = first_logits.device
-    graph = dev.type == "cuda" and flags.decode_graph_enabled()
+    graph = dev.type == "cuda" and flags.decode_graph_enabled() and decode_graph_ok(st.tp)
     ordered = st.streaming and st.mode == "decoding"
     prerot = ordered and flags.prerot_enabled()
+    if prerot and st.tp is not None:
+        raise NotImplementedError("pre-rotated StreamingLLM decoding under a mesh: run it with "
+                                  "flags.use_prerot(False) (K1 ordered, K4, K8 on each shard)")
     stream = ranks = None
     if st.streaming:
         kind = "prerotated" if prerot else "ordered" if ordered else "rank"
@@ -741,7 +786,9 @@ def _engine_cache(st: EngineStatics, B: int, S: int, dtype: torch.dtype,
                   device: torch.device) -> KVCache:
     """The slot count is rounded up to a multiple of 128: spare slots are
     inert (validity is pos >= 0, eviction is budget-gated), and the kernels'
-    measured shapes assume it."""
+    measured shapes assume it. Under a mesh st.cfg and B are the rank's, so
+    this is the rank's (B / d, Hkv / m) shard of the cache (the JAX
+    package's cache_pspecs constraint, generate.py:906-937 there)."""
     S = _round_up(S, 128)
     c = st.cfg
     return init_cache(c.num_hidden_layers, B, c.num_key_value_heads, S, c.head_dim,
@@ -962,6 +1009,29 @@ def _report_confidence(res: DecodeResult) -> None:
           f"min {tp.min():.4f}")
 
 
+def _gather_rows(st: EngineStatics, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The global batch's rows of a per-row result under a mesh (gathered
+    over `data`: every rank holds all of them), t itself without one."""
+    if st.tp is None or t is None:
+        return t
+    mesh, d_ax, _ = st.tp
+    return all_gather_cat(t, mesh, d_ax, dim=0)
+
+
+def _gather_result(st: EngineStatics, res: DecodeResult) -> DecodeResult:
+    """A DecodeResult of the global batch on every rank; `finite` holds
+    where every rank's logits were finite."""
+    if st.tp is None:
+        return res
+    mesh, d_ax, m_ax = st.tp
+    finite = all_reduce_min(res.finite.reshape(1), mesh, (d_ax, m_ax))[0]
+    return res._replace(out_ids=_gather_rows(st, res.out_ids),
+                        n_tokens=_gather_rows(st, res.n_tokens),
+                        kv_len=_gather_rows(st, res.kv_len), finite=finite,
+                        token_probs=_gather_rows(st, res.token_probs),
+                        confidence=_gather_rows(st, res.confidence))
+
+
 def _finalize(model: CausalLM, res: DecodeResult, kv_len: int, phases) -> list:
     """Record model.last_run and return row 0's tokens (decoded if a
     tokenizer is attached)."""
@@ -994,6 +1064,15 @@ def generate(
     gc = gc.with_policy()
     ids = _as_batch(input_ids)
     B, length = ids.shape
+    tp = flags.tp_mesh()
+    cfg, row0, batch = model.cfg, 0, None
+    if tp is not None:
+        # this rank's rows of the global batch, on this rank's shards
+        mesh, d_ax, m_ax = tp
+        cfg = local_config(model.cfg, MeshConfig(mesh.shape[d_ax], mesh.shape[m_ax], d_ax, m_ax))
+        row0, B = rows_of(mesh, d_ax, B)
+        batch = ids.shape[0]
+        ids = ids[row0:row0 + B]
     eos = gc.eos_token_ids
     if not eos and model.tokenizer is not None:
         tok_eos = getattr(model.tokenizer, "eos_token_id", None)
@@ -1010,10 +1089,11 @@ def generate(
         else:
             mode = "encoding_decoding"
 
-    base = dict(cfg=model.cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
+    base = dict(cfg=cfg, policy=gc.kv_policy, stride=stride, eos_token_ids=tuple(eos),
                 temp_length=gc.temp_length, keep_attention=gc.keep_attention,
                 max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant,
-                streaming=gc.streaming, collect_stats=report_decoding_latency)
+                streaming=gc.streaming, collect_stats=report_decoding_latency, tp=tp,
+                batch=batch, row0=row0)
     dev = model.device
     generator = torch.Generator(device=dev).manual_seed(gc.seed)
     temp, top_p = float(gc.temperature), float(gc.top_p)
@@ -1032,6 +1112,7 @@ def generate(
         res, _, prefill_s, decode_s = _run_decoding(
             st, model.params, torch.from_numpy(ids_pad).to(dev), prompt_len, temp, top_p,
             generator, model.dtype)
+        res = _gather_result(st, res)
         kv_len = int(res.kv_len[0])
         out = _finalize(model, res, kv_len, (prefill_s, 0.0, decode_s))
         retained, n_out = kv_len - length, model.last_run.n_tokens
@@ -1048,7 +1129,7 @@ def generate(
             # never streaming: the reference runs the whole document through
             # stock attention (the JAX package's _run_ppl_full)
             loss, prefill_s = _run_ppl_full(st, model.params, ids_t, model.dtype)
-            loss0 = float(loss[0])
+            loss0 = float(_gather_rows(st, loss)[0])
             model.last_run = RunStats(0, length, prefill_s, 0.0, math.isfinite(loss0))
             return float(np.exp(loss0))
         # full-cache encoding: no eviction at all (reference easykv.py:372-377)
@@ -1056,6 +1137,7 @@ def generate(
                            r_idx=length, **{**base, "policy": "full"})
         res, _, _, phases = _run_encoding(st, model.params, ids_t, temp, top_p, generator,
                                           model.dtype)
+        res = _gather_result(st, res)
         print(f"KV cache budget ratio: {length / length * 100:.2f}%({length}/{length})")
         return _finalize(model, res, int(res.kv_len[0]), phases)
 
@@ -1074,13 +1156,14 @@ def generate(
         if mode == "ppl":
             loss, kv_len, (prefill_s, encode_s) = _run_ppl(
                 st, model.params, ids_t, generator, model.dtype)
-            kv, loss0 = int(kv_len[0]), float(loss[0])
+            kv, loss0 = int(_gather_rows(st, kv_len)[0]), float(_gather_rows(st, loss)[0])
             model.last_run = RunStats(0, kv, prefill_s, 0.0, math.isfinite(loss0), encode_s)
             print(f"KV cache budget ratio: {kv / length * 100:.2f}%({kv}/{length})")
             return float(np.exp(loss0))
         res, kv_len, _, phases = _run_encoding(st, model.params, ids_t, temp, top_p,
                                                generator, model.dtype)
-        kv = int(kv_len[0])
+        res = _gather_result(st, res)
+        kv = int(_gather_rows(st, kv_len)[0])
         out = _finalize(model, res, int(res.kv_len[0]), phases)
         print(f"KV cache budget ratio: {kv / length * 100:.2f}%({kv}/{length})")
         if report_decoding_latency:
@@ -1104,6 +1187,7 @@ def generate(
                            recent_window_dec=int(b * 0.3), **base)
         res, _, phases = _run_encdec(st, model.params, ids_t, temp, top_p, generator,
                                      model.dtype)
+        res = _gather_result(st, res)
         kv = int(res.kv_len[0])
         out = _finalize(model, res, kv, phases)
         n_out = model.last_run.n_tokens

@@ -33,6 +33,14 @@ the strided encode's one-call chunk step K7 (write + attend + score update
 EASYKV_TPU_STEP_KERNEL does (flags.py:286-295 there): off by default, and
 taken only where the chunk kernels are (models/llama.use_step_kernel).
 
+set_active_mesh / active_mesh register the (data, model) mesh the model
+code runs under (parallel/mesh.py), as easykv_tpu/flags.py:16-30 does: the
+projections then take this rank's shards, the collectives run over its
+process groups and the kernels go through their `*_sharded` wrappers. A
+mesh of one rank means no mesh (the JAX package's llama.py:732-733), so
+the single-card path keeps K14 / K15, the folded eviction and the decode
+graph.
+
 eager_decode_loop (a context manager) runs the decode loop eagerly on the
 card too, every kernel of every step launched from the host, for an A/B
 against the default there: one step captured as a CUDA graph and replayed
@@ -43,7 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 _PREROT_OVERRIDE: Optional[bool] = None
 _MEGA_OVERRIDE: Optional[bool] = None
@@ -51,6 +59,7 @@ _MEGA_BATCH_OVERRIDE: Optional[bool] = None
 _CHUNK_KERNEL_OVERRIDE: Optional[bool] = None
 _STEP_KERNEL_OVERRIDE: Optional[bool] = None
 _EAGER_DECODE = False
+_ACTIVE_MESH: Optional[Tuple] = None   # (Mesh, data_axis_name, model_axis_name)
 
 
 def _env_on(name: str) -> bool:
@@ -143,3 +152,37 @@ def decode_graph_enabled() -> bool:
     """Whether a decode loop on the card replays a CUDA graph of its step
     (outside eager_decode_loop)."""
     return not _EAGER_DECODE
+
+
+def set_active_mesh(mesh, data_axis: str = "data", model_axis: str = "model") -> None:
+    """Register the mesh (parallel.make_mesh) the model code runs under;
+    mesh=None clears it."""
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = None if mesh is None else (mesh, data_axis, model_axis)
+
+
+@contextlib.contextmanager
+def mesh_scope(tp: Optional[Tuple]) -> Iterator[None]:
+    """Inside: tp = (mesh, data_axis, model_axis) is the active mesh (None
+    leaves the registered one as it is); the one before comes back after."""
+    global _ACTIVE_MESH
+    before = _ACTIVE_MESH
+    if tp is not None:
+        _ACTIVE_MESH = tp
+    try:
+        yield
+    finally:
+        _ACTIVE_MESH = before
+
+
+def active_mesh() -> Optional[Tuple]:
+    """(mesh, data_axis, model_axis) as registered, or None."""
+    return _ACTIVE_MESH
+
+
+def tp_mesh() -> Optional[Tuple]:
+    """active_mesh() when it spans more than one rank, else None: a mesh of
+    one rank runs the single-card path."""
+    if _ACTIVE_MESH is None or _ACTIVE_MESH[0].size == 1:
+        return None
+    return _ACTIVE_MESH

@@ -11,9 +11,11 @@ buffers under the JAX leaf keys), `lm_head` or `lm_head.{leaf}`. Plain,
 fused, int8, int4 (either layout) and dual trees round-trip bit for bit.
 
 The JAX package's checkpoints are Orbax directories, which the port does not
-read: convert such a tree with models/convert.py's from_jax_params. The
-mesh-aware restore (abstract_params, mesh, mesh_config) waits for the
-parallel layer.
+read: convert such a tree with models/convert.py's from_jax_params. Its
+mesh-aware restore (load_checkpoint's mesh, mesh_config; checkpoint.py:35-101
+there) is `load_checkpoint(path, mesh=, mesh_config=)` here: each rank maps
+the file and copies only its own shards (parallel.shard_params of the
+mapped tree) to its device.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..config import ModelConfig, resolve_device
+from ..config import MeshConfig, ModelConfig, resolve_device
 from ..native import SafetensorsFile, save_safetensors
 from ..ops.quant import QuantLinear
 from .llama import BIAS_KEYS, FUSED_BIAS_KEYS, FUSED_LAYER_KEYS, LAYER_KEYS, LlamaParams
@@ -65,16 +67,25 @@ def _linear(leaves: Dict[str, torch.Tensor]):
 
 
 @torch.no_grad()
-def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None,
-                    device=None) -> Tuple[ModelConfig, LlamaParams]:
+def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None, device=None, mesh=None,
+                    mesh_config: Optional[MeshConfig] = None) -> Tuple[ModelConfig, LlamaParams]:
     """(cfg, params) of a checkpoint save_checkpoint wrote, on `device` (the
     card unless given). `dtype` casts the plain floating leaves (embed,
-    norms, biases, plain linears); quantized leaves keep their own dtypes."""
-    device = resolve_device(device)
+    norms, biases, plain linears); quantized leaves keep their own dtypes.
+
+    With `mesh` (and its mesh_config), params are this rank's shards
+    (parallel.shard_params) on the mesh's device unless `device` is given:
+    every leaf stays a view of the mapped file until its slice is copied
+    (a row-parallel int4 carrier is unpacked from the mapping to re-pack
+    the rank's rows); cfg stays the global config."""
+    device = (resolve_device(device) if mesh is None
+              else mesh.device if device is None else torch.device(device))
     with open(os.path.join(path, "config.json")) as f:
         cfg = ModelConfig(**json.load(f))
 
     def load(t: torch.Tensor, leaf: str) -> torch.Tensor:
+        if mesh is not None:
+            return t        # sliced, copied and cast below
         t = t.to(device=device, copy=True)
         plain = not leaf and dtype is not None and t.is_floating_point()
         return t.to(dtype) if plain else t
@@ -99,4 +110,15 @@ def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None,
     tree = [{k: _linear(layers[i][k]) for k in order if k in layers[i]}
             for i in range(cfg.num_hidden_layers)]
     head = _linear(top["lm_head"]) if "lm_head" in top else None
-    return cfg, LlamaParams(top["embed"][""], top["final_norm"][""], tree, head)
+    params = LlamaParams(top["embed"][""], top["final_norm"][""], tree, head)
+    if mesh is None:
+        return cfg, params
+    from ..parallel.sharding import shard_params
+
+    mc = mesh_config or MeshConfig(mesh.shape.get("data", 1), mesh.shape.get("model", 1))
+    params = shard_params(params, cfg, mc, mesh, device=device)
+    if dtype is not None:
+        for prm in params.parameters():    # the plain leaves; quantized ones are buffers
+            if prm.is_floating_point():
+                prm.data = prm.data.to(dtype)
+    return cfg, params

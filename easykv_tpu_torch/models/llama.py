@@ -37,8 +37,25 @@ age rank at attend time, and its decode steps (and stride-1 encode chunks)
 run K1's `rank` variant. `forward`'s non-streaming C == 1 bootstrap branch
 attends through `fused_decode_attend`. On CPU tensors each wrapper runs its
 plain version.
+
+Under a (data, model) mesh (flags.tp_mesh: parallel/mesh.py) the params and
+the cache are this rank's shards (parallel/sharding.py) and the config is
+the rank's (parallel.local_config: Hq / m, Hkv / m, F / m), so every
+function here runs as on one card over B / d rows and Hkv / m kv-heads,
+with the collectives GSPMD inserts in the JAX package called by name: the
+all-reduce over `model` after wo and after wd (ops.quant.mm_row_parallel),
+the all-gather of the vocab-sharded logits before anything reads them
+(_logits_tail: a greedy argmax then keeps the lowest id on ties, as
+jnp.argmax), and tova's cross-head mean in the encode phase
+(policies.update_scores). The kernels K1, K2, K5, K6 and K7 go through
+their `*_sharded` wrappers (the JAX package's dispatch, llama.py:173-255
+and :880-1000 there), and, as there (llama.py:717-771, :812-819), the
+one-kernel steps K14 / K15 and the folded evictions are off: K2 runs
+unfolded and the engine evicts with K4 (policies.evict_cache).
 """
 from __future__ import annotations
+
+import functools
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -50,15 +67,20 @@ from ..cache import (KVCache, kv_dequant, quantize_kv, write_tokens, write_token
                      write_tokens_slice)
 from ..config import ModelConfig, resolve_device
 from ..ops.attention import attend
-from ..ops.cuda.chunk_attention import (STEP_POLICIES, fused_chunk_attend, fused_chunk_step,
-                                        fused_chunk_write_attend, wa_fits)
+from ..ops.cuda.chunk_attention import (STEP_POLICIES, fused_chunk_attend,
+                                        fused_chunk_attend_sharded, fused_chunk_step,
+                                        fused_chunk_step_sharded, fused_chunk_write_attend,
+                                        fused_chunk_write_attend_sharded, wa_fits)
 from .. import flags
-from ..ops.cuda.decode_attention import fused_decode_attend, fused_decode_attend_inflight
+from ..ops.cuda.decode_attention import (fused_decode_attend, fused_decode_attend_inflight,
+                                         fused_decode_attend_inflight_sharded)
 from ..ops.cuda.fused_decode import fused_decode_step
 from ..ops.cuda.fused_decode_batch import fused_decode_step_batch, max_rows
 from ..ops.cuda.kv_compact import fused_kv_compact, shift_rotation
-from ..ops.cuda.sidecar_update import evict_supported, fused_write_update
-from ..ops.quant import QuantLinear, lm_head_mm, mm
+from ..ops.cuda.sidecar_update import (evict_supported, fused_write_update,
+                                       fused_write_update_sharded)
+from ..ops.quant import QuantLinear, lm_head_mm, mm, mm_row_parallel
+from ..parallel.mesh import all_gather_cat
 from ..ops.rope import apply_rope, rope_base_for, rope_cos_sin, rope_inv_freq, rotate
 from ..policies import PolicySpec, evict_layer, update_scores, update_scores_reduced
 
@@ -118,7 +140,7 @@ def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype = torch.float32,
                 device=None) -> LlamaParams:
     """Random init (normal scaled by fan_in^-1/2), drawn on `device` from a
     generator seeded with `seed`: a 7B model is built on the card without
-    passing through host memory. The draws differ from jax.random's; to
+    passing through host memory. The draws are not jax.random's; to
     compare the two packages, convert the JAX tree (models/convert.py)."""
     device = resolve_device(device)
     L, D, F_ = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
@@ -186,24 +208,34 @@ def _mlp(x2: torch.Tensor, p: DecoderLayer) -> torch.Tensor:
     if hasattr(p, "wgu"):
         gu = mm(x2, p.wgu)
         F_ = gu.shape[-1] // 2
-        return mm(F.silu(gu[..., :F_]) * gu[..., F_:], p.wd)
-    return mm(F.silu(mm(x2, p.wg)) * mm(x2, p.wu), p.wd)
+        return mm_row_parallel(F.silu(gu[..., :F_]) * gu[..., F_:], p.wd)
+    return mm_row_parallel(F.silu(mm(x2, p.wg)) * mm(x2, p.wu), p.wd)
 
 
 def _attn_block(h, p, cfg: ModelConfig, out: torch.Tensor):
     """Residual O projection and MLP after attention; out (B, Hq, C, Dh)."""
     B, _, C, _ = out.shape
     attn_out = out.transpose(1, 2).reshape(B, C, -1)
-    h = h + mm(attn_out, p.wo)
+    h = h + mm_row_parallel(attn_out, p.wo)
     x2 = rmsnorm(h, p.ln_mlp, cfg.rms_norm_eps)
     return h + _mlp(x2, p)
+
+
+def _on_mesh(fn, sharded):
+    """`fn`, or under a mesh its `*_sharded` wrapper bound to the mesh."""
+    tp = flags.tp_mesh()
+    if tp is None:
+        return fn
+    return functools.partial(sharded, mesh=tp[0], data_axis=tp[1], model_axis=tp[2])
 
 
 def use_chunk_kernel(kv_dtype: torch.dtype) -> bool:
     """Whether a chunk of C > 1 queries over a cache of kv_dtype attends
     through the chunk kernels (K5, K6): the JAX package's _use_chunk_kernel
-    (llama.py:150-169 there) without its mesh branch. 'auto' takes them for
-    an int8 cache only."""
+    (llama.py:150-169 there). 'auto' takes them for an int8 cache only. Its
+    mesh branch (even shards, else off) holds by construction here: a rank
+    holds its own (B / d, Hkv / m) shard, parallel.shard_cache and the
+    engine's cache having refused uneven ones."""
     mode = flags.chunk_kernel_mode()
     return mode == "on" or (mode == "auto" and kv_dtype == torch.int8)
 
@@ -255,6 +287,7 @@ def prefill_layer_major(
     cos, sin = rope_cos_sin(q_pos_flat[:, None, :], inv_freq)   # shared by all layers
     boot = torch.ones((B,), dtype=torch.bool, device=token_ids.device)
     use_ck = use_chunk_kernel(cache.k.dtype)
+    chunk_attend = _on_mesh(fused_chunk_attend, fused_chunk_attend_sharded)
 
     h = params.embed[token_ids.clamp(min=0)]
     for l, p in enumerate(params.layers):
@@ -268,7 +301,7 @@ def prefill_layer_major(
             write_tokens_slice(cl, k[:, :, sl], v[:, :, sl], q_pos[c],
                                counter_init[c], c * C)
             if use_ck:
-                out, ssum, ssq, last = fused_chunk_attend(
+                out, ssum, ssq, last = chunk_attend(
                     q[:, :, sl].contiguous(), cl.k, cl.v, cl.pos, q_pos[c], cl.k_scale,
                     cl.v_scale, need_scores=spec is not None,
                     sliding_window=cfg.sliding_window)
@@ -321,6 +354,8 @@ def strided_encode_layer_major(
     use_ck = use_chunk_kernel(cache.k.dtype)
     S = cache.k.shape[-2]
     use_step = use_step_kernel(cfg, spec, cache.k.dtype, S, C)
+    chunk_step = _on_mesh(fused_chunk_step, fused_chunk_step_sharded)
+    chunk_write_attend = _on_mesh(fused_chunk_write_attend, fused_chunk_write_attend_sharded)
 
     def contiguous_ids(start: int) -> torch.Tensor:
         return (start + ar).expand(B, Hkv, C).contiguous()
@@ -351,7 +386,7 @@ def strided_encode_layer_major(
             sl = slice(c * C, (c + 1) * C)
             qp, cinit, gate = ctxs.q_pos[c], ctxs.counter_init[c], ctxs.update_gate[c]
             if use_step:
-                out, _, wids = fused_chunk_step(
+                out, _, wids = chunk_step(
                     q[:, :, sl].contiguous(), k[:, :, sl].contiguous(),
                     v[:, :, sl].contiguous(), wids, qp, cinit, gate, ctxs.evict_gate[c],
                     ctxs.next_pos[c], next_start[c], cl.k, cl.v, cl.pos, cl.score,
@@ -359,7 +394,7 @@ def strided_encode_layer_major(
                 outs.append(out)
                 continue
             if use_ck:
-                out, ssum, ssq, last = fused_chunk_write_attend(
+                out, ssum, ssq, last = chunk_write_attend(
                     q[:, :, sl].contiguous(), k[:, :, sl].contiguous(),
                     v[:, :, sl].contiguous(), wids, qp, cinit, cl.k, cl.v, cl.pos, cl.score,
                     cl.score_sq, cl.counter, cl.k_scale, cl.v_scale, need_scores=need,
@@ -398,18 +433,23 @@ def _lm_head(h: torch.Tensor, head: Union[torch.Tensor, QuantLinear]) -> torch.T
 
 
 def _logits_tail(h: torch.Tensor, params: LlamaParams, cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits (.., V) of the final norm of h. Under a mesh the LM head is
+    vocab-sharded and this rank's logits are gathered over `model`, so every
+    rank holds all V (a tied head is the replicated embedding)."""
     h = rmsnorm(h, params.final_norm, cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         return _lm_head(h, params.embed.t())
-    return _lm_head(h, params.lm_head)
+    logits = _lm_head(h, params.lm_head)
+    tp = flags.tp_mesh()
+    return logits if tp is None else all_gather_cat(logits, tp[0], tp[2], dim=-1)
 
 
 def decode_evict_folded(spec: Optional[PolicySpec], streaming: bool = False) -> bool:
     """True when _decode_forward folds the step's gated eviction into K2:
     decode-phase k=1 specs, not streaming (the JAX package's
-    decode_evict_folded). The engine evicts with policies.evict_cache
-    otherwise."""
-    return not streaming and evict_supported(spec)
+    decode_evict_folded), and not under a mesh (as there: the sharded K2
+    does not fold). The engine evicts with policies.evict_cache otherwise."""
+    return not streaming and evict_supported(spec) and flags.tp_mesh() is None
 
 
 def decode_stream_folded(spec: Optional[PolicySpec], streaming: bool, ordered: bool,
@@ -419,8 +459,9 @@ def decode_stream_folded(spec: Optional[PolicySpec], streaming: bool, ordered: b
     rows, so the engine runs neither evict_cache nor _compact_one (the JAX
     package's decode_stream_folded). The unordered cache of the encoding
     family (not ordered) evicts in two phases: K2 without the fold, then
-    policies.evict_cache."""
-    return streaming and ordered and prerotated and evict_supported(spec)
+    policies.evict_cache. Off under a mesh, as in the JAX package."""
+    return (streaming and ordered and prerotated and evict_supported(spec)
+            and flags.tp_mesh() is None)
 
 
 def rotation_tables(S: int, cfg: ModelConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -550,7 +591,7 @@ def _decode_forward(
     ordered = streaming and stream.kind != "rank"
     h = params.embed[token_ids.clamp(min=0)]
     mega = ((not streaming or prerotated) and flags.mega_kernel_enabled()
-            and mega_tree(params))
+            and flags.tp_mesh() is None and mega_tree(params))
     scales = (cache.k_scale, cache.v_scale) if cache.quantized else ()
     if mega and B == 1:
         rope_pos = ((cache.pos[0, 0, 0] >= 0).sum(dtype=torch.int32)[None]
@@ -585,7 +626,7 @@ def _decode_forward(
                    v_scale=cache.v_scale)
     else:
         kn, vn = kn.to(cache.k.dtype), vn.to(cache.v.dtype)
-    res = fused_write_update(
+    res = _on_mesh(fused_write_update, fused_write_update_sharded)(
         cache.pos, cache.score, cache.score_sq, cache.counter, probs, p_new,
         q_pos_b, ctx.token_valid[:, 0].contiguous(), ctx.update_gate,
         ctx.counter_init[:, 0].contiguous(), None if spec is None else spec.policy,
@@ -617,6 +658,7 @@ def _decode_layers(params: LlamaParams, cfg: ModelConfig, cache: KVCache, h: tor
     if kind == "rank":
         ranks = stream.ranks if stream.ranks is not None else age_ranks_all(cache.pos)
 
+    attend_inflight = _on_mesh(fused_decode_attend_inflight, fused_decode_attend_inflight_sharded)
     kn_all, vn_all, probs_all, pnew_all = [], [], [], []
     for l, p in enumerate(params.layers):
         x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
@@ -626,7 +668,7 @@ def _decode_layers(params: LlamaParams, cfg: ModelConfig, cache: KVCache, h: tor
         q_att, kn_att = rotate(q, cos, sin), rotate(k, cos, sin)
         v = v.contiguous()
         scales = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else ()
-        out, probs, p_new = fused_decode_attend_inflight(
+        out, probs, p_new = attend_inflight(
             q_att, kn_att, v, cache.k[l], cache.v[l], cache.pos[l], q_pos_b, *scales,
             sliding_window=cfg.sliding_window, rot=k1_rot,
             rank=None if ranks is None else ranks[l])
@@ -717,7 +759,7 @@ def forward(
                 sliding_window=cfg.sliding_window)
         elif use_chunk_kernel(cl.k.dtype):
             need = spec is not None and (bootstrap or spec.policy in ("h2o_head", "roco", "tova"))
-            out, ssum, ssq, last = fused_chunk_attend(
+            out, ssum, ssq, last = _on_mesh(fused_chunk_attend, fused_chunk_attend_sharded)(
                 q.contiguous(), cl.k, cl.v, cl.pos, ctx.q_pos, cl.k_scale, cl.v_scale,
                 need_scores=need, sliding_window=cfg.sliding_window)
             if need:

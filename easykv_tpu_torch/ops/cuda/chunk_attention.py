@@ -39,6 +39,12 @@ and `chunk_step_evict_plain` (policies.update_scores_reduced, the bump,
 policies.select_evictions, cache.evict_slots). Like K6 it writes negative
 initial counters exactly, where the TPU kernel's pick clamps them to 0;
 a row whose eviction gate is off keeps its counters bit for bit.
+
+`fused_chunk_attend_sharded`, `fused_chunk_write_attend_sharded` and
+`fused_chunk_step_sharded` are K5, K6 and K7 under a (data, model) mesh
+(the TPU wrappers chunk_attention.py:348, :844 and :1199, a shard_map of
+each kernel): the (row, kv-head) programs are independent, so each rank
+launches the kernel on its own (B/d, Hkv/m) shard, with no collective.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...cache import KVCache, evict_slots, write_tokens_at
+from ...parallel.mesh import local_dims
 from ...policies import PHASE_ENCODE, PolicySpec, select_evictions, update_scores_reduced
 from ..attention import NEG_INF
 from . import _build
@@ -452,3 +459,86 @@ def fused_chunk_step(
 
 
 fused_chunk_step.launches = 0
+
+
+def _sharded_specs(d, m):
+    """(p4, p3, pB, p1, pq): q's heads are rep for each local kv-head, so
+    only its batch is checked against the others."""
+    return (d, m, None, None), (d, m, None), (d, None), (d,), (d, None, None, None)
+
+
+def fused_chunk_attend_sharded(q, k, v, kv_pos, q_pos, k_scale=None, v_scale=None, *, mesh,
+                               data_axis: str = "data", model_axis: str = "model",
+                               need_scores: bool = True, sliding_window: Optional[int] = None):
+    """fused_chunk_attend on this rank's shards. in_specs: q, k, v
+    (d, m, ., .); kv_pos and the scales (d, m, .); q_pos (d, .). out_specs:
+    out (d, m, ., .), ssum, ssq, last (d, m, .)."""
+    p4, p3, pB, _, pq = _sharded_specs(data_axis, model_axis)
+    local_dims("fused_chunk_attend_sharded", mesh, data_axis, model_axis, [
+        ("q", q, pq), ("k", k, p4), ("v", v, p4), ("kv_pos", kv_pos, p3), ("q_pos", q_pos, pB),
+        ("k_scale", k_scale, p3), ("v_scale", v_scale, p3)])
+    res = fused_chunk_attend(q, k, v, kv_pos, q_pos, k_scale, v_scale,
+                             need_scores=need_scores, sliding_window=sliding_window)
+    if q.is_cuda:
+        fused_chunk_attend_sharded.launches += 1
+    return res
+
+
+fused_chunk_attend_sharded.launches = 0
+
+
+def fused_chunk_write_attend_sharded(q, k_c, v_c, ids, q_pos, counter_init, k, v, kv_pos, score,
+                                     score_sq, counter, k_scale=None, v_scale=None, *, mesh,
+                                     data_axis: str = "data", model_axis: str = "model",
+                                     need_scores: bool = True,
+                                     sliding_window: Optional[int] = None):
+    """fused_chunk_write_attend on this rank's shards. in_specs: q, k_c, v_c,
+    k, v (d, m, ., .); ids, kv_pos, score, score_sq, counter, the scales
+    (d, m, .); q_pos, counter_init (d, .). out_specs as fused_chunk_attend's;
+    the cache arrays are updated in place."""
+    p4, p3, pB, _, pq = _sharded_specs(data_axis, model_axis)
+    local_dims("fused_chunk_write_attend_sharded", mesh, data_axis, model_axis, [
+        ("q", q, pq), ("k_c", k_c, p4), ("v_c", v_c, p4), ("ids", ids, p3), ("q_pos", q_pos, pB),
+        ("counter_init", counter_init, pB), ("k", k, p4), ("v", v, p4), ("kv_pos", kv_pos, p3),
+        ("score", score, p3), ("score_sq", score_sq, p3), ("counter", counter, p3),
+        ("k_scale", k_scale, p3), ("v_scale", v_scale, p3)])
+    res = fused_chunk_write_attend(q, k_c, v_c, ids, q_pos, counter_init, k, v, kv_pos, score,
+                                   score_sq, counter, k_scale, v_scale,
+                                   need_scores=need_scores, sliding_window=sliding_window)
+    if q.is_cuda:
+        fused_chunk_write_attend_sharded.launches += 1
+    return res
+
+
+fused_chunk_write_attend_sharded.launches = 0
+
+
+def fused_chunk_step_sharded(q, k_c, v_c, write_mask, q_pos, counter_init, update_gate,
+                             evict_gate, next_pos, next_start, k, v, kv_pos, score, score_sq,
+                             counter, k_scale=None, v_scale=None, *, mesh,
+                             data_axis: str = "data", model_axis: str = "model", policy: str,
+                             feasible_k: int = 0, sink: int = 0, recent_window: int = 0,
+                             sliding_window: Optional[int] = None):
+    """fused_chunk_step on this rank's shards. in_specs: q, k_c, v_c, k, v
+    (d, m, ., .); write_mask, kv_pos, score, score_sq, counter, the scales
+    (d, m, .); q_pos, counter_init (d, .); update_gate, evict_gate,
+    next_pos, next_start (d). out_specs: out (d, m, ., .), the cache arrays
+    as their inputs, the next write mask (d, m, .)."""
+    p4, p3, pB, p1, pq = _sharded_specs(data_axis, model_axis)
+    local_dims("fused_chunk_step_sharded", mesh, data_axis, model_axis, [
+        ("q", q, pq), ("k_c", k_c, p4), ("v_c", v_c, p4), ("write_mask", write_mask, p3),
+        ("q_pos", q_pos, pB), ("counter_init", counter_init, pB),
+        ("update_gate", update_gate, p1), ("evict_gate", evict_gate, p1),
+        ("next_pos", next_pos, p1), ("next_start", next_start, p1), ("k", k, p4), ("v", v, p4),
+        ("kv_pos", kv_pos, p3), ("score", score, p3), ("score_sq", score_sq, p3),
+        ("counter", counter, p3), ("k_scale", k_scale, p3), ("v_scale", v_scale, p3)])
+    res = fused_chunk_step(q, k_c, v_c, write_mask, q_pos, counter_init, update_gate, evict_gate,
+                           next_pos, next_start, k, v, kv_pos, score, score_sq, counter, k_scale,
+                           v_scale, policy=policy, feasible_k=feasible_k, sink=sink,
+                           recent_window=recent_window, sliding_window=sliding_window)
+    if q.is_cuda:
+        fused_chunk_step_sharded.launches += 1
+    return res
+
+
+fused_chunk_step_sharded.launches = 0

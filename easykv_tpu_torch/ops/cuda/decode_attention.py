@@ -25,6 +25,12 @@ unordered StreamingLLM cache) by the table row of its age rank.
 `fused_decode_attend` launches `decode_attend` for CUDA tensors and runs
 its plain version, ops.attention.decode_attend, for CPU tensors; both keep
 p in fp32 through the PV product, as the TPU kernel does.
+
+`fused_decode_attend_inflight_sharded` is K1 under a (data, model) mesh
+(the TPU wrapper decode_attention.py:338 `fused_decode_attend_inflight_sharded`,
+a shard_map of the kernel): every (row, kv-head) program is independent,
+so each rank launches K1 on its own (B/d, Hkv/m) shard, with no
+collective.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...parallel.mesh import local_dims
 from ..attention import attend_inflight, decode_attend
 from . import _build
 
@@ -233,6 +240,47 @@ def fused_decode_attend_inflight(
 fused_decode_attend_inflight.launches = 0
 fused_decode_attend_inflight.ordered_launches = 0   # those of the `ordered` variant
 fused_decode_attend_inflight.rank_launches = 0      # those of the `rank` variant
+
+
+def fused_decode_attend_inflight_sharded(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    data_axis: str = "data",
+    model_axis: str = "model",
+    sliding_window: Optional[int] = None,
+    rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    rank: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fused_decode_attend_inflight on this rank's shards. in_specs: q,
+    k_new, v_new, k, v (d, m, ., .); kv_pos, the scales, rank (d, m, .);
+    q_pos (d); the rot tables replicated. out_specs: out, probs (d, m, ., .),
+    p_new (d, m, .). The arguments are this rank's shards (the global batch
+    and kv-heads are d and m times theirs); it returns this rank's
+    outputs."""
+    d, m = data_axis, model_axis
+    p4, p3 = (d, m, None, None), (d, m, None)
+    pq = (d, None, None, None)      # q's heads: rep for each local kv-head
+    local_dims("fused_decode_attend_inflight_sharded", mesh, d, m, [
+        ("q", q, pq), ("k_new", k_new, p4), ("v_new", v_new, p4), ("k", k, p4), ("v", v, p4),
+        ("kv_pos", kv_pos, p3), ("q_pos", q_pos, (d,)), ("k_scale", k_scale, p3),
+        ("v_scale", v_scale, p3), ("rank", rank, p3)])
+    res = fused_decode_attend_inflight(q, k_new, v_new, k, v, kv_pos, q_pos, k_scale, v_scale,
+                                       sliding_window=sliding_window, rot=rot, rank=rank)
+    if q.is_cuda:
+        fused_decode_attend_inflight_sharded.launches += 1
+    return res
+
+
+fused_decode_attend_inflight_sharded.launches = 0
 
 
 def fused_decode_attend(

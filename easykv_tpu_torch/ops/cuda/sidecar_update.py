@@ -22,6 +22,13 @@ tensors. The plain versions repeat the TPU kernels' arithmetic op by op
 `_evict_kernel`; the rows by row_write.write_rows_plain), so the kernels
 are held to them bit for bit. All update the sidecars (the scale rows, the
 K / V rows) in place.
+
+`fused_write_update_sharded` and `fused_evict_sharded` are K2 and K4 under
+a (data, model) mesh (the TPU wrappers sidecar_update.py:360 and :472, a
+shard_map of each kernel): every (layer, row, kv-head) is independent, so
+each rank launches the kernel on its own (L, B/d, Hkv/m, S) shard, with no
+collective. As there, the sharded K2 does not fold the eviction: the
+engine runs fused_evict_sharded after it.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ...cache import free_slot_ids
+from ...parallel.mesh import local_dims
 from ...policies import (INT_MAX, PHASE_DECODE, ROCO_STD_GUARD, STD_EXCLUDE,
                          STD_FORCE, PolicySpec)
 from . import _build
@@ -425,3 +433,54 @@ def fused_evict(
 
 
 fused_evict.launches = 0
+
+
+def fused_write_update_sharded(*args, mesh, data_axis: str = "data", model_axis: str = "model",
+                               **kw) -> Tuple[torch.Tensor, ...]:
+    """fused_write_update (its positional arguments, then policy and its
+    keywords) on this rank's shards. in_specs: pos, score, score_sq,
+    counter, probs, p_new, the scale rows (., d, m, .), k, v, kn, vn
+    (., d, m, ., .); q_pos, token_valid, update_gate, counter_init (d).
+    out_specs: each output as its input, the write slot (., d, m, .). No
+    folded eviction (espec, compact)."""
+    if kw.get("espec") is not None or kw.get("compact"):
+        raise ValueError("fused_write_update_sharded does not fold the eviction: run "
+                         "fused_evict_sharded after it")
+    d, m = data_axis, model_axis
+    p4, p5, pb = (None, d, m, None), (None, d, m, None, None), (d,)
+    names = ("pos", "score", "score_sq", "counter", "probs", "p_new", "q_pos", "token_valid",
+             "update_gate", "counter_init")
+    specs = (p4,) * 6 + (pb,) * 4
+    checks = [(n, t, s) for n, t, s in zip(names, args, specs) if isinstance(t, torch.Tensor)]
+    checks += [(n, kw.get(n), p4) for n in ("k_sc_new", "v_sc_new", "k_scale", "v_scale")]
+    checks += [(n, kw.get(n), p5) for n in ("k", "v", "kn", "vn")]
+    local_dims("fused_write_update_sharded", mesh, d, m, checks)
+    res = fused_write_update(*args, **kw)
+    if args[0].is_cuda:
+        fused_write_update_sharded.launches += 1
+    return res
+
+
+fused_write_update_sharded.launches = 0
+
+
+def fused_evict_sharded(pos, score, score_sq, counter, evict_gate, next_pos, prompt_len,
+                        rand_rank, *, mesh, data_axis: str = "data", model_axis: str = "model",
+                        spec: PolicySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fused_evict on this rank's shards. in_specs: pos, score, score_sq,
+    counter (., d, m, .); the four row vectors (d). out_specs: pos, counter
+    (., d, m, .)."""
+    d, m = data_axis, model_axis
+    p4, pb = (None, d, m, None), (d,)
+    local_dims("fused_evict_sharded", mesh, d, m, [
+        ("pos", pos, p4), ("score", score, p4), ("score_sq", score_sq, p4),
+        ("counter", counter, p4), ("evict_gate", evict_gate, pb), ("next_pos", next_pos, pb),
+        ("prompt_len", prompt_len, pb), ("rand_rank", rand_rank, pb)])
+    res = fused_evict(pos, score, score_sq, counter, evict_gate, next_pos, prompt_len,
+                      rand_rank, spec)
+    if pos.is_cuda:
+        fused_evict_sharded.launches += 1
+    return res
+
+
+fused_evict_sharded.launches = 0

@@ -39,6 +39,12 @@ card; each kernel wrapper runs its plain version for CPU tensors:
 A group that is not a multiple of 8 rows (`_fit_group` makes them for odd
 in-dims, e.g. 86 for an in-dim of 1376) takes the grouped product, which
 is K10's and K12's function: the kernels' row chunks lie in one group.
+
+Under a (data, model) mesh (flags.tp_mesh) the row-parallel products wo and
+wd go through `mm_row_parallel`: `mm` over this rank's rows of the weight
+(bf16, int8 {q, s} with s replicated, int4 with whole groups a rank:
+parallel/sharding.py) and this rank's slice of x, then the all-reduce over
+`model` that GSPMD inserts after them in the JAX package.
 """
 from __future__ import annotations
 
@@ -242,6 +248,18 @@ def mm(x: torch.Tensor, w: Linear) -> torch.Tensor:
     if "q4p" in w:
         return _mm_w4p(x, w)
     return _mm_int8(x, w["q"], w["s"])
+
+
+def mm_row_parallel(x: torch.Tensor, w: Linear) -> torch.Tensor:
+    """x @ w for a row-parallel product: under a mesh, x and w are this
+    rank's in-slices and the partial products are summed over `model`
+    (parallel.mesh.all_reduce_sum, in f32); without one, `mm`."""
+    from .. import flags
+    from ..parallel.mesh import all_reduce_sum
+
+    y = mm(x, w)
+    tp = flags.tp_mesh()
+    return y if tp is None else all_reduce_sum(y, tp[0], tp[2])
 
 
 def lm_head_mm(h: torch.Tensor, head: QuantLinear) -> torch.Tensor:

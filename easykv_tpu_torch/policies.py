@@ -21,6 +21,12 @@ k <= 8, a stable sort above); here a stable ascending torch.sort serves
 both branches (torch.topk's tie order is unspecified). Rows with fewer
 than k candidates fill up with inf-masked slots in slot order, as there.
 
+Under a (data, model) mesh each rank holds its (B / d, Hkv / m) shard of
+the sidecars: selection is per (layer, row, kv-head), so it stays local
+(evict_cache runs K4 through fused_evict_sharded); tova's encode-phase
+score, the mean of the last query row over ALL kv-heads, gathers the
+heads over `model` first (_head_mean), as GSPMD does for the JAX package.
+
 Deviation kept from the JAX package: the reference's `random` branch in
 encoding_decoding decode references an undefined variable
 (easykv.py:744); the evident intent (uniform over non-sink slots) is
@@ -184,6 +190,19 @@ def row_gate(update_gate: torch.Tensor) -> torch.Tensor:
     return update_gate
 
 
+def _head_mean(last: torch.Tensor) -> torch.Tensor:
+    """The mean over every kv-head of `last` (B, H, S), (B, 1, S): under a
+    mesh the heads of all `model` ranks, gathered in head order, so the mean
+    is the one-card mean bit for bit."""
+    from . import flags
+    from .parallel.mesh import all_gather_cat
+
+    tp = flags.tp_mesh()
+    if tp is not None:
+        last = all_gather_cat(last, tp[0], tp[2], dim=1)
+    return last.mean(dim=1, keepdim=True)
+
+
 def update_scores(cache: KVCache, probs_kv: torch.Tensor, spec: Optional[PolicySpec],
                   update_gate: torch.Tensor, bootstrap: bool = False) -> None:
     """Fold a chunk's attention probabilities (B, H, T, S) into the score
@@ -202,7 +221,7 @@ def update_scores(cache: KVCache, probs_kv: torch.Tensor, spec: Optional[PolicyS
     elif policy == "tova":
         last = probs_kv[:, :, -1, :]
         if spec.phase == PHASE_ENCODE:
-            last = last.mean(dim=1, keepdim=True).expand_as(cache.score)
+            last = _head_mean(last).expand_as(cache.score)
         cache.score.copy_(torch.where(gate_b, last, cache.score))
 
 
@@ -220,7 +239,7 @@ def update_scores_reduced(cache: KVCache, ssum: torch.Tensor, ssq: torch.Tensor,
             cache.score_sq.copy_(cache.score_sq + ssq * gate)
     elif policy == "tova":
         if spec.phase == PHASE_ENCODE:
-            last = last.mean(dim=1, keepdim=True).expand_as(cache.score)
+            last = _head_mean(last).expand_as(cache.score)
         cache.score.copy_(torch.where(gate_b, last, cache.score))
 
 
@@ -258,12 +277,19 @@ def evict_cache(cache: KVCache, spec: PolicySpec, next_pos: torch.Tensor,
     folds the layer axis into the batch axis for one plain selection over
     (L*B, H, S). Either runs whatever the gate: rows whose gate is off are
     left as they were (their counters too), so no host sync decides whether
-    to run it."""
-    from .ops.cuda.sidecar_update import evict_supported, fused_evict
+    to run it. Under a mesh K4 goes through fused_evict_sharded on this
+    rank's shard (the JAX package's evict_cache, policies.py:415-460 there)."""
+    from . import flags
+    from .ops.cuda.sidecar_update import evict_supported, fused_evict, fused_evict_sharded
 
     if evict_supported(spec):
-        fused_evict(cache.pos, cache.score, cache.score_sq, cache.counter, gate, next_pos,
-                    prompt_len, rand_rank, spec)
+        args = (cache.pos, cache.score, cache.score_sq, cache.counter, gate, next_pos,
+                prompt_len, rand_rank)
+        tp = flags.tp_mesh()
+        if tp is None:
+            fused_evict(*args, spec)
+        else:
+            fused_evict_sharded(*args, mesh=tp[0], data_axis=tp[1], model_axis=tp[2], spec=spec)
         return
     L, B = cache.pos.shape[:2]
     sidecars = KVCache(*(None,) * 2, *(x.reshape((L * B,) + x.shape[2:]) for x in (

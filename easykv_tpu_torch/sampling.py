@@ -15,6 +15,8 @@ ties, whatever the generator.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 GREEDY_TEMPERATURE = 1e-6
@@ -62,14 +64,24 @@ def nucleus_mask(prob: torch.Tensor, top_p: float) -> torch.Tensor:
 
 
 def sample_topp(generator: torch.Generator, logits: torch.Tensor,
-                temperature: float, top_p: float) -> torch.Tensor:
-    """Temperature + nucleus sampling. logits (B, V) -> (B,) int32."""
+                temperature: float, top_p: float,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Temperature + nucleus sampling. logits (B, V) -> (B,) int32. With
+    rows = (first, total), logits are rows [first, first + B) of a batch of
+    `total` (one rank's rows under a data-sharded mesh): the noise is drawn
+    for the whole batch and sliced, so each row draws what it draws in the
+    unsharded run."""
     logits = logits.to(torch.float32)
     if temperature <= GREEDY_TEMPERATURE:
         return logits.argmax(dim=-1).to(torch.int32)
     prob = torch.softmax(logits / max(temperature, 1e-10), dim=-1)
     keep = nucleus_mask(prob, top_p)
     logp = torch.where(keep, torch.log(prob.clamp(min=1e-37)), float("-inf"))
-    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    if rows is None:
+        u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    else:
+        first, total = rows
+        u = torch.rand((total, logp.shape[-1]), generator=generator,
+                       device=logp.device)[first:first + logp.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     return (logp + gumbel).argmax(dim=-1).to(torch.int32)

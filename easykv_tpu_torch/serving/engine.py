@@ -31,6 +31,7 @@ from ..cache import KVCache, init_cache
 from ..config import ModelConfig, canonical_policy
 from ..models import llama
 from ..models.llama import StepCtx
+from ..parallel.mesh import all_gather_cat
 from ..policies import PHASE_DECODE, PolicySpec, evict_cache
 from ..sampling import sample_topp
 
@@ -58,24 +59,30 @@ def serving_spec(kv_policy: str, budget: int) -> Optional[PolicySpec]:
         policy, PHASE_DECODE, 1, 4, rw, feasible_k=max(budget - rw, 1), protect_prompt=True)
 
 
-def serving_cache(model, batch_slots: int, max_prompt: int, budget: int) -> KVCache:
+def serving_cache(model, batch_slots: int, max_prompt: int, budget: int,
+                  cfg: Optional[ModelConfig] = None) -> KVCache:
     """The engines' cache: S = max_prompt + budget + 1 rounded up to a
     multiple of 128 (spare slots are inert), in the model's dtype, int8 with
-    kv_quant."""
-    cfg: ModelConfig = model.cfg
+    kv_quant. cfg: the rank's config under a mesh (its kv-heads), else the
+    model's."""
+    cfg = model.cfg if cfg is None else cfg
     S = gen_mod._round_up(max_prompt + budget + 1, 128)
     return init_cache(cfg.num_hidden_layers, batch_slots, cfg.num_key_value_heads, S,
                       cfg.head_dim, model.dtype, model.device, quantized=model.kv_quant)
 
 
-def _rand_rank(spec, budget, gen_count, generator) -> torch.Tensor:
+def _rand_rank(spec, budget, gen_count, generator, rows=None) -> torch.Tensor:
     """The `random` policy's rank over the retained generated tokens, drawn
-    through the decode loop's _uniform (one (B,) draw a step); zeros for
-    every other policy."""
+    through the decode loop's _uniform (one (B,) draw a step; with rows =
+    (first, total), one draw for all `total` slots, these B sliced); zeros
+    for every other policy."""
     B, dev = gen_count.shape[0], gen_count.device
     if spec is None or spec.policy != "random":
         return torch.zeros((B,), dtype=torch.int32, device=dev)
-    u = gen_mod._uniform(generator, B, dev)
+    if rows is None:
+        u = gen_mod._uniform(generator, B, dev)
+    else:
+        u = gen_mod._uniform(generator, rows[1], dev)[rows[0]:rows[0] + B]
     n_gen = (gen_count + 1).clamp(max=budget + 1)
     return (u * n_gen.to(torch.float32)).to(torch.int32)
 
@@ -114,17 +121,18 @@ def _prefill_chunk(cfg: ModelConfig, pc: int, params, cache: KVCache, chunk: tor
 def _decode_step(cfg: ModelConfig, spec: Optional[PolicySpec], budget: int, params,
                  cache: KVCache, tokens: torch.Tensor, active: torch.Tensor,
                  prompt_len: torch.Tensor, gen_count: torch.Tensor,
-                 generator: torch.Generator) -> torch.Tensor:
+                 generator: torch.Generator, rows=None) -> torch.Tensor:
     """One decode step for every active row (tokens, active, prompt_len,
     gen_count: (B,)); an inactive row is a no-op. A row evicts once its
     generated count passes the budget; the eviction is folded into K2 where
     llama.decode_evict_folded(spec) holds, else evict_cache runs after the
-    forward. Returns the logits (B, V) f32."""
+    forward. Returns the logits (B, V) f32. rows: (first, total) of a
+    rank's slots under a mesh (_rand_rank)."""
     B = tokens.shape[0]
     tok_pos = prompt_len + gen_count
     gate_b = (active & (gen_count + 1 > budget) if spec is not None
               else torch.zeros((B,), dtype=torch.bool, device=tokens.device))
-    rand_rank = _rand_rank(spec, budget, gen_count, generator)
+    rand_rank = _rand_rank(spec, budget, gen_count, generator, rows)
     ctx = StepCtx(
         q_pos=torch.where(active, tok_pos, -1).to(torch.int32)[:, None],
         token_valid=active[:, None],
@@ -145,7 +153,7 @@ def _decode_step(cfg: ModelConfig, spec: Optional[PolicySpec], budget: int, para
 def _merged_step(cfg: ModelConfig, spec: Optional[PolicySpec], budget: int, pc: int, params,
                  cache: KVCache, tokens: torch.Tensor, start: torch.Tensor, limit: torch.Tensor,
                  prompt_len: torch.Tensor, gen_count: torch.Tensor, is_decode: torch.Tensor,
-                 active: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+                 active: torch.Tensor, generator: torch.Generator, rows=None) -> torch.Tensor:
     """A whole serving tick in one chunk-major forward at (B, pc): each row
     is a prefill window [start, limit) of its own prompt, a decode token (in
     the LAST column, so tova's last-query-row rule holds), or inactive.
@@ -162,7 +170,7 @@ def _merged_step(cfg: ModelConfig, spec: Optional[PolicySpec], budget: int, pc: 
     dec_live = active & is_decode
     gate_b = (dec_live & (gen_count + 1 > budget) if spec is not None
               else torch.zeros((B,), dtype=torch.bool, device=dev))
-    rand_rank = _rand_rank(spec, budget, gen_count, generator)
+    rand_rank = _rand_rank(spec, budget, gen_count, generator, rows)
     ctx = StepCtx(
         q_pos=torch.where(pf_valid, pos_grid,
                           torch.where(dec_valid, tok_pos[:, None], -1)).to(torch.int32),
@@ -198,11 +206,16 @@ class _DecodeTick:
     replays it, and every later call replays it. The graph reads the
     engine's cache and these buffers where they lay when it was captured:
     nothing may rebind them. A capture or replay that fails raises. On the
-    CPU every call runs eagerly."""
+    CPU every call runs eagerly.
+
+    Under a mesh (eng.tp) the buffers hold the rank's slots [eng.row0,
+    eng.row0 + eng.Bl), the tick runs under the mesh, its tokens are gathered
+    over `data` into all B, and under gloo every tick is eager (its
+    collectives cannot be captured)."""
 
     def __init__(self, eng):
         self.eng = eng
-        B, dev = eng.B, eng.device
+        B, dev = eng.Bl, eng.device
         self.tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.prompt_len = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -214,9 +227,9 @@ class _DecodeTick:
 
     def _body(self) -> None:
         e = self.eng
-        logits = _decode_step(e.cfg, e.spec, e.budget, e.model.params, e.cache, self.tokens,
-                              self.active, self.prompt_len, self.gen_count, e.generator)
-        self.out.copy_(sample_topp(e.generator, logits, e.temperature, e.top_p))
+        logits = _decode_step(e.cfg, e.spec, e.budget, e.params, e.cache, self.tokens,
+                              self.active, self.prompt_len, self.gen_count, e.generator, e.rows)
+        self.out.copy_(sample_topp(e.generator, logits, e.temperature, e.top_p, rows=e.rows))
 
     @property
     def capture_s(self) -> float:
@@ -229,11 +242,12 @@ class _DecodeTick:
     @torch.no_grad()
     def __call__(self, tokens: np.ndarray, active: np.ndarray, prompt_len: np.ndarray,
                  gen_count: np.ndarray) -> np.ndarray:
+        tp, r0, n = self.eng.tp, self.eng.row0, self.eng.Bl
         for buf, host in ((self.tokens, tokens), (self.active, active),
                           (self.prompt_len, prompt_len), (self.gen_count, gen_count)):
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(host[r0:r0 + n])))
         if (self.eng.device.type != "cuda" or not flags.decode_graph_enabled()
-                or not self.warm):
+                or not gen_mod.decode_graph_ok(tp) or not self.warm):
             self._body()
             self.warm = self.eng.device.type == "cuda"
         else:
@@ -241,7 +255,9 @@ class _DecodeTick:
                 self.graph = gen_mod.capture_step(self._body, self.eng.generator)
             self.graph.replay()
             self.replays += 1
-        return self.out.cpu().numpy()
+        if tp is None:
+            return self.out.cpu().numpy()
+        return all_gather_cat(self.out, tp[0], tp[1], dim=0).cpu().numpy()
 
 
 class ContinuousBatchEngine:
@@ -266,9 +282,11 @@ class ContinuousBatchEngine:
         # The JAX engine's materialize_params_resident has no counterpart:
         # an int4 leaf stays packed (ops/quant.py's docstring).
         self.model = model
+        self.params = model.params
         self.cfg: ModelConfig = model.cfg
         self.device = model.device
         self.B = batch_slots
+        self.tp, self.row0, self.Bl, self.rows = None, 0, batch_slots, None   # one device
         self.max_prompt = max_prompt
         self.budget = budget
         self.pc = min(prefill_chunk, max_prompt)
@@ -304,7 +322,7 @@ class ContinuousBatchEngine:
         ids_dev = torch.from_numpy(ids_pad).to(self.device)
         last_logits = None
         for c in range(n_chunks):
-            logits = _prefill_chunk(self.cfg, self.pc, self.model.params, self.cache,
+            logits = _prefill_chunk(self.cfg, self.pc, self.params, self.cache,
                                     ids_dev[c * self.pc:(c + 1) * self.pc], c * self.pc, T, slot)
             last_idx = T - 1 - c * self.pc
             if 0 <= last_idx < self.pc:

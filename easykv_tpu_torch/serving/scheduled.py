@@ -8,9 +8,15 @@ Unlike ContinuousBatchEngine, which prefills a whole admission before
 decoding, prefill here is chunked and interleaved with decode ticks, so a
 long prompt stalls the rows in flight for no more than one chunk a tick.
 
-The JAX engine's `mesh` / `mesh_config` (the slots sharded over a data
-axis, across processes) and its multi-process directory snapshot come
-with the port's parallel layer; this engine runs on one device.
+With `mesh` (parallel.make_mesh) and `mesh_config`, the JAX engine's
+(easykv_tpu/serving/scheduled.py:27-140 there), the slots shard over the
+`data` axis and the model over `model`, across processes, one rank each:
+every process drives the same native scheduler with the same host state
+(submit() is called identically everywhere), runs its own slots on its own
+shards, and gathers the sampled tokens over `data`, so every process
+advances the same state. The snapshot of such an engine is a directory:
+each rank writes its cache shard (torch.save), rank 0 the host state, and
+no rank returns before all have written (a barrier).
 """
 from __future__ import annotations
 
@@ -22,9 +28,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import flags
 from ..cache import KVCache
-from ..config import ModelConfig
+from ..config import MeshConfig, ModelConfig
 from ..native.scheduler import DECODE, PREFILL_CHUNK, NativeScheduler
+from ..parallel.mesh import all_gather_cat, barrier, rows_of
+from ..parallel.sharding import local_config, shard_params
 from ..sampling import sample_topp
 from .engine import (Request, _clear_row, _DecodeTick, _merged_step, serving_cache,
                      serving_spec)
@@ -36,7 +45,11 @@ class ScheduledBatchEngine:
     step, replayed as a CUDA graph on the card (serving/engine._DecodeTick).
     Either way one on-device sample_topp over the rows the tick needs and
     one (B,) readback. Runs on the model's device: the card unless the
-    model was made with device="cpu"."""
+    model was made with device="cpu".
+
+    With `mesh`, model.params is the global tree; the engine keeps this
+    rank's shards of it (parallel.shard_params, on the model's device) and
+    leaves the model as it was; batch_slots must divide over `data`."""
 
     def __init__(
         self,
@@ -50,11 +63,23 @@ class ScheduledBatchEngine:
         eos_token_ids: Tuple[int, ...] = (),
         prefill_chunk: int = 128,
         seed: int = 0,
+        mesh=None,
+        mesh_config: MeshConfig = None,
     ):
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.device = model.device
         self.B = batch_slots
+        self.params = model.params
+        self.mesh, self.tp, self.row0, self.Bl, self.rows = mesh, None, 0, batch_slots, None
+        if mesh is not None:
+            mc = mesh_config or MeshConfig(mesh.shape.get("data", 1), mesh.shape.get("model", 1))
+            self.row0, self.Bl = rows_of(mesh, mc.axis_data, batch_slots)
+            if mesh.size > 1:
+                self.tp = (mesh, mc.axis_data, mc.axis_model)
+                self.rows = (self.row0, batch_slots)
+            self.params = shard_params(model.params, model.cfg, mc, mesh, device=model.device)
+            self.cfg = local_config(model.cfg, mc)
         self.max_prompt = max_prompt
         self.budget = budget
         self.pc = min(prefill_chunk, max_prompt)
@@ -62,7 +87,7 @@ class ScheduledBatchEngine:
         self.temperature = float(temperature)
         self.top_p = float(top_p)
         self.spec = serving_spec(kv_policy, budget)
-        self.cache = serving_cache(model, batch_slots, max_prompt, budget)
+        self.cache = serving_cache(model, self.Bl, max_prompt, budget, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.decode_tick = _DecodeTick(self)
         # chunk_cap = pc: a request prefills at most one chunk a tick, but up
@@ -93,6 +118,8 @@ class ScheduledBatchEngine:
         self.sched.submit(req.request_id, len(req.ids), req.max_new_tokens)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a host (B, ...) array, on the device."""
+        arr = arr[self.row0:self.row0 + self.Bl]
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _merged_tick(self, prefills, active: np.ndarray) -> Tuple[np.ndarray, list]:
@@ -121,18 +148,24 @@ class ScheduledBatchEngine:
             if T <= a.chunk_start + a.chunk_len and 0 <= li < self.pc:
                 last_idx[a.slot] = li
                 finishing.append(a)
-        logits = _merged_step(self.cfg, self.spec, self.budget, self.pc, self.model.params,
+        logits = _merged_step(self.cfg, self.spec, self.budget, self.pc, self.params,
                               self.cache, self._dev(tokens), self._dev(start), self._dev(limit),
                               self._dev(self.prompt_len), self._dev(self.gen_count),
-                              self._dev(is_decode), self._dev(act), self.generator)
-        rows = logits[torch.arange(self.B, device=self.device), self._dev(last_idx)]
-        toks = sample_topp(self.generator, rows, self.temperature, self.top_p).cpu().numpy()
-        return toks, finishing
+                              self._dev(is_decode), self._dev(act), self.generator, self.rows)
+        rows = logits[torch.arange(self.Bl, device=self.device), self._dev(last_idx)]
+        toks = sample_topp(self.generator, rows, self.temperature, self.top_p, rows=self.rows)
+        if self.tp is not None:
+            toks = all_gather_cat(toks, self.tp[0], self.tp[1], dim=0)
+        return toks.cpu().numpy(), finishing
 
     def tick(self) -> List[Tuple[int, int]]:
         """One scheduler tick in one device dispatch: the merged step when
         the plan holds a prefill, else the decode tick. Returns the
         [(request_id, token), ...] emitted."""
+        with flags.mesh_scope(self.tp):
+            return self._tick()
+
+    def _tick(self) -> List[Tuple[int, int]]:
         plan = self.sched.plan()
         emitted: List[Tuple[int, int]] = []
         prefills = [a for a in plan if a.kind == PREFILL_CHUNK]
@@ -179,7 +212,8 @@ class ScheduledBatchEngine:
             self.finished[rid] = req
             self.ids_pad.pop(rid, None)
             self.has_token[slot] = False
-            _clear_row(self.cache, slot)
+            if self.row0 <= slot < self.row0 + self.Bl:    # this rank's slot
+                _clear_row(self.cache, slot - self.row0)
         return done
 
     def run_all(self, checkpoint_path: str = None,
@@ -202,13 +236,37 @@ class ScheduledBatchEngine:
         """Write everything a resumed engine needs: the cache arrays (as CPU
         tensors: numpy has no bfloat16), the host bookkeeping, the sampling
         generator's state and the scheduler's rows (sched_dump), pickled to
-        one file through a .tmp file and a rename."""
+        one file through a .tmp file and a rename. Under a multi-rank mesh
+        `path` is a directory (the JAX package's Orbax layout, written with
+        plain files): `cache-rank{r}.pt` each rank's shard, `host.pkl` the
+        host state, written by rank 0; every rank must call it, and none
+        returns before all have written."""
+        if self.tp is not None:
+            os.makedirs(path, exist_ok=True)
+            self._write(os.path.join(path, f"cache-rank{self.mesh.rank}.pt"),
+                        torch.save, self._cache_cpu())
+            if self.mesh.rank == 0:
+                self._write(os.path.join(path, "host.pkl"), pickle.dump, self._host_state())
+            barrier(self.mesh)
+            return
+        self._write(path, pickle.dump, {"cache": self._cache_cpu(), **self._host_state()})
+
+    @staticmethod
+    def _write(path: str, dump, obj) -> None:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            dump(obj, f)
+        os.replace(tmp, path)
+
+    def _cache_cpu(self) -> list:
+        return [None if x is None else x.cpu()
+                for x in (getattr(self.cache, f.name) for f in dataclasses.fields(KVCache))]
+
+    def _host_state(self) -> dict:
         def reqs(table):
             return {rid: (np.asarray(r.ids), r.max_new_tokens, list(r.out))
                     for rid, r in table.items()}
-        state = {
-            "cache": [None if x is None else x.cpu()
-                      for x in (getattr(self.cache, f.name) for f in dataclasses.fields(KVCache))],
+        return {
             "generator": self.generator.get_state(),
             "prompt_len": self.prompt_len.copy(),
             "gen_count": self.gen_count.copy(),
@@ -218,20 +276,23 @@ class ScheduledBatchEngine:
             "requests": reqs(self.requests),
             "finished": reqs(self.finished),
         }
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            pickle.dump(state, f)
-        os.replace(tmp, path)
 
     @classmethod
     def resume(cls, path: str, model, **engine_kwargs) -> "ScheduledBatchEngine":
         """An engine (the crashed one's constructor arguments) rebuilt from a
         snapshot(): the saved arrays are copied into its cache in place, and
         the requests in flight keep their slots, prefill progress, emitted
-        tokens and cache contents; waiting requests keep their order."""
+        tokens and cache contents; waiting requests keep their order. A
+        directory snapshot (a multi-rank mesh: pass the same mesh) is read by
+        each rank: its own cache shard and the shared host state."""
         eng = cls(model, **engine_kwargs)
-        with open(path, "rb") as f:
-            state = pickle.load(f)
+        if os.path.isdir(path):
+            with open(os.path.join(path, "host.pkl"), "rb") as f:
+                state = pickle.load(f)
+            state["cache"] = torch.load(os.path.join(path, f"cache-rank{eng.mesh.rank}.pt"))
+        else:
+            with open(path, "rb") as f:
+                state = pickle.load(f)
         for field, saved in zip(dataclasses.fields(KVCache), state["cache"]):
             dst = getattr(eng.cache, field.name)
             if (dst is None) != (saved is None) or (dst is not None and dst.shape != saved.shape):

@@ -2511,3 +2511,183 @@ def test_device_memory_stats_on_the_card(cuda):
     assert after["peak_gb"] >= after["current_gb"] and 70 < after["limit_gb"] < 200
     del x
     print_device_stats()
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh: ranks spawned on the card(s), gloo when they share
+# a card (NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+def _mesh_rank(rank, world, data, model, tmp, job):
+    """A spawned rank: the mesh, then the module-level function `job`
+    (mesh, mc) -> dict, pickled with any failure to tmp/rank{rank}.pkl."""
+    import os
+    import pickle
+    import traceback
+
+    from easykv_tpu_torch.config import MeshConfig
+    from easykv_tpu_torch.parallel import init_distributed, make_mesh
+
+    res = {}
+    try:
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+        init_distributed(backend, "file://" + os.path.join(tmp, "rendezvous"), world, rank,
+                         timeout_s=300)
+        mc = MeshConfig(data, model)
+        res = globals()[job](make_mesh(mc, "cuda"), mc)
+    except BaseException:  # noqa: BLE001 - reported to the test
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    if "error" in res:
+        os._exit(1)
+
+
+def _spawn_mesh(job, data, model, tmp):
+    import multiprocessing
+    import os
+    import pickle
+
+    mp = multiprocessing.get_context("spawn")
+    procs = [mp.Process(target=_mesh_rank, args=(r, data * model, data, model, str(tmp), job))
+             for r in range(data * model)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    out = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+        with open(os.path.join(str(tmp), f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+        assert "error" not in out[-1], f"rank {r}:\n{out[-1]['error']}"
+    return out
+
+
+def _wrappers_job(mesh, mc):
+    """Each sharded wrapper on this rank's shards of global inputs (B = 2,
+    Hkv = 4, GQA rep 2, S = 256: the shard's launch plans are the whole's),
+    gathered, against the unsharded launch of its kernel: bit-identical."""
+    from easykv_tpu_torch.ops.cuda import chunk_attention as ca
+    from easykv_tpu_torch.ops.cuda import decode_attention as da
+    from easykv_tpu_torch.ops.cuda import sidecar_update as su
+    from easykv_tpu_torch.parallel.mesh import all_gather_cat
+    from easykv_tpu_torch.parallel.sharding import _shard
+
+    dev = mesh.device
+    B, H, rep, S, D, C, L = 2, 4, 2, 256, 128, 16, 2
+    g = torch.Generator(device=dev).manual_seed(3)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    b = lambda *s: f(*s).to(torch.bfloat16)  # noqa: E731
+    cpu = torch.Generator().manual_seed(3)
+    pos = _positions(B, H, S, 220, cpu).to(dev)
+    lpos = torch.stack([_positions(B, H, S, 220, cpu) for _ in range(L)]).to(dev)
+    u = lambda *s: torch.rand(s, generator=g, device=dev)  # noqa: E731
+    k8, ks = quantize_kv(f(B, H, S, D))
+    v8, vs = quantize_kv(f(B, H, S, D))
+    q_pos = (250 + torch.arange(C, dtype=torch.int32, device=dev)).repeat(B, 1)
+    ids = torch.stack([torch.randperm(S, generator=cpu)[:C].sort().values
+                       for _ in range(B * H)]).reshape(B, H, C).to(torch.int32).to(dev)
+    wm = torch.zeros((B, H, S), dtype=torch.int32, device=dev).scatter_(-1, ids.long(), 1)
+    rows = lambda *v: torch.tensor(v, device=dev)  # noqa: E731
+    spec = PolicySpec("roco", PHASE_DECODE, 1, 4, 2, feasible_k=40, protect_prompt=True)
+    kw = dict(mesh=mesh, data_axis=mc.axis_data, model_axis=mc.axis_model)
+    cases = {   # name: (kernel, sharded, args, specs, outputs' head dim)
+        "K1": (da.fused_decode_attend_inflight, da.fused_decode_attend_inflight_sharded,
+               (b(B, H * rep, 1, D), b(B, H, 1, D), b(B, H, 1, D), b(B, H, S, D), b(B, H, S, D),
+                pos, rows(255, 230).int()), ("dm..",) * 5 + ("dm.", "d"), 1),
+        "K2": (lambda *a: su.fused_write_update(*a, "roco"),
+               lambda *a, **k: su.fused_write_update_sharded(*a, policy="roco", **k),
+               (lpos, u(L, B, H, S), u(L, B, H, S), (u(L, B, H, S) * 30).floor(),
+                u(L, B, H, S) / S, u(L, B, H, 1), rows(250, 250).int(), rows(True, False),
+                rows(True, True), rows(2.0, 0.0)), (".dm.",) * 6 + ("d",) * 4, 2),
+        "K4": (lambda *a: su.fused_evict(*a, spec),
+               lambda *a, **k: su.fused_evict_sharded(*a, spec=spec, **k),
+               (lpos, u(L, B, H, S), u(L, B, H, S), 1 + (u(L, B, H, S) * 30).floor(),
+                rows(True, False), rows(251, 251).int(), rows(12, 12).int(), rows(3, 3).int()),
+               (".dm.",) * 4 + ("d",) * 4, 2),
+        "K5": (ca.fused_chunk_attend, ca.fused_chunk_attend_sharded,
+               (b(B, H * rep, C, D), k8, v8, pos, q_pos, ks, vs),
+               ("dm..",) * 3 + ("dm.", "d.", "dm.", "dm."), 1),
+        "K6": (ca.fused_chunk_write_attend, ca.fused_chunk_write_attend_sharded,
+               (b(B, H * rep, C, D), b(B, H, C, D), b(B, H, C, D), ids, q_pos,
+                torch.zeros(B, C, device=dev), k8.clone(), v8.clone(), pos.clone(), u(B, H, S),
+                u(B, H, S), 1 + u(B, H, S), ks.clone(), vs.clone()),
+               ("dm..",) * 3 + ("dm.", "d.", "d.", "dm..", "dm..") + ("dm.",) * 6, 1),
+        "K7": (lambda *a: ca.fused_chunk_step(*a, policy="roco", feasible_k=40, sink=4,
+                                              recent_window=10),
+               lambda *a, **k: ca.fused_chunk_step_sharded(*a, policy="roco", feasible_k=40,
+                                                           sink=4, recent_window=10, **k),
+               (b(B, H * rep, C, D), b(B, H, C, D), b(B, H, C, D), wm, q_pos,
+                torch.zeros(B, C, device=dev), rows(True, True), rows(True, False),
+                (q_pos[:, -1] + 1).contiguous(), rows(3, 3).int(), k8.clone(), v8.clone(),
+                pos.clone(), u(B, H, S), u(B, H, S), 1 + u(B, H, S), ks.clone(), vs.clone()),
+               ("dm..",) * 3 + ("dm.", "d.", "d.", "d", "d", "d", "d", "dm..", "dm..")
+               + ("dm.",) * 6, 1),
+    }
+
+    def flat(res, args, name):
+        if name == "K7":
+            return [res[0], *res[1], res[2]]
+        res = [r for r in res if r is not None]
+        return res + (list(args[6:]) if name == "K6" else [])
+
+    ax = {"d": mc.axis_data, "m": mc.axis_model, ".": None}
+    out = {}
+    for name, (kernel, sharded, args, specs, hdim) in cases.items():
+        whole = [a.clone() for a in args]
+        mine = [_shard(a, tuple(ax[c] for c in s), mesh, dev) for a, s in zip(args, specs)]
+        ref = flat(kernel(*whole), whole, name)
+        got = flat(sharded(*mine, **kw), mine, name)
+        same = []
+        for x, r in zip(got, ref):
+            x = all_gather_cat(all_gather_cat(x, mesh, mc.axis_model, hdim), mesh,
+                               mc.axis_data, hdim - 1)
+            same.append(x.shape == r.shape and torch.equal(
+                x.contiguous().view(torch.uint8), r.contiguous().view(torch.uint8)))
+        out[name] = same
+    return out
+
+
+def test_sharded_wrappers_bit_identical_on_a_mesh_of_ranks(cuda, tmp_path):
+    """The six `*_sharded` wrappers on a (2, 2) mesh of four ranks, each on
+    its own shards, gathered: bit-identical to the unsharded launch of the
+    same kernel on the same global inputs (launch plans that coincide)."""
+    for r in _spawn_mesh("_wrappers_job", 2, 2, tmp_path):
+        assert r == {k: [True] * len(v) for k, v in r.items()} and len(r) == 6, r
+
+
+def _tp_decode_job(mesh, mc):
+    """decoding (roco b=8, greedy) at L = 2, f32 weights, int8 KV: this rank
+    once without the mesh on the whole tree, then under it on its shards."""
+    import easykv_tpu_torch
+    from easykv_tpu_torch.ops.cuda.decode_attention import fused_decode_attend_inflight_sharded
+    from easykv_tpu_torch.parallel import shard_params
+
+    cfg = ModelConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8)
+    tree = init_params(cfg, seed=2, device=mesh.device)
+    ids = torch.randint(1, 1000, (2, 96), generator=torch.Generator().manual_seed(2)).numpy()
+    gc = dict(budget=8, kv_policy="roco", max_new_tokens=24, temperature=1e-9, top_p=1.0,
+              eos_token_ids=[])
+    one = easykv_tpu_torch.generate(easykv_tpu_torch.CausalLM(
+        cfg, tree, device=mesh.device, kv_quant=True), ids, gc, kv_mode="decoding")
+    flags.set_active_mesh(mesh, mc.axis_data, mc.axis_model)
+    before = fused_decode_attend_inflight_sharded.launches
+    try:
+        tp = easykv_tpu_torch.generate(easykv_tpu_torch.CausalLM(
+            cfg, shard_params(tree, cfg, mc, mesh), device=mesh.device, kv_quant=True), ids, gc,
+            kv_mode="decoding")
+    finally:
+        flags.set_active_mesh(None)
+    return {"one": one, "tp": tp,
+            "k1s": fused_decode_attend_inflight_sharded.launches - before}
+
+
+def test_two_rank_tp_decoding_matches_one_rank(cuda, tmp_path):
+    """A (1, 2) mesh of two ranks: the same greedy tokens as one rank's run
+    of the whole tree, K1 through its sharded wrapper (2 layers a step)."""
+    for r in _spawn_mesh("_tp_decode_job", 1, 2, tmp_path):
+        assert r["tp"] == r["one"] and len(r["tp"]) == 24
+        assert r["k1s"] == 2 * 24
