@@ -199,7 +199,16 @@ Phases, each printing its lines before the last:
      `python3 -m easykv_tpu_torch` info, generate (`decoding`, 16 tokens,
      budget 8: the same call's tokens in-process) and ppl (the in-process
      value) as subprocesses. The phase adds no kernel: it runs K1, K2, K11,
-     K13 and K14 on trees that came from disk.
+     K13 and K14 on trees that came from disk;
+  7. tensor / data parallelism over (data, model) meshes of spawned ranks
+     (phase_parallel: gloo with several ranks a card), the seven sharded
+     wrappers against their unsharded launches and timed on a shard;
+  8. the sequence-parallel ring prefill on sp meshes of spawned ranks
+     (phase_sp: sp = 2 runs the 7B bf16 `decoding` and int8 `encoding`
+     with exact launches, the ranks' tokens and final caches equal by
+     bits, and the L=2 f32 ring against the one-card chunked prefill;
+     sp = 4 the latter), and pre-rotated StreamingLLM `decoding` under a
+     (1, 2) mesh (L=2 f32 exactness; 7B bf16 with one K9s a step a rank).
 
 It exits non-zero, without a result line, when there is no CUDA device, a
 kernel does not build, or any check fails. The last line is
@@ -207,7 +216,9 @@ kernel does not build, or any check fails. The last line is
 name and power limit, and the one before that the per-kernel JSON record.
 """
 import contextlib
+import copy
 import dataclasses
+import hashlib
 import importlib
 import io
 import json
@@ -229,7 +240,7 @@ import torch
 import easykv_tpu_torch
 from easykv_tpu_torch import cli, flags
 from easykv_tpu_torch import policies as policies_mod
-from easykv_tpu_torch.cache import KVCache, quantize_kv
+from easykv_tpu_torch.cache import KVCache, init_cache, quantize_kv
 from easykv_tpu_torch import parallel as parallel_mod
 from easykv_tpu_torch.config import MeshConfig, ModelConfig
 from easykv_tpu_torch.parallel import mesh as parallel_mesh
@@ -242,7 +253,7 @@ from easykv_tpu_torch.ops.cuda import _build
 from easykv_tpu_torch.ops.cuda import sidecar_update as sidecar_mod
 from easykv_tpu_torch.ops.cuda.kv_compact import (
     fused_compact as k8, fused_compact_plain as k8_plain, fused_kv_compact as k9,
-    fused_kv_compact_plain as k9_plain, shift_rotation)
+    fused_kv_compact_plain as k9_plain, fused_kv_compact_sharded as k9s, shift_rotation)
 from easykv_tpu_torch.ops.rope import rope_inv_freq
 from easykv_tpu_torch.ops.cuda import chunk_attention as chunk_mod
 from easykv_tpu_torch.ops.cuda.chunk_attention import (
@@ -1303,7 +1314,7 @@ def phase_k7(dev):
 KERNELS = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6, "K7": k7, "K8": k8, "K9": k9,
            "K10": k10, "K11": k11, "K12": k12, "K13": k13, "K14": k14, "K15": k15,
            "decode_attend": kda, "K1s": k1s, "K2s": k2s, "K4s": k4s, "K5s": k5s, "K6s": k6s,
-           "K7s": k7s}
+           "K7s": k7s, "K9s": k9s}
 # launches of a kernel's variant, counted by its wrapper beside the total
 VARIANTS = {"K1 ordered": (k1, "ordered_launches"), "K1 rank": (k1, "rank_launches"),
             "K2 compact": (k2, "compact_launches"), "K2 rows": (k2, "rows_launches")}
@@ -3966,6 +3977,10 @@ SHARDED_META = {  # key: (wrapper, its kernel's source, the TPU wrapper it repla
             "easykv_tpu/ops/pallas/chunk_attention.py:844"),
     "K7s": ("fused_chunk_step_sharded", "easykv_tpu_torch/csrc/chunk_attention.cu",
             "easykv_tpu/ops/pallas/chunk_attention.py:1199"),
+    # K9 on a shard: the JAX package shifts and rotates in XLA under a mesh
+    # (engine/generate.py:694-723 there); the port launches K9 on the shard
+    "K9s": ("fused_kv_compact_sharded", "easykv_tpu_torch/csrc/kv_compact.cu",
+            "easykv_tpu/ops/pallas/sidecar_update.py:801"),
 }
 
 
@@ -3980,21 +3995,27 @@ def need(cond, msg):
 
 
 def rank_main(rank, world, data, model, backend, tmp, job, ctx):
-    """One rank of a phase-7 group: joins the group's process group (a
-    file:// rendezvous in `tmp`), makes the (data, model) mesh on card
-    rank % device_count(), runs JOBS[job] and pickles what it found (and any
-    failure) to tmp/rank{rank}.pkl for the parent."""
+    """One rank of a phase-7 or phase-8 group: joins the group's process
+    group (a file:// rendezvous in `tmp`), makes the (data, model) mesh on
+    card rank % device_count() (data = 0: the sequence-parallel mesh over
+    all `world` ranks, mc None), runs JOBS[job] and pickles what it found
+    (and any failure, with the end of what the job printed) to
+    tmp/rank{rank}.pkl for the parent."""
     out = {"lines": []}
+    printed = io.StringIO()
     try:
         parallel_mod.init_distributed(backend, "file://" + os.path.join(tmp, "rendezvous"),
                                       world, rank, timeout_s=MESH_TIMEOUT)
-        mc = MeshConfig(data, model)
-        mesh = parallel_mod.make_mesh(mc, "cuda")
+        if data:
+            mc = MeshConfig(data, model)
+            mesh = parallel_mod.make_mesh(mc, "cuda")
+        else:
+            mc, mesh = None, parallel_mesh.make_sp_mesh("cuda")
         out["device"] = str(mesh.device)
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(printed):
             JOBS[job](mesh, mc, ctx, out)
     except BaseException:  # noqa: BLE001 - every failure goes back to the parent
-        out["error"] = traceback.format_exc()
+        out["error"] = printed.getvalue()[-2000:] + traceback.format_exc()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     if "error" in out:
@@ -4002,11 +4023,11 @@ def rank_main(rank, world, data, model, backend, tmp, job, ctx):
 
 
 def spawn_ranks(job, data, model, ctx):
-    """JOBS[job] on a (data, model) mesh of data * model spawned ranks:
-    NCCL when the machine has a card a rank, else gloo (several ranks a
-    card; NCCL refuses that). Returns (backend, each rank's results); a rank
-    that fails fails the phase."""
-    world = data * model
+    """JOBS[job] on a (data, model) mesh of data * model spawned ranks (data
+    = 0: an sp mesh of `model` ranks): NCCL when the machine has a card a
+    rank, else gloo (several ranks a card; NCCL refuses that). Returns
+    (backend, each rank's results); a rank that fails fails the phase."""
+    world = data * model or model
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     mp = importlib.import_module("multiprocessing").get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="easykv_mesh_") as tmp:
@@ -4076,6 +4097,7 @@ WRAP_SPECS = {
     "K6s": (("dm..",) * 3 + ("dm.", "d.", "d.", "dm..", "dm..") + ("dm.",) * 6, 1),
     "K7s": (("dm..",) * 3 + ("dm.", "d.", "d.", "d", "d", "d", "d", "dm..", "dm..")
             + ("dm.",) * 6, 1),
+    "K9s": ((".dm..", ".dm..", ".dm"), 2),
 }
 K2_ROWS_SPEC = ".dm.."
 
@@ -4155,6 +4177,16 @@ def wrapper_calls(dev, mesh, mc):
                         sharded=lambda *a: k7s(*a, policy="roco", **st, **kw),
                         plain=lambda *a: k7_plain(*a, policy="roco", **st), sets=k7_sets,
                         exact_sets=k7_f32, reps=(32, 32), same_plan=same, restore_from=10)
+    # K9 (rotate): phase 5's bf16 set (the pre-rotated decode cache, victims
+    # among the generated tokens); its launch plan depends on the row alone
+    L, _, S, _ = STREAM_SHAPE
+    shift = shift_rotation(rope_inv_freq(D, LLAMA2_7B.rope_theta, dev))
+    kvr = kv_rows(L, 1, H, S, D, "bf16", dev, 191)
+    k9_sets = [(kvr[0], kvr[1], stream_victims(L, 1, H, S, dev, 192))]
+    cases["K9s"] = dict(kernel=lambda *a: k9(*a, rot=shift),
+                        sharded=lambda *a: k9s(*a, rot=shift, **kw),
+                        plain=lambda *a: k9_plain(*a, rot=shift), sets=k9_sets,
+                        exact_sets=None, reps=(64, 8), same_plan=True)
     return cases
 
 
@@ -4378,6 +4410,8 @@ EXACT_CASES = {   # (c): name -> (tree, KV, kv_mode, policy, flags)
     "f32 KV encoding, chunk kernels and K7": ("f32", "f32", "encoding", "roco",
                                               {"chunk": True, "step": True}),
     "f32 KV tova encoding, chunk kernels": ("f32", "f32", "encoding", "tova", {"chunk": True}),
+    # phase 8 (d): pre-rotated StreamingLLM `decoding` (K2s, K4s, K9s a step)
+    "f32 KV stream decoding": ("f32", "f32", "decoding", "roco", {"streaming": True}),
 }
 EXACT_BY_MESH = {(1, 2): list(EXACT_CASES), (2, 1): ["f32 KV decoding", "int8 KV decoding"],
                  (2, 2): ["f32 KV decoding", "int8 KV decoding"]}
@@ -4389,7 +4423,8 @@ def exact_run(model, ids, name, mesh, mc):
     pos; every step's logits; launches)."""
     _, kv, mode, policy, fl = EXACT_CASES[name]
     gc = dict(budget=8 if mode == "decoding" else 0.5, kv_policy=policy,
-              max_new_tokens=EXACT_NEW, temperature=1e-9, top_p=1.0, eos_token_ids=[], seed=0)
+              max_new_tokens=EXACT_NEW, temperature=1e-9, top_p=1.0, eos_token_ids=[], seed=0,
+              streaming=fl.get("streaming", False))
     logits = []
     tail = llama_mod._logits_tail
 
@@ -4417,7 +4452,7 @@ def exact_run(model, ids, name, mesh, mc):
     return rows[-1].out_ids.cpu(), made[-1].pos, logits, counts()
 
 
-def mesh_exact(mesh, mc, ctx, out):
+def mesh_exact(mesh, mc, ctx, out, names=None, key="exact"):
     """(c): at full width with L = 2 and f32 weights, each case of this
     mesh's EXACT_BY_MESH through generate() without a mesh (this rank, the
     whole tree) and under it (its shards): equal tokens in every row; with
@@ -4427,13 +4462,13 @@ def mesh_exact(mesh, mc, ctx, out):
     printed: the row-parallel products sum in another order, so an int8
     rounding of K or V can flip by one step past layer 0, and roco then
     keeps another slot (phase 4's standard for the kernel path against the
-    plain one)."""
+    plain one). `names` (default: EXACT_BY_MESH's) go to out[key]."""
     dev = mesh.device
     cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
     full = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
     g = torch.Generator().manual_seed(1)
     res = {}
-    for name in EXACT_BY_MESH[(mc.data, mc.model)]:
+    for name in names or EXACT_BY_MESH[(mc.data, mc.model)]:
         tree_kind, kv, mode = EXACT_CASES[name][:3]
         tree = {"f32": lambda: full, "int8": lambda: quant_mod.quantize_params(full),
                 "int4": lambda: int4_mesh_tree(full, mc.model)}[tree_kind]()
@@ -4463,7 +4498,7 @@ def mesh_exact(mesh, mc, ctx, out):
         if tree is not full:
             del tree
         torch.cuda.empty_cache()
-    out["exact"] = res
+    out[key] = res
 
 
 def mesh_serving(mesh, mc, ctx, out):
@@ -4541,7 +4576,8 @@ def phase_parallel(dev, runs, times, k7t):
     spawned ranks (torch.distributed; gloo with several ranks a card),
     each on its own shards: (1, 2) runs (d), (a), (e) and (c); (2, 1) runs
     (b) and (c) with serving; (2, 2) runs (c). Returns the six sharded
-    wrappers' kernels-line records."""
+    wrappers' kernels-line records, and (d)'s measurement of K9s, whose
+    record phase 8 makes."""
     cfg = LLAMA2_7B
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="easykv_tp_ckpt_") as ckpt:
@@ -4589,6 +4625,8 @@ def phase_parallel(dev, runs, times, k7t):
     whole_keys = {"K1s": ("K1", "bf16"), "K4s": ("K4", "-"), "K5s": ("K5", "int8"),
                   "K6s": ("K6", "int8")}
     for key, (name, src, repl) in SHARDED_META.items():
+        if key == "K9s":      # its launches come from phase 8 (d)
+            continue
         r = w[key]
         if key == "K7s":
             bound, by = k7t[("K7", "int8")]["bound_ms"], k7t[("K7", "int8")]["bound_by"]
@@ -4638,7 +4676,374 @@ def phase_parallel(dev, runs, times, k7t):
     for name, x in ex[0]["exact"].items():
         print(f"phase 7: (c) (2, 2) L=2 f32 weights, {name}: {exact_note(x)}")
     print(f"phase 7: mesh (2, 2), 4 ranks, backend {backend}: {time.perf_counter() - t0:.1f} s")
-    return records
+    return records, w["K9s"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sequence-parallel ring prefill (flags.set_sp_mesh), and
+# pre-rotated StreamingLLM decoding under a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+SP_NEW = 256                       # (a)'s new tokens (phase 7's)
+SP_EXACT_LENS = (512, 389)         # (c): two prefixes of unequal length in 512 columns
+SP_EXACT_SLOTS = 640
+STREAM_BUDGET, STREAM_NEW = 32, 64  # (d) at 7B: 32 steps past the budget
+SP_BARS = dict(kv=(1e-5, 1e-4), score=(1e-5, 1e-4), score_sq=(1e-6, 1e-4),
+               logits=(2e-4, 2e-3))  # the JAX package's, tests/test_sp_prefill.py:63-73
+
+
+def digest(cache):
+    """sha256 of every array of a cache: ranks' caches compared by bits
+    without moving them."""
+    return {f: hashlib.sha256(getattr(cache, f).contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()
+            for f in CACHE_ARRAYS if getattr(cache, f) is not None}
+
+
+@contextlib.contextmanager
+def prefill_hook():
+    """Records each engine _prefill call: its arguments, logits and the
+    cache's pos and counter right after it."""
+    calls, fn = [], gen_mod._prefill
+
+    def hooked(st, params, cache, ids, prefix_len, *rest):
+        logits = fn(st, params, cache, ids, prefix_len, *rest)
+        calls.append(dict(st=st, ids=ids, prefix_len=prefix_len, rest=rest, logits=logits,
+                          pos=cache.pos.clone(), counter=cache.counter.clone(),
+                          S=cache.pos.shape[-1], quant=cache.quantized))
+        return logits
+    with mock.patch.object(gen_mod, "_prefill", hooked):
+        yield calls
+
+
+def chunked_twin(call, params, cfg, dev, dtype):
+    """The one-card chunked prefill of a recorded ring prefill's inputs
+    (the same statics without the sp mesh): (cache, logits)."""
+    st = dataclasses.replace(call["st"], sp=None)
+    cache = init_cache(cfg.num_hidden_layers, call["ids"].shape[0],
+                               cfg.num_key_value_heads, call["S"], cfg.head_dim, dtype, dev,
+                               quantized=call["quant"])
+    logits = gen_mod._prefill(st, params, cache, call["ids"], call["prefix_len"], *call["rest"])
+    return cache, logits
+
+
+def ring_checked(mesh, call, params, cfg, dtype, what):
+    """A recorded ring prefill against its one-card chunked twin: pos and
+    counter equal (a padding token's slot holds no token: pos -1 in both,
+    its other arrays unread). Returns max |logits - twin's| / max |twin's|."""
+    twin, logits = chunked_twin(call, params, cfg, mesh.device, dtype)
+    valid = twin.pos >= 0
+    need(torch.equal(call["pos"], twin.pos)
+         and torch.equal(call["counter"][valid], twin.counter[valid]),
+         f"{what}: the ring prefill's pos / counter differ from the one-card chunked prefill's")
+    err = ((call["logits"] - logits).abs().max() / logits.abs().max()).item()
+    del twin
+    return err
+
+
+def sp_decode(mesh, ctx, out):
+    """(a): phase 3's bf16 `decoding` (its 512-token prompt, roco b=200,
+    greedy) for SP_NEW tokens under the sp mesh, LLaMa-2-7B width, bf16
+    weights from seed 0 on each rank: the ring prefill (the rank's 256
+    columns), then the decode over the whole cache, replayed as a CUDA
+    graph. Exact launches a rank, the ring taken once, 200 generated tokens
+    in every (layer, head), the post-prefill pos and counter equal to the
+    one-card chunked prefill's; the final cache's digest for the parent."""
+    dev, cfg = mesh.device, LLAMA2_7B
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)[0].tolist()
+    gc = dict(budget=BUDGET, kv_policy="roco", max_new_tokens=SP_NEW, temperature=1e-9,
+              top_p=1.0, eos_token_ids=[], seed=0)
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev)
+    flags.set_sp_mesh(mesh)
+    try:
+        easykv_tpu_torch.generate(model, prompt, dict(gc, max_new_tokens=8), kv_mode="decoding")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with engine_caches() as made, prefill_hook() as pre, recorded("_ring_prefill") as ring:
+            toks = easykv_tpu_torch.generate(model, prompt, gc, kv_mode="decoding")
+        c = counts()
+    finally:
+        flags.set_sp_mesh(None)
+    st = model.last_run
+    want = zero_counts(K1=L * SP_NEW, K2=SP_NEW, **{"K2 rows": SP_NEW})
+    need(c == want, f"(a): launches {c}, want {want}")
+    need(len(ring) == 1 and len(toks) == SP_NEW and st.logits_finite,
+         f"(a): ring prefills {len(ring)}, {len(toks)} tokens, finite {st.logits_finite}")
+    need(st.graph_nodes > 0, "(a): the decode after the ring did not replay a CUDA graph")
+    cache = made[-1]
+    kept = (cache.pos >= PROMPT).sum(-1)
+    need(bool((kept == BUDGET).all()), f"(a): generated tokens kept {kept.unique().tolist()}")
+    out["decode"] = dict(tokens=toks, tok_s=st.n_tokens / st.decode_s, prefill_s=st.prefill_s,
+                         capture_s=st.capture_s, nodes=st.graph_nodes, counts=c,
+                         kv_len=st.kv_len, digest=digest(cache),
+                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                         logit_err=ring_checked(mesh, pre[-1], params, cfg, torch.bfloat16,
+                                                "(a)"))
+    del made, cache, pre
+    torch.cuda.empty_cache()
+    return params
+
+
+def sp_encode(mesh, ctx, out, params):
+    """(b): phase 3's int8 `encoding` (the 4096-token prompt, stride 96,
+    roco at 0.5, 128 new tokens) under the sp mesh: the 1984-token prefix
+    through the ring (992 columns a rank), then the strided encode through
+    K6 and the decode, checked by encoding_run (exact launches: no K5, 704
+    K6; 2208 slots; the ratio line); the post-prefix pos and counter equal
+    to the one-card chunked prefill's."""
+    dev, cfg = mesh.device, LLAMA2_7B
+    L = cfg.num_hidden_layers
+    prompt = torch.randint(1, cfg.vocab_size, (ENC_PROMPT,),
+                           generator=torch.Generator().manual_seed(0)).tolist()
+    gc = dict(kv_policy="roco", budget=0.5, max_new_tokens=ENC_NEW, temperature=1e-9, top_p=1.0,
+              eos_token_ids=[], seed=0)
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev, kv_quant=True)
+    n_enc = L * ((ENC_PROMPT - ENC_RIDX) // STRIDE)
+    ratio = f"KV cache budget ratio: {ENC_IDX / ENC_PROMPT * 100:.2f}%({ENC_IDX}/{ENC_PROMPT})"
+    flags.set_sp_mesh(mesh)
+    try:
+        easykv_tpu_torch.generate(model, prompt[:1024], dict(gc, max_new_tokens=4),
+                                  kv_mode="encoding", stride=STRIDE)
+        with prefill_hook() as pre, recorded("_ring_prefill") as ring:
+            res = encoding_run(model, "int8 encoding roco, sp", prompt, gc, "encoding", STRIDE,
+                               zero_counts(K1=L * ENC_NEW, K2=ENC_NEW, K6=n_enc,
+                                           **{"K2 rows": ENC_NEW}),
+                               ENC_IDX + ENC_NEW, ratio, ENC_S, cfg, n_new=ENC_NEW, keep=True)
+    finally:
+        flags.set_sp_mesh(None)
+    need(len(ring) == 1 and pre[-1]["ids"].shape[1] == ENC_RIDX,
+         f"(b): ring prefills {len(ring)} of a {pre[-1]['ids'].shape[1]}-token prefix")
+    out["encode"] = dict(tokens=res["out"], prefill_s=res["prefill_s"], encode_s=res["encode_s"],
+                         tok_s=res["tok_s"], counts=res["counts"], digest=digest(res["cache"]),
+                         logit_err=ring_checked(mesh, pre[-1], params, cfg, torch.bfloat16,
+                                                "(b)"))
+    del res, pre
+    torch.cuda.empty_cache()
+
+
+def sp_exact(mesh, ctx, out):
+    """(c): LLaMa-2-7B width, L = 2, f32 weights (seed 1) and cache, B = 2
+    with prefixes of SP_EXACT_LENS tokens (padding keys): the encoding
+    prefix prefill with the keep_attention roco bootstrap under the sp mesh
+    against the one-card chunked prefill on the card: pos exact; at the
+    valid slots the counter exact, and k, v, score, score_sq and the logits
+    within SP_BARS, or else (the bars were set at the JAX package's test
+    widths, where no sum runs over 4096 or 11008 terms) no farther from the
+    same prefill with f64 weights and cache than twice the one-card
+    prefill's own distance from it; then greedy `decoding` (roco b=8, 32
+    new tokens, both rows' 512-token prompts) with and without the mesh:
+    every row's tokens equal."""
+    dev = mesh.device
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=2)
+    params = init_params(cfg, seed=1, dtype=torch.float32, device=dev)
+    params64 = copy.deepcopy(params).double()
+    params64.lm_head = params.lm_head          # the f32 head: _lm_head's f32 branch
+    ids = torch.randint(1, cfg.vocab_size, (2, PROMPT),
+                        generator=torch.Generator().manual_seed(8)).to(dev)
+    plen = torch.tensor(SP_EXACT_LENS, dtype=torch.int32, device=dev)
+    st = gen_mod.EngineStatics(cfg=cfg, mode="encoding", policy="roco", stride=STRIDE,
+                               length=ENC_PROMPT, budget=ENC_IDX, idx=ENC_IDX, r_idx=PROMPT,
+                               keep_attention=True, recent_window=ENC_IDX // 10)
+    got = {}
+    for name, sp, tree, dtype in (("one", None, params, torch.float32),
+                                  ("sp", (mesh, "sp"), params, torch.float32),
+                                  ("f64", None, params64, torch.float64)):
+        cache = init_cache(2, 2, cfg.num_key_value_heads, SP_EXACT_SLOTS, cfg.head_dim, dtype,
+                           dev)
+        logits = gen_mod._prefill(dataclasses.replace(st, sp=sp), tree, cache, ids, plen,
+                                  st.encode_spec(), "encode")
+        got[name] = dict(logits=logits, **{f: getattr(cache, f) for f in
+                                           ("k", "v", "score", "score_sq", "pos", "counter")})
+    del params64
+    one, ring, x64 = got["one"], got["sp"], got["f64"]
+    valid = one["pos"] >= 0
+    need(torch.equal(one["pos"], ring["pos"])
+         and torch.equal(one["counter"][valid], ring["counter"][valid]),
+         f"(c) sp={mesh.size}: pos / counter differ")
+    errs = {}
+    for f, bar in (("k", "kv"), ("v", "kv"), ("score", "score"), ("score_sq", "score_sq"),
+                   ("logits", "logits")):
+        sel = (lambda t: t) if f == "logits" else (lambda t: t[valid])  # noqa: E731
+        a, b, x = sel(ring[f]), sel(one[f]), sel(x64[f]).double()
+        atol, rtol = SP_BARS[bar]
+        within = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+        d_ring = (a.double() - x).abs().max().item()
+        d_one = (b.double() - x).abs().max().item()
+        errs[f] = dict(err=(a - b).abs().max().item(), within=within, d_ring=d_ring, d_one=d_one)
+        need(within or d_ring <= 2 * d_one,
+             f"(c) sp={mesh.size}: {f} beyond {SP_BARS[bar]} of the one-card prefill "
+             f"({errs[f]['err']:.3e}) and |ring - f64| {d_ring:.3e} > 2 x |one-card - f64| "
+             f"{d_one:.3e}")
+    del got, one, ring, x64
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev)
+    gc = dict(budget=8, kv_policy="roco", max_new_tokens=EXACT_NEW, temperature=1e-9, top_p=1.0,
+              eos_token_ids=[], seed=0)
+    rows = []
+    for sp in (None, mesh):
+        flags.set_sp_mesh(sp)
+        try:
+            with recorded("_gather_result", last_only=True) as res:
+                easykv_tpu_torch.generate(model, ids.cpu().numpy(), gc, kv_mode="decoding")
+        finally:
+            flags.set_sp_mesh(None)
+        rows.append(res[-1].out_ids.cpu())
+    need(torch.equal(rows[0], rows[1]), f"(c) sp={mesh.size}: greedy tokens differ")
+    out["exact"] = dict(errs=errs, valid=int(valid.sum()), tokens=tuple(rows[1].shape))
+
+
+def job_sp2(mesh, mc, ctx, out):
+    """sp = 2: (a), (b), (c)."""
+    out["transport"] = parallel_mesh.ring_transport(mesh, mesh.device)
+    params = sp_decode(mesh, ctx, out)
+    sp_encode(mesh, ctx, out, params)
+    del params
+    torch.cuda.empty_cache()
+    sp_exact(mesh, ctx, out)
+
+
+def job_sp4(mesh, mc, ctx, out):
+    """sp = 4 (four ranks): (c)."""
+    out["transport"] = parallel_mesh.ring_transport(mesh, mesh.device)
+    sp_exact(mesh, ctx, out)
+
+
+def job_stream_tp(mesh, mc, ctx, out):
+    """(d) on (1, 2): pre-rotated StreamingLLM `decoding` at L = 2, f32
+    (mesh_exact: tokens and this rank's final pos equal to the one-process
+    run's, logits within LOGIT_LIMIT), then at 7B width, bf16 weights from
+    seed 0 (this rank's shards), phase 3's prompt, roco at STREAM_BUDGET,
+    STREAM_NEW new tokens: exact launches a rank (one K2s unfolded with the
+    rows, one K4s and one K9s a step), STREAM_BUDGET generated tokens in
+    every (layer, row, head), the final cache age-ordered."""
+    mesh_exact(mesh, mc, ctx, out, names=["f32 KV stream decoding"], key="stream_exact")
+    dev, cfg = mesh.device, LLAMA2_7B
+    L = cfg.num_hidden_layers
+    full = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    params = parallel_mod.shard_params(full, cfg, mc, mesh)
+    del full
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (B_WIDE, PROMPT), generator=g)[0].tolist()
+    gc = dict(budget=STREAM_BUDGET, kv_policy="roco", max_new_tokens=STREAM_NEW,
+              temperature=1e-9, top_p=1.0, eos_token_ids=[], seed=0, streaming=True)
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev)
+    flags.set_active_mesh(mesh, mc.axis_data, mc.axis_model)
+    try:
+        easykv_tpu_torch.generate(model, prompt, dict(gc, max_new_tokens=STREAM_BUDGET + 4),
+                                  kv_mode="decoding")
+        torch.cuda.synchronize()
+        reset_counts()
+        with engine_caches() as made:
+            toks = easykv_tpu_torch.generate(model, prompt, gc, kv_mode="decoding")
+        c = counts()
+    finally:
+        flags.set_active_mesh(None)
+    st = model.last_run
+    n = STREAM_NEW
+    want = zero_counts(K1=L * n, K1s=L * n, K2=n, K2s=n, K4=n, K4s=n, K9=n, K9s=n,
+                       **{"K2 rows": n})
+    need(c == want, f"(d) 7B: launches {c}, want {want}")
+    ordered, held = ordered_invariant(made[-1].pos)
+    need(ordered and held == (PROMPT + STREAM_BUDGET,) * 2 and len(toks) == n
+         and st.logits_finite, f"(d) 7B: ordered {ordered}, slots {held}, {len(toks)} tokens")
+    out["stream"] = dict(tok_s=st.n_tokens / st.decode_s, prefill_s=st.prefill_s, counts=c,
+                         tokens=toks, local=tuple(made[-1].pos.shape))
+    del made
+
+
+JOBS.update({"sp2": job_sp2, "sp4": job_sp4, "stream_tp": job_stream_tp})
+
+
+def phase_sp(runs, times, k9w):
+    """Phase 8: the sequence-parallel ring prefill on spawned ranks sharing
+    the card (gloo; the ring's blocks through pinned host buffers), sp = 2:
+    (a) 7B bf16 `decoding`, (b) 7B int8 `encoding`, (c) L = 2 f32
+    exactness; sp = 4: (c); then pre-rotated StreamingLLM `decoding` under
+    a (1, 2) mesh, (d). Returns K9s's kernels-line record: its launches from
+    (d)'s 7B run, its times from phase 7 (d) (k9w)."""
+    t0 = time.perf_counter()
+    backend, r2 = spawn_ranks("sp2", 0, 2, {})
+    print(f"phase 8: sp mesh of 2 ranks, backend {backend}, ranks on "
+          f"{[r['device'] for r in r2]}, ring transport: {r2[0]['transport']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    a = [r["decode"] for r in r2]
+    p3 = runs["bf16 roco"]
+    part = first_difference(a[0]["tokens"], p3["tokens"][:SP_NEW])
+    same = all(x["tokens"] == a[0]["tokens"] and x["digest"] == a[0]["digest"] for x in a)
+    print(f"phase 8: (a) sp=2 bf16 KV `decoding` roco b={BUDGET}, {PROMPT}-token prompt "
+          f"({PROMPT // 2} columns a rank), {SP_NEW} new: " + "; ".join(
+              f"rank {i}: ring prefill {x['prefill_s']:.3f} s, decode {x['tok_s']:.2f} tok/s "
+              f"(graph replayed, {x['nodes']} nodes, captured in {x['capture_s']:.3f} s), peak "
+              f"{x['peak_gib']:.2f} GiB" for i, x in enumerate(a))
+          + f"; phase 3 one card: chunked prefill {p3['prefill_s']:.3f} s, decode "
+          f"{p3['tok_s']:.2f} tok/s; post-prefill pos and counter equal to the one-card chunked "
+          f"prefill's, its logits within {a[0]['logit_err']:.2e} of max |logits| (bf16, read); "
+          f"tokens part from phase 3's at {part if part is not None else 'no position'} (bf16 "
+          f"reduction order, no limit); ranks' tokens and final caches equal by bits {same}; "
+          f"launches a rank {a[0]['counts']}")
+    check(same, "(a): the ranks' tokens or final caches differ")
+    b = [r["encode"] for r in r2]
+    p3 = runs["int8 encoding roco"]
+    same = all(x["tokens"] == b[0]["tokens"] and x["digest"] == b[0]["digest"] for x in b)
+    print(f"phase 8: (b) sp=2 int8 KV `encoding` roco 0.5, {ENC_PROMPT}-token prompt, stride "
+          f"{STRIDE}: the {ENC_RIDX}-token prefix through the ring ({ENC_RIDX // 2} columns a "
+          f"rank): " + "; ".join(
+              f"rank {i}: prefix {x['prefill_s']:.3f} s, strided encode {x['encode_s']:.3f} s, "
+              f"decode {x['tok_s']:.2f} tok/s" for i, x in enumerate(b))
+          + f"; phase 3 one card: prefix {p3['prefill_s']:.3f} s, strided encode "
+          f"{p3['encode_s']:.3f} s, decode {p3['tok_s']:.2f} tok/s; post-prefix pos and counter "
+          f"equal to the one-card chunked prefill's (logits within {b[0]['logit_err']:.2e}, "
+          f"read); ranks' tokens and final caches equal by bits {same}; launches a rank "
+          f"{b[0]['counts']}")
+    check(same, "(b): the ranks' tokens or final caches differ")
+    t0 = time.perf_counter()
+    _, r4 = spawn_ranks("sp4", 0, 4, {})
+    for n, ranks in ((2, r2), (4, r4)):
+        x = ranks[0]["exact"]
+        print(f"phase 8: (c) sp={n} L=2 f32, B=2 prefixes {SP_EXACT_LENS}: ring against the "
+              f"one-card chunked prefill at {x['valid']} valid slots, pos and counter exact; "
+              + "; ".join(f"{f} max |err| {e['err']:.3e} ("
+                          + ("within the bar" if e["within"] else "beyond the bar")
+                          + f"; from the f64 prefill: ring {e['d_ring']:.3e}, one card "
+                            f"{e['d_one']:.3e})" for f, e in x["errs"].items())
+              + f" (bars {SP_BARS}, else ring <= 2 x one card from f64); greedy tokens of "
+              f"both rows equal ({x['tokens']})")
+    print(f"phase 8: sp mesh of 4 ranks on {[r['device'] for r in r4]}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, rd = spawn_ranks("stream_tp", 1, 2, {})
+    for name, x in rd[0]["stream_exact"].items():
+        print(f"phase 8: (d) (1, 2) L=2 f32 weights, {name} (pre-rotated): {exact_note(x)}; "
+              f"launches {x['counts']}")
+    d = [r["stream"] for r in rd]
+    p3 = runs["bf16 stream roco prerot"]
+    print(f"phase 8: (d) (1, 2) bf16 KV StreamingLLM `decoding` pre-rotated, roco "
+          f"b={STREAM_BUDGET}, {STREAM_NEW} new: " + "; ".join(
+              f"rank {i}: {x['tok_s']:.2f} tok/s (eager, gloo), prefill {x['prefill_s']:.3f} s, "
+              f"local cache {x['local']}" for i, x in enumerate(d))
+          + f"; phase 3 one card (b={BUDGET}, graph): {p3['tok_s']:.2f} tok/s; launches a rank "
+          f"{d[0]['counts']}; {time.perf_counter() - t0:.1f} s")
+    check(all(x["tokens"] == d[0]["tokens"] for x in d), "(d): the ranks' tokens differ")
+    name, src, repl = SHARDED_META["K9s"]
+    launches = d[0]["counts"]["K9s"]
+    check(launches > 0, "phase 8: fused_kv_compact_sharded was not launched on the main path")
+    t = times[("K9", "bf16")]
+    bound, by = t["bound_ms"] / 2, t["bound_by"]     # every term is per (row, kv-head)
+    print(f"phase 8: (d) {name} at 7B width on a (1, 2) shard (phase 7's timing): "
+          f"{k9w['ms'] * 1e3:.2f} us a call (the unsharded kernel on the whole "
+          f"{k9w['whole_ms'] * 1e3:.2f} us), plain {k9w['plain_ms'] * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.2f} us ({by}); gathered against the unsharded launch: launch plan the "
+          f"same {k9w['same_plan']}, bit-identical {k9w['bits']}; {launches} launches on rank "
+          f"0's main-path run ((d) at 7B)")
+    check(k9w["bits"], "K9s: not bit-identical to the unsharded launch")
+    return [{"name": name, "route": "cuda", "source": src, "replaces": repl,
+             "launches": launches, "max_abs_err": k9w["max_abs_err"], "ms": k9w["ms"],
+             "plain_ms": k9w["plain_ms"], "bound_ms": bound, "bound_by": by,
+             "library_ms": None}]
 
 
 def main():
@@ -4680,7 +5085,8 @@ def main():
     torch.cuda.empty_cache()
     k15_control(dev)
     phase_loading(dev, runs)
-    sharded = phase_parallel(dev, runs, times, k7t)
+    sharded, k9w = phase_parallel(dev, runs, times, k7t)
+    sharded += phase_sp(runs, times, k9w)
 
     meta = {  # name, source, TPU kernel it replaces, the run whose launches it reports
         "K1": ("fused_decode_attend_inflight", "easykv_tpu_torch/csrc/decode_attention.cu",

@@ -250,3 +250,33 @@ def evict_slots(cache: KVCache, evict_ids: torch.Tensor,
     if gate is not None:
         new = torch.where(gate[:, None, None], new, cache.pos.gather(-1, ids))
     cache.pos.scatter_(-1, ids, new)
+
+
+def evict_slots_merged(cache: KVCache, evict_ids: torch.Tensor,
+                       gate: Optional[torch.Tensor] = None) -> None:
+    """Evict with merge, in place (the JAX package's evict_slots_merged,
+    cache.py:436-475 there; the reference's unused
+    truncate_kv_cache_liso_mean, easykv.py:84-102): the evicted slots of
+    each (B, H), evict_ids (B, H, k), are replaced by one slot holding their
+    mean K / V (in f32, stored in the cache's dtype) in the first evicted
+    slot, which keeps its position id; the other k - 1 are invalidated.
+    Rows whose gate (B,) is off are untouched. A float cache only."""
+    assert not cache.quantized, "merged eviction requires a float cache"
+    B, H, _ = evict_ids.shape
+    ids = evict_ids.long()
+    D = cache.k.shape[-1]
+    gather = lambda t: t.gather(2, ids[..., None].expand(B, H, ids.shape[-1], D))  # noqa: E731
+    k_mean = gather(cache.k).to(torch.float32).mean(dim=2).to(cache.k.dtype)       # (B, H, D)
+    v_mean = gather(cache.v).to(torch.float32).mean(dim=2).to(cache.v.dtype)
+    first = ids[:, :, :1]                                                          # (B, H, 1)
+    pos_first = cache.pos.gather(-1, first)
+    evict_slots(cache, evict_ids, gate)
+    idx = (torch.arange(B, device=ids.device)[:, None],
+           torch.arange(H, device=ids.device)[None, :], first[..., 0])
+    if gate is not None:
+        g = gate[:, None, None]
+        k_mean = torch.where(g, k_mean, cache.k[idx])
+        v_mean = torch.where(g, v_mean, cache.v[idx])
+    cache.k[idx] = k_mean
+    cache.v[idx] = v_mean
+    cache.pos.scatter_(-1, first, pos_first)

@@ -2,7 +2,7 @@
 decoding / encoding / auto / encoding_decoding / ppl (counterpart of
 easykv_tpu/engine/generate.py: stride_align, stride_align_encdec,
 EngineStatics, _encode_counter_init, _prefill, _prefill_layer_major,
-_strided_encode, _strided_encode_layer_major, _ce_from_hidden,
+_ring_prefill, _strided_encode, _strided_encode_layer_major, _ce_from_hidden,
 _prerotate_cache, _compact_one, _decode_loop (with its carried ranks,
 _carry_ranks; split into _Carry, _DecodeStep, capture_step and _drive), _engine_cache,
 _run_decoding, _run_encoding, _run_encdec, _run_ppl, _run_ppl_full,
@@ -52,9 +52,18 @@ from the run (tokens, counts, kv_len, the budget-ratio line, ppl, the
 confidence line) is gathered over `data` first (_gather_rows). Gloo
 collectives cannot be captured in a CUDA graph: under a gloo mesh the
 decode loop runs eagerly (decode_graph_ok). Pre-rotated StreamingLLM
-`decoding` under a mesh is not run here (the JAX package compacts it in XLA
-with the rotation; the port's compaction with the rotation is K2's folded
-`compact` + K9, off under a mesh): use flags.use_prerot(False) there.
+`decoding` under a mesh evicts unfolded (K2s, then K4s) and compacts each
+rank's shard with the rotation (_compact_one: the sidecars shifted, K / V
+through K9s), as the JAX package compacts it in XLA.
+
+Under a sequence-parallel mesh (flags.set_sp_mesh; parallel.make_sp_mesh)
+every rank calls generate with the same batch; the prefix prefill shards
+the prefix over the sp axis (_ring_prefill: each rank its columns, ring
+attention, the whole cache gathered on every rank) wherever it fits the
+cache, and every rank then runs the rest (encode, decode) on its whole
+copy, with no collective, so the decode replays its CUDA graph. An sp mesh
+together with a (data, model) mesh is refused: the JAX package never runs
+the two together.
 """
 from __future__ import annotations
 
@@ -75,7 +84,8 @@ from ..models import llama
 from ..models.llama import LlamaParams, StepCtx
 from ..ops.aux_math import confidence
 from ..ops.cuda import launch_counters
-from ..ops.cuda.kv_compact import fused_compact
+from ..ops.cuda.kv_compact import fused_compact, fused_kv_compact_sharded
+from ..ops.cuda.sidecar_update import _shift_down
 from ..ops.rope import rotate
 from ..parallel.mesh import all_gather_cat, all_reduce_min, rows_of
 from ..parallel.sharding import local_config
@@ -152,6 +162,9 @@ class EngineStatics:
     tp: Optional[Tuple] = None
     batch: Optional[int] = None
     row0: int = 0
+    # under a sequence-parallel mesh (flags.sp_mesh()): (mesh, axis); the
+    # prefix prefill then runs ring attention over it
+    sp: Optional[Tuple] = None
 
     def rows(self) -> Optional[Tuple[int, int]]:
         """(first row, global rows) of a rank's rows under a mesh (the
@@ -267,10 +280,17 @@ def _prefill(st: EngineStatics, params: LlamaParams, cache: KVCache,
              spec: Optional[PolicySpec] = None, counter_kind: str = "zero") -> torch.Tensor:
     """Consume the prompt (or prefix) into the empty cache; returns the last
     real token's logits (B, V). spec: the keep_attention bootstrap;
-    counter_kind 'zero' | 'encode' (_encode_counter_init)."""
+    counter_kind 'zero' | 'encode' (_encode_counter_init). Under an sp mesh
+    the prefix, padded to a multiple of the axis, takes the ring
+    (_ring_prefill) where it fits the cache's slots, as in the JAX package
+    (generate.py:238-244 there); elsewhere the layer-major chunked path."""
     B, A = ids.shape
     if A == 0:
         return torch.zeros((B, st.cfg.vocab_size), dtype=torch.float32, device=ids.device)
+    if st.sp is not None:
+        A_pad = _round_up(A, st.sp[0].shape[st.sp[1]])
+        if A_pad <= cache.pos.shape[-1]:
+            return _ring_prefill(st, params, cache, ids, prefix_len, spec, counter_kind, A_pad)
     PC = min(PREFILL_CHUNK, _round_up(A, 8))
     A_pad = _round_up(A, PC)
     ids = torch.nn.functional.pad(ids, (0, A_pad - A))
@@ -297,6 +317,33 @@ def _prefill_layer_major(st, params, cache, ids, prefix_len, PC, spec,
     h_last = h[torch.arange(B, device=dev), last][:, None]              # (B, 1, D)
     logits = llama._logits_tail(h_last, params, st.cfg)[:, 0]
     return torch.where((prefix_len > 0)[:, None], logits, 0.0)
+
+
+def _ring_prefill(st: EngineStatics, params: LlamaParams, cache: KVCache, ids: torch.Tensor,
+                  prefix_len: torch.Tensor, spec: Optional[PolicySpec], counter_kind: str,
+                  A_pad: int) -> torch.Tensor:
+    """Sequence-parallel prefix prefill (llama.ring_prefill_forward over
+    st.sp; the JAX package's _ring_prefill, generate.py:345-379 there): the
+    prefix padded to A_pad columns, one StepCtx over all of them."""
+    B, A = ids.shape
+    dev = ids.device
+    ids = torch.nn.functional.pad(ids, (0, A_pad - A))
+    pos = torch.arange(A_pad, dtype=torch.int32, device=dev)[None, :]
+    tok_valid = pos < prefix_len[:, None]
+    if counter_kind == "encode":
+        cinit = _encode_counter_init(pos, st.idx, st.stride, st.keep_attention)
+    else:
+        cinit = torch.zeros((1, A_pad), dtype=torch.float32, device=dev)
+    ctx = StepCtx(q_pos=torch.where(tok_valid, pos, -1).to(torch.int32),
+                  token_valid=tok_valid,
+                  counter_init=cinit.expand(B, A_pad).contiguous(),
+                  next_pos=prefix_len, prompt_len=prefix_len,
+                  evict_gate=torch.zeros((B,), dtype=torch.bool, device=dev),
+                  update_gate=torch.ones((B,), dtype=torch.bool, device=dev),
+                  rand_rank=torch.zeros((B,), dtype=torch.int32, device=dev))
+    mesh, axis = st.sp
+    return llama.ring_prefill_forward(params, st.cfg, cache, ids, ctx, spec, mesh=mesh,
+                                      axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -461,15 +508,34 @@ def _prerotate_cache(cache: KVCache, cfg: ModelConfig) -> None:
             cache.k[l] = rot.to(cache.k.dtype)
 
 
-def _compact_one(cache: KVCache, pos_mid: torch.Tensor) -> None:
+def _compact_one(cache: KVCache, pos_mid: torch.Tensor, rot=None,
+                 tp: Optional[Tuple] = None) -> None:
     """Age-ordered compaction after a k=1 eviction event, in place: per
     (layer, batch, head), the slots above the victim (the first slot valid
     in pos_mid and invalid now) shift down by one, so the valid slots stay
     contiguous and age-ordered (reference truncate_kv_cache_silo,
-    easykv.py:56-68). Kernel K8 over every cache array; a head without an
-    eviction is left as it is."""
-    fused_compact(pos_mid, cache.pos, cache.score, cache.score_sq, cache.counter, cache.k,
-                  cache.v, cache.k_scale, cache.v_scale)
+    easykv.py:56-68); a head without an eviction is left as it is. Kernel
+    K8 over every cache array; with `rot`, the pre-rotated cache's (cos,
+    sin), given under the mesh `tp` only (one card folds the compaction
+    into K2 + K9; the JAX package's rot_inv_freq branch, generate.py:694-723
+    there), the sidecars shift as K8 shifts them and K / V go through K9 on
+    the rank's shard (fused_kv_compact_sharded), each shifted K row taking
+    R(-theta)."""
+    if rot is None:
+        fused_compact(pos_mid, cache.pos, cache.score, cache.score_sq, cache.counter, cache.k,
+                      cache.v, cache.k_scale, cache.v_scale)
+        return
+    S = cache.pos.shape[-1]
+    iota = torch.arange(S, dtype=torch.int32, device=cache.pos.device)
+    evicted = (pos_mid >= 0) & (cache.pos < 0)
+    v_slot = torch.where(evicted, iota, S).amin(dim=-1).to(torch.int32)   # S: none
+    ge = iota >= v_slot[..., None]
+    fired = (v_slot < S)[..., None]
+    cache.pos.copy_(torch.where(fired & (iota == S - 1), -1, _shift_down(cache.pos, ge)))
+    for x in (cache.score, cache.score_sq, cache.counter):
+        x.copy_(_shift_down(x, ge))
+    fused_kv_compact_sharded(cache.k, cache.v, v_slot.contiguous(), cache.k_scale,
+                             cache.v_scale, rot, mesh=tp[0], data_axis=tp[1], model_axis=tp[2])
 
 
 def _carry_ranks(ranks: torch.Tensor, pos_pre: torch.Tensor, pos_mid: torch.Tensor,
@@ -600,7 +666,9 @@ class _DecodeStep:
         if self.evicts:
             evict_cache(cache, spec, ctx.next_pos, self.prompt_len, rand_rank, gate_b)
             if self.ordered:
-                _compact_one(cache, pos_mid)
+                prerot = self.stream.kind == "prerotated"
+                _compact_one(cache, pos_mid, (self.stream.cos, self.stream.sin) if prerot
+                             else None, st.tp)
         if c.ranks is not None:
             _carry_ranks(c.ranks, pos_pre, pos_mid, cache.pos)
         c.finite.logical_and_(torch.isfinite(logits).all())
@@ -730,8 +798,10 @@ def _decode_loop(
     default) the cache is pre-rotated once after the prefill and each step
     folds eviction and compaction into K2 + K9; otherwise K1 rotates by
     slot at read time and each step runs evict_cache (K4) and _compact_one
-    (K8) after the forward. K4, K8 and K9 launch every step: a head with
-    nothing to evict is a no-op inside the kernel, so no host sync decides.
+    (K8) after the forward. Under a mesh the pre-rotated step does not fold
+    (K2s unfolded, then K4s, then _compact_one's shift with K9s). K4, K8 and
+    K9 launch every step: a head with nothing to evict is a no-op inside the
+    kernel, so no host sync decides.
 
     StreamingLLM in the encoding family leaves an unordered cache: its
     decode rotates each slot by its age rank (K1's rank variant). The ranks
@@ -749,9 +819,6 @@ def _decode_loop(
     graph = dev.type == "cuda" and flags.decode_graph_enabled() and decode_graph_ok(st.tp)
     ordered = st.streaming and st.mode == "decoding"
     prerot = ordered and flags.prerot_enabled()
-    if prerot and st.tp is not None:
-        raise NotImplementedError("pre-rotated StreamingLLM decoding under a mesh: run it with "
-                                  "flags.use_prerot(False) (K1 ordered, K4, K8 on each shard)")
     stream = ranks = None
     if st.streaming:
         kind = "prerotated" if prerot else "ordered" if ordered else "rank"
@@ -1064,7 +1131,10 @@ def generate(
     gc = gc.with_policy()
     ids = _as_batch(input_ids)
     B, length = ids.shape
-    tp = flags.tp_mesh()
+    tp, sp = flags.tp_mesh(), flags.sp_mesh()
+    if tp is not None and sp is not None:
+        raise ValueError("an sp mesh (flags.set_sp_mesh) together with a (data, model) mesh "
+                         "(flags.set_active_mesh) is not supported: register one of them")
     cfg, row0, batch = model.cfg, 0, None
     if tp is not None:
         # this rank's rows of the global batch, on this rank's shards
@@ -1093,7 +1163,7 @@ def generate(
                 temp_length=gc.temp_length, keep_attention=gc.keep_attention,
                 max_new_tokens=gc.max_new_tokens, kv_quant=model.kv_quant,
                 streaming=gc.streaming, collect_stats=report_decoding_latency, tp=tp,
-                batch=batch, row0=row0)
+                batch=batch, row0=row0, sp=sp)
     dev = model.device
     generator = torch.Generator(device=dev).manual_seed(gc.seed)
     temp, top_p = float(gc.temperature), float(gc.top_p)

@@ -41,6 +41,12 @@ mesh of one rank means no mesh (the JAX package's llama.py:732-733), so
 the single-card path keeps K14 / K15, the folded eviction and the decode
 graph.
 
+set_sp_mesh / sp_mesh register the sequence-parallel mesh
+(parallel.make_sp_mesh), as easykv_tpu/flags.py:29-42 does: the engine's
+prefix prefill then shards the prefix over its axis and runs ring attention
+(engine/generate._ring_prefill). An sp mesh of one rank means no mesh, as
+for tp_mesh.
+
 eager_decode_loop (a context manager) runs the decode loop eagerly on the
 card too, every kernel of every step launched from the host, for an A/B
 against the default there: one step captured as a CUDA graph and replayed
@@ -60,6 +66,7 @@ _CHUNK_KERNEL_OVERRIDE: Optional[bool] = None
 _STEP_KERNEL_OVERRIDE: Optional[bool] = None
 _EAGER_DECODE = False
 _ACTIVE_MESH: Optional[Tuple] = None   # (Mesh, data_axis_name, model_axis_name)
+_SP_MESH: Optional[Tuple] = None       # (SeqMesh, seq_axis_name)
 
 
 def _env_on(name: str) -> bool:
@@ -186,3 +193,18 @@ def tp_mesh() -> Optional[Tuple]:
     if _ACTIVE_MESH is None or _ACTIVE_MESH[0].size == 1:
         return None
     return _ACTIVE_MESH
+
+
+def set_sp_mesh(mesh, axis: str = "sp") -> None:
+    """Register the sequence-parallel mesh (parallel.make_sp_mesh) the
+    prefix prefill shards over; mesh=None clears it."""
+    global _SP_MESH
+    _SP_MESH = None if mesh is None else (mesh, axis)
+
+
+def sp_mesh() -> Optional[Tuple]:
+    """(mesh, axis) as registered when its axis spans more than one rank,
+    else None: an sp mesh of one rank runs the chunked prefill."""
+    if _SP_MESH is None or _SP_MESH[0].shape[_SP_MESH[1]] == 1:
+        return None
+    return _SP_MESH

@@ -1,7 +1,8 @@
 """LLaMa-family decoder over the budgeted KV ring buffer (counterpart of
 easykv_tpu/models/llama.py: init_params, rmsnorm, _proj_qkv, _mlp, forward,
-prefill_layer_major, strided_encode_layer_major, decode_evict_folded,
-decode_stream_folded, _decode_forward, _logits_tail, _lm_head, _age_ranks).
+prefill_layer_major, strided_encode_layer_major, ring_prefill_forward,
+decode_evict_folded, decode_stream_folded, _decode_forward, _logits_tail,
+_lm_head, _age_ranks).
 
 Parameters keep the JAX package's orientation: every projection is
 (in, out) and applies as `x @ w`; each layer's weights live in their own
@@ -52,6 +53,13 @@ their `*_sharded` wrappers (the JAX package's dispatch, llama.py:173-255
 and :880-1000 there), and, as there (llama.py:717-771, :812-819), the
 one-kernel steps K14 / K15 and the folded evictions are off: K2 runs
 unfolded and the engine evicts with K4 (policies.evict_cache).
+
+Under a sequence-parallel mesh (flags.sp_mesh) the engine's prefix prefill
+is ring_prefill_forward: each rank runs its T / n columns through the
+layers with ring attention (ops/ring_attention.py, plain PyTorch as the
+JAX package's XLA) and every rank writes the whole, gathered prefix into
+its own cache; everything after the prefill runs on one rank's whole cache
+as on one card.
 """
 from __future__ import annotations
 
@@ -418,6 +426,76 @@ def strided_encode_layer_major(
                 wids = contig
         h = _attn_block(h, p, cfg, torch.cat(outs, dim=2))
     return h
+
+
+@torch.no_grad()
+def ring_prefill_forward(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    cache: KVCache,
+    token_ids: torch.Tensor,     # (B, T) the whole prefix; T divisible by the sp axis
+    ctx: StepCtx,                # (B, T) / (B,) fields over the whole prefix
+    spec: Optional[PolicySpec],  # collect the bootstrap scores?
+    *,
+    mesh,
+    axis: str = "sp",
+) -> torch.Tensor:
+    """Whole-prefix prefill with the sequence sharded over the sp mesh's
+    `axis` (the JAX package's ring_prefill_forward, llama.py:632-710
+    there): this rank embeds its T / n columns and runs each layer's
+    RMSNorm, QKV projection (K11 / K13 over a quantized tree, at M = B·T/n),
+    RoPE at the global positions, ring attention (ops/ring_attention.py),
+    wo and the MLP on them. With a PolicySpec the travelling Σp / Σp²
+    accumulators are the keep_attention bootstrap (reference h2o_head_score,
+    easykv.py:173-186).
+
+    Every rank ends with the whole cache: each layer's post-RoPE K / V (one
+    gather) and Σp / Σp² (one more) are gathered over the axis and written
+    for all T columns
+    (write_tokens: valid tokens form a per-row column prefix, so token j
+    lands in slot j, and the scores add into [0, T)); an int8 cache is
+    quantized from the same gathered rows on every rank, so the ranks'
+    caches are bit-identical. Returns the logits (B, V) f32 of each row's
+    last real token, the same on every rank: the rank holding it hands its
+    final hidden row over in a gather."""
+    from ..ops.ring_attention import INT_MAX, ring_attention
+
+    B, T = token_ids.shape
+    n, r = mesh.shape[axis], mesh.index(axis)
+    Tl = T // n
+    cols = slice(r * Tl, (r + 1) * Tl)
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inv_freq = rope_inv_freq(Dh, rope_base_for(cfg), token_ids.device)
+    collect = spec is not None
+    q_pos = ctx.q_pos[:, cols].contiguous()
+    # padding keys get INT_MAX so no query attends them (-1 would be
+    # causally visible to every query)
+    k_pos = torch.where(ctx.token_valid[:, cols], q_pos, INT_MAX).to(torch.int32)
+    cos, sin = rope_cos_sin(q_pos[:, None, :], inv_freq)        # shared by all layers
+
+    h = params.embed[token_ids[:, cols].clamp(min=0)]
+    for l, p in enumerate(params.layers):
+        x = rmsnorm(h, p.ln_attn, cfg.rms_norm_eps)
+        q, k, v = _proj_qkv(x, p, B, Tl, Hq, Hkv, Dh)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        out, ssum, ssq = ring_attention(q, k, v, q_pos, mesh, axis, collect_scores=collect,
+                                        k_pos=k_pos)
+        cl = cache.layer(l)
+        kv = all_gather_cat(torch.stack((k, v)), mesh, axis, 3)    # one gather of both
+        write_tokens(cl, kv[0], kv[1], ctx.q_pos, ctx.counter_init, ctx.token_valid)
+        if collect:
+            # token j sits in slot j; padding columns carry exactly zero mass
+            sc = all_gather_cat(torch.stack((ssum, ssq)), mesh, axis, 3)
+            cl.score[:, :, :T] += sc[0]
+            cl.score_sq[:, :, :T] += sc[1]
+        del q, k, v, kv, ssum, ssq
+        h = _attn_block(h, p, cfg, out)
+    # the logits of the last REAL token only: its rank's row, gathered
+    last = (ctx.token_valid.sum(dim=1) - 1).clamp(min=0)          # (B,)
+    mine = h[torch.arange(B, device=h.device), (last - r * Tl).clamp(0, Tl - 1)]
+    rows = all_gather_cat(mine[:, None], mesh, axis, 1)          # (B, n, D)
+    h_last = rows[torch.arange(B, device=h.device), last // Tl][:, None]
+    return _logits_tail(h_last, params, cfg)[:, 0]
 
 
 def _lm_head(h: torch.Tensor, head: Union[torch.Tensor, QuantLinear]) -> torch.Tensor:

@@ -17,6 +17,13 @@ whole cache, with the rotation and the int8 requant written op by op as
 the kernel computes them, so the kernels are held to them bit for bit.
 Everything is updated in place. A head with no eviction (victim slot S)
 is left as it is; launches need no host check of which heads evict.
+
+`fused_kv_compact_sharded` is K9 on this rank's (L, B/d, Hkv/m, S) shard of
+a (data, model) mesh: pre-rotated StreamingLLM decoding under a mesh, where
+the JAX package shifts and rotates in XLA (easykv_tpu/engine/generate.py
+_compact_one's rot_inv_freq branch, :694-723 there). Every (layer, row,
+head) shifts on its own, so the rank launches the kernel on its shard with
+no collective.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ...cache import INV_127
+from ...parallel.mesh import local_dims
 from . import _build
 from .sidecar_update import _shift_down
 
@@ -189,6 +197,25 @@ def fused_kv_compact(
 
 
 fused_kv_compact.launches = 0
+
+
+def fused_kv_compact_sharded(k, v, v_slot, k_scale=None, v_scale=None, rot=None, *, mesh,
+                             data_axis: str = "data", model_axis: str = "model"):
+    """fused_kv_compact on this rank's shards. in_specs: k, v (., d, m, .,
+    .); v_slot (., d, m); k_scale, v_scale (., d, m, .); rot replicated.
+    out_specs: those of k, v, k_scale, v_scale."""
+    d, m = data_axis, model_axis
+    p4 = (None, d, m, None)
+    local_dims("fused_kv_compact_sharded", mesh, d, m, [
+        ("k", k, p4 + (None,)), ("v", v, p4 + (None,)), ("v_slot", v_slot, p4[:3]),
+        ("k_scale", k_scale, p4), ("v_scale", v_scale, p4)])
+    res = fused_kv_compact(k, v, v_slot, k_scale, v_scale, rot)
+    if k.is_cuda:
+        fused_kv_compact_sharded.launches += 1
+    return res
+
+
+fused_kv_compact_sharded.launches = 0
 
 
 def fused_compact_plain(pos_mid, pos, score, score_sq, counter, k, v, k_scale=None,

@@ -1,5 +1,6 @@
 """Rotary position embeddings from position ids (counterpart of
-easykv_tpu/ops/rope.py:22-64).
+easykv_tpu/ops/rope.py:22-89, the experimental variants at its end
+included).
 
 cos/sin are computed from the position ids directly: there is no cache to
 resize, and positions past the physical KV budget need nothing special.
@@ -60,3 +61,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     (..., T). Callers that rotate several tensors by the same positions
     compute rope_cos_sin once and call rotate."""
     return rotate(x, *rope_cos_sin(positions, inv_freq))
+
+
+# --- Experimental RoPE variants --------------------------------------------
+# The reference's unused Self-Extend-style experiments (reference
+# llama_patch.py:31-44, 101-122): grouped, neighbor and identical rotary
+# application. No engine mode uses them, as in the JAX package.
+
+
+def apply_grouped_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                       group_size: int) -> torch.Tensor:
+    """Self-Extend grouped positions: rotate by positions // group_size."""
+    return apply_rope(x, torch.div(positions, group_size, rounding_mode="floor"), inv_freq)
+
+
+def apply_neighbor_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """Clamp the relative distance: rotate by min(position, window)."""
+    return apply_rope(x, positions.clamp(max=window), inv_freq)
+
+
+def apply_identical_rope(x: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """Rotate every element by position 0 (no rotation)."""
+    return apply_rope(x, torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device),
+                      inv_freq)

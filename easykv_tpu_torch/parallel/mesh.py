@@ -1,5 +1,7 @@
-"""The (data, model) device mesh over torch.distributed (counterpart of
-easykv_tpu/parallel/mesh.py: make_mesh, init_distributed).
+"""The (data, model) device mesh and the 1-D sequence-parallel mesh over
+torch.distributed (counterpart of easykv_tpu/parallel/mesh.py: make_mesh,
+init_distributed; the sp mesh the JAX package builds as a 1-D jax Mesh for
+flags.set_sp_mesh, and the ring ppermute of ops/ring_attention.py there).
 
 One process per rank, each holding only its own shards, with explicit
 collectives; where the JAX package lets GSPMD insert them, the port calls
@@ -24,11 +26,26 @@ internally: `python3 tools/torch_mesh_probe.py --ranks 2` (and 4) checks
 that on the card, as it did with torch 2.11 on one H100. Gloo collectives
 cannot be captured in a CUDA graph, so under gloo the decode loop runs
 eagerly (engine/generate.decode_graph_ok).
+
+The sp mesh (SeqMesh, make_sp_mesh) has one axis over every rank of the
+process group. Its one operation is ring_shift, the JAX package's ppermute
+with perm [(i, (i + 1) % n)]: each rank sends its blocks to rank i + 1 and
+receives rank i - 1's, through point-to-point sends (batch_isend_irecv, the
+send and the receive posted together, so two ranks that are each other's
+peer cannot wait on each other). Its transport (ring_transport) follows the
+backend and the device: NCCL sends the device tensors themselves; gloo sends
+host memory only (its point-to-point send takes a card tensor's pointer as
+host memory: on one H100 with torch 2.11, isend / irecv of CUDA tensors
+failed with "writev ... Bad address" and batch_isend_irecv aborted the
+process; `python3 tools/torch_mesh_probe.py --p2p-only` shows it), so under
+gloo a card's blocks are staged through pinned host buffers, all the blocks
+of a shift packed into one buffer and sent as one message; CPU tensors go
+as they are.
 """
 from __future__ import annotations
 
 import datetime
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -117,6 +134,110 @@ def make_mesh(cfg: MeshConfig, device_type: str) -> Mesh:
     dm = init_device_mesh(device_type, (cfg.data, cfg.model),
                           mesh_dim_names=(cfg.axis_data, cfg.axis_model))
     return Mesh(cfg, dev, dm)
+
+
+class SeqMesh:
+    """The 1-D sequence-parallel mesh over every rank of the process group
+    (or one process without a group), with the Mesh interface the
+    collectives read: shape[axis], size, index(axis), group(axis), device,
+    backend, rank; and `staging`, ring_shift's pinned host buffers by size."""
+
+    def __init__(self, axis: str, n: int, device: torch.device, device_mesh=None):
+        self.staging: Dict[Tuple[int, int], torch.Tensor] = {}
+        self.axis_names = (axis,)
+        self.shape: Dict[str, int] = {axis: n}
+        self.size = n
+        self.device = device
+        self._dm = device_mesh
+        self.rank = dist.get_rank() if device_mesh is not None else 0
+        self.backend = dist.get_backend() if device_mesh is not None else None
+
+    def index(self, name: str) -> int:
+        return self.rank if name in self.shape else 0
+
+    def group(self, name: str):
+        if self._dm is None or self.shape[name] == 1:
+            return None
+        return self._dm.get_group(name)
+
+    def __repr__(self) -> str:
+        return f"SeqMesh({self.shape}, rank {self.rank}, {self.device}, backend {self.backend})"
+
+
+def make_sp_mesh(device_type: str, axis: str = "sp") -> SeqMesh:
+    """The sp mesh of the current process group: one axis, named `axis`,
+    over all of its ranks (one rank without a group). device_type "cuda"
+    puts this rank on card rank % device_count(), "cpu" on the CPU; the
+    backend is the process group's, chosen by its caller."""
+    if not dist.is_initialized():
+        return SeqMesh(axis, 1, rank_device(device_type))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = rank_device(device_type)
+    n = dist.get_world_size()
+    dm = init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
+    return SeqMesh(axis, n, dev, dm)
+
+
+def ring_transport(mesh, device: torch.device) -> str:
+    """How ring_shift moves a block of `device` over `mesh`: 'nccl' (the
+    device tensors), 'gloo, pinned host staging' (a card's blocks through
+    pinned host buffers) or 'gloo, host tensors'."""
+    if mesh.backend == "nccl":
+        return "nccl"
+    return "gloo, pinned host staging" if device.type == "cuda" else "gloo, host tensors"
+
+
+def _staging(mesh: SeqMesh, nbytes: int, slot: int) -> torch.Tensor:
+    """A pinned host byte buffer of nbytes, kept on the mesh for the next
+    shift of the same size (slot 0 sends, slot 1 receives)."""
+    buf = mesh.staging.get((nbytes, slot))
+    if buf is None:
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        mesh.staging[nbytes, slot] = buf
+    return buf
+
+
+def ring_shift(ts: Sequence[torch.Tensor], mesh: SeqMesh,
+               axis: str = "sp") -> List[torch.Tensor]:
+    """Every tensor of `ts` moved one step around the ring of `axis`: rank i
+    sends its own to rank (i + 1) % n and returns rank (i - 1) % n's, of the
+    same shapes and dtypes (the ppermute of easykv_tpu/ops/ring_attention.py
+    with perm [(i, (i + 1) % n)]). The tensors themselves over an axis of
+    one rank."""
+    group = mesh.group(axis)
+    if group is None:
+        return list(ts)
+    n, i = mesh.shape[axis], mesh.index(axis)
+    dst = dist.get_global_rank(group, (i + 1) % n)
+    src = dist.get_global_rank(group, (i - 1) % n)
+    dev = ts[0].device
+    how = ring_transport(mesh, dev)
+    if how == "nccl":
+        srcs = [t.contiguous() for t in ts]
+        outs = [torch.empty_like(t) for t in srcs]
+        ops = ([dist.P2POp(dist.isend, t, dst, group) for t in srcs]
+               + [dist.P2POp(dist.irecv, o, src, group) for o in outs])
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return outs
+    sizes = [t.numel() * t.element_size() for t in ts]
+    offs = [0]
+    for nb in sizes:
+        offs.append(offs[-1] + -(-nb // 16) * 16)     # each block 16-byte aligned
+    if how == "gloo, host tensors":
+        send = torch.empty(offs[-1], dtype=torch.uint8)
+        recv = torch.empty_like(send)
+    else:
+        send, recv = _staging(mesh, offs[-1], 0), _staging(mesh, offs[-1], 1)
+    for t, at, nb in zip(ts, offs, sizes):
+        send[at:at + nb].copy_(t.contiguous().view(torch.uint8).reshape(-1))
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
+                                     dist.P2POp(dist.irecv, recv, src, group)]):
+        w.wait()
+    got = recv.to(dev) if dev.type == "cuda" else recv
+    return [got[at:at + nb].view(t.dtype).reshape(t.shape)
+            for t, at, nb in zip(ts, offs, sizes)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Temperature + nucleus (top-p) sampling on the device (counterpart of
-easykv_tpu/sampling.py:125-195).
+easykv_tpu/sampling.py: logits_adapter, sample_token, sample_from_logits,
+sample_topp_sorted, nucleus_mask, sample_topp).
 
 The kept set reproduces the reference's nucleus semantics (reference
 easykv/easykv.py:115-134): sort descending, keep while (cumsum - p) <=
@@ -7,6 +8,11 @@ top_p, so the first token crossing top_p is kept. The draw is a Gumbel-max
 over the kept tokens with noise from a `torch.Generator`, so it never leaves
 the device. jax.random and torch generators give different numbers for one
 seed: draws agree with the JAX package in distribution, not token by token.
+
+The engine samples with sample_topp (no V-wide sort). logits_adapter,
+sample_token, sample_from_logits and sample_topp_sorted are the JAX
+package's other routes to the same distribution, kept for host-driven
+callers as there; each draw takes an explicit generator.
 
 Greedy decoding is emulated, as in the reference scripts
 (test_decoding.py:41), with a temperature of about 1e-9. At or below
@@ -21,6 +27,78 @@ import torch
 
 GREEDY_TEMPERATURE = 1e-6
 INT_MAX = 2**31 - 1
+
+
+def logits_adapter(logits: torch.Tensor, temperature: float,
+                   top_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., V) -> (filtered_probs, raw_probs), both (..., V) f32:
+    the reference's exact nucleus (easykv.py:115-134): the temperature
+    softmax sorted descending (ties in id order), entries kept while
+    (cumsum - p) <= top_p, renormalised and unsorted."""
+    logits = logits.to(torch.float32)
+    raw = torch.softmax(logits, dim=-1)
+    prob = torch.softmax(logits / max(temperature, 1e-10), dim=-1)
+    sorted_prob, order = torch.sort(prob, dim=-1, descending=True, stable=True)
+    cumsum = torch.cumsum(sorted_prob, dim=-1)
+    sorted_prob = torch.where(cumsum - sorted_prob <= top_p, sorted_prob, 0.0)
+    sorted_prob = sorted_prob / sorted_prob.sum(dim=-1, keepdim=True)
+    return torch.empty_like(prob).scatter_(-1, order, sorted_prob), raw
+
+
+def _gumbel_argmax(generator: torch.Generator, logp: torch.Tensor) -> torch.Tensor:
+    """A categorical draw over the last axis of log-probabilities (-inf:
+    never drawn), by Gumbel-max with noise from `generator`."""
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    return (logp - torch.log(-torch.log(u.clamp(min=1e-20)))).argmax(dim=-1)
+
+
+def sample_token(generator: torch.Generator, filtered_probs: torch.Tensor) -> torch.Tensor:
+    """A draw from the filtered distribution: (..., V) -> (...) int32."""
+    logp = torch.where(filtered_probs > 0, torch.log(filtered_probs.clamp(min=1e-37)),
+                       float("-inf"))
+    return _gumbel_argmax(generator, logp).to(torch.int32)
+
+
+NUCLEUS_TOPK = 512  # sample_from_logits' top-k width; wider nuclei take the full sort
+
+
+def sample_from_logits(generator: torch.Generator, logits: torch.Tensor, temperature: float,
+                       top_p: float) -> torch.Tensor:
+    """Nucleus sampling from the top NUCLEUS_TOPK logits, with the exact
+    full sort (logits_adapter + sample_token) where some row's nucleus is
+    wider, and the unfiltered draw at top_p >= 1: the distribution of
+    logits_adapter + sample_token. (B, V) -> (B,) int32. The choice between
+    the two reads one bool back to the host, as the JAX package's lax.cond
+    decides on the device: a host-driven caller's function."""
+    logits = logits.to(torch.float32)
+    scaled = logits / max(temperature, 1e-10)
+    if top_p >= 1.0:
+        return _gumbel_argmax(generator, scaled).to(torch.int32)
+    K = min(NUCLEUS_TOPK, logits.shape[-1])
+    top_logits, top_idx = torch.topk(scaled, K, dim=-1)
+    mass = torch.exp(torch.logsumexp(top_logits, -1) - torch.logsumexp(scaled, -1))   # (B,)
+    p_full = torch.softmax(top_logits, dim=-1) * mass[:, None]
+    keep = torch.cumsum(p_full, dim=-1) - p_full <= top_p
+    # the nucleus lies inside the top K where the K-th entry is dropped
+    if bool((~keep[:, -1] | (mass >= 1.0 - 1e-7)).all()):
+        p = torch.where(keep, p_full, 0.0)
+        logp = torch.where(p > 0, torch.log(p.clamp(min=1e-37)), float("-inf"))
+        choice = _gumbel_argmax(generator, logp)
+        return top_idx.gather(-1, choice[:, None])[:, 0].to(torch.int32)
+    return sample_token(generator, logits_adapter(logits, temperature, top_p)[0])
+
+
+def sample_topp_sorted(generator: torch.Generator, logits: torch.Tensor, temperature: float,
+                       top_p: float) -> torch.Tensor:
+    """Temperature + nucleus sampling with a single sort: the draw in the
+    sorted domain, mapped back through the permutation; the distribution of
+    logits_adapter + sample_token. (B, V) -> (B,) int32."""
+    prob = torch.softmax(logits.to(torch.float32) / max(temperature, 1e-10), dim=-1)
+    sp, order = torch.sort(prob, dim=-1, descending=True, stable=True)
+    keep = torch.cumsum(sp, dim=-1) - sp <= top_p
+    logp = torch.where(keep, torch.log(sp.clamp(min=1e-37)), float("-inf"))
+    choice = _gumbel_argmax(generator, logp)
+    return order.gather(-1, choice[:, None])[:, 0].to(torch.int32)
 
 
 def nucleus_mask(prob: torch.Tensor, top_p: float) -> torch.Tensor:

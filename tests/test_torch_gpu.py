@@ -2691,3 +2691,158 @@ def test_two_rank_tp_decoding_matches_one_rank(cuda, tmp_path):
     for r in _spawn_mesh("_tp_decode_job", 1, 2, tmp_path):
         assert r["tp"] == r["one"] and len(r["tp"]) == 24
         assert r["k1s"] == 2 * 24
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel mesh: ranks spawned on the card(s), gloo when they
+# share a card; the ring's blocks then go through pinned host buffers
+# ---------------------------------------------------------------------------
+
+def _sp_rank(rank, world, tmp, job):
+    """A spawned rank of the sp mesh, then the module-level function `job`
+    (mesh) -> dict, pickled with any failure to tmp/rank{rank}.pkl."""
+    import os
+    import pickle
+    import traceback
+
+    from easykv_tpu_torch.parallel import init_distributed
+    from easykv_tpu_torch.parallel.mesh import make_sp_mesh
+
+    res = {}
+    try:
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+        init_distributed(backend, "file://" + os.path.join(tmp, "rendezvous"), world, rank,
+                         timeout_s=300)
+        res = globals()[job](make_sp_mesh("cuda"))
+    except BaseException:  # noqa: BLE001 - reported to the test
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    if "error" in res:
+        os._exit(1)
+
+
+def _spawn_sp(job, n, tmp):
+    import multiprocessing
+    import os
+    import pickle
+
+    mp = multiprocessing.get_context("spawn")
+    procs = [mp.Process(target=_sp_rank, args=(r, n, str(tmp), job)) for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    out = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+        with open(os.path.join(str(tmp), f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+        assert "error" not in out[-1], f"rank {r}:\n{out[-1]['error']}"
+    return out
+
+
+def _sp_prefill_job(mesh):
+    """L = 2, f32 weights and cache, B = 2 with prefixes of 300 and 217
+    tokens (padding keys): the encoding prefix prefill (keep_attention roco
+    bootstrap) without the sp mesh, with it, and without it in f64 weights
+    and cache, on the card; and greedy `decoding` without and with it."""
+    import copy
+    import dataclasses
+
+    import easykv_tpu_torch
+    from easykv_tpu_torch.cache import init_cache
+    from easykv_tpu_torch.engine.generate import EngineStatics, _prefill
+
+    dev = mesh.device
+    cfg = ModelConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=8)
+    params = init_params(cfg, seed=4, device=dev)
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(1, 1000, (2, 300), generator=g)
+    plen = torch.tensor([300, 217], dtype=torch.int32, device=dev)
+    st = EngineStatics(cfg=cfg, mode="encoding", policy="roco", stride=96, length=700,
+                       budget=400, idx=390, r_idx=300, keep_attention=True, recent_window=40)
+    params64 = copy.deepcopy(params).double()
+    params64.lm_head = params.lm_head          # the f32 head: _lm_head's f32 branch
+    out = {}
+    for name, sp, tree, dtype in (("one", None, params, torch.float32),
+                                  ("sp", (mesh, "sp"), params, torch.float32),
+                                  ("f64", None, params64, torch.float64)):
+        cache = init_cache(2, 2, 8, 512, 64, dtype, dev)
+        logits = _prefill(dataclasses.replace(st, sp=sp), tree, cache, ids.to(dev), plen,
+                          st.encode_spec(), "encode")
+        out[name] = {f: getattr(cache, f).cpu() for f in ("k", "v", "pos", "score", "score_sq",
+                                                          "counter")}
+        out[name]["logits"] = logits.cpu()
+    gc = dict(budget=8, kv_policy="roco", max_new_tokens=24, temperature=1e-9, top_p=1.0,
+              eos_token_ids=[])
+    model = easykv_tpu_torch.CausalLM(cfg, params, device=dev)
+    out["tokens_one"] = easykv_tpu_torch.generate(model, ids.numpy(), gc, kv_mode="decoding")
+    flags.set_sp_mesh(mesh)
+    try:
+        out["tokens_sp"] = easykv_tpu_torch.generate(model, ids.numpy(), gc, kv_mode="decoding")
+    finally:
+        flags.set_sp_mesh(None)
+    return out
+
+
+def test_two_rank_ring_prefill_matches_one_card(cuda, tmp_path):
+    """Two ranks sharing the card: the ring prefill's cache against the
+    chunked prefill's: pos exact; at the valid slots the counter exact and
+    k, v, score within 1e-5 + 1e-4 relative, score_sq 1e-6 + 1e-4, logits
+    2e-4 + 2e-3 (the JAX package's bars, tests/test_sp_prefill.py), or
+    else no farther from the f64 prefill than twice the chunked prefill's
+    own distance from it (chip_smoke.py phase 8 (c)'s rule: the f32 sums
+    run in another order); the two ranks' caches bit-identical, and greedy
+    `decoding` tokens equal. A padding token's slot holds no token (pos
+    -1): the chunked path writes the padding column's row there, the ring
+    nothing, as in the JAX package."""
+    bars = {"k": (1e-5, 1e-4), "v": (1e-5, 1e-4), "score": (1e-5, 1e-4),
+            "score_sq": (1e-6, 1e-4), "logits": (2e-4, 2e-3)}
+    ranks = _spawn_sp("_sp_prefill_job", 2, tmp_path)
+    for r in ranks:
+        one, sp, x64 = r["one"], r["sp"], r["f64"]
+        assert torch.equal(one["pos"], sp["pos"])
+        valid = one["pos"] >= 0
+        assert torch.equal(one["counter"][valid], sp["counter"][valid])
+        for f, (atol, rtol) in bars.items():
+            sel = (lambda t: t) if f == "logits" else (lambda t: t[valid])  # noqa: E731
+            a, b, x = sel(sp[f]), sel(one[f]), sel(x64[f]).double()
+            within = bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+            d_ring = (a.double() - x).abs().max().item()
+            d_one = (b.double() - x).abs().max().item()
+            assert within or d_ring <= 2 * d_one, (f, (a - b).abs().max().item(), d_ring, d_one)
+        assert r["tokens_sp"] == r["tokens_one"] and len(r["tokens_sp"]) == 24
+    for f, x in ranks[0]["sp"].items():
+        assert torch.equal(x, ranks[1]["sp"][f]), f
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_k9_on_a_shard_matches_the_whole(cuda, kind):
+    """K9 (rotate) through fused_kv_compact_sharded on each half of the
+    heads of the 7B decode cache (L = 32, 32 heads, S = 768), as the two
+    ranks of a (1, 2) mesh hold it: bit-identical to one launch over the
+    whole (every head shifts on its own)."""
+    from easykv_tpu_torch.config import MeshConfig
+    from easykv_tpu_torch.ops.cuda.kv_compact import fused_kv_compact_sharded, shift_rotation
+    from easykv_tpu_torch.parallel.mesh import Mesh
+
+    L, B, H, S, D = 32, 1, 32, 768, 128
+    k, v, ks, vs = _kv(cuda, L, B, H, S, D, kind, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    v_slot = torch.randint(0, S + 1, (L, B, H), generator=g, device=cuda, dtype=torch.int32)
+    rot = shift_rotation(rope_inv_freq(D, 10000.0, cuda))
+    whole = [x.clone() if x is not None else None for x in (k, v, ks, vs)]
+    fused_kv_compact(*whole[:2], v_slot, *whole[2:], rot=rot)
+    mesh = Mesh(MeshConfig(1, 2), cuda)
+    before = fused_kv_compact_sharded.launches
+    for j in range(2):
+        hs = slice(j * H // 2, (j + 1) * H // 2)
+        part = [None if x is None else x[:, :, hs].contiguous() for x in (k, v, ks, vs)]
+        fused_kv_compact_sharded(*part[:2], v_slot[:, :, hs].contiguous(), *part[2:], rot=rot,
+                                 mesh=mesh)
+        for got, want in zip(part, whole):
+            assert got is None or _same_bits(got, want[:, :, hs])
+    assert fused_kv_compact_sharded.launches == before + 2

@@ -16,9 +16,12 @@ cases, while this process computes the JAX references on its virtual
   * generate under the mesh against JAX generate under set_active_mesh:
     greedy tokens and the printed budget-ratio line (decoding: f32, int8
     KV, int8 / int4 trees; encoding with the chunk kernels; tova encoding,
-    whose score is a mean over all heads), every row of the batch
-    (gathered over data) against the one-process port run, and the sampled
-    / `random` runs (draws made for the global batch, sliced) against it;
+    whose score is a mean over all heads; pre-rotated StreamingLLM
+    decoding on every mesh, int8 KV too on (1, 2)), every row of the batch
+    (gathered over data) against the one-process port run, with the f32
+    StreamingLLM run's final pos and counters on each rank's shard, and the
+    sampled / `random` runs (draws made for the global batch, sliced)
+    against it;
   * ScheduledBatchEngine(mesh=) at (2, 1), sampled, against the one-process
     engine, and its two-process snapshot / resume against the
     uninterrupted run.
@@ -71,13 +74,15 @@ def _enc(**gc):
                 gc=dict(GC_ENC, **gc), chunk_kernel=True)
 
 
-# (mesh, case): the JAX reference is JAX generate under the same mesh
+# (mesh, case): the JAX reference is JAX generate under the same mesh;
+# dec_stream* is pre-rotated StreamingLLM `decoding` (the default strategy)
 JAX_CASES = {
     "1x2": {"dec_f32": _dec(), "dec_int8kv": _dec(kv_quant=True), "dec_int8": _dec("int8"),
             "dec_int4": _dec("int4"), "enc_chunk": _enc(),
-            "enc_tova": _enc(kv_policy="tova")},
-    "2x1": {"dec_f32": _dec()},
-    "2x2": {"dec_f32": _dec(), "enc_chunk": _enc()},
+            "enc_tova": _enc(kv_policy="tova"), "dec_stream": _dec(streaming=True),
+            "dec_stream_int8kv": _dec(kv_quant=True, streaming=True)},
+    "2x1": {"dec_f32": _dec(), "dec_stream": _dec(streaming=True)},
+    "2x2": {"dec_f32": _dec(), "enc_chunk": _enc(), "dec_stream": _dec(streaming=True)},
 }
 # (mesh, case): held to the one-process port run (the draws are torch's)
 PORT_CASES = {
@@ -357,6 +362,14 @@ def test_generate_under_mesh_matches_jax(runs, name, case):
         for a, b in zip(got["rows"], one["rows"]):
             assert _tokens(a) == _tokens(b)
         assert got["kv_len"] == one["kv_len"]
+        if case == "dec_stream":
+            # an f32 cache: the rank's shard of the final pos and counters is
+            # the one-process run's, exactly
+            i, j = r["coords"]
+            for f, want in one["cache"].items():
+                b, h = got["cache"][f].shape[1:3]
+                np.testing.assert_array_equal(
+                    got["cache"][f], want[:, i * b:(i + 1) * b, j * h:(j + 1) * h], err_msg=f)
 
 
 @pytest.mark.parametrize("name,case", [(m, c) for m, cs in PORT_CASES.items() for c in cs])

@@ -141,7 +141,8 @@ def case_wrappers(inp, mesh, mc):
 def run_case(inp, case, mesh=None, mc=None):
     """One generate() call of `case` (on this rank's shards under a mesh):
     its returned tokens, every row's tokens (gathered over data), the
-    printed lines and last_run's kv_len and n_tokens."""
+    printed lines, last_run's kv_len and n_tokens, and the final cache's
+    pos and counter (the rank's shard)."""
     import easykv_tpu_torch
     from easykv_tpu_torch import flags
     from easykv_tpu_torch.config import ModelConfig
@@ -160,8 +161,16 @@ def run_case(inp, case, mesh=None, mc=None):
         seen.append(res.out_ids.numpy().copy())
         return res
 
+    made = []
+    engine_cache = gen_mod._engine_cache
+
+    def recorded(*a, **k):
+        made.append(engine_cache(*a, **k))
+        return made[-1]
+
     buf = io.StringIO()
     gen_mod._gather_result = keep
+    gen_mod._engine_cache = recorded
     if mesh is not None:
         flags.set_active_mesh(mesh, mc.axis_data, mc.axis_model)
     flags.use_chunk_kernel(case.get("chunk_kernel"))
@@ -173,11 +182,13 @@ def run_case(inp, case, mesh=None, mc=None):
                                             report_decoding_latency=case.get("report", False))
     finally:
         gen_mod._gather_result = gather
+        gen_mod._engine_cache = engine_cache
         flags.set_active_mesh(None)
         flags.use_chunk_kernel(None)
         flags.use_prerot(None)
+    final = {f: getattr(made[-1], f).numpy() for f in ("pos", "counter")} if made else None
     return dict(out=out, rows=seen[-1] if seen else None, printed=buf.getvalue().splitlines(),
-                kv_len=model.last_run.kv_len, n_tokens=model.last_run.n_tokens)
+                kv_len=model.last_run.kv_len, n_tokens=model.last_run.n_tokens, cache=final)
 
 
 def serve(inp, case, tmp=None, mesh=None, mc=None):
